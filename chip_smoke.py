@@ -1,0 +1,628 @@
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. card: name and power limit (nvidia-smi) and torch's device name;
+  2. build: every CUDA kernel of the main path from ``kernels/csrc``,
+     one nvcc per source, all started together;
+  3. kernels: each kernel against its plain PyTorch version on the card,
+     at the main path's decode and prefill shapes (bf16) and at
+     adversarial shapes (f32 and bf16), with its time, its bound, the
+     plain version's time and one PyTorch library call's time;
+  4. the slice at full width: mixtral-8x7b at its published widths (8 of
+     32 layers, bf16, random seeded weights) serving 12 requests through
+     ``ServingEngine`` with the MoEless controller attached, counting
+     every kernel launch of that run and timing each model call; then
+     every layer's attention and MoE sublayer through the kernels against
+     the plain path from the same input (a prefill and a batched decode
+     step), and the full-model logits of both paths compared;
+  5. token identity: the mixtral-8x7b smoke config at float32 gives the
+     same greedy tokens through the kernels as through the plain path.
+
+The second-to-last line is the ``kernels`` JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device the script
+exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.kernels import build as KB  # noqa: E402
+from repro_torch.kernels import decode_attn as DA  # noqa: E402
+from repro_torch.kernels import moe_gmm as MG  # noqa: E402
+
+# H100 SXM data sheet: HBM rate and dense peak rates by input type
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # atol = rtol
+SOURCES = {
+    "fused_gate_up": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                      "src/repro/kernels/moe_gmm.py:198"),
+    "gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "src/repro/kernels/moe_gmm.py:69"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                         "src/repro/kernels/decode_attn.py:71"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+    """Milliseconds per launch: CUDA events around `iters` back-to-back
+    launches, over the count; the median of `reps` such runs after
+    warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return float(np.median(times))
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check(name: str, got, want, dtype) -> float:
+    tol = TOL[dtype]
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not torch.allclose(g, w, atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: max |kernel - plain| = {err:.3e} "
+                             f"beyond atol=rtol={tol}")
+    return err
+
+
+# ------------------------------------------------------------ phase 3
+
+
+def _gmm_inputs(gen, e, c, d, f, dtype, gs, fused):
+    dev = "cuda"
+    x = torch.randn((e, c, d), generator=gen, device=dev).to(dtype)
+    scale = 1.0 / math.sqrt(d)
+    wg = (torch.randn((e, d, f), generator=gen, device=dev, dtype=dtype)
+          .mul_(scale))
+    wu = (torch.randn((e, d, f), generator=gen, device=dev, dtype=dtype)
+          .mul_(scale)) if fused else None
+    return x, wg, wu, torch.tensor(gs, dtype=torch.int32, device=dev)
+
+
+def _gmm_bytes_flops(x, wg, wu, gs):
+    """Bytes and operations this call's data needs: weights of experts
+    with rows, x rows inside their group, every output element."""
+    e, c, d = x.shape
+    f = wg.shape[2]
+    isz = x.element_size()
+    g = gs.clamp(0, c).cpu()
+    rows = int(g.sum())
+    n_w = 2 if wu is not None else 1
+    live = int((g > 0).sum())
+    nbytes = (rows * d + n_w * live * d * f + e * c * f) * isz + 4 * e
+    return nbytes, 2.0 * n_w * rows * d * f
+
+
+def check_gmm_kernels(gen, shapes) -> dict:
+    """fused_gate_up and gmm against their plain versions; returns the
+    per-kernel record of the main path's decode shape."""
+    rec = {}
+    cases = [  # (label, E, C, D, F, dtype, group sizes)
+        ("C7/D96/F40", 3, 7, 96, 40, None, [7, 3, 0]),
+        ("all-zero gs", 2, 16, 96, 40, None, [0, 0]),
+        ("one partial expert", 4, 33, 64, 72, None, [0, 0, 17, 0]),
+        ("E=1", 1, 40, 128, 136, None, [40]),
+        ("odd F=37", 2, 12, 40, 37, None, [12, 5]),
+    ]
+    for name, fused in (("fused_gate_up", True), ("gmm", False)):
+        for label, e, c, d, f, _, gs in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, wg, wu, g = _gmm_inputs(gen, e, c, d, f, dtype, gs, fused)
+                if fused:
+                    got = MG.fused_gate_up(x, wg, wu, g)
+                    want = MG.fused_gate_up_ref(x, wg, wu, g)
+                else:
+                    got = MG.gmm(x, wg, g)
+                    want = MG.gmm_ref(x, wg, g)
+                torch.cuda.synchronize()
+                err = check(f"{name} [{label}, {dtype}]", got, want, dtype)
+                zero = torch.arange(c, device="cuda")[None] >= g[:, None]
+                if got[zero].abs().sum() != 0:
+                    raise AssertionError(f"{name} [{label}]: rows past the "
+                                         "group size are not zero")
+                log(f"  {name:<16} {label:<20} {str(dtype):<15} "
+                    f"max_abs_err={err:.3e}")
+        for phase in ("decode", "prefill"):
+            e, c, d, f, gs = shapes[name][phase]
+            dtype = torch.bfloat16
+            x, wg, wu, g = _gmm_inputs(gen, e, c, d, f, dtype, gs, fused)
+            if fused:
+                run = lambda: MG.fused_gate_up(x, wg, wu, g)  # noqa: E731
+                plain = lambda: MG.fused_gate_up_ref(x, wg, wu, g)  # noqa
+                mask = torch.arange(c, device="cuda")[None, :, None] \
+                    < g[:, None, None]
+
+                def library():
+                    return torch.where(mask, F.silu(torch.bmm(x, wg))
+                                       * torch.bmm(x, wu), 0.0)
+            else:
+                run = lambda: MG.gmm(x, wg, g)  # noqa: E731
+                plain = lambda: MG.gmm_ref(x, wg, g)  # noqa: E731
+                mask = torch.arange(c, device="cuda")[None, :, None] \
+                    < g[:, None, None]
+
+                def library():
+                    return torch.where(mask, torch.bmm(x, wg), 0.0)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = check(f"{name} [{phase} {e}x{c}x{d}x{f}]", got, want,
+                        dtype)
+            ms = time_ms(run)
+            plain_ms = time_ms(plain)
+            lib_ms = time_ms(library)
+            nbytes, flops = _gmm_bytes_flops(x, wg, wu, g)
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            path = "tensor cores" if MG.uses_tensor_cores(x, wg) else "simt"
+            log(f"  {name:<16} {phase:<8} E={e} C={c} D={d} F={f} bf16 "
+                f"({path}) "
+                f"max_abs_err={err:.3e} ms={ms:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+            if phase == "decode":
+                rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms)
+            del x, wg, wu, got, want
+            torch.cuda.empty_cache()
+    return rec
+
+
+def _attn_inputs(gen, b, h, kvh, hd, s, dtype, kv_len, q_pos, wrap):
+    dev = "cuda"
+    q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dtype)
+    kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    q_pos = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    slot = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    if wrap:
+        # ring holding the last s positions up to q_pos: slot i holds the
+        # largest position p <= q_pos with p % s == i
+        qp = q_pos[:, None]
+        pos = qp - torch.remainder(qp - slot, s)
+    else:
+        pos = slot.expand(b, s)
+    return q, k, v, pos.contiguous().to(torch.int32), kv_len, q_pos
+
+
+def check_decode_attention(gen, shape) -> dict:
+    cases = [  # (label, B, H, KV, hd, S, kv_len, q_pos, wrap, window)
+        ("GQA 1", 2, 4, 4, 64, 96, [96, 50], [95, 49], False, 0),
+        ("GQA 2", 3, 8, 4, 128, 70, [70, 1, 33], [69, 0, 32], False, 0),
+        ("GQA 4, kv_len<S", 2, 8, 2, 128, 130, [77, 130], [76, 129],
+         False, 0),
+        ("wrapped ring", 2, 8, 2, 64, 64, [64, 64], [150, 64], True, 0),
+        ("window 16", 2, 8, 2, 64, 100, [100, 60], [99, 59], False, 16),
+        ("ring + window", 2, 4, 2, 32, 48, [48, 48], [200, 90], True, 20),
+        ("hd=18 (scalar loads)", 2, 4, 2, 18, 50, [50, 31], [49, 30],
+         False, 0),
+        ("B=40, S unsplit", 40, 8, 8, 64, 40, [40 - i % 7 for i in range(40)],
+         [39 - i % 7 for i in range(40)], False, 0),
+    ]
+    for label, b, h, kvh, hd, s, kl, qp, wrap, win in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, pos, kv_len, q_pos = _attn_inputs(
+                gen, b, h, kvh, hd, s, dtype, kl, qp, wrap)
+            got = DA.decode_attention(q, k, v, pos, kv_len, q_pos,
+                                      window=win)
+            want = DA.decode_attention_ref(q, k, v, pos, kv_len, q_pos,
+                                           window=win)
+            torch.cuda.synchronize()
+            err = check(f"decode_attention [{label}, {dtype}]", got, want,
+                        dtype)
+            log(f"  {'decode_attention':<16} {label:<20} {str(dtype):<15} "
+                f"max_abs_err={err:.3e}")
+    b, h, kvh, hd, s, kl = shape
+    dtype = torch.bfloat16
+    q, k, v, pos, kv_len, q_pos = _attn_inputs(
+        gen, b, h, kvh, hd, s, dtype, kl, [x - 1 for x in kl], False)
+    run = lambda: DA.decode_attention(q, k, v, pos, kv_len, q_pos)  # noqa
+    plain = lambda: DA.decode_attention_ref(q, k, v, pos, kv_len,  # noqa
+                                            q_pos)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = check("decode_attention [decode]", got, want, dtype)
+    g = h // kvh
+    kr = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    vr = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    slot = torch.arange(s, device="cuda")[None]
+    vis = (slot < kv_len[:, None]) & (pos <= q_pos[:, None])
+    amask = torch.where(vis, 0.0, DA.NEG_INF).to(dtype)[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kr, vr, attn_mask=amask)
+    ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(library)
+    n_vis = int(kv_len.clamp(max=s).sum())
+    isz = q.element_size()
+    nbytes = (2 * b * h * hd + 2 * n_vis * kvh * hd) * isz \
+        + 4 * (n_vis + 2 * b)
+    flops = 4.0 * n_vis * h * hd
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    log(f"  {'decode_attention':<16} decode   B={b} H={h} KV={kvh} hd={hd} "
+        f"S={s} bf16 max_abs_err={err:.3e} ms={ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+    return {"decode_attention": dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=lib_ms)}
+
+
+def main_path_shapes(cfg, slots: int, bucket: int, max_len: int):
+    """Kernel shapes the full-width serving run gives each wrapper."""
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    cf = cfg.moe.capacity_factor
+    d, f = cfg.d_model, cfg.moe.d_ff
+    cap_dec = max(1, math.ceil(cf * k * slots / e))
+    cap_pre = max(1, math.ceil(cf * k * bucket / e))
+    rng = np.random.default_rng(0)
+    gs_dec = rng.integers(1, cap_dec + 1, e).tolist()
+    gs_pre = rng.integers(cap_pre // 2, cap_pre + 1, e).tolist()
+    return {
+        "fused_gate_up": {"decode": (e, cap_dec, d, f, gs_dec),
+                          "prefill": (e, cap_pre, d, f, gs_pre)},
+        "gmm": {"decode": (e, cap_dec, f, d, gs_dec),
+                "prefill": (e, cap_pre, f, d, gs_pre)},
+        "decode_attention": (slots, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.resolved_head_dim, max_len,
+                             [max_len - 1 - 37 * i for i in range(slots)]),
+    }
+
+
+# ------------------------------------------------------------ phase 4
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def make_requests(cfg, lens, gens, n, seed=0):
+    from repro_torch.serving.scheduler import GenRequest
+    rng = np.random.default_rng(seed)
+    return [GenRequest(rid=i, arrival=0.0,
+                       prompt=rng.integers(0, cfg.vocab_size,
+                                           size=lens[i % len(lens)],
+                                           dtype=np.int32),
+                       max_new_tokens=gens[i % len(gens)])
+            for i in range(n)]
+
+
+def serve_timed(engine, reqs, slots: int):
+    """Serve `reqs` to completion, timing every model call (prefill by
+    bucket, batched decode) between host syncs. Returns (result, launch
+    counts of this run, prefill seconds by bucket, decode seconds,
+    decode tokens, wall seconds)."""
+    prefill_s: dict[int, list[float]] = {}
+    decode_s: list[float] = []
+    decode_tok = [0]
+    inner = engine._step
+
+    def timed(batch, cache, cache_len, collect):
+        t = time.perf_counter()
+        out = inner(batch, cache, cache_len, collect)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if isinstance(cache_len, int):
+            prefill_s.setdefault(batch["tokens"].shape[1], []).append(dt)
+        else:
+            decode_s.append(dt)
+            decode_tok[0] += int(batch["active"].sum())
+        return out
+
+    engine._step = timed
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        engine.start(num_slots=slots)
+        for r in reqs:
+            engine.submit(r)
+        res = engine.run()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        engine.close()
+    finally:
+        del engine._step
+    return res, launches, prefill_s, decode_s, decode_tok[0], wall
+
+
+def compare_logits(name, got, want, loads_got, loads_want) -> dict:
+    """Kernel-path logits against plain-path logits from the same state:
+    max |diff|, the relative L2 error, the share of elements outside
+    the bf16 elementwise tolerance, argmax agreement per row, and
+    whether every MoE layer routed the same expert loads (a near-tied
+    router choice flips on a last-bit difference, and a token sent to
+    another expert changes its logits by far more than rounding)."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite kernel-path logits")
+    tol = TOL[torch.bfloat16]
+    out = {
+        "max_abs_err": float((g - w).abs().max()),
+        "rel_l2": float((g - w).norm() / w.norm()),
+        "outside_elementwise_tol": float(
+            (~torch.isclose(g, w, atol=tol, rtol=tol)).float().mean()),
+        "argmax_equal": float((g.argmax(-1) == w.argmax(-1)).float().mean()),
+        "same_expert_loads": bool(torch.equal(loads_got, loads_want)),
+    }
+    log(f"  logits {name}: " + ", ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in out.items()))
+    return out
+
+
+def sublayer_check(name, cfg, params, tokens, cache, cache_len,
+                   token_mask) -> dict:
+    """Every layer's attention and MoE sublayer through the kernels and
+    through the plain path, both from the same input (the plain path's
+    hidden state), so both route identically: each output pair must
+    agree elementwise within the bf16 tolerance. Returns the largest
+    error of each sublayer kind."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    pattern = T.layer_pattern(cfg)
+    assert [sub.ffn for sub in pattern] == ["moe"], pattern
+    b, s = tokens.shape
+    steps = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    if isinstance(cache_len, int):
+        pos = (cache_len + steps)[None].expand(b, s)
+    else:
+        pos = cache_len[:, None] + steps[None]
+    errs = {"attention": 0.0, "moe": 0.0}
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.num_layers):
+        p = T._period(params["layers"][0], i)
+        c = T._period(cache[0], i)["attn"]
+        h = L.norm(x, p["norm1"], cfg.norm)
+        outs = []
+        for impl in ("auto", "ref"):
+            own = {k: v.clone() for k, v in c.items()}
+            outs.append(L.attention_block(p["attn"], cfg, h, pos,
+                                          cache=own, cache_len=cache_len,
+                                          impl=impl)[0])
+        errs["attention"] = max(errs["attention"], check(
+            f"{name}, layer {i} attention", outs[0], outs[1],
+            torch.bfloat16))
+        x = x + outs[1]
+        h = L.norm(x, p["norm2"], cfg.norm)
+        outs = [MOE.dispatch_moe(
+            p["moe"], h, top_k=cfg.moe.top_k,
+            num_experts=cfg.moe.num_experts,
+            capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
+            groups=T._moe_groups(h), token_mask=token_mask, impl=impl)[0]
+            for impl in ("auto", "ref")]
+        errs["moe"] = max(errs["moe"], check(
+            f"{name}, layer {i} MoE", outs[0], outs[1], torch.bfloat16))
+        x = x + outs[1]
+    log(f"  {name}: every layer's sublayers, kernels vs plain from the "
+        f"same input: attention max_abs_err={errs['attention']:.3e}, MoE "
+        f"max_abs_err={errs['moe']:.3e} (atol=rtol={TOL[torch.bfloat16]})")
+    return errs
+
+
+def logits_check(cfg, params, prompts, max_len: int, slots: int):
+    """The longest prompt's prefill and one batched decode step from a
+    pool of `slots` prefilled prompts, through the kernels and through
+    the plain path from the same state: per-sublayer checks with the
+    same inputs, then the full-model logits compared and reported."""
+    from repro_torch.models import transformer as T
+    ref_cfg = cfg.with_(impl="ref")
+    dev = params["embed"].device
+    res = {}
+    with torch.no_grad():
+        longest = max(prompts, key=len)
+        toks = torch.from_numpy(longest[None].astype(np.int64)).to(dev)
+        res["prefill sublayers"] = sublayer_check(
+            f"prefill of {len(longest)} tokens", cfg, params, toks,
+            T.init_cache(cfg, params, 1, max_len), 0, None)
+        outs = []
+        for c in (cfg, ref_cfg):
+            cache = T.init_cache(c, params, 1, max_len)
+            lg, _, m = T.decode_step(c, params, {"tokens": toks}, cache, 0)
+            outs.append((lg[0, -1], m["expert_load"]))
+        res["prefill logits"] = compare_logits(
+            "prefill, last position", outs[0][0], outs[1][0], outs[0][1],
+            outs[1][1])
+        # a batched state: `slots` prompts prefilled (plain path) into
+        # one pool at per-row lengths, then one decode step
+        lens = [min(len(p), 128 + 16 * i) for i, p in
+                enumerate(prompts[:slots])]
+        plen = max(lens)
+        batch_toks = torch.from_numpy(np.stack(
+            [np.pad(p[:n], (0, plen - n)) for p, n in
+             zip(prompts[:slots], lens)]).astype(np.int64)).to(dev)
+        pool = T.init_cache(ref_cfg, params, slots, max_len)
+        lg, _, _ = T.decode_step(ref_cfg, params, {"tokens": batch_toks},
+                                 pool, 0)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        nxt = lg[torch.arange(slots, device=dev), lengths - 1] \
+            .argmax(-1)[:, None]
+        active = torch.ones(slots, dtype=torch.bool, device=dev)
+        res["decode sublayers"] = sublayer_check(
+            "batched decode step", cfg, params, nxt, pool, lengths,
+            active[:, None])
+        outs = []
+        for c in (cfg, ref_cfg):
+            state = [{"attn": {k: v.clone() for k, v in d["attn"].items()}}
+                     for d in pool]
+            lg, _, m = T.decode_step(c, params, {"tokens": nxt,
+                                                 "active": active},
+                                     state, lengths)
+            outs.append((lg[:, -1], m["expert_load"]))
+        res["decode logits"] = compare_logits(
+            "batched decode step", outs[0][0], outs[1][0], outs[0][1],
+            outs[1][1])
+    return res
+
+
+# ------------------------------------------------------------ main
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 2
+    # float32 products in full float32 (TF32 off), stated and set
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+
+    log("[1] card")
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    log(card)
+    log(f"  torch: {name} (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}); TF32 matmul/cudnn: off")
+
+    log("[2] build")
+    fresh = [n for n in KB.SOURCES if not KB.library_path(n).is_file()]
+    t0 = time.perf_counter()
+    KB.build()
+    log(f"  built {', '.join(fresh) or 'nothing'} from kernels/csrc "
+        f"(one nvcc each, in parallel) in {time.perf_counter() - t0:.1f} s; "
+        f"libraries in {KB.BUILD_DIR.relative_to(ROOT)}")
+
+    log("[3] kernels against their plain versions")
+    full = get_config("mixtral-8x7b")
+    slots, max_len = 8, 512 + 48 + 1
+    shapes = main_path_shapes(full, slots, 512, max_len)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = check_gmm_kernels(gen, shapes)
+    rec.update(check_decode_attention(gen, shapes["decode_attention"]))
+
+    log("[4] mixtral-8x7b at full width through ServingEngine")
+    cfg = full.with_(num_layers=8)
+    log(f"  reduced: num_layers {full.num_layers}->{cfg.num_layers}")
+    log(f"  widths: d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} kv, head_dim {cfg.resolved_head_dim}, "
+        f"{cfg.moe.num_experts} experts x d_ff {cfg.moe.d_ff}, top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab_size}, {cfg.dtype}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    log(f"  params: {n_par / 1e9:.2f} B, {n_par * 2 / 1e9:.1f} GB, made on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    ctrl = MoElessController(cfg, num_devices=8)
+    engine = ServingEngine(cfg, params, max_len=max_len, controller=ctrl)
+    reqs = make_requests(cfg, (128, 256, 384, 512), (16, 32, 48), 12)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, pre_s, dec_s, dec_tok, wall = serve_timed(
+        engine, reqs, slots)
+    peak = torch.cuda.max_memory_allocated()
+    for r in reqs:
+        if r.finish_reason != "length" or \
+                len(r.tokens) != r.max_new_tokens:
+            raise AssertionError(f"request {r.rid}: {len(r.tokens)} of "
+                                 f"{r.max_new_tokens} tokens "
+                                 f"({r.finish_reason!r})")
+    log(f"  served {len(reqs)} requests, {res.generated_tokens} tokens in "
+        f"{res.iterations} decode steps + {res.prefills} prefills "
+        f"(mean occupancy {res.mean_batch_occupancy:.2f})")
+    log(f"  launches in this run: {launches}")
+    for k_name in SOURCES:
+        if launches[k_name] <= 0:
+            raise AssertionError(f"{k_name} was never launched on the main "
+                                 "path")
+    n_moe = cfg.num_layers // cfg.moe.every_n_layers
+    if len(ctrl.plans) != n_moe or len(ctrl.last_plans) != n_moe:
+        raise AssertionError(f"controller planned {len(ctrl.plans)} of "
+                             f"{n_moe} MoE layers")
+    log(f"  controller: {ctrl.iterations} iterations, a plan for each of "
+        f"{n_moe} MoE layers (replicas/layer "
+        f"{[p.total_replicas for p in ctrl.plans]})")
+    logits_check(cfg, params, [r.prompt for r in reqs], max_len, slots)
+    med_dec = float(np.median(dec_s)) * 1e3
+    log(f"  wall times on {card}:")
+    for bucket in sorted(pre_s):
+        log(f"    prefill bucket {bucket}: median "
+            f"{np.median(pre_s[bucket]) * 1e3:.2f} ms over "
+            f"{len(pre_s[bucket])}")
+    log(f"    decode step: median {med_dec:.2f} ms over {len(dec_s)} "
+        f"steps; {dec_tok / sum(dec_s):.1f} decode tokens/s")
+    log(f"    whole run: {wall:.2f} s, {res.generated_tokens / wall:.1f} "
+        f"tokens/s; max_memory_allocated {peak / 1e9:.2f} GB")
+    del engine, params, ctrl
+    torch.cuda.empty_cache()
+
+    log("[5] token identity at float32 (smoke config): kernels vs plain")
+    small = get_config("mixtral-8x7b", smoke=True).with_(dtype="float32")
+    sp = init_params(small, seed=0, device="cuda")
+    sreqs = {}
+    for impl in ("auto", "ref"):
+        eng = ServingEngine(small, sp, max_len=64 + 24 + 1, impl=impl,
+                            controller=MoElessController(small))
+        rs = make_requests(small, (64, 17, 40, 9, 33), (24, 7, 16), 10)
+        eng.serve(rs, num_slots=4)
+        sreqs[impl] = {r.rid: list(r.tokens) for r in rs}
+    if sreqs["auto"] != sreqs["ref"]:
+        bad = [i for i in sreqs["ref"] if sreqs["auto"][i] != sreqs["ref"][i]]
+        raise AssertionError(f"float32 tokens differ for requests {bad}")
+    log(f"  {len(sreqs['ref'])} requests, "
+        f"{sum(map(len, sreqs['ref'].values()))} tokens: identical")
+
+    line = {"kernels": [
+        {"name": n, "route": "cuda", "source": SOURCES[n][0],
+         "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}
+        for n in ("fused_gate_up", "gmm", "decode_attention")]}
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

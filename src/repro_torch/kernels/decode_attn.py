@@ -1,0 +1,121 @@
+"""One-query decode attention against a contiguous (ring) KV cache — the
+wrapper around the CUDA kernel of ``csrc/decode_attn.cu`` (the port of
+the TPU kernel ``repro/kernels/decode_attn.py:decode_attention``), plus
+its plain PyTorch version ``decode_attention_ref``.
+
+q: (B, H, hd); k/v: (B, S, KV, hd); kv_pos: (B, S) absolute positions
+of the cache slots; kv_len/q_pos: (B,). Query head h reads KV head
+h // (H / KV). Slots >= kv_len, positions > q_pos and, with
+window > 0, positions <= q_pos - window are masked with the finite
+``NEG_INF``. A wrapper given CPU tensors computes the plain version;
+given CUDA tensors it launches its kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels.build import load, num_sms
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+# launches of the wrapper (bumped only where the kernel is launched)
+LAUNCHES = {"decode_attention": 0}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_attention_ref(q, k, v, kv_pos, kv_len, q_pos, *,
+                         window: int = 0):
+    """Plain version (mirrors models.layers.attention semantics)."""
+    b, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    groups = h // kv
+    kk = k[:, :, :, None, :].expand(b, s, kv, groups, hd).reshape(b, s, h, hd)
+    vv = v[:, :, :, None, :].expand(b, s, kv, groups, hd).reshape(b, s, h, hd)
+    scores = torch.einsum("bhd,bshd->bhs", q.float(), kk.float()) \
+        / math.sqrt(hd)
+    slot = torch.arange(s, device=q.device)[None, None, :]
+    mask = (slot < kv_len[:, None, None]) \
+        & (kv_pos[:, None, :] <= q_pos[:, None, None])
+    if window:
+        mask = mask & (kv_pos[:, None, :] > q_pos[:, None, None] - window)
+    scores = torch.where(mask, scores, torch.full((), NEG_INF,
+                                                  device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p, vv.float()).to(q.dtype)
+
+
+@functools.cache
+def _lib():
+    """The loaded library with its C signatures declared (once)."""
+    lib = load("decode_attn")
+    lib.decode_attn_launch.restype = ctypes.c_int
+    lib.decode_attn_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.decode_attn_workspace.restype = ctypes.c_longlong
+    lib.decode_attn_workspace.argtypes = [ctypes.c_int] * 6
+    lib.decode_attn_max_group_width.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v, kv_pos, kv_len, q_pos):
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("decode_attention: q (B, H, hd), k/v (B, S, KV, hd)")
+    b, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != hd or h % kvh:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("decode_attention: q/k/v must share float32 or "
+                        "bfloat16")
+    if tuple(kv_pos.shape) != (b, s) or tuple(kv_len.shape) != (b,) \
+            or tuple(q_pos.shape) != (b,):
+        raise ValueError("decode_attention: kv_pos (B, S), kv_len/q_pos (B,)")
+    for t in (kv_pos, kv_len, q_pos):
+        if t.dtype != torch.int32:
+            raise TypeError("decode_attention: positions/lengths are int32")
+    for t in (q, k, v, kv_pos, kv_len, q_pos):
+        if t.device != q.device:
+            raise ValueError("decode_attention: tensors on different "
+                             "devices")
+        if not t.is_contiguous():
+            raise ValueError("decode_attention: inputs must be contiguous")
+
+
+def decode_attention(q, k, v, kv_pos, kv_len, q_pos, *, window: int = 0):
+    """(B, H, hd) flash-decoding output; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, kv_pos, kv_len, q_pos,
+                                    window=window)
+    _check(q, k, v, kv_pos, kv_len, q_pos)
+    b, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    lib = _lib()
+    max_width = lib.decode_attn_max_group_width()
+    if (h // kvh) * hd > max_width:
+        raise ValueError(f"decode_attention: (H/KV)*hd = {(h // kvh) * hd} "
+                         f"exceeds the kernel's {max_width}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    sms = num_sms(q.device)
+    # the split-S partial (m, l, acc) of every (row, head)
+    work = torch.empty((lib.decode_attn_workspace(b, h, kvh, s, hd, sms),),
+                       dtype=torch.float32, device=q.device)
+    aligned = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.decode_attn_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_pos.data_ptr(), kv_len.data_ptr(), q_pos.data_ptr(),
+        out.data_ptr(), work.data_ptr(), b, h, kvh, s, hd, int(window),
+        1.0 / math.sqrt(hd), aligned, sms, stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention: CUDA launch failed with "
+                           f"error {rc}")
+    LAUNCHES["decode_attention"] += 1
+    return out

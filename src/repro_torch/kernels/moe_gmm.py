@@ -1,0 +1,136 @@
+"""Grouped expert matmuls of the MoE FFN over the capacity layout
+x (E, C, D) — wrappers around the CUDA kernels of ``csrc/moe_gmm.cu``
+(the port of the TPU kernels ``repro/kernels/moe_gmm.py:fused_gate_up``
+and ``:gmm``), plus their plain PyTorch versions.
+
+  * ``fused_gate_up`` — silu(x @ Wg) * (x @ Wu): (E, C, D) -> (E, C, F)
+  * ``gmm``           — x @ W: (E, C, D) -> (E, C, F)
+
+Rows ``c >= group_sizes[e]`` are written as 0 and whole row tiles past
+the group size are skipped. A wrapper given CPU tensors computes the
+plain version; given CUDA tensors it launches its kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import load, num_sms
+
+# launches per wrapper (bumped only where the kernel is launched)
+LAUNCHES = {"fused_gate_up": 0, "gmm": 0}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_gate_up_ref(x, w_gate, w_up, group_sizes):
+    """Plain version of ``fused_gate_up``."""
+    h = F.silu(torch.bmm(x, w_gate)) * torch.bmm(x, w_up)
+    return ref._row_mask(h, group_sizes)
+
+
+def gmm_ref(x, w, group_sizes):
+    """Plain version of ``gmm``."""
+    return ref.gmm_ref(x, w, group_sizes)
+
+
+@functools.cache
+def _lib():
+    """The loaded library with its C signatures declared (once)."""
+    lib = load("moe_gmm")
+    lib.moe_gmm_workspace.restype = ctypes.c_longlong
+    lib.moe_gmm_workspace.argtypes = [ctypes.c_int] * 8
+    lib.moe_gmm_uses_tensor_cores.restype = ctypes.c_int
+    lib.moe_gmm_uses_tensor_cores.argtypes = [ctypes.c_int] * 7
+    lib.moe_gmm_launch.restype = ctypes.c_int
+    lib.moe_gmm_launch.argtypes = ([ctypes.c_int] * 2
+                                   + [ctypes.c_void_p] * 6
+                                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    return lib
+
+
+def _plan_args(x, ws, out):
+    """(aligned, number of SMs): what the kernel's launch plan reads
+    besides the shapes (16-byte alignment allows the vector loads)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *ws, out))
+    sms = num_sms(x.device)
+    return int(aligned), sms
+
+
+def uses_tensor_cores(x, w) -> bool:
+    """Whether a launch on these (CUDA) operands takes the tensor-core
+    path of ``csrc/moe_gmm.cu`` (bf16 with more than a few rows)."""
+    e, c, d = x.shape
+    out = torch.empty(0, dtype=x.dtype, device=x.device)
+    aligned, sms = _plan_args(x, (w,), out)
+    return bool(_lib().moe_gmm_uses_tensor_cores(
+        _DTYPES[x.dtype], e, c, d, w.shape[2], aligned, sms))
+
+
+def _check(name, x, ws, group_sizes):
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (E, C, D), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {x.dtype} (float32 or bfloat16)")
+    e, _, d = x.shape
+    for w in ws:
+        if w.dim() != 3 or w.shape[0] != e or w.shape[1] != d:
+            raise ValueError(f"{name}: weight {tuple(w.shape)} does not "
+                             f"match x {tuple(x.shape)}")
+        if w.shape[2] != ws[0].shape[2]:
+            raise ValueError(f"{name}: weights differ in width")
+    if tuple(group_sizes.shape) != (e,) or group_sizes.dtype != torch.int32:
+        raise ValueError(f"{name}: group_sizes must be int32 (E,)")
+    for t in (x, *ws, group_sizes):
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    for w in ws:
+        if w.dtype != x.dtype:
+            raise TypeError(f"{name}: weight dtype {w.dtype} != {x.dtype}")
+
+
+def _launch(name, fused, x, wg, wu, group_sizes):
+    ws = (wg, wu) if fused else (wg,)
+    _check(name, x, ws, group_sizes)
+    e, c, d = x.shape
+    f = wg.shape[2]
+    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    aligned, sms = _plan_args(x, ws, out)
+    dt = _DTYPES[x.dtype]
+    work = torch.empty((lib.moe_gmm_workspace(int(fused), dt, e, c, d, f,
+                                              aligned, sms),),
+                       dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.moe_gmm_launch(int(fused), dt, x.data_ptr(), wg.data_ptr(),
+                            (wu if fused else wg).data_ptr(),
+                            group_sizes.data_ptr(), out.data_ptr(),
+                            work.data_ptr(), e, c, d, f, aligned, sms,
+                            stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def fused_gate_up(x, w_gate, w_up, group_sizes):
+    """(E, C, D) -> (E, C, F): silu(x @ Wg) * (x @ Wu), rows past
+    ``group_sizes[e]`` zero. CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return fused_gate_up_ref(x, w_gate, w_up, group_sizes)
+    return _launch("fused_gate_up", True, x, w_gate, w_up, group_sizes)
+
+
+def gmm(x, w, group_sizes):
+    """(E, C, D) x (E, D, F) -> (E, C, F), rows past ``group_sizes[e]``
+    zero. CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return gmm_ref(x, w, group_sizes)
+    return _launch("gmm", False, x, w, None, group_sizes)

@@ -1,0 +1,61 @@
+"""Backend selection for the serving hot spots — the single dispatch
+point of the ``impl`` knob that ``configs.base.ModelConfig.impl``
+threads through the model and the serving engine:
+
+    auto -> the CUDA kernel for CUDA tensors, the plain version for CPU
+            tensors
+    cuda -> the CUDA kernel; CPU tensors raise
+    ref  -> the plain PyTorch version on any device
+
+The reference package's values (``pallas``, ``pallas_interpret``) are
+rejected.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import IMPLS, decode_attn, moe_gmm, ref
+
+
+def resolve_impl(impl: str = "auto") -> str:
+    """Validate the backend knob (device-independent)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    return impl
+
+
+def use_kernel(impl: str, x) -> bool:
+    """Whether `impl` runs the CUDA kernel on tensor `x`'s device."""
+    impl = resolve_impl(impl)
+    if impl == "ref":
+        return False
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
+    return x.is_cuda
+
+
+def expert_ffn_impl(x, w_gate, w_up, w_down, group_sizes, impl: str):
+    """Capacity-layout SwiGLU expert FFN: (E, C, D) -> (E, C, D), the
+    fused gate/up kernel then the grouped down-projection kernel."""
+    if not use_kernel(impl, x):
+        return ref.expert_ffn_ref(x, w_gate, w_up, w_down, group_sizes)
+    x = x.contiguous()
+    h = moe_gmm.fused_gate_up(x, w_gate, w_up, group_sizes)
+    return moe_gmm.gmm(h, w_down, group_sizes)
+
+
+def gmm_impl(x, w, group_sizes, impl: str):
+    """Grouped matmul (E, C, D) x (E, D, F) -> (E, C, F)."""
+    if not use_kernel(impl, x):
+        return ref.gmm_ref(x, w, group_sizes)
+    return moe_gmm.gmm(x.contiguous(), w, group_sizes)
+
+
+def decode_attention_impl(q, k, v, kv_pos, kv_len, q_pos, *, window: int,
+                          impl: str):
+    """Single-token decode attention against a ring-buffered KV cache:
+    q (B, H, hd); k/v (B, S, KV, hd); kv_pos (B, S); kv_len/q_pos (B,).
+    Returns (B, H, hd)."""
+    if not use_kernel(impl, q):
+        return decode_attn.decode_attention_ref(q, k, v, kv_pos, kv_len,
+                                                q_pos, window=window)
+    return decode_attn.decode_attention(q.contiguous(), k, v, kv_pos,
+                                        kv_len, q_pos, window=window)

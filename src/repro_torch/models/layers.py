@@ -1,0 +1,231 @@
+"""Core layers: norms, rotary embeddings, grouped-query attention
+(chunked online softmax, and decode against a contiguous ring cache).
+
+Parameters are plain dicts of tensors. Shape conventions:
+x: (B, S, D)   q/k/v: (B, S, H, hd)   cache: (B, Smax, KV, hd)
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+# ---------------------------------------------------------------- norms
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * weight).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(dt)
+
+
+def norm(x, p, kind: str):
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------- rotary
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """positions: (...,) int -> cos/sin (..., head_dim//2) in f32."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x, cos, sin):
+    """x: (B, S, H, hd); cos/sin: (B, S, hd//2) -> rotated x (half-split)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = cos[:, :, None, :].to(x.dtype)
+    sin = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# ---------------------------------------------------------------- attention
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _repeat_kv(k, num_groups: int):
+    # (B, S, KV, hd) -> (B, S, KV*G, hd)
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, num_groups, hd) \
+        .reshape(b, s, kv * num_groups, hd)
+
+
+def attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
+              window: int = 0, kv_len=None, chunk: int = 1024):
+    """Chunked online-softmax GQA attention (flash-style in plain torch,
+    as the reference computes it in plain jnp).
+
+    q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd). Positions give the absolute
+    token index of every slot (enables caches / ring buffers). `window`>0
+    masks keys older than `q_pos - window + 1` (sliding window). `kv_len`
+    (scalar or (B,)) masks unwritten cache slots.
+    """
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    dev = q.device
+    groups = h // kv
+    k = _repeat_kv(k, groups).float()
+    v = _repeat_kv(v, groups).float()
+    q = q.float() * (1.0 / math.sqrt(hd))
+
+    if kv_len is None:
+        kv_len = sk
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=dev) \
+        .expand(b)
+
+    nblk = max(1, -(-sk // chunk))
+    pad = nblk * chunk - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
+                                               value=-(10 ** 9))
+    slot = torch.arange(nblk * chunk, device=dev).reshape(nblk, chunk)
+    valid = slot[None] < kv_len[:, None, None]           # (B, nblk, C)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=dev)
+    qp = q_positions[:, None, :, None]
+    for i in range(nblk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        kc, vc, pc = k[:, sl], v[:, sl], kv_positions[:, sl]
+        s = torch.einsum("bqhd,bchd->bhqc", q, kc)
+        msk = valid[:, i][:, None, None, :]
+        if causal:
+            msk = msk & (pc[:, None, None, :] <= qp)
+        if window:
+            msk = msk & (pc[:, None, None, :] > qp - window)
+        s = torch.where(msk, s, torch.full((), NEG_INF, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqc,bchd->bhqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2)  # (B, Sq, H, hd)
+
+
+def attention_block(p, cfg, x, positions, *, cache=None, cache_len=None,
+                    window: int = 0, impl: str = "ref",
+                    block_tables=None, new_counts=None):
+    """Full attention sublayer: qkv proj -> rope -> attention -> out proj.
+
+    Without a cache this is a prefill pass over x: (B, S, D). With
+    cache={k, v, pos} of shape (B, Smax, KV, hd) plus cache_len it is a
+    decode step: x is (B, S_new, D), the new k/v are written at
+    `cache_len % Smax` (ring buffer). `cache_len` may be a scalar (an
+    int: uniform batch) or a (B,) int32 tensor of per-row lengths — the
+    continuous-batching slot pool. The cache is written IN PLACE (the
+    reference returns a functionally updated copy); the returned
+    new_cache holds the same tensors.
+
+    `impl` selects the backend of the single-new-token decode hot spot
+    (kernels.ops): on CUDA tensors with impl auto/cuda and S_new == 1
+    the decode-attention kernel runs; otherwise the chunked attention
+    does. Returns (out, new_cache).
+    """
+    if block_tables is not None:
+        raise NotImplementedError(
+            "paged KV (block tables) arrives with the paged-KV slice of "
+            "the PyTorch port; use serving.kv='contiguous'")
+    b, s, d = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kvh, hd)
+    v = v.reshape(b, s, kvh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if cfg.rope == "rope":
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+    elif cfg.rope != "none":
+        raise NotImplementedError(f"rope={cfg.rope!r} arrives with the "
+                                  "model-family slice of the port")
+    pos1 = positions
+
+    if cache is None:
+        out = attention(q, k, v, pos1, pos1, causal=True, window=window)
+        new_cache = None
+    else:
+        ck, cv, kv_pos = cache["k"], cache["v"], cache["pos"]
+        smax = ck.shape[1]
+        if isinstance(cache_len, int):
+            # uniform batch: one contiguous window starting at the ring
+            # slot, clamped so it fits (as dynamic_update_slice does)
+            start = min(max(cache_len % smax, 0), smax - s)
+            ck[:, start:start + s] = k.to(ck.dtype)
+            cv[:, start:start + s] = v.to(cv.dtype)
+            kv_pos[:, start:start + s] = pos1.to(torch.int32)
+            n_valid = torch.full((b,), min(cache_len + s, smax),
+                                 dtype=torch.int32, device=x.device)
+        else:
+            # per-row lengths: each row writes at its own ring offset
+            cl = cache_len
+            rows = torch.arange(b, device=x.device)[:, None]
+            idx = torch.remainder(
+                cl[:, None] + torch.arange(s, dtype=torch.int32,
+                                           device=x.device)[None], smax)
+            ck[rows, idx] = k.to(ck.dtype)
+            cv[rows, idx] = v.to(cv.dtype)
+            kv_pos[rows, idx] = pos1.to(torch.int32)
+            n_valid = torch.clamp(cl + s, max=smax).to(torch.int32)
+        # kernels.ops is imported here so the plain model paths never
+        # pull in the kernel wrappers
+        from repro_torch.kernels import ops as KOPS
+        if s == 1 and KOPS.use_kernel(impl, q):
+            out = KOPS.decode_attention_impl(
+                q[:, 0], ck, cv, kv_pos, n_valid, pos1[:, 0],
+                window=window, impl=impl)[:, None]
+        else:
+            out = attention(q, ck, cv, pos1, kv_pos, causal=True,
+                            window=window, kv_len=n_valid)
+        new_cache = {"k": ck, "v": cv, "pos": kv_pos}
+    # f32 attention output times a bf16 projection promotes to f32, as
+    # in the reference
+    out = out.reshape(b, s, h * hd)
+    wo = p["wo"]
+    dt = torch.promote_types(out.dtype, wo.dtype)
+    out = out.to(dt) @ wo.to(dt)
+    return out.to(x.dtype), new_cache
+
+
+def init_attn_cache(cfg, batch, max_len: int, dtype, device):
+    """Empty contiguous KV cache of one attention sublayer. `batch` is the
+    leading shape: an int, or (periods, batch) for a cache stacked over
+    layer periods. Unwritten slots hold position -10**9."""
+    lead = (batch,) if isinstance(batch, int) else tuple(batch)
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((*lead, max_len, kvh, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((*lead, max_len, kvh, hd), dtype=dtype,
+                         device=device),
+        "pos": torch.full((*lead, max_len), -(10 ** 9), dtype=torch.int32,
+                          device=device),
+    }

@@ -1,0 +1,56 @@
+"""Public model API of the port: parameters and parameter accounting."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import transformer as T
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, defaulting to the CUDA card; asking for CUDA where none
+    is present raises (the CPU is used only when asked for)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is present; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
+
+def init_params(cfg, seed: int = 0, device=None):
+    """Random parameters of `cfg` from a seeded ``torch.Generator``, on
+    the CUDA card unless `device` says otherwise."""
+    return T.init_params(cfg, seed, resolve_device(device))
+
+
+def count_params_analytic(cfg, active_only: bool = False) -> int:
+    """Total (or, with `active_only`, per-token active) parameter count
+    of the tree ``init_params`` builds."""
+    pattern = T.layer_pattern(cfg)
+    periods = cfg.num_layers // len(pattern)
+    d = cfg.d_model
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    n_mats = 3 if cfg.act == "swiglu" else 2
+    total = cfg.padded_vocab * d + d
+    if not cfg.tie_embeddings:
+        total += d * cfg.padded_vocab
+    expert = 0
+    for sub in pattern:
+        n = d + 2 * d * h * hd + 2 * d * kvh * hd
+        if cfg.qkv_bias:
+            n += h * hd + 2 * kvh * hd
+        if cfg.qk_norm:
+            n += 2 * hd
+        if sub.ffn != "none":
+            n += d
+            if sub.ffn == "moe":
+                n += d * cfg.moe.num_experts
+                expert += periods * n_mats * cfg.moe.num_experts * d \
+                    * cfg.moe.d_ff
+            else:
+                n += n_mats * d * cfg.d_ff
+        total += periods * n
+    total += expert
+    if active_only and cfg.is_moe:
+        total -= expert
+        total += expert * cfg.moe.top_k // cfg.moe.num_experts
+    return total

@@ -1,0 +1,142 @@
+"""Mixture-of-Experts layer: GShard-style grouped capacity dispatch.
+
+``dispatch_moe`` routes tokens to experts with a per-expert capacity,
+runs the grouped SwiGLU expert FFN over the capacity layout through the
+``impl`` kernel backend (``kernels.ops``), and combines. The router also
+emits the per-expert token-load histogram that feeds the MoEless control
+plane (paper §4).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def router_topk(logits, top_k: int):
+    """Returns (weights (T,k) softmax-normalised over the selected experts,
+    indices (T,k), full softmax probs (T,E)). Ties resolve lower index
+    first, as ``jax.lax.top_k`` does (a stable descending sort;
+    ``torch.topk`` promises no order among equals)."""
+    lg = logits.float()
+    probs = torch.softmax(lg, dim=-1)
+    top_w, top_i = torch.sort(lg, dim=-1, descending=True, stable=True)
+    top_w = torch.softmax(top_w[..., :top_k], dim=-1)
+    return top_w, top_i[..., :top_k], probs
+
+
+def expert_loads(top_i, num_experts: int, token_mask=None):
+    """Token count per expert — the paper's W_{l,e} (§3.3). `token_mask`
+    (T,) excludes tokens (e.g. inactive continuous-batching slots)."""
+    oh = F.one_hot(top_i.long(), num_experts).to(torch.int32)   # (T,k,E)
+    if token_mask is not None:
+        oh = oh * token_mask.reshape(-1, 1, 1).to(torch.int32)
+    return oh.sum(dim=(0, 1), dtype=torch.int32)
+
+
+def load_balance_loss(probs, top_i, num_experts: int):
+    """Switch-Transformer auxiliary loss: E * sum_e f_e * p_e."""
+    sel = F.one_hot(top_i[..., 0].long(), num_experts).float()
+    f = sel.mean(dim=0)
+    p = probs.mean(dim=0)
+    return num_experts * torch.sum(f * p)
+
+
+def experts_ffn(p, x, act: str, *, group_sizes=None, impl: str = "ref"):
+    """x: (E, N, D) -> (E, N, D), grouped per-expert SwiGLU FFN through
+    the kernels.ops backend selector. `group_sizes` (E,) int32 marks rows
+    beyond it as padding (outputs zeroed; the kernels also skip whole row
+    tiles there). None => all rows active."""
+    from repro_torch.kernels import ops as OPS
+    if act != "swiglu" or "w_up_scale" in p:
+        raise NotImplementedError(
+            "only unquantized SwiGLU experts are ported so far (gelu "
+            "experts come with the model-family slice, int8 banks with "
+            "the expert-runtime slice)")
+    if group_sizes is None:
+        group_sizes = torch.full((x.shape[0],), x.shape[1],
+                                 dtype=torch.int32, device=x.device)
+    return OPS.expert_ffn_impl(x, p["w_gate"], p["w_up"], p["w_down"],
+                               group_sizes, impl)
+
+
+def dispatch_moe(p, x, *, top_k: int, num_experts: int,
+                 capacity_factor: float, act: str = "swiglu",
+                 groups: int = 1, token_mask=None, impl: str = "ref"):
+    """Grouped capacity dispatch (GShard).
+
+    x: (B, S, D). Tokens are flattened and split into `groups` dispatch
+    groups; capacity C = ceil(cf * k * Tg / E) per group, with priority
+    to lower k-slots first (all k=0 assignments before any k=1), then
+    token order. `token_mask` (B, S) marks tokens whose routing is
+    EXCLUDED from the expert-load and dropped metrics (inactive
+    continuous-batching slots) — compute is unaffected: inactive slots
+    still occupy capacity. Returns (y, metrics) with the expert-load
+    histogram, the dropped-assignment count, the aux loss and the router
+    logits.
+    """
+    b, s, d = x.shape
+    t = b * s
+    groups = max(1, min(groups, t))
+    while t % groups:
+        groups -= 1
+    tg = t // groups
+    cap = max(1, math.ceil(capacity_factor * top_k * tg / num_experts))
+    xg = x.reshape(groups, tg, d)
+
+    logits = torch.einsum("gtd,de->gte", xg, p["router"]["w_gate"])
+    top_w, top_i, probs = router_topk(logits.reshape(t, num_experts), top_k)
+    top_w = top_w.reshape(groups, tg, top_k)
+    top_i = top_i.reshape(groups, tg, top_k)
+
+    # position-in-expert with priority to lower k-slots (GShard order)
+    sel = F.one_hot(top_i.long(), num_experts).float()        # (g,t,k,e)
+    sel_flat = sel.permute(0, 2, 1, 3).reshape(groups, top_k * tg,
+                                               num_experts)
+    pos = torch.cumsum(sel_flat, dim=1) - 1.0
+    pos = pos.reshape(groups, top_k, tg, num_experts).permute(0, 2, 1, 3)
+    keep = (pos < cap) & (sel > 0)
+    pos = torch.clamp(pos, 0, cap - 1).long()
+
+    disp = F.one_hot(pos, cap).to(x.dtype) \
+        * keep[..., None].to(x.dtype)                         # (g,t,k,e,c)
+    disp_te = disp.sum(dim=2)                                 # (g,t,e,c)
+    # combine weights are cast to x.dtype before the combine, as in the
+    # reference (in bf16 that rounding matters)
+    comb = (disp * top_w[..., None, None].to(x.dtype)).sum(dim=2)
+
+    expert_in = torch.einsum("gtec,gtd->egcd", disp_te, xg)
+    # capacity-layout group sizes for the kernels: with one dispatch
+    # group the kept rows of every expert form a contiguous prefix
+    # (GShard cumsum positions), so the kernels can skip/mask the tail;
+    # with several groups the prefixes interleave, so all rows stay
+    # active (unused rows are zero vectors -> FFN output is zero)
+    if groups == 1:
+        gs = keep.sum(dim=(1, 2))[0].to(torch.int32)            # (E,)
+    else:
+        gs = torch.full((num_experts,), groups * cap, dtype=torch.int32,
+                        device=x.device)
+    expert_out = experts_ffn(
+        p["experts"], expert_in.reshape(num_experts, groups * cap, d), act,
+        group_sizes=gs, impl=impl).reshape(num_experts, groups, cap, d)
+    y = torch.einsum("gtec,egcd->gtd", comb, expert_out)
+
+    # dropped = routed assignments of ACTIVE tokens that overflowed
+    # capacity; inactive slots occupy capacity but are not counted
+    kept_per_tok = keep.float().sum(dim=(2, 3))                # (g, tg)
+    if token_mask is None:
+        dropped = float(top_k * t) - kept_per_tok.sum()
+    else:
+        am = token_mask.reshape(groups, tg).float()
+        dropped = top_k * am.sum() - (kept_per_tok * am).sum()
+    metrics = {
+        "expert_load": expert_loads(
+            top_i.reshape(t, top_k), num_experts,
+            None if token_mask is None else token_mask.reshape(t)),
+        "aux_loss": load_balance_loss(probs, top_i.reshape(t, top_k),
+                                      num_experts),
+        "dropped": dropped,
+        "router_logits": logits.reshape(t, num_experts),
+    }
+    return y.reshape(b, s, d), metrics

@@ -1,0 +1,527 @@
+"""Serving engine: a request-level API over continuous-batch
+prefill/decode on the PyTorch model, with the MoEless control plane
+attached.
+
+    engine.start(num_slots=8, control=..., time_scale=...)
+    h = engine.submit(GenRequest(...))
+    engine.step()            # one admission+decode iteration
+    engine.run()             # drive until idle -> ServeResult
+    for tok in engine.stream(h): ...   # incremental tokens
+    engine.cancel(h)         # mid-decode: the KV slot is recycled
+    engine.serve(requests)   # trace replay = thin driver over the above
+
+Requests are prefilled alone, spliced into a free slot of the contiguous
+KV pool (``serving.kv.SlotKVCache``), decoded together in ONE batched
+step with per-slot cache lengths, and leave on EOS / stop sequence /
+token budget / cancellation, freeing the slot for the next arrival.
+Decoding is greedy (argmax).
+
+Every iteration drives the single control-plane implementation
+(``core.control.ControlPlane.step``): the Scaler sizes replicas, the
+Placer assigns them, and — with a session ``control`` — the reference
+cost model's modeled iteration latency advances the serving clock that
+TTFT / TPOT / E2E are recorded against (without one, measured wall time
+does).
+
+Not yet in this package (each raises ``NotImplementedError``): sampling
+with temperature > 0 (sampling slice), the expert runtime (expert-runtime
+slice), paged KV (paged-KV slice) and a device mesh (multi-rank slice).
+"""
+from __future__ import annotations
+
+import math
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, Iterator, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.control import (ControlPlane,  # noqa: F401 (re-export)
+                                      IterationOutcome, MoElessController)
+from repro_torch.kernels.ops import resolve_impl
+from repro_torch.models import transformer as T
+from repro_torch.obs.telemetry import NOOP
+from repro_torch.serving.kv import SlotKVCache
+from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                           GenRequest, RequestMetrics,
+                                           SamplingParams,
+                                           percentile_summary)
+
+
+class TokenEvent(NamedTuple):
+    """One generated token, as surfaced by ``ServingEngine.step``."""
+    rid: int
+    token: int
+    done: bool
+
+
+@dataclass
+class RequestHandle:
+    """Client-side view of one submitted request."""
+    req: GenRequest
+    _engine: "ServingEngine"
+    _rejected: bool = False
+
+    @property
+    def rid(self) -> int:
+        return self.req.rid
+
+    @property
+    def tokens(self) -> list[int]:
+        return self.req.tokens
+
+    @property
+    def status(self) -> str:
+        """queued | running | finished | cancelled | rejected"""
+        if self._rejected:
+            return "rejected"
+        if self.req.finish_reason in ("cancelled", "replica_failed"):
+            return "cancelled"
+        if self.req.finish_reason:
+            return "finished"
+        sess = self._engine._session
+        if sess is not None and self.req.slot >= 0 \
+                and sess.sched.running.get(self.req.slot) is self.req:
+            return "running"
+        return "queued"
+
+    @property
+    def finish_reason(self) -> str:
+        return self.req.finish_reason
+
+    def metrics(self) -> RequestMetrics:
+        return RequestMetrics.of(self.req)
+
+
+@dataclass
+class ServeResult:
+    """Outcome of one continuous-batching serving session."""
+    records: list[RequestMetrics]
+    iterations: int
+    prefills: int
+    rejected: int
+    cancelled: int
+    mean_batch_occupancy: float
+    wall_s: float
+    control: ControlPlane | None = None
+    runtime: object | None = None     # the expert runtime (later slice)
+    clock_s: float = 0.0              # final serving-clock time
+    dropped_tokens: float = 0.0       # MoE capacity drops (all phases)
+
+    def summary(self) -> dict:
+        return percentile_summary(self.records)
+
+    @property
+    def generated_tokens(self) -> int:
+        return sum(r.out_tokens for r in self.records)
+
+
+class _Session:
+    """Mutable state of one serving session: the slot pool, the
+    scheduler, the serving clock, and the last token of every slot."""
+
+    def __init__(self, cfg, params, num_slots: int, max_len: int,
+                 eos_id, control, time_scale: float):
+        self.kv = SlotKVCache(cfg, params, num_slots, max_len)
+        self.sched = ContinuousBatchingScheduler(self.kv, eos_id=eos_id)
+        self.control = control
+        self.runtime = None
+        self.time_scale = time_scale
+        self.now = 0.0
+        self.cur = np.zeros(self.kv.rows, np.int64)   # last token per slot
+        self.occupancy: list[int] = []
+        self.iters = 0
+        self.prefills = 0
+        self.wall0 = time.perf_counter()
+
+
+def _greedy_only(sampling: SamplingParams | None) -> None:
+    if sampling is not None and sampling.temperature > 0:
+        raise NotImplementedError(
+            "sampling with temperature > 0 arrives with the sampling slice "
+            "of the PyTorch port; this engine decodes greedily")
+
+
+class ServingEngine:
+    """Prefill + decode with KV caches behind a request-level API;
+    optionally drives a MoEless controller each iteration."""
+
+    def __init__(self, cfg, params, *, max_len: int = 512,
+                 controller: ControlPlane | None = None,
+                 window: int = 0, impl: str | None = None,
+                 expert_runtime: str = "off", mesh=None,
+                 telemetry=None, name: str = "engine", serving=None):
+        if impl is not None:   # override the config's kernel backend
+            cfg = cfg.with_(impl=impl)
+        resolve_impl(cfg.impl)   # validate eagerly, not at first step
+        if expert_runtime not in ("off", "on"):
+            raise ValueError(f"expert_runtime={expert_runtime!r} "
+                             "(expected 'off' or 'on')")
+        if expert_runtime == "on":
+            raise NotImplementedError(
+                "expert_runtime='on' arrives with the expert-runtime / EP "
+                "slot-plane slice of the PyTorch port")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a serving mesh arrives with the multi-rank EP slice of the "
+                "PyTorch port")
+        spec = serving if serving is not None else cfg.serving
+        if spec.kv not in ("contiguous", "paged"):
+            raise ValueError(f"serving.kv={spec.kv!r} "
+                             "(expected 'contiguous' or 'paged')")
+        if spec.kv != "paged" and (spec.prefill_chunk > 0
+                                   or spec.prefix_cache):
+            raise ValueError("prefill_chunk / prefix_cache require "
+                             "serving.kv='paged'")
+        if spec.kv == "paged":
+            raise NotImplementedError(
+                "serving.kv='paged' arrives with the paged-KV slice of the "
+                "PyTorch port")
+        T.layer_pattern(cfg)     # rejects stacks this port cannot run yet
+        self.serving = spec
+        self.cfg, self.params = cfg, params
+        self.device = params["embed"].device
+        self.max_len = max_len
+        self.controller = controller
+        # telemetry is observation-only: it never touches the serving
+        # clock or routing
+        self.telemetry = NOOP if telemetry is None else telemetry
+        self.name = name
+        self._marks: dict[int, float] = {}   # rid -> prefill-end clock t
+        self.window = window
+        self.expert_runtime = expert_runtime
+        self._collect = controller is not None and cfg.is_moe
+        self.iteration = 0
+        self._session: _Session | None = None
+        # the session-mutating surface (submit / cancel / step / start /
+        # close) may be shared by an event-loop thread and a step-loop
+        # thread
+        self._lock = threading.RLock()
+        self._step_hooks: list[Callable] = []
+
+    def _step(self, batch, cache, cache_len, collect: bool):
+        with torch.no_grad():
+            return T.decode_step(self.cfg, self.params, batch, cache,
+                                 cache_len, window=self.window,
+                                 collect=collect)
+
+    def new_cache(self, batch_size: int):
+        return T.init_cache(self.cfg, self.params, batch_size, self.max_len)
+
+    def _drive_controller(self, metrics, token_mask=None):
+        if self.controller is None or "expert_load" not in metrics:
+            return
+        self.controller.step(
+            float(self.iteration), self._gate_inputs(metrics),
+            metrics["expert_load"], token_mask=token_mask)
+
+    # ------------------------------------------------------------ prefill
+
+    def prefill_request(self, prompt, collect: bool | None = None,
+                        sampling: SamplingParams | None = None,
+                        rid: int = 0):
+        """Prefill ONE request (B=1) into a fresh cache, right-padded to
+        a power-of-two bucket (pad tokens sit after the prompt so causal
+        attention never sees them and the masked metrics ignore them;
+        pad rows DO occupy MoE capacity, as in the reference). The first
+        output token is the argmax of the last prompt position.
+        Returns (first_token, cache, prompt_len, metrics, token_mask)."""
+        _greedy_only(sampling)
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        plen = int(prompt.shape[0])
+        if not 0 < plen <= self.max_len:
+            raise ValueError(f"prompt length {plen} outside "
+                             f"(0, {self.max_len}]")
+        toks = prompt
+        bucket = min(self.max_len, max(8, 1 << (plen - 1).bit_length()))
+        if bucket > plen:
+            toks = np.pad(prompt, (0, bucket - plen))
+        mask = np.arange(toks.shape[0]) < plen
+        collect = self._collect if collect is None else collect
+        cache = self.new_cache(1)
+        batch = {"tokens": torch.from_numpy(toks[None].astype(np.int64))
+                 .to(self.device),
+                 "token_mask": torch.from_numpy(mask[None]).to(self.device)}
+        logits, cache, metrics = self._step(batch, cache, 0, collect)
+        first_tok = int(torch.argmax(logits[0, plen - 1]))
+        return first_tok, cache, plen, metrics, \
+            batch["token_mask"].reshape(-1)
+
+    # ------------------------------------------------- request-level API
+
+    def start(self, *, num_slots: int = 8, eos_id=None,
+              control: ControlPlane | None = None,
+              time_scale: float = 1.0) -> None:
+        """Open a serving session (slot pool + scheduler + clock). The
+        serving clock starts at t=0 and advances by the modeled iteration
+        latency when a `control` plane is attached, else by measured wall
+        time; `time_scale` multiplies the advance."""
+        with self._lock:
+            self._session = _Session(self.cfg, self.params, num_slots,
+                                     self.max_len, eos_id, control,
+                                     time_scale)
+
+    def close(self) -> None:
+        with self._lock:
+            self._session = None
+
+    @property
+    def _sess(self) -> _Session:
+        if self._session is None:
+            self.start()
+        return self._session
+
+    @property
+    def has_work(self) -> bool:
+        """True while the open session has pending or running requests."""
+        sess = self._session
+        return sess is not None and not sess.sched.done
+
+    # ------------------------------------------------- step-loop hooks
+
+    def add_step_hook(self, fn: Callable) -> None:
+        """Register ``fn(events: list[TokenEvent])`` to run after every
+        ``step`` (still under the engine lock)."""
+        self._step_hooks.append(fn)
+
+    def remove_step_hook(self, fn: Callable) -> None:
+        self._step_hooks.remove(fn)
+
+    def submit(self, req: GenRequest) -> RequestHandle:
+        """Enqueue one request into the running session (opened with
+        defaults if needed). A NaN arrival means "now". Returns a handle
+        whose status is `rejected` if the request cannot ever fit a KV
+        slot (admission control). Thread-safe."""
+        _greedy_only(req.sampling)
+        with self._lock:
+            sess = self._sess
+            if math.isnan(req.arrival):
+                req.arrival = sess.now
+            ok = sess.sched.submit(req)
+            tel = self.telemetry
+            if tel.enabled:
+                if ok:
+                    tel.sched_pending.set(len(sess.sched.pending))
+                else:
+                    tel.sched_rejected.labels(reason="capacity").inc()
+            return RequestHandle(req, self, _rejected=not ok)
+
+    def cancel(self, handle: RequestHandle) -> bool:
+        """Cancel a queued or mid-decode request; a running request's KV
+        slot is recycled immediately. Returns False if the request had
+        already finished (or the session is gone). Thread-safe."""
+        with self._lock:
+            sess = self._session
+            if sess is None:
+                return False
+            ok = sess.sched.cancel(handle.req, sess.now)
+            tel = self.telemetry
+            if ok and tel.enabled:
+                tel.sched_cancelled.inc()
+                self._marks.pop(handle.req.rid, None)
+                tel.instant(f"{self.name}/req{handle.req.rid}", "cancel",
+                            sess.now)
+            return ok
+
+    def step(self) -> list[TokenEvent]:
+        """ONE serving iteration: admit every arrived request that fits a
+        free slot (each prefilled alone, spliced into the pool), then run
+        one batched decode step over the whole pool. Returns the tokens
+        generated this iteration. A no-op on a closed session.
+        Thread-safe; registered step hooks fire before the lock drops."""
+        with self._lock:
+            if self._session is None:
+                return []
+            events = self._step_impl()
+            for fn in list(self._step_hooks):
+                fn(events)
+            return events
+
+    def _step_impl(self) -> list[TokenEvent]:
+        sess = self._sess
+        sched, kv = sess.sched, sess.kv
+        events: list[TokenEvent] = []
+        if sched.done:
+            return events
+        if not sched.running:
+            nxt = sched.next_arrival()
+            if nxt is not None:
+                sess.now = max(sess.now, nxt)
+        collect = self._collect
+        tel = self.telemetry
+        # admission: prefill every arrived request that fits a slot
+        while (req := sched.pop_admissible(sess.now)) is not None:
+            t0 = time.perf_counter()
+            t_admit = sess.now
+            tok, cache1, plen, metrics, mask = self.prefill_request(
+                req.prompt, collect=collect, sampling=req.sampling,
+                rid=req.rid)
+            dt = None
+            if sess.control is not None and "expert_load" in metrics:
+                out = sess.control.step(
+                    sess.now, self._gate_inputs(metrics),
+                    metrics["expert_load"], token_mask=mask,
+                    dropped=metrics.get("dropped"), phase="prefill")
+                dt = out.latency_s
+            self._drive_controller(metrics, token_mask=mask)
+            if dt is None:
+                dt = time.perf_counter() - t0
+            slot = kv.alloc()
+            kv.insert(slot, cache1, plen, owner=req.rid)
+            sched.start(req, slot, sess.now)
+            sess.now += dt * sess.time_scale
+            sess.prefills += 1
+            sess.cur[slot] = tok
+            done = sched.on_token(slot, tok, sess.now)  # TTFT: prefill end
+            events.append(TokenEvent(req.rid, tok, done))
+            if tel.enabled:
+                tel.sched_admitted.inc()
+                tel.sched_queue_delay.observe(
+                    max(t_admit - req.arrival, 0.0))
+                tel.engine_steps.labels(phase="prefill").inc()
+                tel.engine_step_seconds.labels(phase="prefill").observe(
+                    time.perf_counter() - t0)
+                tel.engine_tokens.inc()
+                if tel.tracing:
+                    track = f"{self.name}/req{req.rid}"
+                    tel.span(track, "queue", req.arrival, t_admit)
+                    tel.span(track, "prefill", t_admit, sess.now,
+                             args={"prompt_len": plen,
+                                   "prefix_hit_len": req.prefix_hit_len})
+                    self._marks[req.rid] = sess.now
+                if done:
+                    self._finish_req(req, sess.now)
+        if tel.enabled:
+            tel.sched_pending.set(len(sched.pending))
+        if not sched.running:
+            return events
+        # one batched decode step over the whole pool, then one argmax
+        # over every slot
+        t0 = time.perf_counter()
+        t_clock0 = sess.now
+        lengths, active = kv.step_lengths()
+        batch = {"tokens": torch.from_numpy(sess.cur[:, None].copy())
+                 .to(self.device), "active": active}
+        logits, kv.cache, metrics = self._step(batch, kv.cache, lengths,
+                                               collect)
+        t_sync = time.perf_counter()
+        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        sync_s = time.perf_counter() - t_sync   # device->host token fetch
+        dt = None
+        if sess.control is not None and "expert_load" in metrics:
+            out = sess.control.step(
+                sess.now, self._gate_inputs(metrics),
+                metrics["expert_load"], token_mask=active,
+                dropped=metrics.get("dropped"), phase="decode")
+            dt = out.latency_s
+        self._drive_controller(metrics, token_mask=active)
+        if dt is None:
+            dt = time.perf_counter() - t0
+        sess.now += dt * sess.time_scale
+        sess.iters += 1
+        self.iteration += 1
+        n_active = len(sched.running)
+        sess.occupancy.append(n_active)
+        if tel.enabled:
+            tel.engine_steps.labels(phase="decode").inc()
+            tel.engine_step_seconds.labels(phase="decode").observe(
+                time.perf_counter() - t0)
+            tel.engine_host_sync.observe(sync_s)
+            tel.engine_occupancy.set(n_active)
+            tel.engine_tokens.inc(n_active)
+            if tel.tracing:
+                tel.span(self.name, "decode_step", t_clock0, sess.now,
+                         args={"occupancy": n_active})
+        capped = set(kv.advance())
+        for slot in list(sched.running):
+            tok = int(toks[slot])
+            sess.cur[slot] = tok
+            req = sched.running[slot]
+            done = sched.on_token(slot, tok, sess.now)
+            if not done and slot in capped:
+                # KV ring at capacity: one more decode would overwrite
+                # live cache — finish with reason "length"
+                sched.force_finish(slot, sess.now)
+                done = True
+            events.append(TokenEvent(req.rid, tok, done))
+            if done and tel.enabled:
+                self._finish_req(req, sess.now)
+        return events
+
+    def _finish_req(self, req: GenRequest, t: float) -> None:
+        """Record one request's terminal telemetry."""
+        tel = self.telemetry
+        tel.sched_finished.labels(reason=req.finish_reason or "done").inc()
+        if tel.tracing:
+            track = f"{self.name}/req{req.rid}"
+            tel.span(track, "decode", self._marks.pop(req.rid, t), t)
+            tel.instant(track, "finish", t,
+                        args={"reason": req.finish_reason,
+                              "out_tokens": len(req.tokens)})
+
+    def stream(self, handle: RequestHandle) -> Iterator[int]:
+        """Incrementally yield `handle`'s tokens, driving ``step`` while
+        the request still has work in flight."""
+        sent = 0
+        while True:
+            toks = handle.req.tokens
+            while sent < len(toks):
+                yield toks[sent]
+                sent += 1
+            if handle.status in ("finished", "cancelled", "rejected"):
+                return
+            if self._session is None or self._session.sched.done:
+                return
+            self.step()
+
+    def run(self, *, verbose: bool = False) -> ServeResult:
+        """Drive ``step`` until the session has no pending or running
+        requests, then snapshot the session's metrics."""
+        sess = self._sess
+        while not sess.sched.done:
+            self.step()
+            if verbose and sess.iters % 50 == 0:
+                print(f"  t={sess.now:8.2f}s iter={sess.iters} "
+                      f"active={len(sess.sched.running)} "
+                      f"pending={len(sess.sched.pending)} "
+                      f"done={len(sess.sched.finished)}")
+        return self.result()
+
+    def result(self) -> ServeResult:
+        if self._session is None:
+            raise RuntimeError("no serving session — call start() / "
+                               "serve() first")
+        sess = self._session
+        return ServeResult(
+            records=sess.sched.metrics(), iterations=sess.iters,
+            prefills=sess.prefills, rejected=len(sess.sched.rejected),
+            cancelled=len(sess.sched.cancelled),
+            mean_batch_occupancy=float(np.mean(sess.occupancy))
+            if sess.occupancy else 0.0,
+            wall_s=time.perf_counter() - sess.wall0, control=sess.control,
+            runtime=None, clock_s=sess.now,
+            dropped_tokens=float(getattr(sess.control, "dropped_tokens",
+                                         0.0) or 0.0))
+
+    def serve(self, requests, *, num_slots: int = 8, eos_id=None,
+              control: ControlPlane | None = None,
+              time_scale: float = 1.0,
+              verbose: bool = False) -> ServeResult:
+        """Continuous-batching replay of `requests` (list[GenRequest]) —
+        open a session, submit everything, run to completion."""
+        self.start(num_slots=num_slots, eos_id=eos_id, control=control,
+                   time_scale=time_scale)
+        for r in sorted(requests, key=lambda r: r.arrival):
+            self.submit(r)
+        res = self.run(verbose=verbose)
+        self.close()
+        return res
+
+    @staticmethod
+    def _gate_inputs(metrics):
+        gi = metrics.get("gate_input")
+        if gi is None:
+            return None
+        return gi.reshape(gi.shape[0], -1, gi.shape[-1])

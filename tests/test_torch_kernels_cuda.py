@@ -1,0 +1,110 @@
+"""PyTorch port, on the card: the hand-written CUDA kernels against their
+plain PyTorch versions at the adversarial shapes (non-tile-aligned
+C/D/F, all-zero and partial group sizes, E=1, GQA groups 1/2/4,
+kv_len < S, wrapped ring positions, window > 0). Every test here skips
+without a CUDA device; the module imports neither JAX nor the reference
+package, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: float32 atol=rtol=1e-4 (f32 sums in another order);
+bfloat16 atol=rtol=2e-2 compared in float32 (the kernels keep f32
+accumulators and round once, the plain versions round each product).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attn as DA
+from repro_torch.kernels import moe_gmm as MG
+
+torch.set_num_threads(1)
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+# (E, C, D, F, group sizes)
+GMM_CASES = [
+    (3, 7, 96, 40, [7, 3, 0]),
+    (2, 16, 96, 40, [0, 0]),
+    (4, 33, 64, 72, [0, 0, 17, 0]),
+    (1, 40, 128, 136, [40]),
+    (2, 12, 40, 37, [12, 5]),
+]
+
+# (B, H, KV, hd, S, kv_len, q_pos, wrapped ring, window)
+ATTN_CASES = [
+    (2, 4, 4, 32, 24, [24, 10], [23, 9], False, 0),
+    (3, 8, 4, 16, 20, [20, 1, 7], [19, 0, 6], False, 0),
+    (2, 8, 2, 32, 40, [17, 40], [16, 39], False, 0),
+    (2, 4, 1, 16, 16, [16, 16], [40, 16], True, 0),
+    (2, 8, 2, 16, 32, [32, 21], [31, 20], False, 8),
+    (2, 4, 2, 16, 12, [12, 12], [50, 23], True, 5),
+    (2, 4, 2, 18, 50, [50, 31], [49, 30], False, 0),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _gmm_case(e, c, d, f, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    wg = (rng.standard_normal((e, d, f)) / np.sqrt(d)).astype(np.float32)
+    wu = (rng.standard_normal((e, d, f)) / np.sqrt(d)).astype(np.float32)
+    return x, wg, wu
+
+
+def _attn_case(b, h, kvh, hd, s, kv_len, q_pos, wrap, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
+    kv_len = np.asarray(kv_len, np.int32)
+    q_pos = np.asarray(q_pos, np.int32)
+    slot = np.arange(s, dtype=np.int32)[None]
+    if wrap:   # ring holding the last s positions up to q_pos
+        pos = q_pos[:, None] - np.mod(q_pos[:, None] - slot, s)
+    else:
+        pos = np.broadcast_to(slot, (b, s))
+    return q, k, v, np.ascontiguousarray(pos, np.int32), kv_len, q_pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernels_match_plain_on_card(cuda, dtype):
+    tol = TOL[dtype]
+    for e, c, d, f, gs in GMM_CASES:
+        x, wg, wu = (torch.from_numpy(a).to(cuda, dtype)
+                     for a in _gmm_case(e, c, d, f))
+        g = torch.tensor(gs, dtype=torch.int32, device=cuda)
+        got = MG.fused_gate_up(x, wg, wu, g)
+        torch.testing.assert_close(got.float(),
+                                   MG.fused_gate_up_ref(x, wg, wu, g).float(),
+                                   atol=tol, rtol=tol)
+        past = torch.arange(c, device=cuda)[None] >= g[:, None]
+        assert torch.all(got[past] == 0)
+        torch.testing.assert_close(MG.gmm(x, wg, g).float(),
+                                   MG.gmm_ref(x, wg, g).float(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain_on_card(cuda, dtype):
+    tol = TOL[dtype]
+    for b, h, kvh, hd, s, kl, qp, wrap, window in ATTN_CASES:
+        q, k, v, pos, kv_len, q_pos = _attn_case(b, h, kvh, hd, s, kl, qp,
+                                                 wrap)
+        q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v))
+        pos, kv_len, q_pos = (torch.from_numpy(a).to(cuda)
+                              for a in (pos, kv_len, q_pos))
+        torch.testing.assert_close(
+            DA.decode_attention(q, k, v, pos, kv_len, q_pos,
+                                window=window).float(),
+            DA.decode_attention_ref(q, k, v, pos, kv_len, q_pos,
+                                    window=window).float(),
+            atol=tol, rtol=tol)
