@@ -17,8 +17,18 @@ Phases, each fatal on failure:
      every layer's attention and MoE sublayer through the kernels against
      the plain path from the same input (a prefill and a batched decode
      step), and the full-model logits of both paths compared;
+  4b. paged KV at full width, with the same weights: the paged pool
+     (16-token blocks), chunked prefill (256 tokens) and the radix prefix
+     cache serving two waves of 8 requests that share a 256-token system
+     prompt (prefix hits, one copy-on-write, no leaked block), counting
+     that run's launches and timing mixed and decode-only steps; then
+     every layer's paged attention sublayer through the kernel against
+     the plain path from the same input and pool;
   5. token identity: the mixtral-8x7b smoke config at float32 gives the
-     same greedy tokens through the kernels as through the plain path.
+     same greedy tokens through the kernels as the plain path on the
+     contiguous cache, at its own capacity factor (where tokens are
+     dropped) and at a drop-free one, where the paged runs (solo,
+     chunked, prefix-warm) through the kernels give them too.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -26,6 +36,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -47,6 +58,7 @@ from repro_torch.kernels import moe_gmm as MG  # noqa: E402
 
 # H100 SXM data sheet: HBM rate and dense peak rates by input type
 HBM_BYTES_S = 3.35e12
+PAGED_BLOCK, PAGED_CHUNK = 16, 256   # the paged phase's serving knobs
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # atol = rtol
 SOURCES = {
@@ -56,6 +68,8 @@ SOURCES = {
             "src/repro/kernels/moe_gmm.py:69"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                          "src/repro/kernels/decode_attn.py:71"),
+    "decode_attention_paged": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                               "src/repro/kernels/decode_attn.py:127"),
 }
 
 
@@ -290,6 +304,137 @@ def check_decode_attention(gen, shape) -> dict:
                                      bound_by=b_by, library_ms=lib_ms)}
 
 
+def _paged_inputs(gen, b, h, kvh, hd, blk, nbs, kv_len, dtype, share=0):
+    """A shuffled pool: each row's chain is a random choice of pool
+    blocks (not contiguous), rows 0 and 1 share their first `share`
+    blocks, unassigned table entries point at trash block 0, and every
+    pool lane not on a chain holds a random position."""
+    dev = gen.device
+    nb = 1 + b * nbs
+    order = torch.randperm(nb - 1, generator=gen, device=dev).cpu() + 1
+    tables = torch.zeros((b, nbs), dtype=torch.int32)
+    used = [-(-n // blk) for n in kv_len]
+    at = 0
+    for r in range(b):
+        tables[r, :used[r]] = order[at:at + used[r]]
+        at += used[r]
+    tables[1, :share] = tables[0, :share]
+    kv_pos = torch.randint(-50, 1000, (nb, blk), generator=gen, device=dev,
+                           dtype=torch.int32)
+    for r in range(b):
+        ids = tables[r, :used[r]].long().to(dev)
+        kv_pos[ids] = (torch.arange(used[r] * blk, dtype=torch.int32,
+                                    device=dev).reshape(used[r], blk))
+    q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((nb, blk, kvh, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((nb, blk, kvh, hd), generator=gen, device=dev).to(dtype)
+    kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    q_pos = (kv_len - 1).clamp(min=0)
+    return q, k, v, kv_pos, tables.to(dev), kv_len, q_pos
+
+
+def _paged_bytes_flops(q, k, tables, kv_len, window, kv_pos, q_pos):
+    """Bytes and operations these inputs need: K, V and positions of each
+    distinct visible pool lane (a shared block counts once), V of every
+    lane of a fully hidden row (it averages them), the tables, q, the
+    output and the lengths; two products per visible (row, lane, head)
+    and the hidden rows' averaging."""
+    b, h, hd = q.shape
+    blk, kvh = k.shape[1], k.shape[2]
+    nbs = tables.shape[1]
+    s = nbs * blk
+    slot = torch.arange(s, device=q.device)
+    lane = tables.long().repeat_interleave(blk, dim=1) * blk + slot % blk
+    pos = kv_pos.reshape(-1)[lane]
+    vis = (slot[None] < kv_len[:, None]) & (pos <= q_pos[:, None])
+    if window:
+        vis = vis & (pos > q_pos[:, None] - window)
+    hidden = ~vis.any(dim=1)
+    n_vis = int(vis.sum())
+    lanes_vis = int(torch.unique(lane[vis]).numel())
+    lanes_hidden = int(torch.unique(lane[hidden]).numel())
+    isz = q.element_size()
+    row = kvh * hd * isz
+    nbytes = (lanes_vis * (2 * row + 4) + lanes_hidden * row
+              + 2 * b * h * hd * isz + 4 * (b * nbs + 2 * b))
+    flops = 4.0 * n_vis * h * hd + 2.0 * int(hidden.sum()) * s * h * hd
+    return nbytes, flops
+
+
+def check_decode_attention_paged(gen, shape) -> dict:
+    """The paged kernel against its plain version: adversarial block
+    sizes (1, 3, 16, 32), then the main path's shape with shuffled
+    tables, two rows sharing prefix blocks, a kv_len = 0 row and a full
+    row, with and without a window, in float32 and bfloat16; timed at
+    the main path's shape beside its bound, the plain version and the
+    nearest library composition (gather then SDPA: two calls)."""
+    cases = [  # (label, B, H, KV, hd, blk, nbs, kv_len, share, window)
+        ("blk 1", 3, 8, 2, 64, 1, 40, [40, 17, 0], 10, 0),
+        ("blk 3", 3, 8, 4, 32, 3, 13, [39, 20, 5], 4, 0),
+        ("blk 16, GQA 4", 4, 8, 2, 128, 16, 6, [96, 50, 0, 33], 3, 0),
+        ("blk 32 > tile", 2, 4, 2, 64, 32, 3, [96, 70], 2, 0),
+        ("blk 16, window 12", 3, 8, 2, 64, 16, 5, [80, 61, 30], 3, 12),
+        ("hd=18 (scalar loads)", 2, 4, 2, 18, 3, 7, [21, 10], 3, 0),
+    ]
+    b, h, kvh, hd, blk, nbs = shape
+    full = nbs * blk
+    main_len = [full, full - blk, 0, full - 3 * blk - 5, 2 * full // 3,
+                full // 2 + 3, full // 4 + 1, 17][:b]
+    share = max(full // blk - 3, 0)
+    cases += [("main shape", b, h, kvh, hd, blk, nbs, main_len, share, 0),
+              ("main shape, window 64", b, h, kvh, hd, blk, nbs, main_len,
+               share, 64)]
+    for label, cb, ch, ckv, chd, cblk, cnbs, kl, sh, win in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _paged_inputs(gen, cb, ch, ckv, chd, cblk, cnbs, kl,
+                                 dtype, sh)
+            got = DA.decode_attention_paged(*args, window=win)
+            want = DA.decode_attention_paged_ref(*args, window=win)
+            torch.cuda.synchronize()
+            err = check(f"decode_attention_paged [{label}, {dtype}]", got,
+                        want, dtype)
+            log(f"  {'decode_attention_paged':<22} {label:<22} "
+                f"{str(dtype):<15} max_abs_err={err:.3e}")
+    dtype = torch.bfloat16
+    args = _paged_inputs(gen, b, h, kvh, hd, blk, nbs, main_len, dtype,
+                         share)
+    q, k, v, kv_pos, tables, kv_len, q_pos = args
+    run = lambda: DA.decode_attention_paged(*args)  # noqa: E731
+    plain = lambda: DA.decode_attention_paged_ref(*args)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = check("decode_attention_paged [decode]", got, want, dtype)
+    g = h // kvh
+    tab = tables.long()
+    slot = torch.arange(full, device=q.device)
+    gpos = kv_pos[tab].reshape(b, full)
+    vis = (slot[None] < kv_len[:, None]) & (gpos <= q_pos[:, None])
+    amask = torch.where(vis, 0.0, DA.NEG_INF).to(dtype)[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():   # two calls: the gather, then SDPA over repeated KV
+        gk = k[tab].reshape(b, full, kvh, hd)
+        gv = v[tab].reshape(b, full, kvh, hd)
+        return F.scaled_dot_product_attention(
+            q4, gk.repeat_interleave(g, dim=2).transpose(1, 2),
+            gv.repeat_interleave(g, dim=2).transpose(1, 2), attn_mask=amask)
+    lib_err = float((library()[:, :, 0].float() - want.float())[
+        vis.any(dim=1)].abs().max())
+    ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(library)
+    nbytes, flops = _paged_bytes_flops(q, k, tables, kv_len, 0, kv_pos,
+                                       q_pos)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    log(f"  {'decode_attention_paged':<22} decode B={b} H={h} KV={kvh} "
+        f"hd={hd} blk={blk} nbs={nbs} NB={k.shape[0]} bf16 "
+        f"max_abs_err={err:.3e} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+        f"{nbytes / 1e6:.2f} MB) plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} (gather + SDPA, 2 calls; its max err on "
+        f"rows with a visible lane {lib_err:.3e})")
+    return {"decode_attention_paged": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)}
+
+
 def main_path_shapes(cfg, slots: int, bucket: int, max_len: int):
     """Kernel shapes the full-width serving run gives each wrapper."""
     e, k = cfg.moe.num_experts, cfg.moe.top_k
@@ -308,6 +453,9 @@ def main_path_shapes(cfg, slots: int, bucket: int, max_len: int):
         "decode_attention": (slots, cfg.num_heads, cfg.num_kv_heads,
                              cfg.resolved_head_dim, max_len,
                              [max_len - 1 - 37 * i for i in range(slots)]),
+        "decode_attention_paged": (slots, cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.resolved_head_dim, PAGED_BLOCK,
+                                   -(-max_len // PAGED_BLOCK)),
     }
 
 
@@ -400,12 +548,13 @@ def compare_logits(name, got, want, loads_got, loads_want) -> dict:
 
 
 def sublayer_check(name, cfg, params, tokens, cache, cache_len,
-                   token_mask) -> dict:
+                   token_mask, block_tables=None) -> dict:
     """Every layer's attention and MoE sublayer through the kernels and
     through the plain path, both from the same input (the plain path's
     hidden state), so both route identically: each output pair must
-    agree elementwise within the bf16 tolerance. Returns the largest
-    error of each sublayer kind."""
+    agree elementwise within the bf16 tolerance. With `block_tables` the
+    cache is the paged pool and every row writes one token. Returns the
+    largest error of each sublayer kind."""
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
@@ -428,7 +577,8 @@ def sublayer_check(name, cfg, params, tokens, cache, cache_len,
             own = {k: v.clone() for k, v in c.items()}
             outs.append(L.attention_block(p["attn"], cfg, h, pos,
                                           cache=own, cache_len=cache_len,
-                                          impl=impl)[0])
+                                          impl=impl,
+                                          block_tables=block_tables)[0])
         errs["attention"] = max(errs["attention"], check(
             f"{name}, layer {i} attention", outs[0], outs[1],
             torch.bfloat16))
@@ -504,6 +654,248 @@ def logits_check(cfg, params, prompts, max_len: int, slots: int):
     return res
 
 
+# ------------------------------------------------------------ phase 4b
+
+
+def serve_waves(engine, waves, slots: int):
+    """Serve each wave of requests to completion in ONE session (start,
+    submit, run, submit, run), timing every model call between host
+    syncs by kind: mixed (prompt chunks in the step) or decode-only.
+    Returns (launch counts of this run, mixed seconds, decode seconds,
+    wall seconds)."""
+    mixed_s: list[float] = []
+    decode_s: list[float] = []
+    inner = engine._step
+
+    def timed(batch, cache, cache_len, collect):
+        t = time.perf_counter()
+        out = inner(batch, cache, cache_len, collect)
+        torch.cuda.synchronize()
+        (mixed_s if batch["tokens"].shape[1] > 1 else decode_s).append(
+            time.perf_counter() - t)
+        return out
+
+    engine._step = timed
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        engine.start(num_slots=slots)
+        for wave in waves:
+            for r in wave:
+                engine.submit(r)
+            engine.run()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+    finally:
+        del engine._step
+    return launches, mixed_s, decode_s, wall
+
+
+def shared_prefix_waves(cfg, system_len: int, suffixes, gens, seed=1):
+    """Two waves of requests that share one system prompt: wave 1 has a
+    unique suffix per request; wave 2 repeats wave 1's request
+    `repeat[0]` exactly (its length chosen so the prefix match ends
+    inside a block: a copy-on-write) and gives the others new suffixes."""
+    from repro_torch.serving.scheduler import GenRequest
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size, system_len, dtype=np.int32)
+    prompts = []
+    for wave in suffixes:
+        prompts.append([np.concatenate([system, rng.integers(
+            0, cfg.vocab_size, n, dtype=np.int32)]) for n in wave])
+    repeat = next(i for i, p in enumerate(prompts[0])
+                  if (len(p) - 1) % PAGED_BLOCK)
+    prompts[1][0] = prompts[0][repeat].copy()
+    waves, rid = [], 0
+    for wave in prompts:
+        waves.append([])
+        for p in wave:
+            waves[-1].append(GenRequest(rid=rid, arrival=float("nan"),
+                                        prompt=p,
+                                        max_new_tokens=gens[rid % len(gens)]))
+            rid += 1
+    return waves
+
+
+def paged_phase(cfg, params, max_len: int, slots: int, card: str) -> dict:
+    """Phase 4b: the paged pool, chunked prefill and the prefix cache at
+    full width, then every layer's paged attention sublayer through the
+    kernel against the plain path. Returns this run's launch counts."""
+    from repro_torch.configs import ServingSpec
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    spec = ServingSpec(kv="paged", kv_block=PAGED_BLOCK,
+                       prefill_chunk=PAGED_CHUNK, prefix_cache=True)
+    log(f"  serving: {spec}, {slots} slots, max_len {max_len}, "
+        f"MoElessController(num_devices=8)")
+    ctrl = MoElessController(cfg, num_devices=8)
+    engine = ServingEngine(cfg, params, max_len=max_len, controller=ctrl,
+                           serving=spec)
+    waves = shared_prefix_waves(
+        cfg, 256, [[64 + 27 * i for i in range(slots)],
+                   [0] + [100 + 19 * i for i in range(slots - 1)]],
+        (16, 32, 48))
+    torch.cuda.reset_peak_memory_stats()
+    launches, mixed_s, decode_s, wall = serve_waves(engine, waves, slots)
+    peak = torch.cuda.max_memory_allocated()
+    kv = engine._session.kv
+    reqs = [r for w in waves for r in w]
+    for r in reqs:
+        if r.finish_reason != "length" or \
+                len(r.tokens) != r.max_new_tokens:
+            raise AssertionError(f"paged request {r.rid}: {len(r.tokens)} of "
+                                 f"{r.max_new_tokens} tokens "
+                                 f"({r.finish_reason!r})")
+    nodes = list(kv.prefix._walk())
+    log(f"  served 2 waves x {slots} requests, "
+        f"{sum(len(r.tokens) for r in reqs)} tokens in "
+        f"{len(mixed_s)} mixed + {len(decode_s)} decode-only steps; prefix "
+        f"hits {kv.prefix.hits}, tokens saved {kv.prefix.tokens_saved}, "
+        f"copy-on-write blocks {kv.cow_blocks}; pool {kv.num_blocks} blocks "
+        f"of {kv.block_bytes} B, {kv.used_blocks} in use after the run, "
+        f"{len(nodes)} held by the prefix cache")
+    log(f"  launches in this run: {launches}")
+    if kv.prefix.hits < slots or kv.prefix.tokens_saved <= 0:
+        raise AssertionError("the second wave did not hit the prefix cache")
+    if kv.cow_blocks < 1:
+        raise AssertionError("the exact repeat made no copy-on-write")
+    if kv.used_blocks != len(nodes) or kv.num_active or any(
+            kv.refcount[n.block] != 1 for n in nodes):
+        raise AssertionError(f"leaked blocks: {kv.used_blocks} in use, "
+                             f"{len(nodes)} cached")
+    for k_name in ("decode_attention_paged", "fused_gate_up", "gmm"):
+        if launches[k_name] <= 0:
+            raise AssertionError(f"{k_name} was never launched on the paged "
+                                 "path")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    log(f"  wall times on {card}:")
+    log(f"    mixed step: median {np.median(mixed_s) * 1e3:.2f} ms over "
+        f"{len(mixed_s)}; decode-only step: median "
+        f"{np.median(decode_s) * 1e3:.2f} ms over {len(decode_s)}; "
+        f"decode_attention_paged launches per decode-only step "
+        f"{launches['decode_attention_paged'] / len(decode_s):.1f}, per "
+        f"mixed step 0 (chunked attention over the gathered view)")
+    log(f"    whole run: {wall:.2f} s, {n_tok / wall:.1f} tokens/s; "
+        f"max_memory_allocated {peak / 1e9:.2f} GB")
+    del engine, ctrl, kv
+    torch.cuda.empty_cache()
+    # every layer's paged attention sublayer from one batched state: the
+    # wave-1 prompts prefilled (plain path) through shuffled tables into
+    # a fresh pool, rows 0 and 1 sharing their system-prompt blocks,
+    # then one decode step with every row writing one token
+    ref_cfg = cfg.with_(impl="ref")
+    dev = params["embed"].device
+    nbs = -(-max_len // PAGED_BLOCK)
+    prompts = [r.prompt for r in waves[0]]
+    lens = [len(p) for p in prompts]
+    gen = torch.Generator().manual_seed(3)
+    order = (torch.randperm(slots * nbs, generator=gen) + 1).tolist()
+    tables = torch.zeros((slots, nbs), dtype=torch.int32)
+    for r, n in enumerate(lens):
+        need = -(-(n + 1) // PAGED_BLOCK)
+        tables[r, :need] = torch.tensor(order[:need], dtype=torch.int32)
+        del order[:need]
+    tables[1, :256 // PAGED_BLOCK] = tables[0, :256 // PAGED_BLOCK]
+    tables = tables.to(dev)
+    pool = T.init_paged_cache(cfg, params, 1 + slots * nbs, PAGED_BLOCK)
+    toks = torch.from_numpy(np.stack([np.pad(p, (0, max(lens) - len(p)))
+                                      for p in prompts]).astype(np.int64))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        lg, _, _ = T.decode_step(
+            ref_cfg, params, {"tokens": toks.to(dev), "block_tables": tables,
+                              "new_counts": lengths},
+            pool, torch.zeros(slots, dtype=torch.int32, device=dev))
+        nxt = lg[torch.arange(slots, device=dev), lengths - 1] \
+            .argmax(-1)[:, None]
+        errs = sublayer_check("paged batched decode step", cfg, params, nxt,
+                              pool, lengths,
+                              torch.ones((slots, 1), dtype=torch.bool,
+                                         device=dev), block_tables=tables)
+    del pool, lg
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sublayers": errs}
+
+
+# ------------------------------------------------------------ phase 5
+
+
+def capacity_identity(small, sp) -> None:
+    """Float32 smoke config at its own capacity factor, where the MoE
+    dispatch drops tokens: greedy tokens through the kernels on the
+    contiguous cache equal the plain path's, request by request."""
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    sreqs = {}
+    for impl in ("auto", "ref"):
+        eng = ServingEngine(small, sp, max_len=64 + 24 + 1, impl=impl,
+                            controller=MoElessController(small))
+        rs = make_requests(small, (64, 17, 40, 9, 33), (24, 7, 16), 10)
+        eng.serve(rs, num_slots=4)
+        sreqs[impl] = {r.rid: list(r.tokens) for r in rs}
+    if sreqs["auto"] != sreqs["ref"]:
+        bad = [i for i in sreqs["ref"] if sreqs["auto"][i] != sreqs["ref"][i]]
+        raise AssertionError(f"float32 tokens differ for requests {bad}")
+    log(f"  capacity factor {small.moe.capacity_factor}: "
+        f"{len(sreqs['ref'])} requests, "
+        f"{sum(map(len, sreqs['ref'].values()))} tokens: contiguous "
+        "impl=auto == impl=ref")
+
+
+def token_identity(small, sp) -> None:
+    """Float32 smoke config at a drop-free capacity factor: greedy tokens
+    through the kernels on the contiguous cache, the paged pool (solo),
+    chunked prefill and a prefix-warm pool equal the plain path's on the
+    contiguous cache, request by request."""
+    from repro_torch.configs import ServingSpec
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    max_len = 64 + 24 + 1
+    runs = [("contiguous", "ref", ServingSpec()),
+            ("contiguous", "auto", ServingSpec()),
+            ("paged solo", "auto", ServingSpec(kv="paged", kv_block=5)),
+            ("paged chunked", "auto", ServingSpec(kv="paged", kv_block=5,
+                                                  prefill_chunk=7)),
+            ("paged chunked prefix-warm", "auto",
+             ServingSpec(kv="paged", kv_block=4, prefill_chunk=8,
+                         prefix_cache=True))]
+    for trace in ("random prompts", "shared system prompt, two waves"):
+        got = {}
+        for label, impl, spec in runs:
+            eng = ServingEngine(small, sp, max_len=max_len, impl=impl,
+                                controller=MoElessController(small),
+                                serving=spec)
+            if trace == "random prompts":
+                waves = [make_requests(small, (64, 17, 40, 9, 33),
+                                       (24, 7, 16), 10)]
+            else:
+                waves = shared_prefix_waves(small, 21, [[9, 30, 3, 17, 40],
+                                                        [0, 5, 22, 11, 36]],
+                                            (24, 7, 16))
+            eng.start(num_slots=4)
+            for wave in waves:
+                for r in wave:
+                    eng.submit(r)
+                eng.run()
+            kv = eng._session.kv
+            eng.close()
+            got[(label, impl)] = {r.rid: list(r.tokens)
+                                  for w in waves for r in w}
+            extra = ""
+            if getattr(kv, "prefix", None) is not None:
+                extra = (f" (prefix hits {kv.prefix.hits}, copy-on-write "
+                         f"{kv.cow_blocks})")
+                if trace != "random prompts" and (kv.prefix.hits < 5
+                                                  or kv.cow_blocks < 1):
+                    raise AssertionError("prefix-warm run had no warm hits")
+            base = got[("contiguous", "ref")]
+            if got[(label, impl)] != base:
+                bad = [i for i in base if got[(label, impl)][i] != base[i]]
+                raise AssertionError(f"{trace}: {label} impl={impl} tokens "
+                                     f"differ for requests {bad}")
+            log(f"  {trace}: {label} impl={impl}: "
+                f"{sum(map(len, base.values()))} tokens == contiguous "
+                f"impl=ref{extra}")
+
+
 # ------------------------------------------------------------ main
 
 
@@ -541,6 +933,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rec = check_gmm_kernels(gen, shapes)
     rec.update(check_decode_attention(gen, shapes["decode_attention"]))
+    rec.update(check_decode_attention_paged(
+        gen, shapes["decode_attention_paged"]))
 
     log("[4] mixtral-8x7b at full width through ServingEngine")
     cfg = full.with_(num_layers=8)
@@ -572,7 +966,7 @@ def main() -> int:
         f"{res.iterations} decode steps + {res.prefills} prefills "
         f"(mean occupancy {res.mean_batch_occupancy:.2f})")
     log(f"  launches in this run: {launches}")
-    for k_name in SOURCES:
+    for k_name in ("fused_gate_up", "gmm", "decode_attention"):
         if launches[k_name] <= 0:
             raise AssertionError(f"{k_name} was never launched on the main "
                                  "path")
@@ -594,29 +988,31 @@ def main() -> int:
         f"steps; {dec_tok / sum(dec_s):.1f} decode tokens/s")
     log(f"    whole run: {wall:.2f} s, {res.generated_tokens / wall:.1f} "
         f"tokens/s; max_memory_allocated {peak / 1e9:.2f} GB")
-    del engine, params, ctrl
+    del engine, ctrl
+    torch.cuda.empty_cache()
+
+    log("[4b] paged KV, chunked prefill and the prefix cache at full width "
+        "(same weights)")
+    paged = paged_phase(cfg, params, max_len, slots, card)
+    del params
     torch.cuda.empty_cache()
 
     log("[5] token identity at float32 (smoke config): kernels vs plain")
     small = get_config("mixtral-8x7b", smoke=True).with_(dtype="float32")
     sp = init_params(small, seed=0, device="cuda")
-    sreqs = {}
-    for impl in ("auto", "ref"):
-        eng = ServingEngine(small, sp, max_len=64 + 24 + 1, impl=impl,
-                            controller=MoElessController(small))
-        rs = make_requests(small, (64, 17, 40, 9, 33), (24, 7, 16), 10)
-        eng.serve(rs, num_slots=4)
-        sreqs[impl] = {r.rid: list(r.tokens) for r in rs}
-    if sreqs["auto"] != sreqs["ref"]:
-        bad = [i for i in sreqs["ref"] if sreqs["auto"][i] != sreqs["ref"][i]]
-        raise AssertionError(f"float32 tokens differ for requests {bad}")
-    log(f"  {len(sreqs['ref'])} requests, "
-        f"{sum(map(len, sreqs['ref'].values()))} tokens: identical")
+    capacity_identity(small, sp)
+    log("  drop-free capacity factor: contiguous and paged layouts")
+    free = small.with_(moe=dataclasses.replace(
+        small.moe, capacity_factor=float(small.moe.num_experts)))
+    token_identity(free, sp)
 
+    # each kernel's launches come from the run of the path it serves
+    launches["decode_attention_paged"] = \
+        paged["launches"]["decode_attention_paged"]
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}
-        for n in ("fused_gate_up", "gmm", "decode_attention")]}
+        for n in SOURCES]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,10 +1,20 @@
-// One-query decode attention against a contiguous (ring) KV cache, for
-// Hopper (sm_90a).
+// One-query decode attention against a contiguous (ring) KV cache or a
+// paged block pool, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attn.py:
+// Replaces the TPU kernels of src/repro/kernels/decode_attn.py:
 // decode_attention (_kernel): flash decoding of one new query per row
 // b, with q (B, H, hd), k/v (B, S, KV, hd), kv_pos (B, S) and per-row
-// kv_len / q_pos (B,). Query head h reads KV head h / (H / KV). Slot s
+// kv_len / q_pos (B,); and decode_attention_paged (_paged_kernel): the
+// same recurrence over a global pool k/v (NB, blk, KV, hd), kv_pos
+// (NB, blk), where logical slot s of row b lives at pool block
+// tables[b, s / blk], offset s % blk, and S = nbs * blk. As the TPU
+// kernel's _paged_kernel calls _kernel, both launches run one kernel
+// body, templated on where a slot lives (ContiguousSlots, PagedSlots).
+// Slot addresses are computed per slot, never per tile, so a 32-slot
+// tile may span several pool blocks or part of one (any blk >= 1).
+// Lanes past kv_len are still read (unassigned table entries point at
+// pool block 0) and score NEG_INF like every hidden lane, so a fully
+// hidden row averages v over all S lanes, as the plain version does. Query head h reads KV head h / (H / KV). Slot s
 // is visible when s < kv_len[b] and kv_pos[b, s] <= q_pos[b] (and
 // kv_pos[b, s] > q_pos[b] - window when window > 0); hidden slots score
 // the finite NEG_INF = -0.7 * FLT_MAX, as in the reference, so a fully
@@ -15,8 +25,9 @@
 //
 // What bounds it on this card: the bytes of K and V. At the main path's
 // decode (8 rows x 561 slots x 8 KV heads x 128 x 2 tensors x 2 bytes,
-// about 18 MB a layer) that is ~5.5 us at 3.35 TB/s, so launch latency
-// and the length of each block's serial loop dominate.
+// about 18 MB a layer; 576 slots paged) that is ~5.5 us at 3.35 TB/s,
+// so launch latency and the length of each block's serial loop
+// dominate.
 //
 // Design: one block per (row b, KV head, split of S) serves all H/KV
 // query heads of that group, so each K/V tile is read from device memory
@@ -76,6 +87,47 @@ __device__ __forceinline__ void load16(const T* __restrict__ p, float* o) {
   }
 }
 
+// Where the slots of a row live. at(b) binds row b once: `first` is
+// the row's first cache row in the (rows, KV, hd) view of k/v, row(s)
+// the cache row of logical slot s counted from there (times KV * hd
+// gives the element offset), and pos(s) the slot's position.
+struct ContiguousSlots {     // k/v (B, S, KV, hd), kv_pos (B, S)
+  const int* kv_pos;
+  int S;
+  struct Row {
+    int64_t first;
+    const int* pos_row;
+    __device__ __forceinline__ int64_t row(int s) const { return s; }
+    __device__ __forceinline__ int pos(int s) const {
+      return __ldg(pos_row + s);
+    }
+  };
+  __device__ __forceinline__ Row at(int b) const {
+    return {(int64_t)b * S, kv_pos + (int64_t)b * S};
+  }
+};
+
+struct PagedSlots {          // k/v (NB, blk, KV, hd), kv_pos (NB, blk)
+  const int* kv_pos;
+  const int* tables;         // (B, nbs) pool block ids
+  int blk, nbs;
+  struct Row {
+    int64_t first;           // 0: slots address the whole pool
+    const int* table;
+    const int* kv_pos;
+    int blk;
+    __device__ __forceinline__ int64_t row(int s) const {
+      return (int64_t)__ldg(table + s / blk) * blk + s % blk;
+    }
+    __device__ __forceinline__ int pos(int s) const {
+      return __ldg(kv_pos + row(s));
+    }
+  };
+  __device__ __forceinline__ Row at(int b) const {
+    return {0, tables + (int64_t)b * nbs, kv_pos, blk};
+  }
+};
+
 size_t smem_bytes(int G, int hd) {
   return sizeof(float) *
          ((size_t)G * hd + (size_t)BS * (hd + 1) + (size_t)BS * hd +
@@ -86,10 +138,11 @@ size_t smem_bytes(int G, int hd) {
 // smem_bytes(G, hd). With nsplit == 1 the block writes `out`; otherwise
 // it writes its partial (m, l) to ml[(b, h, split), 2] and its
 // unnormalised acc to pacc[(b, h, split), hd] for combine_kernel.
-template <typename T>
+// S is the logical slot count of every row (nbs * blk when paged).
+template <typename T, typename Slots>
 __global__ void __launch_bounds__(NT)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ kv_pos,
+                   const T* __restrict__ v, const Slots slots,
                    const int* __restrict__ kv_len,
                    const int* __restrict__ q_pos, T* __restrict__ out,
                    float* __restrict__ ml, float* __restrict__ pacc, int H,
@@ -123,10 +176,10 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int a = 0; a < ACC_MAX; ++a) acc[a] = 0.f;
 
-  const int64_t row_stride = (int64_t)KV * hd;   // between cache slots
-  const T* kb = k + (int64_t)b * S * row_stride + (int64_t)kvh * hd;
-  const T* vb = v + (int64_t)b * S * row_stride + (int64_t)kvh * hd;
-  const int* pb = kv_pos + (int64_t)b * S;
+  const int64_t row_stride = (int64_t)KV * hd;   // between cache rows
+  const auto rs = slots.at(b);
+  const T* kb = k + rs.first * row_stride + (int64_t)kvh * hd;
+  const T* vb = v + rs.first * row_stride + (int64_t)kvh * hd;
   const int s_begin = split * chunk;
   const int s_end = min(S, s_begin + chunk);
 
@@ -138,8 +191,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int j = i / per_row, d = (i % per_row) * vec;
         float fk[8], fv[8];
         if (j < n) {
-          load16<T>(kb + (int64_t)(s0 + j) * row_stride + d, fk);
-          load16<T>(vb + (int64_t)(s0 + j) * row_stride + d, fv);
+          load16<T>(kb + rs.row(s0 + j) * row_stride + d, fk);
+          load16<T>(vb + rs.row(s0 + j) * row_stride + d, fv);
         } else {
 #pragma unroll
           for (int t = 0; t < 8; ++t) fk[t] = fv[t] = 0.f;
@@ -154,8 +207,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int j = i / hd, d = i % hd;
         float kk = 0.f, vv = 0.f;
         if (j < n) {
-          kk = to_f(kb[(int64_t)(s0 + j) * row_stride + d]);
-          vv = to_f(vb[(int64_t)(s0 + j) * row_stride + d]);
+          kk = to_f(kb[rs.row(s0 + j) * row_stride + d]);
+          vv = to_f(vb[rs.row(s0 + j) * row_stride + d]);
         }
         ks[j * (hd + 1) + d] = kk;
         vs[j * hd + d] = vv;
@@ -167,7 +220,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int s = s0 + j;
       float score = NEG_INF;
       if (j < n) {
-        const int kp = pb[s];
+        const int kp = rs.pos(s);
         bool vis = (s < len) && (kp <= qp);
         if (window > 0) vis = vis && (kp > qp - window);
         if (vis) {
@@ -276,16 +329,16 @@ void split_plan(int B, int KV, int S, int num_sms, int* nsplit, int* chunk) {
   *nsplit = (int)((S + *chunk - 1) / *chunk);
 }
 
-template <typename T>
+template <typename T, typename Slots>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_pos, const int* kv_len, const int* q_pos,
+                   const Slots slots, const int* kv_len, const int* q_pos,
                    void* out, float* ws, int B, int H, int KV, int S, int hd,
                    int window, float scale, int aligned, int num_sms,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(H / KV, hd);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      decode_attn_kernel<T, Slots>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int nsplit, chunk;
   split_plan(B, KV, S, num_sms, &nsplit, &chunk);
@@ -293,9 +346,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   float* ml = ws;
   float* pacc = ws + (int64_t)B * H * nsplit * 2;
   dim3 grid(B, KV, nsplit);
-  decode_attn_kernel<T><<<grid, NT, smem, stream>>>(
+  decode_attn_kernel<T, Slots><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_pos, kv_len, q_pos, static_cast<T*>(out),
+      static_cast<const T*>(v), slots, kv_len, q_pos, static_cast<T*>(out),
       ml, pacc, H, KV, S, hd, window, scale, chunk, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
@@ -331,11 +384,38 @@ extern "C" int decode_attn_launch(int dtype, const void* q, const void* k,
                                   int S, int hd, int window, float scale,
                                   int aligned, int num_sms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ContiguousSlots slots{kv_pos, S};
   if (dtype == 0)
-    return launch<float>(q, k, v, kv_pos, kv_len, q_pos, out, ws, B, H, KV,
+    return launch<float>(q, k, v, slots, kv_len, q_pos, out, ws, B, H, KV,
                          S, hd, window, scale, aligned, num_sms, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, kv_pos, kv_len, q_pos, out, ws, B,
+    return launch<__nv_bfloat16>(q, k, v, slots, kv_len, q_pos, out, ws, B,
+                                 H, KV, S, hd, window, scale, aligned,
+                                 num_sms, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The paged launch: k/v (NB, blk, KV, hd), kv_pos (NB, blk), tables
+// (B, nbs) int32 pool block ids in [0, NB); every row has S = nbs * blk
+// logical slots. ws: decode_attn_workspace(B, H, KV, nbs * blk, hd,
+// num_sms) floats. Returns the cudaError_t of the launches.
+extern "C" int decode_attn_paged_launch(int dtype, const void* q,
+                                        const void* k, const void* v,
+                                        const int* kv_pos,
+                                        const int* tables, const int* kv_len,
+                                        const int* q_pos, void* out,
+                                        float* ws, int B, int H, int KV,
+                                        int blk, int nbs, int hd, int window,
+                                        float scale, int aligned,
+                                        int num_sms, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PagedSlots slots{kv_pos, tables, blk, nbs};
+  const int S = nbs * blk;
+  if (dtype == 0)
+    return launch<float>(q, k, v, slots, kv_len, q_pos, out, ws, B, H, KV,
+                         S, hd, window, scale, aligned, num_sms, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, slots, kv_len, q_pos, out, ws, B,
                                  H, KV, S, hd, window, scale, aligned,
                                  num_sms, s);
   return (int)cudaErrorInvalidValue;

@@ -1,13 +1,18 @@
-"""One-query decode attention against a contiguous (ring) KV cache — the
-wrapper around the CUDA kernel of ``csrc/decode_attn.cu`` (the port of
-the TPU kernel ``repro/kernels/decode_attn.py:decode_attention``), plus
-its plain PyTorch version ``decode_attention_ref``.
+"""One-query decode attention against a contiguous (ring) KV cache or a
+paged block pool — the wrappers around the CUDA kernels of
+``csrc/decode_attn.cu`` (the ports of the TPU kernels
+``repro/kernels/decode_attn.py:decode_attention`` and
+``:decode_attention_paged``), plus their plain PyTorch versions
+``decode_attention_ref`` and ``decode_attention_paged_ref``.
 
 q: (B, H, hd); k/v: (B, S, KV, hd); kv_pos: (B, S) absolute positions
 of the cache slots; kv_len/q_pos: (B,). Query head h reads KV head
 h // (H / KV). Slots >= kv_len, positions > q_pos and, with
 window > 0, positions <= q_pos - window are masked with the finite
-``NEG_INF``. A wrapper given CPU tensors computes the plain version;
+``NEG_INF``. The paged form takes the global pool k/v (NB, blk, KV, hd)
+and kv_pos (NB, blk) plus block_tables (B, nbs) int32: logical slot s
+of row b lives at pool block ``block_tables[b, s // blk]``, offset
+``s % blk``. A wrapper given CPU tensors computes the plain version;
 given CUDA tensors it launches its kernel or raises.
 """
 from __future__ import annotations
@@ -23,7 +28,7 @@ from repro_torch.kernels.build import load, num_sms
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # launches of the wrapper (bumped only where the kernel is launched)
-LAUNCHES = {"decode_attention": 0}
+LAUNCHES = {"decode_attention": 0, "decode_attention_paged": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -48,6 +53,21 @@ def decode_attention_ref(q, k, v, kv_pos, kv_len, q_pos, *,
     return torch.einsum("bhs,bshd->bhd", p, vv.float()).to(q.dtype)
 
 
+def decode_attention_paged_ref(q, k, v, kv_pos, block_tables, kv_len,
+                               q_pos, *, window: int = 0):
+    """Plain paged version: gather each row's block chain from the pool,
+    then run the contiguous plain version."""
+    b = q.shape[0]
+    blk, kv, hd = k.shape[1], k.shape[2], k.shape[3]
+    nbs = block_tables.shape[1]
+    tab = block_tables.long()
+    gk = k[tab].reshape(b, nbs * blk, kv, hd)
+    gv = v[tab].reshape(b, nbs * blk, kv, hd)
+    gpos = kv_pos[tab].reshape(b, nbs * blk)
+    return decode_attention_ref(q, gk, gv, gpos, kv_len, q_pos,
+                                window=window)
+
+
 @functools.cache
 def _lib():
     """The loaded library with its C signatures declared (once)."""
@@ -55,6 +75,10 @@ def _lib():
     lib.decode_attn_launch.restype = ctypes.c_int
     lib.decode_attn_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.decode_attn_paged_launch.restype = ctypes.c_int
+    lib.decode_attn_paged_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
         + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.decode_attn_workspace.restype = ctypes.c_longlong
     lib.decode_attn_workspace.argtypes = [ctypes.c_int] * 6
@@ -118,4 +142,76 @@ def decode_attention(q, k, v, kv_pos, kv_len, q_pos, *, window: int = 0):
         raise RuntimeError(f"decode_attention: CUDA launch failed with "
                            f"error {rc}")
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def _check_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos):
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("decode_attention_paged: q (B, H, hd), k/v "
+                         "(NB, blk, KV, hd)")
+    b, h, hd = q.shape
+    nb, blk, kvh = k.shape[0], k.shape[1], k.shape[2]
+    if k.shape[3] != hd or h % kvh:
+        raise ValueError(f"decode_attention_paged: q {tuple(q.shape)} vs "
+                         f"k {tuple(k.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("decode_attention_paged: q/k/v must share float32 "
+                        "or bfloat16")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError("decode_attention_paged: block_tables (B, nbs)")
+    if tuple(kv_pos.shape) != (nb, blk) or tuple(kv_len.shape) != (b,) \
+            or tuple(q_pos.shape) != (b,):
+        raise ValueError("decode_attention_paged: kv_pos (NB, blk), "
+                         "kv_len/q_pos (B,)")
+    for t in (kv_pos, block_tables, kv_len, q_pos):
+        if t.dtype != torch.int32:
+            raise TypeError("decode_attention_paged: tables, positions and "
+                            "lengths are int32")
+    for t in (q, k, v, kv_pos, block_tables, kv_len, q_pos):
+        if t.device != q.device:
+            raise ValueError("decode_attention_paged: tensors on different "
+                             "devices")
+        if not t.is_contiguous():
+            raise ValueError("decode_attention_paged: inputs must be "
+                             "contiguous")
+
+
+def decode_attention_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos, *,
+                           window: int = 0):
+    """(B, H, hd) flash-decoding output over the paged pool; CUDA tensors
+    launch the kernel. Every table entry must name a pool block in
+    [0, NB): the kernel reads all nbs * blk lanes of every row."""
+    if q.device.type == "cpu":
+        return decode_attention_paged_ref(q, k, v, kv_pos, block_tables,
+                                          kv_len, q_pos, window=window)
+    _check_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos)
+    b, h, hd = q.shape
+    blk, kvh = k.shape[1], k.shape[2]
+    nbs = block_tables.shape[1]
+    lib = _lib()
+    max_width = lib.decode_attn_max_group_width()
+    if (h // kvh) * hd > max_width:
+        raise ValueError(f"decode_attention_paged: (H/KV)*hd = "
+                         f"{(h // kvh) * hd} exceeds the kernel's "
+                         f"{max_width}")
+    if nbs * blk == 0:
+        raise ValueError("decode_attention_paged: rows have no slots")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    sms = num_sms(q.device)
+    work = torch.empty(
+        (lib.decode_attn_workspace(b, h, kvh, nbs * blk, hd, sms),),
+        dtype=torch.float32, device=q.device)
+    aligned = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.decode_attn_paged_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_pos.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(),
+        q_pos.data_ptr(), out.data_ptr(), work.data_ptr(), b, h, kvh, blk,
+        nbs, hd, int(window), 1.0 / math.sqrt(hd), aligned, sms, stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention_paged: CUDA launch failed "
+                           f"with error {rc}")
+    LAUNCHES["decode_attention_paged"] += 1
     return out

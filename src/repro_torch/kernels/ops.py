@@ -59,3 +59,17 @@ def decode_attention_impl(q, k, v, kv_pos, kv_len, q_pos, *, window: int,
                                                 q_pos, window=window)
     return decode_attn.decode_attention(q.contiguous(), k, v, kv_pos,
                                         kv_len, q_pos, window=window)
+
+
+def decode_attention_paged_impl(q, k, v, kv_pos, block_tables, kv_len,
+                                q_pos, *, window: int, impl: str):
+    """Single-token decode attention against the paged GLOBAL block pool
+    through per-row block tables: q (B, H, hd); k/v (NB, blk, KV, hd);
+    kv_pos (NB, blk); block_tables (B, nbs) int32; kv_len/q_pos (B,).
+    Returns (B, H, hd)."""
+    if not use_kernel(impl, q):
+        return decode_attn.decode_attention_paged_ref(
+            q, k, v, kv_pos, block_tables, kv_len, q_pos, window=window)
+    return decode_attn.decode_attention_paged(
+        q.contiguous(), k, v, kv_pos, block_tables, kv_len, q_pos,
+        window=window)

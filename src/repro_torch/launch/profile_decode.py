@@ -1,24 +1,42 @@
 """Where a serving decode step spends its time on the CUDA card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_decode
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        [--kv contiguous,paged]
 
 Serves the same traffic as ``chip_smoke.py``'s full-width phase
 (mixtral-8x7b at its published widths, depth cut to ``--layers``, bf16,
 random seeded weights, ``MoElessController`` attached, 8 slots, 12
 requests with prompts of 128/256/384/512 tokens and 16/32/48 new
-tokens, all arriving at t=0) and traces ``--steps`` batched decode
-steps with ``torch.profiler`` once the pool is full, after timing as
-many steps without it. Prints, per decode step: wall time with and
-without the profiler, device busy time (the sum of kernel times; one
-stream, so kernels do not overlap), the device's idle share of the
-unprofiled step, the host time in the model call and in the control
-plane, and the kernels by device time. Needs a CUDA card.
+tokens, all arriving at t=0) through one engine per KV layout named in
+``--kv``: ``contiguous`` (the slot cache, solo prefill) and ``paged``
+(16-token blocks, 256-token chunked prefill, prefix cache). The
+engines share the weights and live in one process. Once every slot of
+each decodes, each layout's next ``--steps`` steps are traced with
+``torch.profiler`` and one more runs under
+``torch.cuda.set_sync_debug_mode``; then the engines take turns, one
+step each, until the first runs out of work. A round counts where every
+engine's step was decode-only at 8 slots; alternating step by step puts
+host drift into every layout alike.
+
+Prints, per layout: the wall time of the counted steps, the host time in
+the model call and in the control plane (medians), the CPU time of the
+calling thread and of the whole process per step (means: those clocks
+tick coarsely; a process share above the thread's means other threads
+were running), the median paired
+difference against the first layout, and from the traced steps the
+device busy time (one stream, so kernels do not overlap), the device's
+idle share of the untraced step, the kernels by device time, the host
+operators by their own host time, and the call sites that block the
+host on the device. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import subprocess
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -36,37 +54,33 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv", default="contiguous",
+                    help="comma-separated KV layouts: contiguous, paged")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ServingSpec, get_config
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import MoElessController, ServingEngine
     from repro_torch.serving.scheduler import GenRequest
 
+    specs = {"contiguous": ServingSpec(),
+             "paged": ServingSpec(kv="paged", kv_block=16,
+                                  prefill_chunk=256, prefix_cache=True)}
+    layouts = args.kv.split(",")
+    if not layouts or any(k not in specs for k in layouts):
+        raise SystemExit(f"profile_decode: --kv takes {', '.join(specs)}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     full = get_config("mixtral-8x7b")
     cfg = full.with_(num_layers=args.layers)
     params = init_params(cfg, seed=args.seed, device="cuda")
-    ctrl = MoElessController(cfg, num_devices=8)
-    engine = ServingEngine(cfg, params, max_len=512 + 48 + 1,
-                           controller=ctrl)
-    rng = np.random.default_rng(args.seed)
     lens, gens = (128, 256, 384, 512), (16, 32, 48)
-    reqs = [GenRequest(rid=i, arrival=0.0,
-                       prompt=rng.integers(0, cfg.vocab_size,
-                                           size=lens[i % 4], dtype=np.int32),
-                       max_new_tokens=gens[i % 3]) for i in range(12)]
 
-    # host seconds spent in the model call (enqueueing its kernels) and
-    # in the control plane (its one device->host sync included)
-    host = {"model_call": 0.0, "control_plane": 0.0}
-
-    def timed(name, fn):
+    def timed(host, name, fn):
         def run(*a, **k):
             t = time.perf_counter()
             try:
@@ -75,57 +89,139 @@ def main(argv=None) -> int:
                 host[name] += time.perf_counter() - t
         return run
 
-    engine._step = timed("model_call", engine._step)
-    ctrl.step = timed("control_plane", ctrl.step)
-    engine.start(num_slots=8)
-    for r in reqs:
-        engine.submit(r)
-    # warm up until every slot decodes, then time `steps` iterations
-    # without and `steps` with the profiler; the shortest request ends
-    # after 15 decode steps, so both windows are decode-only at 8 slots
-    sess = engine._session
-    while len(sess.sched.running) < 8 or sess.iters < 2:
-        engine.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        engine.step()
-    torch.cuda.synchronize()
-    wall_plain = (time.perf_counter() - t0) / args.steps
-    host.update(model_call=0.0, control_plane=0.0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            engine.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / args.steps
-    host = {k: v / args.steps * 1e3 for k, v in host.items()}
-    engine.run()
-    engine.close()
+    # host seconds spent in the model call (enqueueing its kernels) and
+    # in the control plane (its one device->host sync included)
+    engines, hosts = {}, {}
+    for kv in layouts:
+        ctrl = MoElessController(cfg, num_devices=8)
+        engine = ServingEngine(cfg, params, max_len=512 + 48 + 1,
+                               controller=ctrl, serving=specs[kv])
+        host = hosts[kv] = {"model_call": 0.0, "control_plane": 0.0}
+        engine._step = timed(host, "model_call", engine._step)
+        ctrl.step = timed(host, "control_plane", ctrl.step)
+        rng = np.random.default_rng(args.seed)
+        engine.start(num_slots=8)
+        for i in range(12):
+            engine.submit(GenRequest(
+                rid=i, arrival=0.0, max_new_tokens=gens[i % 3],
+                prompt=rng.integers(0, cfg.vocab_size, size=lens[i % 4],
+                                    dtype=np.int32)))
+        engines[kv] = engine
 
-    kern = sorted(((e.key, _device_us(e) / args.steps / 1e3)
-                   for e in prof.key_averages()
-                   if "cuda" in str(getattr(e, "device_type", "")).lower()
-                   and _device_us(e) > 0), key=lambda kv: -kv[1])
-    busy = sum(ms for _, ms in kern)
+    def prefilling(sess):   # chunked loop: a slot still feeding its prompt
+        return any(sess.kv.lengths[s] < sess.plen[s]
+                   for s in sess.sched.running)
+
+    def decode_only(sess):
+        return len(sess.sched.running) == 8 and not prefilling(sess)
+
+    # warm up until every slot decodes; the shortest request ends after
+    # 15 decode steps, so the traced and sync-checked steps are
+    # decode-only at 8 slots
+    for kv, engine in engines.items():
+        sess = engine._session
+        while len(sess.sched.running) < 8 or sess.iters < 2 \
+                or prefilling(sess):
+            engine.step()
+    torch.cuda.synchronize()
+    traces, syncs = {}, {}
+    for kv, engine in engines.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                engine.step()
+            torch.cuda.synchronize()
+        traces[kv] = (prof, (time.perf_counter() - t0) / args.steps)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                engine.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs[kv] = collections.Counter(
+            f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message))
+
+    # the engines take turns, one step each; a round counts where every
+    # step was decode-only at 8 slots (no admission, no prompt chunk)
+    rows = {kv: [] for kv in layouts}
+    while all(not e._session.sched.done for e in engines.values()):
+        rnd = {}
+        for kv, engine in engines.items():
+            sess = engine._session
+            ok = decode_only(sess)
+            prefills = sess.prefills
+            hosts[kv].update(model_call=0.0, control_plane=0.0)
+            c0, m0 = time.process_time(), time.thread_time()
+            t0 = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rnd[kv] = (ok and sess.prefills == prefills,
+                       (wall, hosts[kv]["model_call"],
+                        hosts[kv]["control_plane"],
+                        time.thread_time() - m0,
+                        time.process_time() - c0))
+        if all(ok for ok, _ in rnd.values()):
+            for kv, (_, row) in rnd.items():
+                rows[kv].append(row)
+    for engine in engines.values():
+        engine.run()
+        engine.close()
+
     print(f"card: {card}")
     print(f"mixtral-8x7b, {cfg.num_layers} of {full.num_layers} layers, "
-          f"bf16, 8 slots all decoding; {args.steps} decode steps traced")
-    print(f"per decode step: wall {wall_plain * 1e3:.3f} ms (profiler off), "
-          f"{wall * 1e3:.3f} ms (profiler on); host (profiler on) "
-          f"in model call "
-          f"{host['model_call']:.3f} ms, in control plane "
-          f"{host['control_plane']:.3f} ms")
-    if busy == 0.0:
-        print("device busy: not measured (the profiler saw no kernels)")
+          f"{cfg.dtype}, 8 slots all decoding; layouts {', '.join(layouts)} in "
+          f"one process, taking turns step by step; {len(rows[layouts[0]])}"
+          f" rounds counted, {args.steps} steps traced per layout")
+    if not rows[layouts[0]]:
+        print("no round was decode-only in every layout")
         return 1
-    print(f"device busy {busy:.3f} ms per step ({len(kern)} kernel names); "
-          f"idle share {max(0.0, 1 - busy / (wall_plain * 1e3)):.3f} of the "
-          f"unprofiled step")
-    for name, ms in kern[:15]:
-        print(f"  {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
-    return 0
+    base = np.asarray(rows[layouts[0]]) * 1e3
+    status = 0
+    for kv in layouts:
+        r = np.asarray(rows[kv]) * 1e3
+        wall, model, ctl = np.median(r[:, :3], axis=0)
+        thread, proc = r[:, 3:].mean(axis=0)   # CPU clocks tick coarsely
+        print(f"== kv={kv}")
+        print(f"per decode step (median of the counted rounds): wall "
+              f"{wall:.3f} ms; host in model call {model:.3f} ms, in "
+              f"control plane {ctl:.3f} ms; CPU time (mean) of this "
+              f"thread {thread:.3f} ms, of the process {proc:.3f} ms")
+        if kv != layouts[0]:
+            d = r[:, 0] - base[:, 0]
+            print(f"wall minus kv={layouts[0]}, same round: median "
+                  f"{np.median(d):+.3f} ms, p10 {np.percentile(d, 10):+.3f},"
+                  f" p90 {np.percentile(d, 90):+.3f}")
+        prof, wall_on = traces[kv]
+        print(f"traced steps: wall {wall_on * 1e3:.3f} ms (profiler on)")
+        print(f"host-blocking calls in one step: "
+              f"{dict(syncs[kv].most_common()) or 'none'}")
+        kern = sorted(((e.key, _device_us(e) / args.steps / 1e3)
+                       for e in prof.key_averages()
+                       if "cuda" in str(getattr(e, "device_type",
+                                                "")).lower()
+                       and _device_us(e) > 0), key=lambda kv_: -kv_[1])
+        busy = sum(ms for _, ms in kern)
+        if busy == 0.0:
+            print("device busy: not measured (the profiler saw no kernels)")
+            status = 1
+            continue
+        print(f"device busy {busy:.3f} ms per step ({len(kern)} kernel "
+              f"names); idle share {max(0.0, 1 - busy / wall):.3f} of the "
+              f"untraced step")
+        for name, ms in kern[:15]:
+            print(f"  {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+        ops = sorted(((e.key, e.count / args.steps,
+                       e.self_cpu_time_total / args.steps / 1e3)
+                      for e in prof.key_averages()
+                      if e.self_cpu_time_total > 0), key=lambda t: -t[2])
+        print("host operators by own host time per step (profiler on):")
+        for name, calls, ms in ops[:12]:
+            print(f"  {ms:9.4f} ms  {calls:7.1f} calls  {name[:80]}")
+    return status
 
 
 if __name__ == "__main__":

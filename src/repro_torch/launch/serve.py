@@ -5,6 +5,10 @@ control plane attached, on the CUDA card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --requests 8 --prompt-len 32 --gen 16
 
+  # paged KV, chunked prefill and the radix prefix cache, on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --kv-block 16 --prefill-chunk 8 --prefix-cache
+
 The model is the architecture's reduced (smoke) config with random
 weights from ``--seed``.
 """
@@ -15,7 +19,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ServingSpec, get_config
 from repro_torch.kernels import IMPLS
 
 
@@ -33,6 +37,16 @@ def main(argv=None):
     ap.add_argument("--no-moeless", action="store_true")
     ap.add_argument("--impl", default="auto", choices=IMPLS,
                     help="kernel backend (repro_torch.kernels.ops)")
+    ap.add_argument("--kv-block", type=int, default=0,
+                    help="paged-KV block size in tokens (0 = contiguous "
+                         "per-slot KV layout)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="fold prompt prefill into the batched decode "
+                         "step, <= N prompt tokens per request per "
+                         "iteration (0 = solo prefill; needs --kv-block)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prompt-prefix sharing over the paged "
+                         "pool (needs --prefill-chunk)")
     ap.add_argument("--capacity-factor", type=float, default=0.0,
                     help="override the MoE capacity factor (0 = arch "
                          "default)")
@@ -45,6 +59,17 @@ def main(argv=None):
     from repro_torch.serving.scheduler import GenRequest
 
     cfg = get_config(args.arch, smoke=True)
+    if args.prefill_chunk and not args.kv_block:
+        raise SystemExit("--prefill-chunk needs --kv-block (chunked "
+                         "prefill runs over the paged pool)")
+    if args.prefix_cache and not args.prefill_chunk:
+        raise SystemExit("--prefix-cache needs --prefill-chunk (partial "
+                         "prefix hits resume mid-prompt)")
+    if args.kv_block:
+        cfg = cfg.with_(serving=ServingSpec(
+            kv="paged", kv_block=args.kv_block,
+            prefill_chunk=args.prefill_chunk,
+            prefix_cache=args.prefix_cache))
     if args.capacity_factor > 0 and cfg.is_moe:
         cfg = cfg.with_(moe=dataclasses.replace(
             cfg.moe, capacity_factor=args.capacity_factor))
@@ -68,7 +93,13 @@ def main(argv=None):
     s = res.summary()
     print(f"served {args.requests} requests x {args.gen} tokens "
           f"with {cfg.name} on {params['embed'].device} "
-          f"(occupancy {res.mean_batch_occupancy:.1f}, greedy)")
+          f"(occupancy {res.mean_batch_occupancy:.1f}, greedy, "
+          f"kv={cfg.serving.kv})")
+    kv = engine._session.kv
+    if getattr(kv, "prefix", None) is not None:
+        print(f"  prefix cache: hits={kv.prefix.hits} "
+              f"tokens_saved={kv.prefix.tokens_saved} "
+              f"cow_blocks={kv.cow_blocks}")
     print(f"  TTFT p50={s['ttft']['p50']*1e3:.2f} ms  "
           f"TPOT p50={s['tpot']['p50']*1e3:.3f} ms  "
           f"E2E p50={s['e2e']['p50']*1e3:.1f} ms (wall clock)")

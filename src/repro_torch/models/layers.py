@@ -1,8 +1,10 @@
 """Core layers: norms, rotary embeddings, grouped-query attention
-(chunked online softmax, and decode against a contiguous ring cache).
+(chunked online softmax, and decode against a contiguous ring cache or
+a paged block pool).
 
 Parameters are plain dicts of tensors. Shape conventions:
 x: (B, S, D)   q/k/v: (B, S, H, hd)   cache: (B, Smax, KV, hd)
+paged pool: (NB, block, KV, hd) addressed by block tables (B, nbs)
 """
 from __future__ import annotations
 
@@ -138,15 +140,24 @@ def attention_block(p, cfg, x, positions, *, cache=None, cache_len=None,
     reference returns a functionally updated copy); the returned
     new_cache holds the same tensors.
 
+    With `block_tables` (B, nbs) int32 the cache is a PAGED pool instead:
+    k/v/pos are (NB, block, ...) global block pools and row b's positions
+    [i*block, (i+1)*block) live in pool block ``block_tables[b, i]``.
+    `new_counts` (B,) gives how many of this step's S tokens are real
+    per row (default 1): row b writes its first ``new_counts[b]`` tokens
+    at positions ``cache_len[b] + j`` through the table and sends the
+    rest to reserved trash block 0, offset 0. Those trash writes collide
+    (which one lands is unspecified); every lane that reads block 0 is
+    masked, except in a fully hidden row, whose output is ignored.
+    Attention then reads each row's dense (nbs*block)-wide view through
+    the table; lanes >= cache_len + new_counts are masked with the same
+    NEG_INF as the contiguous path.
+
     `impl` selects the backend of the single-new-token decode hot spot
     (kernels.ops): on CUDA tensors with impl auto/cuda and S_new == 1
-    the decode-attention kernel runs; otherwise the chunked attention
-    does. Returns (out, new_cache).
+    the decode-attention kernel (contiguous or paged) runs; otherwise
+    the chunked attention does. Returns (out, new_cache).
     """
-    if block_tables is not None:
-        raise NotImplementedError(
-            "paged KV (block tables) arrives with the paged-KV slice of "
-            "the PyTorch port; use serving.kv='contiguous'")
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = x @ p["wq"]
@@ -172,6 +183,10 @@ def attention_block(p, cfg, x, positions, *, cache=None, cache_len=None,
     if cache is None:
         out = attention(q, k, v, pos1, pos1, causal=True, window=window)
         new_cache = None
+    elif block_tables is not None:
+        out = _paged_attention(q, k, v, pos1, cache, cache_len,
+                               block_tables, new_counts, window, impl)
+        new_cache = cache
     else:
         ck, cv, kv_pos = cache["k"], cache["v"], cache["pos"]
         smax = ck.shape[1]
@@ -215,6 +230,46 @@ def attention_block(p, cfg, x, positions, *, cache=None, cache_len=None,
     return out.to(x.dtype), new_cache
 
 
+def _paged_attention(q, k, v, pos1, cache, cache_len, block_tables,
+                     new_counts, window: int, impl: str):
+    """Write this step's k/v through the block tables into the pool (in
+    place) and attend over each row's chain. Returns (B, S, H, hd)."""
+    b, s = q.shape[:2]
+    kvh, hd = k.shape[2], k.shape[3]
+    ck, cv, kv_pos = cache["k"], cache["v"], cache["pos"]
+    blk = ck.shape[1]
+    nbs = block_tables.shape[1]
+    dev = q.device
+    cl = torch.as_tensor(cache_len, dtype=torch.int32, device=dev) \
+        .expand(b)
+    n_new = torch.ones((b,), dtype=torch.int32, device=dev) \
+        if new_counts is None else new_counts.to(torch.int32)
+    j = torch.arange(s, dtype=torch.int32, device=dev)[None]    # (1, s)
+    wpos = cl[:, None] + j                                      # (B, s)
+    valid = j < n_new[:, None]
+    tab = block_tables.long()
+    bidx = torch.gather(tab, 1, torch.clamp(wpos // blk, 0, nbs - 1).long())
+    bidx = torch.where(valid, bidx, 0)
+    off = torch.where(valid, wpos % blk, 0).long()
+    ck[bidx, off] = k.to(ck.dtype)
+    cv[bidx, off] = v.to(cv.dtype)
+    kv_pos[bidx, off] = pos1.to(torch.int32)
+    n_valid = torch.clamp(cl + n_new, max=nbs * blk).to(torch.int32)
+    from repro_torch.kernels import ops as KOPS
+    if s == 1 and KOPS.use_kernel(impl, q):
+        return KOPS.decode_attention_paged_impl(
+            q[:, 0], ck, cv, kv_pos, block_tables, n_valid, pos1[:, 0],
+            window=window, impl=impl)[:, None]
+    # each row's dense view: block i of its table holds positions
+    # [i*blk, (i+1)*blk), so the view is position-ordered and masks
+    # exactly like the contiguous ring
+    gk = ck[tab].reshape(b, nbs * blk, kvh, hd)
+    gv = cv[tab].reshape(b, nbs * blk, kvh, hd)
+    gpos = kv_pos[tab].reshape(b, nbs * blk)
+    return attention(q, gk, gv, pos1, gpos, causal=True, window=window,
+                     kv_len=n_valid)
+
+
 def init_attn_cache(cfg, batch, max_len: int, dtype, device):
     """Empty contiguous KV cache of one attention sublayer. `batch` is the
     leading shape: an int, or (periods, batch) for a cache stacked over
@@ -228,4 +283,24 @@ def init_attn_cache(cfg, batch, max_len: int, dtype, device):
                          device=device),
         "pos": torch.full((*lead, max_len), -(10 ** 9), dtype=torch.int32,
                           device=device),
+    }
+
+
+def init_paged_attn_cache(cfg, lead, num_blocks: int, block: int, dtype,
+                          device):
+    """Global paged KV pool of one attention sublayer: `num_blocks`
+    blocks of `block` tokens shared by every slot through block tables
+    (block 0 is the serving layer's reserved trash target). `lead` is
+    the leading shape (an int or a tuple, e.g. the layer periods).
+    Positions start at the contiguous ring's -10**9 sentinel, so
+    unwritten lanes are masked identically."""
+    lead = (lead,) if isinstance(lead, int) else tuple(lead)
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((*lead, num_blocks, block, kvh, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((*lead, num_blocks, block, kvh, hd), dtype=dtype,
+                         device=device),
+        "pos": torch.full((*lead, num_blocks, block), -(10 ** 9),
+                          dtype=torch.int32, device=device),
     }

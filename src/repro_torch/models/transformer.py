@@ -9,6 +9,8 @@ reference's weights convert leaf for leaf (``repro_torch.params``).
 Entry points:
   init_params(cfg, seed, device)             -> params
   init_cache(cfg, params, batch, max_len)    -> cache
+  init_paged_cache(cfg, params, num_blocks, block)
+                                             -> paged cache
   decode_step(cfg, params, batch, cache, cache_len)
                                              -> (logits, cache, metrics)
 """
@@ -147,7 +149,7 @@ def _period(tree, i: int):
 
 def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     cache_len=None, window=0, collect: bool = False,
-                    token_mask=None):
+                    token_mask=None, block_tables=None, new_counts=None):
     """One sublayer (attention + ffn) with residuals. The layer's cache
     slice is written in place. Returns (x, metrics)."""
     metrics = {}
@@ -155,7 +157,8 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
     y, _ = L.attention_block(p["attn"], cfg, h, positions,
                              cache=None if cache is None else cache["attn"],
                              cache_len=cache_len, window=window,
-                             impl=cfg.impl)
+                             impl=cfg.impl, block_tables=block_tables,
+                             new_counts=new_counts)
     x = x + y
     if sub.ffn != "none":
         h = L.norm(x, p["norm2"], cfg.norm)
@@ -202,6 +205,19 @@ def init_cache(cfg, params, batch: int, max_len: int):
             for _ in pattern]
 
 
+def init_paged_cache(cfg, params, num_blocks: int, block: int):
+    """Paged-pool cache tree: the same per-period stacking as
+    ``init_cache``, but each attention sublayer holds ONE global block
+    pool (periods, num_blocks, block, KV, hd) addressed by per-row block
+    tables instead of per-slot rows."""
+    pattern = layer_pattern(cfg)
+    np_ = cfg.num_layers // len(pattern)
+    return [{"attn": L.init_paged_attn_cache(cfg, np_, num_blocks, block,
+                                             getattr(torch, cfg.dtype),
+                                             params["embed"].device)}
+            for _ in pattern]
+
+
 def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
                 collect: bool = False):
     """One decode iteration: batch['tokens'] is (B, S_new) — S_new=1 for
@@ -209,11 +225,13 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     (cache_len=0). `cache_len` is an int (uniform batch) or a (B,) int32
     tensor of per-row cache depths (the continuous-batching slot pool).
     `batch` may carry 'token_mask' (B, S_new) or 'active' (B,) to exclude
-    tokens from the expert-load metrics. The cache is updated in place
-    and returned. Returns (logits (B,S_new,V), cache, metrics)."""
-    if batch.get("block_tables") is not None:
-        raise NotImplementedError("paged KV arrives with the paged-KV "
-                                  "slice of the PyTorch port")
+    tokens from the expert-load metrics. With a paged cache, `batch`
+    carries 'block_tables' (B, nbs) int32 and 'new_counts' (B,) — the
+    tokens each row really writes this step (a chunk for prefilling
+    rows, 1 for decoding rows, 0 for inactive rows); without a
+    'token_mask' the mask is built from 'new_counts'. The cache is
+    updated in place and returned. Returns (logits (B,S_new,V), cache,
+    metrics)."""
     pattern = layer_pattern(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
@@ -230,6 +248,11 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     token_mask = batch.get("token_mask")
     if token_mask is None and "active" in batch:
         token_mask = batch["active"][:, None].expand(bsz, s_new)
+    block_tables = batch.get("block_tables")
+    new_counts = batch.get("new_counts")
+    if block_tables is not None and new_counts is not None and \
+            token_mask is None:
+        token_mask = steps[None] < new_counts.to(torch.int32)[:, None]
     np_ = cfg.num_layers // len(pattern)
     ms = []
     for i in range(np_):
@@ -237,7 +260,9 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
             x, m = _apply_sublayer(cfg, sub, _period(params["layers"][j], i),
                                    x, pos, cache=_period(cache[j], i),
                                    cache_len=cache_len, window=window,
-                                   collect=collect, token_mask=token_mask)
+                                   collect=collect, token_mask=token_mask,
+                                   block_tables=block_tables,
+                                   new_counts=new_counts)
             ms.append(m)
     x = L.norm(x, params["final_norm"], cfg.norm)
     metrics = {}

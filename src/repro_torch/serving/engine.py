@@ -10,10 +10,14 @@ attached.
     engine.cancel(h)         # mid-decode: the KV slot is recycled
     engine.serve(requests)   # trace replay = thin driver over the above
 
-Requests are prefilled alone, spliced into a free slot of the contiguous
-KV pool (``serving.kv.SlotKVCache``), decoded together in ONE batched
-step with per-slot cache lengths, and leave on EOS / stop sequence /
-token budget / cancellation, freeing the slot for the next arrival.
+Requests are prefilled alone, spliced into a free slot of the KV pool
+(``serving.kv``: contiguous ``SlotKVCache`` or paged ``PagedKVCache``),
+decoded together in ONE batched step with per-slot cache lengths, and
+leave on EOS / stop sequence / token budget / cancellation, freeing the
+slot for the next arrival. With ``serving.prefill_chunk > 0`` (paged
+only) admission is table work alone and prompts are fed chunk by chunk
+into the same batched step the decoding slots run (``_step_chunked``),
+optionally sharing prompt prefixes through the radix prefix cache.
 Decoding is greedy (argmax).
 
 Every iteration drives the single control-plane implementation
@@ -25,7 +29,7 @@ does).
 
 Not yet in this package (each raises ``NotImplementedError``): sampling
 with temperature > 0 (sampling slice), the expert runtime (expert-runtime
-slice), paged KV (paged-KV slice) and a device mesh (multi-rank slice).
+slice) and a device mesh (multi-rank slice).
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from repro_torch.core.control import (ControlPlane,  # noqa: F401 (re-export)
 from repro_torch.kernels.ops import resolve_impl
 from repro_torch.models import transformer as T
 from repro_torch.obs.telemetry import NOOP
-from repro_torch.serving.kv import SlotKVCache
+from repro_torch.serving.kv import PagedKVCache, SlotKVCache
 from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                            GenRequest, RequestMetrics,
                                            SamplingParams,
@@ -123,14 +127,27 @@ class _Session:
     scheduler, the serving clock, and the last token of every slot."""
 
     def __init__(self, cfg, params, num_slots: int, max_len: int,
-                 eos_id, control, time_scale: float):
-        self.kv = SlotKVCache(cfg, params, num_slots, max_len)
+                 eos_id, control, time_scale: float, serving):
+        if serving.kv == "paged":
+            self.kv = PagedKVCache(cfg, params, num_slots, max_len,
+                                   block=serving.kv_block,
+                                   num_blocks=serving.kv_blocks,
+                                   prefix_cache=serving.prefix_cache,
+                                   chunked=serving.prefill_chunk > 0)
+        else:
+            self.kv = SlotKVCache(cfg, params, num_slots, max_len)
         self.sched = ContinuousBatchingScheduler(self.kv, eos_id=eos_id)
         self.control = control
         self.runtime = None
         self.time_scale = time_scale
         self.now = 0.0
         self.cur = np.zeros(self.kv.rows, np.int64)   # last token per slot
+        # chunked prefill: per-slot prompt (fed chunk by chunk into the
+        # batched step) and its length; a slot is mid-prefill while
+        # kv.lengths[slot] < plen[slot]
+        self.plen = np.zeros(self.kv.rows, np.int32)
+        self.prompts: dict[int, np.ndarray] = {}
+        self.cow_seen = 0              # kv.cow_blocks already counted
         self.occupancy: list[int] = []
         self.iters = 0
         self.prefills = 0
@@ -175,11 +192,16 @@ class ServingEngine:
                                    or spec.prefix_cache):
             raise ValueError("prefill_chunk / prefix_cache require "
                              "serving.kv='paged'")
-        if spec.kv == "paged":
-            raise NotImplementedError(
-                "serving.kv='paged' arrives with the paged-KV slice of the "
-                "PyTorch port")
-        T.layer_pattern(cfg)     # rejects stacks this port cannot run yet
+        if spec.prefix_cache and spec.prefill_chunk <= 0:
+            raise ValueError(
+                "prefix_cache requires prefill_chunk > 0 — the solo "
+                "splice path always recomputes the whole prompt, so a "
+                "prefix hit could never skip work")
+        pattern = T.layer_pattern(cfg)  # rejects stacks not ported yet
+        if spec.kv == "paged" and any(sub.mixer != "attn"
+                                      for sub in pattern):
+            raise ValueError("serving.kv='paged' needs an attention-only "
+                             "decoder (no SSM state, no enc-dec)")
         self.serving = spec
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
@@ -261,7 +283,7 @@ class ServingEngine:
         with self._lock:
             self._session = _Session(self.cfg, self.params, num_slots,
                                      self.max_len, eos_id, control,
-                                     time_scale)
+                                     time_scale, self.serving)
 
     def close(self) -> None:
         with self._lock:
@@ -351,6 +373,8 @@ class ServingEngine:
                 sess.now = max(sess.now, nxt)
         collect = self._collect
         tel = self.telemetry
+        if self.serving.prefill_chunk > 0:
+            return self._step_chunked(sess, collect, events)
         # admission: prefill every arrived request that fits a slot
         while (req := sched.pop_admissible(sess.now)) is not None:
             t0 = time.perf_counter()
@@ -401,9 +425,15 @@ class ServingEngine:
         # over every slot
         t0 = time.perf_counter()
         t_clock0 = sess.now
-        lengths, active = kv.step_lengths()
-        batch = {"tokens": torch.from_numpy(sess.cur[:, None].copy())
-                 .to(self.device), "active": active}
+        tokens = torch.from_numpy(sess.cur[:, None].copy()).to(self.device)
+        if isinstance(kv, PagedKVCache):
+            lengths, active, tables = kv.step_state()
+            batch = {"tokens": tokens, "active": active,
+                     "block_tables": tables,
+                     "new_counts": active.to(torch.int32)}
+        else:
+            lengths, active = kv.step_lengths()
+            batch = {"tokens": tokens, "active": active}
         logits, kv.cache, metrics = self._step(batch, kv.cache, lengths,
                                                collect)
         t_sync = time.perf_counter()
@@ -448,6 +478,143 @@ class ServingEngine:
             events.append(TokenEvent(req.rid, tok, done))
             if done and tel.enabled:
                 self._finish_req(req, sess.now)
+        if tel.enabled and isinstance(kv, PagedKVCache):
+            tel.kv_blocks_used.set(kv.used_blocks)
+            tel.kv_blocks_free.set(kv.free_blocks)
+        return events
+
+    def _step_chunked(self, sess, collect, events) -> list[TokenEvent]:
+        """Chunked-prefill iteration (paged KV only): admission is table
+        work alone — ``kv.begin`` matches the prefix cache, refcount-
+        shares the matched blocks, and reserves the rest; NO solo model
+        call. Each mid-prefill slot then contributes up to
+        ``prefill_chunk`` prompt tokens per iteration to the SAME
+        batched step the decoding slots run, as extra masked lanes — the
+        decode batch never stalls behind a long prompt. A slot's first
+        output token is taken from the logits of its final prompt
+        position in the step its last chunk lands."""
+        sched, kv = sess.sched, sess.kv
+        tel = self.telemetry
+        chunk = self.serving.prefill_chunk
+        while (req := sched.pop_admissible(sess.now)) is not None:
+            slot = kv.alloc()
+            hit = kv.begin(slot, req.prompt, req.max_new_tokens,
+                           owner=req.rid)
+            req.prefix_hit_len = hit
+            prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+            sess.prompts[slot] = prompt
+            sess.plen[slot] = prompt.shape[0]
+            sched.start(req, slot, sess.now)
+            sess.prefills += 1
+            if tel.enabled:
+                tel.sched_admitted.inc()
+                tel.sched_queue_delay.observe(
+                    max(sess.now - req.arrival, 0.0))
+                if hit:
+                    tel.kv_prefix_hits.inc()
+                    tel.kv_prefix_tokens_saved.inc(hit)
+                cow = kv.cow_blocks - sess.cow_seen
+                if cow:
+                    tel.kv_cow_copies.inc(cow)
+                if tel.tracing:
+                    tel.span(f"{self.name}/req{req.rid}", "queue",
+                             req.arrival, sess.now,
+                             args={"prefix_hit_len": hit})
+            sess.cow_seen = kv.cow_blocks
+        if tel.enabled:
+            tel.sched_pending.set(len(sched.pending))
+        if not sched.running:
+            return events
+        t0 = time.perf_counter()
+        t_clock0 = sess.now
+        rows = kv.rows
+        counts = np.zeros(rows, np.int32)
+        first_rows: set[int] = set()   # prompt completes this step
+        any_prefill = False
+        for slot in sched.running:
+            left = int(sess.plen[slot]) - int(kv.lengths[slot])
+            if left > 0:
+                any_prefill = True
+                counts[slot] = min(chunk, left)
+                if counts[slot] == left:
+                    first_rows.add(slot)
+            else:
+                counts[slot] = 1
+        s_new = chunk if any_prefill else 1
+        tokens = np.zeros((rows, s_new), np.int64)
+        for slot in sched.running:
+            c = int(counts[slot])
+            pos = int(kv.lengths[slot])
+            if pos < sess.plen[slot]:
+                tokens[slot, :c] = sess.prompts[slot][pos:pos + c]
+            else:
+                tokens[slot, 0] = sess.cur[slot]
+        lengths, active, tables = kv.step_state()
+        counts_t = torch.from_numpy(counts).to(self.device)
+        mask = torch.arange(s_new, dtype=torch.int32,
+                            device=self.device)[None] < counts_t[:, None]
+        batch = {"tokens": torch.from_numpy(tokens).to(self.device),
+                 "active": active, "token_mask": mask,
+                 "block_tables": tables, "new_counts": counts_t}
+        phase = "mixed" if any_prefill else "decode"
+        logits, kv.cache, metrics = self._step(batch, kv.cache, lengths,
+                                               collect)
+        t_sync = time.perf_counter()
+        # each row's next-token logits sit at its LAST written position
+        idx = (counts_t - 1).clamp(min=0).long()
+        last = logits[torch.arange(rows, device=self.device), idx]
+        toks = torch.argmax(last, dim=-1).cpu().numpy()
+        sync_s = time.perf_counter() - t_sync
+        dt = None
+        if sess.control is not None and "expert_load" in metrics:
+            out = sess.control.step(
+                sess.now, self._gate_inputs(metrics),
+                metrics["expert_load"], token_mask=mask.reshape(-1),
+                dropped=metrics.get("dropped"), phase=phase)
+            dt = out.latency_s
+        self._drive_controller(metrics, token_mask=mask.reshape(-1))
+        if dt is None:
+            dt = time.perf_counter() - t0
+        sess.now += dt * sess.time_scale
+        sess.iters += 1
+        self.iteration += 1
+        n_active = len(sched.running)
+        sess.occupancy.append(n_active)
+        if tel.enabled:
+            tel.engine_steps.labels(phase=phase).inc()
+            tel.engine_step_seconds.labels(phase=phase).observe(
+                time.perf_counter() - t0)
+            tel.engine_host_sync.observe(sync_s)
+            tel.engine_occupancy.set(n_active)
+            if tel.tracing:
+                tel.span(self.name, "decode_step", t_clock0, sess.now,
+                         args={"occupancy": n_active, "phase": phase})
+        capped = set(kv.advance(counts))
+        emitted = 0
+        for slot in list(sched.running):
+            req = sched.running[slot]
+            if kv.lengths[slot] < sess.plen[slot]:
+                continue                 # still mid-prefill: no token yet
+            tok = int(toks[slot])
+            sess.cur[slot] = tok
+            emitted += 1
+            done = sched.on_token(slot, tok, sess.now)  # TTFT on first
+            if not done and slot in capped:
+                sched.force_finish(slot, sess.now)
+                done = True
+            events.append(TokenEvent(req.rid, tok, done))
+            if tel.enabled and tel.tracing and slot in first_rows:
+                tel.span(f"{self.name}/req{req.rid}", "prefill",
+                         req.t_admitted, sess.now,
+                         args={"prompt_len": int(sess.plen[slot]),
+                               "prefix_hit_len": req.prefix_hit_len})
+                self._marks[req.rid] = sess.now
+            if done and tel.enabled:
+                self._finish_req(req, sess.now)
+        if tel.enabled:
+            tel.engine_tokens.inc(emitted)
+            tel.kv_blocks_used.set(kv.used_blocks)
+            tel.kv_blocks_free.set(kv.free_blocks)
         return events
 
     def _finish_req(self, req: GenRequest, t: float) -> None:

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ServingSpec as JServingSpec
 from repro.configs import get_config as jget_config
 from repro.core.control import MoElessController as JMoElessController
 from repro.models import model as JM
@@ -136,13 +137,22 @@ def test_engine_controller_and_cancel_match_reference():
 
 
 def test_engine_guards():
-    cfg, _, _, tp = _setup(1.25)
+    cfg, jcfg, jp, tp = _setup(1.25)
     with pytest.raises(ValueError):
         ServingEngine(cfg, tp, impl="pallas")
     with pytest.raises(NotImplementedError, match="expert-runtime"):
         ServingEngine(cfg, tp, expert_runtime="on")
-    with pytest.raises(NotImplementedError, match="paged"):
-        ServingEngine(cfg, tp, serving=ServingSpec(kv="paged"))
+    # the reference's serving-knob guards (paged KV itself is served)
+    for bad in (ServingSpec(prefill_chunk=4), ServingSpec(prefix_cache=True),
+                ServingSpec(kv="paged", prefix_cache=True),
+                ServingSpec(kv="ring")):
+        with pytest.raises(ValueError):
+            ServingEngine(cfg, tp, serving=bad)
+        with pytest.raises(ValueError):
+            JServingEngine(jcfg, jp, serving=JServingSpec(
+                **dataclasses.asdict(bad)))
+    assert ServingEngine(cfg, tp, serving=ServingSpec(kv="paged")) \
+        .serving.kv == "paged"
     with pytest.raises(NotImplementedError, match="multi-rank"):
         ServingEngine(cfg, tp, mesh=object())
     eng = ServingEngine(cfg, tp, max_len=16)

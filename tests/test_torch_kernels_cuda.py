@@ -1,7 +1,9 @@
 """PyTorch port, on the card: the hand-written CUDA kernels against their
 plain PyTorch versions at the adversarial shapes (non-tile-aligned
 C/D/F, all-zero and partial group sizes, E=1, GQA groups 1/2/4,
-kv_len < S, wrapped ring positions, window > 0). Every test here skips
+kv_len < S, wrapped ring positions, window > 0; for the paged kernel
+block sizes 1/3/16/32, shuffled tables that share blocks, kv_len = 0
+rows and full rows). Every test here skips
 without a CUDA device; the module imports neither JAX nor the reference
 package, so it also runs where only PyTorch is installed:
 
@@ -108,3 +110,61 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda, dtype):
             DA.decode_attention_ref(q, k, v, pos, kv_len, q_pos,
                                     window=window).float(),
             atol=tol, rtol=tol)
+
+
+# (B, H, KV, hd, blk, nbs, kv_len, window): block sizes 1/3/16/32 (a
+# 32-slot tile spans many blocks, one, or part of one), kv_len = 0 and
+# full rows, a window, hd = 18 (scalar loads)
+PAGED_CASES = [
+    (3, 8, 2, 64, 1, 40, [40, 17, 0], 0),
+    (3, 8, 4, 32, 3, 13, [39, 20, 5], 0),
+    (4, 8, 2, 128, 16, 6, [96, 50, 0, 33], 0),
+    (2, 4, 2, 64, 32, 3, [96, 70], 0),
+    (3, 8, 2, 64, 16, 5, [80, 61, 30], 12),
+    (2, 4, 2, 18, 3, 7, [21, 10], 0),
+]
+
+
+def _paged_case(b, h, kvh, hd, blk, nbs, kv_len, seed=0):
+    """A shuffled pool, also the CPU tests' (test_torch_paged_kv.py):
+    each row's chain is a random choice of pool blocks, rows 0 and 1
+    share their common full prefix blocks, and unassigned table entries
+    point at trash block 0."""
+    rng = np.random.default_rng(seed)
+    nb = 1 + b * nbs
+    kv_len = np.asarray(kv_len, np.int32)
+    free = list(rng.permutation(np.arange(1, nb)))
+    tables = np.zeros((b, nbs), np.int32)
+    kv_pos = rng.integers(-50, 200, (nb, blk)).astype(np.int32)
+    for r in range(b):
+        for i in range(-(-int(kv_len[r]) // blk)):
+            tables[r, i] = free.pop()
+    if b > 1:
+        shared = min(kv_len[0], kv_len[1]) // blk
+        tables[1, :shared] = tables[0, :shared]
+    for r in range(b):
+        for i in range(-(-int(kv_len[r]) // blk)):
+            kv_pos[tables[r, i]] = i * blk + np.arange(blk)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k = rng.standard_normal((nb, blk, kvh, hd)).astype(np.float32)
+    v = rng.standard_normal((nb, blk, kvh, hd)).astype(np.float32)
+    q_pos = np.maximum(kv_len - 1, 0).astype(np.int32)
+    return q, k, v, kv_pos, tables, kv_len, q_pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_paged_kernel_matches_plain_on_card(cuda, dtype):
+    tol = TOL[dtype]
+    for b, h, kvh, hd, blk, nbs, kl, window in PAGED_CASES:
+        q, k, v, pos, tab, kv_len, q_pos = _paged_case(b, h, kvh, hd, blk,
+                                                       nbs, kl)
+        q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v))
+        pos, tab, kv_len, q_pos = (torch.from_numpy(a).to(cuda)
+                                   for a in (pos, tab, kv_len, q_pos))
+        got = DA.decode_attention_paged(q, k, v, pos, tab, kv_len, q_pos,
+                                        window=window)
+        want = DA.decode_attention_paged_ref(q, k, v, pos, tab, kv_len,
+                                             q_pos, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
