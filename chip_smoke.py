@@ -9,7 +9,9 @@ Phases, each fatal on failure:
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main path's decode and prefill shapes (bf16) and at
      adversarial shapes (f32 and bf16), with its time, its bound, the
-     plain version's time and one PyTorch library call's time;
+     plain version's time and one PyTorch library call's time — the
+     int8-weight kernels at the EP slot plane's shapes (64 slots, 16 of
+     them active);
   4. the slice at full width: mixtral-8x7b at its published widths (8 of
      32 layers, bf16, random seeded weights) serving 12 requests through
      ``ServingEngine`` with the MoEless controller attached, counting
@@ -24,11 +26,23 @@ Phases, each fatal on failure:
      that run's launches and timing mixed and decode-only steps; then
      every layer's paged attention sublayer through the kernel against
      the plain path from the same input and pool;
+  4c. the expert runtime on the EP slot plane at full width with int8
+     slot banks: mixtral-8x7b (4 of 32 layers, bf16) serving 12 requests
+     through ``ServingEngine(expert_runtime="on")`` with a session
+     MoEless controller (64 single-buffered slots a layer), counting
+     that run's launches
+     (prefill and decode both through the int8 kernels, none through
+     the unquantized ones), checking the runtime's byte meters, then
+     every layer's EP MoE sublayer through the kernels against the plain
+     path from the same input and tables;
   5. token identity: the mixtral-8x7b smoke config at float32 gives the
      same greedy tokens through the kernels as the plain path on the
      contiguous cache, at its own capacity factor (where tokens are
      dropped) and at a drop-free one, where the paged runs (solo,
-     chunked, prefix-warm) through the kernels give them too.
+     chunked, prefix-warm) through the kernels give them too; with the
+     expert runtime on, the kernels give the plain path's tokens with
+     float32 and int8 slot banks, and at the drop-free factor the
+     runtime gives the tokens of the runtime-off engine.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -70,7 +84,24 @@ SOURCES = {
                          "src/repro/kernels/decode_attn.py:71"),
     "decode_attention_paged": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                                "src/repro/kernels/decode_attn.py:127"),
+    "fused_gate_up_quant": ("src/repro_torch/kernels/csrc/moe_gmm_q.cu",
+                            "src/repro/kernels/moe_gmm.py:268"),
+    "gmm_quant": ("src/repro_torch/kernels/csrc/moe_gmm_q.cu",
+                  "src/repro/kernels/moe_gmm.py:130"),
 }
+# phase 4c's session controller: MoElessController(num_devices=8,
+# slots_per_device=8). With E = 8 experts a device never holds more than
+# 8 instances, so no slot allocation can fail; the default 3 slots a
+# device (24 a layer) fill up within a few iterations of this burst, as
+# the modeled clock spans well under the 60 s keep-alive and no instance
+# is ever reaped (the reference runtime raises there too). The bank is
+# single-buffered (the engine's runtime_double_buffer=False): 64 int8
+# slots x 176.25 MB = 11.3 GB a layer, 15.7 GB with the layer's padded
+# quantized bank and its own bf16 experts, so 4 layers fit the card;
+# double buffering would take 26 GB a layer. Phase 5 and the CPU tests
+# hold double- and single-buffered banks equal.
+EP_DEVICES, EP_SLOTS_PER_DEVICE = 8, 8
+RUNTIME_LAYERS = 4
 
 
 def log(msg: str) -> None:
@@ -220,6 +251,120 @@ def check_gmm_kernels(gen, shapes) -> dict:
                                  bound_ms=b_ms, bound_by=b_by,
                                  library_ms=lib_ms)
             del x, wg, wu, got, want
+            torch.cuda.empty_cache()
+    return rec
+
+
+def _quant_inputs(gen, e, c, d, f, dtype, gs, fused):
+    """x, per-slot quantized weights (int8 values, f32 row scales: the
+    slot-bank layout, one slot at a time so no float bank exists), gs."""
+    from repro_torch.kernels import quant as QT
+    dev = gen.device
+    x = torch.randn((e, c, d), generator=gen, device=dev).to(dtype)
+    ws = []
+    for _ in range(2 if fused else 1):
+        q = torch.empty((e, d, f), dtype=torch.int8, device=dev)
+        sc = torch.empty((e, d), dtype=torch.float32, device=dev)
+        for i in range(e):
+            w = torch.randn((d, f), generator=gen, device=dev,
+                            dtype=dtype).mul_(1.0 / math.sqrt(d))
+            q[i], sc[i] = QT.quantize_rows(w)
+        ws += [q, sc]
+    return x, ws, torch.tensor(gs, dtype=torch.int32, device=dev)
+
+
+def _quant_bytes_flops(x, ws, gs):
+    """Bytes and operations this call's data needs: int8 weights and f32
+    scales of slots with rows, x rows inside their group, every output
+    element; two operations per multiply-add of the rows in groups."""
+    e, c, d = x.shape
+    f = ws[0].shape[2]
+    isz = x.element_size()
+    g = gs.clamp(0, c).cpu()
+    rows = int(g.sum())
+    n_w = len(ws) // 2
+    live = int((g > 0).sum())
+    nbytes = (rows * d + e * c * f) * isz + n_w * live * (d * f + 4 * d) \
+        + 4 * e
+    return nbytes, 2.0 * n_w * rows * d * f
+
+
+def check_quant_kernels(gen, shapes) -> dict:
+    """fused_gate_up_quant and gmm_quant against their plain versions at
+    adversarial shapes (f32 and bf16), then at the EP slot plane's decode
+    and prefill shapes (bf16, 16 of 24 slots active), timed beside the
+    bound, the plain version and the library composition (dequantize
+    the active slots to x's dtype, ``bmm``, silu, mask). Returns the
+    record of the decode shape."""
+    rec = {}
+    cases = [  # (label, E, C, D, F, group sizes)
+        ("C7/D96/F40", 3, 7, 96, 40, [7, 3, 0]),
+        ("all-zero gs", 2, 16, 96, 40, [0, 0]),
+        ("E=1", 1, 7, 96, 40, [5]),
+        ("odd F=37", 2, 12, 40, 37, [12, 5]),
+        ("split D, F%16=0", 4, 3, 1024, 64, [3, 0, 1, 2]),
+        ("C=40 (bf16: TC)", 3, 40, 96, 48, [40, 17, 0]),
+        ("C=70 D=200 (bf16: TC)", 2, 70, 200, 64, [70, 65]),
+    ]
+    for name, fused in (("fused_gate_up_quant", True), ("gmm_quant", False)):
+        run_k = MG.fused_gate_up_quant if fused else MG.gmm_quant
+        run_p = MG.fused_gate_up_quant_ref if fused else MG.gmm_quant_ref
+        for label, e, c, d, f, gs in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, ws, g = _quant_inputs(gen, e, c, d, f, dtype, gs, fused)
+                got, want = run_k(x, *ws, g), run_p(x, *ws, g)
+                torch.cuda.synchronize()
+                err = check(f"{name} [{label}, {dtype}]", got, want, dtype)
+                zero = torch.arange(c, device=x.device)[None] >= g[:, None]
+                if got.dtype != dtype or got[zero].abs().sum() != 0:
+                    raise AssertionError(f"{name} [{label}]: wrong dtype or "
+                                         "rows past the group size not zero")
+                log(f"  {name:<20} {label:<18} {str(dtype):<15} "
+                    f"max_abs_err={err:.3e}")
+        for phase in ("decode", "prefill"):
+            e, c, d, f, gs = shapes[name][phase]
+            ma = shapes["max_active"][phase]
+            dtype = torch.bfloat16
+            x, ws, g = _quant_inputs(gen, e, c, d, f, dtype, gs, fused)
+            run = lambda: run_k(x, *ws, g, max_active=ma)  # noqa: E731
+            plain = lambda: run_p(x, *ws, g)  # noqa: E731
+            idx = torch.nonzero(g > 0).flatten()
+            rows = g[idx].long()
+            mask = torch.arange(c, device=x.device)[None, :, None] \
+                < rows[:, None, None]
+
+            def library():
+                xa = x[idx]
+                deq = [ws[i][idx].to(dtype) * ws[i + 1][idx, :, None]
+                       .to(dtype) for i in range(0, len(ws), 2)]
+                y = torch.bmm(xa, deq[0])
+                if fused:
+                    y = F.silu(y) * torch.bmm(xa, deq[1])
+                out = torch.zeros((e, c, f), dtype=dtype, device=x.device)
+                out[idx] = torch.where(mask, y, 0.0)
+                return out
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = check(f"{name} [{phase} {e}x{c}x{d}x{f}]", got, want,
+                        dtype)
+            lib_err = float((library().float() - want.float()).abs().max())
+            ms = time_ms(run)
+            plain_ms = time_ms(plain, iters=5, reps=3)
+            lib_ms = time_ms(library, iters=5, reps=3)
+            nbytes, flops = _quant_bytes_flops(x, ws, g)
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            path, ksplit = MG.quant_plan(x, ws[0], ma)
+            log(f"  {name:<20} {phase:<8} E={e} C={c} D={d} F={f} bf16 x, "
+                f"int8 W, {len(idx)} active slots ({path}, D split "
+                f"{ksplit}) max_abs_err={err:.3e} ms={ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e9:.3f} GB) "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"(library max err {lib_err:.3e})")
+            if phase == "decode":
+                rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms)
+            del x, ws, got, want
             torch.cuda.empty_cache()
     return rec
 
@@ -436,7 +581,7 @@ def check_decode_attention_paged(gen, shape) -> dict:
 
 
 def main_path_shapes(cfg, slots: int, bucket: int, max_len: int):
-    """Kernel shapes the full-width serving run gives each wrapper."""
+    """Kernel shapes the full-width serving runs give each wrapper."""
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     cf = cfg.moe.capacity_factor
     d, f = cfg.d_model, cfg.moe.d_ff
@@ -445,11 +590,26 @@ def main_path_shapes(cfg, slots: int, bucket: int, max_len: int):
     rng = np.random.default_rng(0)
     gs_dec = rng.integers(1, cap_dec + 1, e).tolist()
     gs_pre = rng.integers(cap_pre // 2, cap_pre + 1, e).tolist()
+    # the EP slot plane of phase 4c: 64 slots (8 devices x 8), each with
+    # the per-expert capacity; at decode at most slots * k of them get
+    # rows, the bound the EP layer hands the kernels (prefill: all)
+    n_slots = EP_DEVICES * EP_SLOTS_PER_DEVICE
+    active = rng.choice(n_slots, 2 * e, replace=False)
+    q_dec, q_pre = [0] * n_slots, [0] * n_slots
+    for i in active:
+        q_dec[i] = int(rng.integers(1, cap_dec + 1))
+        q_pre[i] = int(rng.integers(cap_pre // 4, cap_pre + 1))
     return {
         "fused_gate_up": {"decode": (e, cap_dec, d, f, gs_dec),
                           "prefill": (e, cap_pre, d, f, gs_pre)},
         "gmm": {"decode": (e, cap_dec, f, d, gs_dec),
                 "prefill": (e, cap_pre, f, d, gs_pre)},
+        "fused_gate_up_quant": {"decode": (n_slots, cap_dec, d, f, q_dec),
+                                "prefill": (n_slots, cap_pre, d, f, q_pre)},
+        "gmm_quant": {"decode": (n_slots, cap_dec, f, d, q_dec),
+                      "prefill": (n_slots, cap_pre, f, d, q_pre)},
+        "max_active": {"decode": min(n_slots, slots * k),
+                       "prefill": min(n_slots, bucket * k)},
         "decode_attention": (slots, cfg.num_heads, cfg.num_kv_heads,
                              cfg.resolved_head_dim, max_len,
                              [max_len - 1 - 37 * i for i in range(slots)]),
@@ -484,19 +644,20 @@ def make_requests(cfg, lens, gens, n, seed=0):
             for i in range(n)]
 
 
-def serve_timed(engine, reqs, slots: int):
-    """Serve `reqs` to completion, timing every model call (prefill by
-    bucket, batched decode) between host syncs. Returns (result, launch
-    counts of this run, prefill seconds by bucket, decode seconds,
-    decode tokens, wall seconds)."""
+def serve_timed(engine, reqs, slots: int, control=None):
+    """Serve `reqs` to completion (with `control` as the session control
+    plane), timing every model call (prefill by bucket, batched decode)
+    between host syncs. Returns (result, launch counts of this run,
+    prefill seconds by bucket, decode seconds, decode tokens, wall
+    seconds)."""
     prefill_s: dict[int, list[float]] = {}
     decode_s: list[float] = []
     decode_tok = [0]
     inner = engine._step
 
-    def timed(batch, cache, cache_len, collect):
+    def timed(batch, cache, cache_len, collect, ep=None):
         t = time.perf_counter()
-        out = inner(batch, cache, cache_len, collect)
+        out = inner(batch, cache, cache_len, collect, ep=ep)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         if isinstance(cache_len, int):
@@ -510,7 +671,7 @@ def serve_timed(engine, reqs, slots: int):
     try:
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        engine.start(num_slots=slots)
+        engine.start(num_slots=slots, control=control)
         for r in reqs:
             engine.submit(r)
         res = engine.run()
@@ -548,13 +709,16 @@ def compare_logits(name, got, want, loads_got, loads_want) -> dict:
 
 
 def sublayer_check(name, cfg, params, tokens, cache, cache_len,
-                   token_mask, block_tables=None) -> dict:
+                   token_mask, block_tables=None, ep=None) -> dict:
     """Every layer's attention and MoE sublayer through the kernels and
     through the plain path, both from the same input (the plain path's
     hidden state), so both route identically: each output pair must
     agree elementwise within the bf16 tolerance. With `block_tables` the
-    cache is the paged pool and every row writes one token. Returns the
-    largest error of each sublayer kind."""
+    cache is the paged pool and every row writes one token. With `ep` =
+    (EPContext, ep_state) the MoE sublayers run through the EP slot
+    plane on the runtime's tables and banks. Returns the largest error
+    of each sublayer kind."""
+    from repro_torch.distributed.ep import moe_ep_ffn
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
@@ -584,12 +748,20 @@ def sublayer_check(name, cfg, params, tokens, cache, cache_len,
             torch.bfloat16))
         x = x + outs[1]
         h = L.norm(x, p["norm2"], cfg.norm)
-        outs = [MOE.dispatch_moe(
-            p["moe"], h, top_k=cfg.moe.top_k,
-            num_experts=cfg.moe.num_experts,
-            capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
-            groups=T._moe_groups(h), token_mask=token_mask, impl=impl)[0]
-            for impl in ("auto", "ref")]
+        if ep is not None:
+            ctx, state = ep
+            outs = [moe_ep_ffn(p["moe"], h, T._period(state[0], i), ctx,
+                               cfg.with_(impl=impl),
+                               token_mask=token_mask)[0]
+                    for impl in ("auto", "ref")]
+        else:
+            outs = [MOE.dispatch_moe(
+                p["moe"], h, top_k=cfg.moe.top_k,
+                num_experts=cfg.moe.num_experts,
+                capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
+                groups=T._moe_groups(h), token_mask=token_mask,
+                impl=impl)[0]
+                for impl in ("auto", "ref")]
         errs["moe"] = max(errs["moe"], check(
             f"{name}, layer {i} MoE", outs[0], outs[1], torch.bfloat16))
         x = x + outs[1]
@@ -667,9 +839,9 @@ def serve_waves(engine, waves, slots: int):
     decode_s: list[float] = []
     inner = engine._step
 
-    def timed(batch, cache, cache_len, collect):
+    def timed(batch, cache, cache_len, collect, ep=None):
         t = time.perf_counter()
-        out = inner(batch, cache, cache_len, collect)
+        out = inner(batch, cache, cache_len, collect, ep=ep)
         torch.cuda.synchronize()
         (mixed_s if batch["tokens"].shape[1] > 1 else decode_s).append(
             time.perf_counter() - t)
@@ -817,6 +989,122 @@ def paged_phase(cfg, params, max_len: int, slots: int, card: str) -> dict:
     return {"launches": launches, "sublayers": errs}
 
 
+# ------------------------------------------------------------ phase 4c
+
+
+def runtime_phase(full, max_len: int, slots: int, card: str) -> dict:
+    """Phase 4c: the expert runtime on the EP slot plane at full width
+    with int8 slot banks (4 of 32 layers: the quantized padded bank, one
+    64-slot bank and the layer's own experts take ~15.7 GB a layer),
+    then every layer's EP MoE sublayer through the kernels against the
+    plain path from the same input and the runtime's tables and banks.
+    Returns this run's launch counts."""
+    from repro_torch.core.costmodel import param_bytes
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    cfg = full.with_(num_layers=RUNTIME_LAYERS, moe=dataclasses.replace(
+        full.moe, slot_dtype="int8"))
+    log(f"  reduced: num_layers {full.num_layers}->{cfg.num_layers}; "
+        f"slot_dtype int8; {slots} slots, contiguous KV, session "
+        f"MoElessController(num_devices={EP_DEVICES}, slots_per_device="
+        f"{EP_SLOTS_PER_DEVICE})")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  params made on the card in {time.perf_counter() - t0:.1f} s")
+    ctrl = MoElessController(cfg, num_devices=EP_DEVICES,
+                             slots_per_device=EP_SLOTS_PER_DEVICE)
+    engine = ServingEngine(cfg, params, max_len=max_len,
+                           expert_runtime="on", runtime_double_buffer=False)
+    reqs = make_requests(cfg, (128, 256, 384, 512), (16, 32, 48), 12)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, pre_s, dec_s, dec_tok, wall = serve_timed(
+        engine, reqs, slots, control=ctrl)
+    peak = torch.cuda.max_memory_allocated()
+    for r in reqs:
+        if r.finish_reason != "length" or \
+                len(r.tokens) != r.max_new_tokens:
+            raise AssertionError(f"runtime request {r.rid}: {len(r.tokens)} "
+                                 f"of {r.max_new_tokens} tokens "
+                                 f"({r.finish_reason!r})")
+    rt = res.runtime
+    st = rt.stats
+    log(f"  served {len(reqs)} requests, {res.generated_tokens} tokens in "
+        f"{res.iterations} decode steps + {res.prefills} prefills (the "
+        f"wall time includes the session start: int8 quantization of the "
+        f"bank and the bootstrap load)")
+    log(f"  launches in this run: {launches}")
+    for k_name in ("fused_gate_up_quant", "gmm_quant", "decode_attention"):
+        if launches[k_name] <= 0:
+            raise AssertionError(f"{k_name} was never launched on the "
+                                 "runtime path")
+    for k_name in ("fused_gate_up", "gmm"):
+        if launches[k_name] != 0:
+            raise AssertionError(f"{k_name} launched {launches[k_name]} "
+                                 "times: a MoE layer bypassed the slot plane")
+    row = param_bytes(cfg)
+    if st.bytes_moved != st.transfers * row or \
+            st.rank_bytes != {"rank0": st.bytes_moved}:
+        raise AssertionError(f"runtime bytes {st.bytes_moved} != "
+                             f"{st.transfers} transfers x {row} B, or rank "
+                             f"bytes {st.rank_bytes}")
+    bank_bytes = sum(t.numel() * t.element_size()
+                     for j in rt.moe_positions
+                     for bank in (rt.banks[j], rt.padded[j])
+                     for t in bank.values())
+    log(f"  runtime: cold/warm/prewarmed {st.counts()}, {st.transfers} "
+        f"transfers, {st.bytes_moved:.0f} B moved ({row:.0f} B a copy), "
+        f"rank bytes {st.rank_bytes}, evictions {st.evictions}, overlap "
+        f"{st.overlap_eligible_copies} eligible / {st.exposed_copies} "
+        f"exposed; by phase {st.by_phase}")
+    log(f"  slot banks: {rt.phys_slots} slots a layer, single-buffered; "
+        f"slot bank + padded quantized bank {bank_bytes / 1e9:.2f} GB over "
+        f"{rt.n_layers} layers")
+    med_dec = float(np.median(dec_s)) * 1e3
+    log(f"  wall times on {card}:")
+    for bucket in sorted(pre_s):
+        log(f"    prefill bucket {bucket}: median "
+            f"{np.median(pre_s[bucket]) * 1e3:.2f} ms over "
+            f"{len(pre_s[bucket])}")
+    log(f"    decode step: median {med_dec:.2f} ms over {len(dec_s)} "
+        f"steps; {dec_tok / sum(dec_s):.1f} decode tokens/s")
+    log(f"    whole run: {wall:.2f} s, {res.generated_tokens / wall:.1f} "
+        f"tokens/s; max_memory_allocated {peak / 1e9:.2f} GB")
+    del engine
+    # every layer's EP MoE sublayer, kernels vs plain, on the runtime's
+    # final tables and banks: the longest prompt's prefill, then one
+    # batched decode step over `slots` prefilled prompts
+    ep = (rt.ctx, rt.ep_state())
+    dev = params["embed"].device
+    ref_cfg = cfg.with_(impl="ref")
+    prompts = [r.prompt for r in reqs]
+    with torch.no_grad():
+        longest = max(prompts, key=len)
+        toks = torch.from_numpy(longest[None].astype(np.int64)).to(dev)
+        sublayer_check(f"EP prefill of {len(longest)} tokens", cfg, params,
+                       toks, T.init_cache(cfg, params, 1, max_len), 0, None,
+                       ep=ep)
+        lens = [min(len(p), 128 + 16 * i) for i, p in
+                enumerate(prompts[:slots])]
+        plen = max(lens)
+        batch_toks = torch.from_numpy(np.stack(
+            [np.pad(p[:n], (0, plen - n)) for p, n in
+             zip(prompts[:slots], lens)]).astype(np.int64)).to(dev)
+        pool = T.init_cache(ref_cfg, params, slots, max_len)
+        lg, _, _ = T.decode_step(ref_cfg, params, {"tokens": batch_toks},
+                                 pool, 0)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        nxt = lg[torch.arange(slots, device=dev), lengths - 1] \
+            .argmax(-1)[:, None]
+        active = torch.ones((slots, 1), dtype=torch.bool, device=dev)
+        sublayer_check("EP batched decode step", cfg, params, nxt, pool,
+                       lengths, active, ep=ep)
+    del params, rt, res, ep, pool, lg
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -896,6 +1184,63 @@ def token_identity(small, sp) -> None:
                 f"impl=ref{extra}")
 
 
+def runtime_identity(small, sp) -> None:
+    """Float32 smoke config with the expert runtime on (a session MoEless
+    controller): greedy tokens through the kernels equal the plain
+    path's with float32 and with int8 slot banks, at the config's own
+    capacity factor, and a single-buffered slot bank (phase 4c's) gives
+    the double-buffered one's tokens and runtime meters; at the drop-free
+    factor the runtime's tokens equal the runtime-off engine's (capacity
+    dispatch, same session controller)."""
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    max_len = 64 + 24 + 1
+
+    def serve(cfg, impl, runtime, double_buffer=True):
+        eng = ServingEngine(cfg, sp, max_len=max_len, impl=impl,
+                            expert_runtime=runtime,
+                            runtime_double_buffer=double_buffer)
+        rs = make_requests(cfg, (64, 17, 40, 9, 33), (24, 7, 16), 10)
+        K.reset_launch_counts()
+        res = eng.serve(rs, num_slots=4, control=MoElessController(cfg))
+        return {r.rid: list(r.tokens) for r in rs}, res, K.launch_counts()
+
+    for sd in ("fp32", "int8"):
+        cfg = small.with_(moe=dataclasses.replace(small.moe, slot_dtype=sd))
+        got = {impl: serve(cfg, impl, "on") for impl in ("auto", "ref")}
+        quant = got["auto"][2]["fused_gate_up_quant"]
+        plain = got["auto"][2]["fused_gate_up"]
+        if (quant > 0) != (sd == "int8") or (plain > 0) != (sd == "fp32"):
+            raise AssertionError(f"{sd} banks launched {got['auto'][2]}")
+        if got["auto"][0] != got["ref"][0]:
+            bad = [i for i in got["ref"][0]
+                   if got["auto"][0][i] != got["ref"][0][i]]
+            raise AssertionError(f"runtime on, {sd} banks: tokens differ for "
+                                 f"requests {bad}")
+        st = got["auto"][1].runtime.stats
+        one = serve(cfg, "auto", "on", double_buffer=False)
+        if one[0] != got["auto"][0] or \
+                dataclasses.asdict(one[1].runtime.stats) != \
+                dataclasses.asdict(st):
+            raise AssertionError(f"runtime on, {sd} banks: the single-"
+                                 "buffered bank's tokens or meters differ "
+                                 "from the double-buffered one's")
+        n_tok = sum(map(len, got["ref"][0].values()))
+        log(f"  runtime on, {sd} banks, capacity factor "
+            f"{cfg.moe.capacity_factor}: {n_tok} tokens impl=auto == "
+            f"impl=ref == single-buffered bank (runtime c/w/p "
+            f"{st.counts()}, {st.transfers} transfers, "
+            f"{st.bytes_moved:.0f} B)")
+    free = small.with_(moe=dataclasses.replace(
+        small.moe, capacity_factor=float(small.moe.num_experts)))
+    on, off = serve(free, "auto", "on")[0], serve(free, "auto", "off")[0]
+    if on != off:
+        bad = [i for i in off if on[i] != off[i]]
+        raise AssertionError(f"drop-free: runtime on tokens differ from off "
+                             f"for requests {bad}")
+    log(f"  drop-free capacity factor: runtime on == runtime off "
+        f"({sum(map(len, off.values()))} tokens)")
+
+
 # ------------------------------------------------------------ main
 
 
@@ -935,6 +1280,7 @@ def main() -> int:
     rec.update(check_decode_attention(gen, shapes["decode_attention"]))
     rec.update(check_decode_attention_paged(
         gen, shapes["decode_attention_paged"]))
+    rec.update(check_quant_kernels(gen, shapes))
 
     log("[4] mixtral-8x7b at full width through ServingEngine")
     cfg = full.with_(num_layers=8)
@@ -997,6 +1343,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    log("[4c] the expert runtime on the EP slot plane at full width, int8 "
+        "slot banks")
+    ep_launches = runtime_phase(full, max_len, slots, card)
+
     log("[5] token identity at float32 (smoke config): kernels vs plain")
     small = get_config("mixtral-8x7b", smoke=True).with_(dtype="float32")
     sp = init_params(small, seed=0, device="cuda")
@@ -1005,10 +1355,14 @@ def main() -> int:
     free = small.with_(moe=dataclasses.replace(
         small.moe, capacity_factor=float(small.moe.num_experts)))
     token_identity(free, sp)
+    log("  expert runtime on (EP slot plane): float32 and int8 slot banks")
+    runtime_identity(small, sp)
 
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \
         paged["launches"]["decode_attention_paged"]
+    for k_name in ("fused_gate_up_quant", "gmm_quant"):
+        launches[k_name] = ep_launches[k_name]
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

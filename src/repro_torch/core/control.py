@@ -23,7 +23,7 @@ Predicted loads come from one of three interchangeable sources:
   * the actual loads themselves (non-predictive strategies).
 
 ``MoElessController`` is a thin adapter over the same class that only
-adds EP slot-table export (``plan_tables``) for the shard_map data
+adds EP slot-table export (``plan_tables``) for the EP slot data
 plane — the scale/place/meter loop is NOT duplicated there.
 """
 from __future__ import annotations
@@ -366,8 +366,7 @@ class ControlPlane:
 class MoElessController(ControlPlane):
     """The paper's control plane bound to a real model: exactly
     ``ControlPlane(strategy='moeless')`` plus EP slot-table export for
-    the EP slot data plane (``plan_tables``: the port's expert-runtime
-    slice; the reference's ``repro/distributed/ep.py``). The
+    the EP slot data plane (``plan_tables``, ``distributed/ep.py``). The
     scale/place/meter loop lives ONLY in ``ControlPlane.step``."""
 
     def __init__(self, cfg, *, num_devices: int = 8,
@@ -396,8 +395,22 @@ class MoElessController(ControlPlane):
         return [self.bal.prev[l] for l in range(len(self.bal.prev))]
 
     def plan_tables(self, layer: int, ep: int | None = None):
-        """Slot tables for the EP slot data plane — not yet in this
-        package: they come with the expert-runtime / EP slice."""
-        raise NotImplementedError(
-            "MoElessController.plan_tables needs the EP slot data plane, "
-            "which the PyTorch port adds in its expert-runtime slice")
+        """Slot tables for the EP slot data plane (``distributed/ep.py``).
+
+        `ep` overrides the EP degree (default: the gcd factorisation of
+        experts x devices). The plan's logical devices are projected onto
+        the ep ranks with the block mapping (``distributed.ep.
+        device_rank``), and each rank's slot count is the total logical
+        slot budget split over ranks — the geometry
+        ``serving.expert_runtime.ExpertRuntime`` executes. The tables are
+        numpy and valid for any `ep`."""
+        from repro_torch.distributed.ep import ep_factorisation, \
+            plan_to_tables
+        if ep is None:
+            ep, _ = ep_factorisation(self.cfg.moe.num_experts,
+                                     self.num_devices)
+        per_rank = -(-self.num_devices * self.slots_per_device
+                     // ep)
+        return plan_to_tables(self.plans[layer], ep=ep,
+                              slots_per_device=per_rank,
+                              num_devices=self.num_devices)

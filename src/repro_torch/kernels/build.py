@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``kernels/csrc/*.cu``).
 
 Each source has a plain C interface and is compiled by ``nvcc`` alone
-into its own shared library, loaded with ``ctypes`` — no PyTorch headers
+into its own shared library (headers shared between sources sit beside
+them as ``csrc/*.cuh``), loaded with ``ctypes`` — no PyTorch headers
 in the build, so a kernel builds in seconds. Libraries land in
 ``kernels/_build/`` (git-ignored), named by a hash of the source and the
 flags: a library is rebuilt only when its source changes. Building and
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("moe_gmm", "decode_attn")
+SOURCES = ("moe_gmm", "moe_gmm_q", "decode_attn")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -43,8 +44,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of source ``csrc/<name>.cu`` is cached."""
+    """Where the library of source ``csrc/<name>.cu`` is cached. The
+    hash covers the shared headers (``csrc/*.cuh``) too."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
         .hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"

@@ -42,36 +42,15 @@
 //    that share one weight tile run together and read it from L2.
 //
 // A block whose first row is past its expert's group size writes zeros
-// and exits before loading anything. wgmma/TMA are later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-#include <type_traits>
+// and exits before loading anything. wgmma/TMA are later work. The parts
+// shared with the int8 kernels of moe_gmm_q.cu (helpers, epilogues, the
+// split-D finish and plan, the tensor-core tiles) are in
+// moe_gmm_common.cuh.
+#include "moe_gmm_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float silu(float g) {
-  return g / (1.0f + expf(-g));
-}
-
 // ------------------------------------------------------------ simt path
-
-constexpr int NT = 128;  // threads per block
-constexpr int R = 4;     // rows per block
-constexpr int BD = 64;   // reduction depth staged per shared-memory tile
 
 // VEC consecutive elements of T as floats, in one load when VEC > 1
 template <typename T, int VEC>
@@ -108,14 +87,8 @@ simt_kernel(const T* __restrict__ x, const T* __restrict__ wg,
   const int row0 = blockIdx.y * R;
   const int col0 = (blockIdx.x * NT + threadIdx.x) * VEC;
   const int g = min(max(gs[e], 0), C);
-  if (row0 >= g) {
-    // the whole row tile is padding: its output rows are 0 (with a
-    // split reduction the finishing kernel writes them instead)
-    if (ksplit == 1) {
-      for (int r = 0; r < R && row0 + r < C; ++r)
-        for (int v = 0; v < VEC && col0 + v < F; ++v)
-          out[((int64_t)e * C + row0 + r) * F + col0 + v] = from_f<T>(0.f);
-    }
+  if (row0 >= g) {   // the whole row tile is padding
+    simt_zero_tile<T, VEC>(out, e, C, F, row0, col0, ksplit);
     return;
   }
   const int nrows = min(R, g - row0);
@@ -170,99 +143,11 @@ simt_kernel(const T* __restrict__ x, const T* __restrict__ wg,
     __syncthreads();
   }
   if (!live) return;
-  if (ksplit == 1) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = row0 + r;
-      if (row < C) {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          if (col0 + v < F) {
-            float o = 0.f;
-            if (r < nrows)
-              o = FUSED ? silu(acc_g[r][v]) * acc_u[FUSED ? r : 0][v]
-                        : acc_g[r][v];
-            out[((int64_t)e * C + row) * F + col0 + v] = from_f<T>(o);
-          }
-        }
-      }
-    }
-  } else {
-    // partial sums: ws[(set * ksplit + split), e, row, col]
-    const int64_t plane = (int64_t)E * C * F;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < nrows) {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          if (col0 + v < F) {
-            const int64_t o = ((int64_t)e * C + row0 + r) * F + col0 + v;
-            ws[split * plane + o] = acc_g[r][v];
-            if (FUSED)
-              ws[(ksplit + split) * plane + o] = acc_u[FUSED ? r : 0][v];
-          }
-        }
-      }
-    }
-  }
-}
-
-// adds the ksplit partial sums, applies the activation, masks rows past
-// the group size and casts; one thread per output element
-template <typename T, bool FUSED>
-__global__ void finish_kernel(const float* __restrict__ ws,
-                              const int* __restrict__ gs,
-                              T* __restrict__ out, int E, int C, int F,
-                              int ksplit) {
-  const int64_t plane = (int64_t)E * C * F;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= plane) return;
-  const int e = (int)(i / ((int64_t)C * F));
-  const int row = (int)((i / F) % C);
-  const int g = min(max(gs[e], 0), C);
-  float v = 0.f;
-  if (row < g) {
-    float sg = 0.f, su = 0.f;
-    for (int s = 0; s < ksplit; ++s) {
-      sg += ws[s * plane + i];
-      if (FUSED) su += ws[(ksplit + s) * plane + i];
-    }
-    v = FUSED ? silu(sg) * su : sg;
-  }
-  out[i] = from_f<T>(v);
+  simt_store<T, FUSED, VEC>(acc_g, acc_u, out, ws, E, C, F, e, row0, nrows,
+                            col0, ksplit, split);
 }
 
 // ---------------------------------------------------- tensor-core path
-
-constexpr int WBM = 64, WBN = 64, WBK = 32;  // block tile
-constexpr int APAD = 8, BPAD = 8, CPAD = 4;  // shared-memory row padding
-constexpr int WNT = 128;                     // 4 warps, 2 x 2 of 32 x 32
-
-template <int NB>
-struct Stage {
-  bf16 a[WBM][WBK + APAD];
-  bf16 b[NB][WBK][WBN + BPAD];
-};
-template <int NB>
-union WmmaSmem {
-  Stage<NB> st[2];
-  float c[NB][WBM][WBN + CPAD];
-};
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // grid: (row tiles, column tiles, E); block: WNT threads.
 // Needs D % 8 == 0, F % 8 == 0 and 16-byte aligned x / weights.
@@ -271,7 +156,6 @@ __global__ void __launch_bounds__(WNT)
 wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
             const bf16* __restrict__ wu, const int* __restrict__ gs,
             bf16* __restrict__ out, int C, int D, int F) {
-  using namespace nvcuda;
   constexpr int NB = FUSED ? 2 : 1;
   const int e = blockIdx.z;
   const int row0 = blockIdx.x * WBM;
@@ -279,10 +163,7 @@ wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   const int g = min(max(gs[e], 0), C);
   const int tid = threadIdx.x;
   if (row0 >= g) {
-    for (int i = tid; i < WBM * WBN; i += WNT) {
-      const int r = row0 + i / WBN, c = col0 + i % WBN;
-      if (r < C && c < F) out[((int64_t)e * C + r) * F + c] = from_f<bf16>(0.f);
-    }
+    wmma_zero_tile(out, e, C, F, row0, col0);
     return;
   }
   __shared__ __align__(128) WmmaSmem<NB> sm;
@@ -315,13 +196,8 @@ wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
 
   const int warp = tid / 32;
   const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NB][2][2];
-#pragma unroll
-  for (int m = 0; m < NB; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[m][i][j], 0.f);
+  Acc<NB> acc;
+  wmma_zero_acc<NB>(acc);
 
   const int nk = (D + WBK - 1) / WBK;
   load_stage(0, 0);
@@ -334,62 +210,13 @@ wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
       cp_async_wait<0>();
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &sm.st[buf].a[wr + 16 * i][kk],
-                               WBK + APAD);
-#pragma unroll
-      for (int m = 0; m < NB; ++m)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fb, &sm.st[buf].b[m][kk][wc + 16 * j],
-                                 WBN + BPAD);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::mma_sync(acc[m][i][j], fa[i], fb, acc[m][i][j]);
-        }
-    }
+    wmma_stage_mma<NB>(sm.st[buf], acc, wr, wc);
     __syncthreads();   // the next iteration overwrites this buffer
   }
-  // epilogue through shared memory (reusing the stage buffers)
-#pragma unroll
-  for (int m = 0; m < NB; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(&sm.c[m][wr + 16 * i][wc + 16 * j],
-                                acc[m][i][j], WBN + CPAD,
-                                wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < WBM * WBN; i += WNT) {
-    const int r = i / WBN, c = i % WBN;
-    const int row = row0 + r, col = col0 + c;
-    if (row < C && col < F) {
-      float v = 0.f;
-      if (row < g)
-        v = FUSED ? silu(sm.c[0][r][c]) * sm.c[NB - 1][r][c] : sm.c[0][r][c];
-      out[((int64_t)e * C + row) * F + col] = from_f<bf16>(v);
-    }
-  }
+  wmma_epilogue<FUSED>(sm, acc, out, e, C, F, row0, col0, g, wr, wc);
 }
 
 // ------------------------------------------------------------ planning
-
-struct Plan {
-  bool tensor_cores;
-  int vec;      // simt: columns per thread
-  int ksplit;   // simt: blocks sharing one output tile's D reduction
-  int kchunk;   // simt: reduction depth of each
-};
-
-constexpr int TARGET_BLOCKS_PER_SM = 8;
-constexpr int MIN_KCHUNK = 256;
 
 Plan make_plan(int dtype, int E, int C, int D, int F, int aligned,
                int num_sms) {
@@ -405,14 +232,7 @@ Plan make_plan(int dtype, int E, int C, int D, int F, int aligned,
   p.vec = (aligned && F % vec == 0) ? vec : 1;
   const int64_t tiles = (int64_t)((C + R - 1) / R) *
                         ((F + NT * p.vec - 1) / (NT * p.vec)) * E;
-  const int64_t target = (int64_t)TARGET_BLOCKS_PER_SM * num_sms;
-  const int64_t want = tiles >= target ? 1 : (target + tiles - 1) / tiles;
-  int64_t kchunk = (D + want - 1) / want;
-  kchunk = (kchunk + BD - 1) / BD * BD;
-  if (kchunk < MIN_KCHUNK) kchunk = MIN_KCHUNK;
-  if (kchunk >= D) kchunk = D;
-  p.kchunk = (int)kchunk;
-  p.ksplit = (int)((D + kchunk - 1) / kchunk);
+  plan_split(p, tiles, D, num_sms);
   return p;
 }
 
@@ -445,11 +265,7 @@ cudaError_t launch(const Plan& p, const void* x, const void* wg,
                                   p.ksplit, p.kchunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.ksplit == 1) return err;
-  const int64_t n = (int64_t)E * C * F;
-  const int threads = 256;
-  finish_kernel<T, FUSED><<<(unsigned)((n + threads - 1) / threads), threads,
-                            0, stream>>>(ws, gs, o, E, C, F, p.ksplit);
-  return cudaGetLastError();
+  return launch_finish<T, FUSED>(ws, gs, o, E, C, F, p.ksplit, stream);
 }
 
 }  // namespace

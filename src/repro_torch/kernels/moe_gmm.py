@@ -1,10 +1,15 @@
 """Grouped expert matmuls of the MoE FFN over the capacity layout
 x (E, C, D) — wrappers around the CUDA kernels of ``csrc/moe_gmm.cu``
-(the port of the TPU kernels ``repro/kernels/moe_gmm.py:fused_gate_up``
-and ``:gmm``), plus their plain PyTorch versions.
+and ``csrc/moe_gmm_q.cu`` (the port of the TPU kernels
+``repro/kernels/moe_gmm.py:fused_gate_up``, ``:gmm``,
+``:fused_gate_up_quant`` and ``:gmm_quant``), plus their plain PyTorch
+versions.
 
   * ``fused_gate_up`` — silu(x @ Wg) * (x @ Wu): (E, C, D) -> (E, C, F)
   * ``gmm``           — x @ W: (E, C, D) -> (E, C, F)
+  * ``fused_gate_up_quant`` / ``gmm_quant`` — the same over int8 weights
+    (E, D, F) with float32 per-row scales (E, D) on the contraction axis
+    (``kernels.quant`` layout), dequantized inside the kernel
 
 Rows ``c >= group_sizes[e]`` are written as 0 and whole row tiles past
 the group size are skipped. A wrapper given CPU tensors computes the
@@ -22,7 +27,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import load, num_sms
 
 # launches per wrapper (bumped only where the kernel is launched)
-LAUNCHES = {"fused_gate_up": 0, "gmm": 0}
+LAUNCHES = {"fused_gate_up": 0, "gmm": 0, "fused_gate_up_quant": 0,
+            "gmm_quant": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -134,3 +140,140 @@ def gmm(x, w, group_sizes):
     if x.device.type == "cpu":
         return gmm_ref(x, w, group_sizes)
     return _launch("gmm", False, x, w, None, group_sizes)
+
+
+# ------------------------------------------------- int8 weights (csrc/moe_gmm_q.cu)
+
+
+def fused_gate_up_quant_ref(x, wg_q, wg_s, wu_q, wu_s, group_sizes):
+    """Plain version of ``fused_gate_up_quant``: float32 products over
+    the dequantized weights of each expert with rows (one expert at a
+    time), output in x's dtype."""
+    e, c, _ = x.shape
+    out = torch.zeros((e, c, wg_q.shape[2]), dtype=x.dtype, device=x.device)
+    for i in ref._active_slots(group_sizes, e):
+        g = ref._rows(group_sizes, i, c)
+        xe = x[i, :g].float()
+        out[i, :g] = (F.silu(xe @ ref._deq(wg_q[i], wg_s[i]))
+                      * (xe @ ref._deq(wu_q[i], wu_s[i]))).to(x.dtype)
+    return out
+
+
+def gmm_quant_ref(x, wq, scale, group_sizes):
+    """Plain version of ``gmm_quant``, output in x's dtype."""
+    return ref.gmm_ref_quant(x, wq, scale, group_sizes).to(x.dtype)
+
+
+@functools.cache
+def _qlib():
+    """The loaded int8 library with its C signatures declared (once)."""
+    lib = load("moe_gmm_q")
+    lib.moe_gmm_q_workspace.restype = ctypes.c_longlong
+    lib.moe_gmm_q_workspace.argtypes = [ctypes.c_int] * 9
+    lib.moe_gmm_q_plan.restype = ctypes.c_int
+    lib.moe_gmm_q_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.moe_gmm_q_launch.restype = ctypes.c_int
+    lib.moe_gmm_q_launch.argtypes = ([ctypes.c_int] * 2
+                                     + [ctypes.c_void_p] * 8
+                                     + [ctypes.c_int] * 7
+                                     + [ctypes.c_void_p])
+    return lib
+
+
+def _check_quant(name, x, qs, group_sizes):
+    """x (E, C, D) float32/bfloat16; qs: (int8 (E, D, F), float32 (E, D))
+    pairs; group_sizes int32 (E,); all contiguous on x's device."""
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (E, C, D), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {x.dtype} (float32 or bfloat16)")
+    e, _, d = x.shape
+    for w, s in qs:
+        if w.dtype != torch.int8 or s.dtype != torch.float32:
+            raise TypeError(f"{name}: weights must be int8 with float32 "
+                            f"scales, got {w.dtype} / {s.dtype}")
+        if w.dim() != 3 or w.shape[0] != e or w.shape[1] != d:
+            raise ValueError(f"{name}: weight {tuple(w.shape)} does not "
+                             f"match x {tuple(x.shape)}")
+        if tuple(s.shape) != (e, d):
+            raise ValueError(f"{name}: scales {tuple(s.shape)} != {(e, d)}")
+        if w.shape[2] != qs[0][0].shape[2]:
+            raise ValueError(f"{name}: weights differ in width")
+    if tuple(group_sizes.shape) != (e,) or group_sizes.dtype != torch.int32:
+        raise ValueError(f"{name}: group_sizes must be int32 (E,)")
+    for t in (x, *(a for pair in qs for a in pair), group_sizes):
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _qaligned(x, ws) -> int:
+    """1 when x, the int8 weights and the output (fresh from the caching
+    allocator: aligned) allow 16-byte loads."""
+    return int(all(t.data_ptr() % 16 == 0 for t in (x, *ws)))
+
+
+def quant_plan(x, wq, max_active: int = 0) -> tuple[str, int]:
+    """(path, D splits) of a launch of ``csrc/moe_gmm_q.cu`` on these
+    (CUDA) operands: path is "tensor cores", "simt x16" (16-byte weight
+    loads) or "simt x1"."""
+    e, c, d = x.shape
+    ks = ctypes.c_int(0)
+    vec = _qlib().moe_gmm_q_plan(_DTYPES[x.dtype], e, c, d, wq.shape[2],
+                                 _qaligned(x, [wq]), num_sms(x.device),
+                                 max_active, ctypes.byref(ks))
+    return ("tensor cores" if vec == 0 else f"simt x{vec}"), ks.value
+
+
+def _launch_quant(name, fused, x, qs, group_sizes, max_active):
+    _check_quant(name, x, qs, group_sizes)
+    e, c, d = x.shape
+    f = qs[0][0].shape[2]
+    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _qlib()
+    aligned = _qaligned(x, [w for w, _ in qs])
+    sms = num_sms(x.device)
+    dt = _DTYPES[x.dtype]
+    work = torch.empty((lib.moe_gmm_q_workspace(int(fused), dt, e, c, d, f,
+                                                aligned, sms, max_active),),
+                       dtype=torch.float32, device=x.device)
+    (wg, sg), (wu, su) = qs[0], qs[-1]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.moe_gmm_q_launch(int(fused), dt, x.data_ptr(),
+                              wg.data_ptr(), sg.data_ptr(), wu.data_ptr(),
+                              su.data_ptr(), group_sizes.data_ptr(),
+                              out.data_ptr(), work.data_ptr(), e, c, d, f,
+                              aligned, sms, max_active, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def fused_gate_up_quant(x, wg_q, wg_s, wu_q, wu_s, group_sizes,
+                        max_active: int = 0):
+    """(E, C, D) -> (E, C, F): silu(x @ deq(Wg)) * (x @ deq(Wu)) over
+    int8 weights with float32 per-row scales, rows past
+    ``group_sizes[e]`` zero, output in x's dtype. `max_active` (0:
+    unknown) bounds how many experts have rows; it sizes the kernel's
+    split of D. CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return fused_gate_up_quant_ref(x, wg_q, wg_s, wu_q, wu_s,
+                                       group_sizes)
+    return _launch_quant("fused_gate_up_quant", True, x,
+                         [(wg_q, wg_s), (wu_q, wu_s)], group_sizes,
+                         max_active)
+
+
+def gmm_quant(x, wq, scale, group_sizes, max_active: int = 0):
+    """(E, C, D) x int8 (E, D, F) with float32 per-row scales (E, D) ->
+    (E, C, F), rows past ``group_sizes[e]`` zero, output in x's dtype.
+    `max_active` as in ``fused_gate_up_quant``. CUDA tensors launch the
+    kernel."""
+    if x.device.type == "cpu":
+        return gmm_quant_ref(x, wq, scale, group_sizes)
+    return _launch_quant("gmm_quant", False, x, [(wq, scale)], group_sizes,
+                         max_active)

@@ -42,11 +42,36 @@ def expert_ffn_impl(x, w_gate, w_up, w_down, group_sizes, impl: str):
     return moe_gmm.gmm(h, w_down, group_sizes)
 
 
+def expert_ffn_quant_impl(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s,
+                          group_sizes, impl: str, max_active: int = 0):
+    """The SwiGLU expert FFN over an int8 slot bank + per-row float32
+    scales (``kernels.quant`` layout), dequantized inside the kernels:
+    (E, C, D) -> (E, C, D). The kernels return x's dtype, the plain
+    version float32 (as the reference's oracle). `max_active` (0:
+    unknown) bounds how many experts have rows (the kernels size their
+    work split by it)."""
+    if not use_kernel(impl, x):
+        return ref.expert_ffn_ref_quant(x, wg_q, wg_s, wu_q, wu_s, wd_q,
+                                        wd_s, group_sizes)
+    x = x.contiguous()
+    h = moe_gmm.fused_gate_up_quant(x, wg_q, wg_s, wu_q, wu_s, group_sizes,
+                                    max_active)
+    return moe_gmm.gmm_quant(h, wd_q, wd_s, group_sizes, max_active)
+
+
 def gmm_impl(x, w, group_sizes, impl: str):
     """Grouped matmul (E, C, D) x (E, D, F) -> (E, C, F)."""
     if not use_kernel(impl, x):
         return ref.gmm_ref(x, w, group_sizes)
     return moe_gmm.gmm(x.contiguous(), w, group_sizes)
+
+
+def gmm_quant_impl(x, wq, scale, group_sizes, impl: str):
+    """Dequantizing grouped matmul: (E, C, D) x int8 (E, D, F) with
+    per-row scales (E, D) -> (E, C, F)."""
+    if not use_kernel(impl, x):
+        return ref.gmm_ref_quant(x, wq, scale, group_sizes)
+    return moe_gmm.gmm_quant(x.contiguous(), wq, scale, group_sizes)
 
 
 def decode_attention_impl(q, k, v, kv_pos, kv_len, q_pos, *, window: int,

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         [--kv contiguous,paged]
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        --layers 4 --kv contiguous,ep-int8
 
 Serves the same traffic as ``chip_smoke.py``'s full-width phase
 (mixtral-8x7b at its published widths, depth cut to ``--layers``, bf16,
@@ -9,8 +11,13 @@ random seeded weights, ``MoElessController`` attached, 8 slots, 12
 requests with prompts of 128/256/384/512 tokens and 16/32/48 new
 tokens, all arriving at t=0) through one engine per KV layout named in
 ``--kv``: ``contiguous`` (the slot cache, solo prefill) and ``paged``
-(16-token blocks, 256-token chunked prefill, prefix cache). The
-engines share the weights and live in one process. Once every slot of
+(16-token blocks, 256-token chunked prefill, prefix cache) and
+``ep-int8`` (the slot cache with the expert runtime on: the session
+controller's plans executed on int8 slot banks of 8 slots a device,
+every MoE layer through the EP slot plane, as ``chip_smoke.py``'s phase
+4c; its single-buffered 64-slot bank and padded quantized bank take
+12.9 GB a layer, so it runs at ``--layers 4`` or fewer). The engines share the weights and live in one
+process. Once every slot of
 each decodes, each layout's next ``--steps`` steps are traced with
 ``torch.profiler`` and one more runs under
 ``torch.cuda.set_sync_debug_mode``; then the engines take turns, one
@@ -61,6 +68,8 @@ def main(argv=None) -> int:
         raise SystemExit("profile_decode: needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
+    import dataclasses
+
     from repro_torch.configs import ServingSpec, get_config
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import MoElessController, ServingEngine
@@ -68,10 +77,14 @@ def main(argv=None) -> int:
 
     specs = {"contiguous": ServingSpec(),
              "paged": ServingSpec(kv="paged", kv_block=16,
-                                  prefill_chunk=256, prefix_cache=True)}
+                                  prefill_chunk=256, prefix_cache=True),
+             "ep-int8": ServingSpec()}
     layouts = args.kv.split(",")
     if not layouts or any(k not in specs for k in layouts):
         raise SystemExit(f"profile_decode: --kv takes {', '.join(specs)}")
+    if "ep-int8" in layouts and args.layers > 4:
+        raise SystemExit("profile_decode: ep-int8 holds 12.9 GB of slot "
+                         "banks a layer; use --layers 4 or fewer")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
@@ -93,14 +106,27 @@ def main(argv=None) -> int:
     # in the control plane (its one device->host sync included)
     engines, hosts = {}, {}
     for kv in layouts:
-        ctrl = MoElessController(cfg, num_devices=8)
-        engine = ServingEngine(cfg, params, max_len=512 + 48 + 1,
-                               controller=ctrl, serving=specs[kv])
-        host = hosts[kv] = {"model_call": 0.0, "control_plane": 0.0}
+        runtime = kv == "ep-int8"
+        c = cfg.with_(moe=dataclasses.replace(cfg.moe, slot_dtype="int8")) \
+            if runtime else cfg
+        # with the runtime on, the controller is the session's: its plans
+        # are executed by the runtime's apply, timed on its own
+        ctrl = MoElessController(c, num_devices=8,
+                                 slots_per_device=8 if runtime else 0)
+        engine = ServingEngine(c, params, max_len=512 + 48 + 1,
+                               controller=None if runtime else ctrl,
+                               serving=specs[kv],
+                               expert_runtime="on" if runtime else "off",
+                               runtime_double_buffer=False)
+        host = hosts[kv] = {"model_call": 0.0, "control_plane": 0.0,
+                            "runtime": 0.0}
         engine._step = timed(host, "model_call", engine._step)
         ctrl.step = timed(host, "control_plane", ctrl.step)
         rng = np.random.default_rng(args.seed)
-        engine.start(num_slots=8)
+        engine.start(num_slots=8, control=ctrl if runtime else None)
+        rt = engine._session.runtime
+        if rt is not None:
+            rt.apply = timed(host, "runtime", rt.apply)
         for i in range(12):
             engine.submit(GenRequest(
                 rid=i, arrival=0.0, max_new_tokens=gens[i % 3],
@@ -153,7 +179,7 @@ def main(argv=None) -> int:
             sess = engine._session
             ok = decode_only(sess)
             prefills = sess.prefills
-            hosts[kv].update(model_call=0.0, control_plane=0.0)
+            hosts[kv].update(model_call=0.0, control_plane=0.0, runtime=0.0)
             c0, m0 = time.process_time(), time.thread_time()
             t0 = time.perf_counter()
             engine.step()
@@ -161,7 +187,7 @@ def main(argv=None) -> int:
             wall = time.perf_counter() - t0
             rnd[kv] = (ok and sess.prefills == prefills,
                        (wall, hosts[kv]["model_call"],
-                        hosts[kv]["control_plane"],
+                        hosts[kv]["control_plane"], hosts[kv]["runtime"],
                         time.thread_time() - m0,
                         time.process_time() - c0))
         if all(ok for ok, _ in rnd.values()):
@@ -183,13 +209,14 @@ def main(argv=None) -> int:
     status = 0
     for kv in layouts:
         r = np.asarray(rows[kv]) * 1e3
-        wall, model, ctl = np.median(r[:, :3], axis=0)
-        thread, proc = r[:, 3:].mean(axis=0)   # CPU clocks tick coarsely
+        wall, model, ctl, rtm = np.median(r[:, :4], axis=0)
+        thread, proc = r[:, 4:].mean(axis=0)   # CPU clocks tick coarsely
         print(f"== kv={kv}")
         print(f"per decode step (median of the counted rounds): wall "
               f"{wall:.3f} ms; host in model call {model:.3f} ms, in "
-              f"control plane {ctl:.3f} ms; CPU time (mean) of this "
-              f"thread {thread:.3f} ms, of the process {proc:.3f} ms")
+              f"control plane {ctl:.3f} ms, in the expert runtime's apply "
+              f"{rtm:.3f} ms; CPU time (mean) of this thread "
+              f"{thread:.3f} ms, of the process {proc:.3f} ms")
         if kv != layouts[0]:
             d = r[:, 0] - base[:, 0]
             print(f"wall minus kv={layouts[0]}, same round: median "

@@ -9,6 +9,10 @@ control plane attached, on the CUDA card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --kv-block 16 --prefill-chunk 8 --prefix-cache
 
+  # the expert runtime on the EP slot plane (ep=1), int8 slot banks
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --expert-runtime on --slot-dtype int8
+
 The model is the architecture's reduced (smoke) config with random
 weights from ``--seed``.
 """
@@ -47,6 +51,15 @@ def main(argv=None):
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prompt-prefix sharing over the paged "
                          "pool (needs --prefill-chunk)")
+    ap.add_argument("--expert-runtime", default="off", choices=("off", "on"),
+                    help="execute the control plane's replica plans as "
+                         "slot diffs on device-resident expert banks and "
+                         "route every MoE layer through the EP slot data "
+                         "plane (needs the MoEless control plane)")
+    ap.add_argument("--slot-dtype", default="fp32", choices=("fp32", "int8"),
+                    help="expert slot-bank storage: fp32 = the model's "
+                         "dtype, int8 = per-row symmetric int8 with fp32 "
+                         "scales (dequantizing kernels)")
     ap.add_argument("--capacity-factor", type=float, default=0.0,
                     help="override the MoE capacity factor (0 = arch "
                          "default)")
@@ -73,16 +86,31 @@ def main(argv=None):
     if args.capacity_factor > 0 and cfg.is_moe:
         cfg = cfg.with_(moe=dataclasses.replace(
             cfg.moe, capacity_factor=args.capacity_factor))
+    if cfg.is_moe:
+        # before the controller and the engine exist, so the control
+        # plane's cost coefficients and the runtime's slot banks derive
+        # the same byte base
+        cfg = cfg.with_(moe=dataclasses.replace(
+            cfg.moe, slot_dtype=args.slot_dtype))
     cfg = cfg.with_(impl=args.impl)
     params = M.init_params(cfg, args.seed, device=args.device)
     ctrl = None
     if cfg.is_moe and not args.no_moeless:
         ctrl = MoElessController(cfg, num_devices=args.devices)
+    if args.expert_runtime == "on" and ctrl is None:
+        raise SystemExit("--expert-runtime on needs an MoE arch with the "
+                         "MoEless control plane (drop --no-moeless)")
+    # the runtime executes the SESSION control plane's plans: attach the
+    # controller there instead of as the per-iteration engine controller
+    # (attached to both, it would step twice per iteration)
+    session_ctrl = ctrl if args.expert_runtime == "on" else None
     engine = ServingEngine(cfg, params,
                            max_len=args.prompt_len + args.gen + 1,
-                           controller=ctrl, impl=args.impl)
+                           controller=None if session_ctrl else ctrl,
+                           impl=args.impl,
+                           expert_runtime=args.expert_runtime)
     rng = np.random.default_rng(args.seed)
-    engine.start(num_slots=args.slots)
+    engine.start(num_slots=args.slots, control=session_ctrl)
     handles = [engine.submit(GenRequest(
         rid=i, arrival=0.0,
         prompt=rng.integers(0, cfg.vocab_size, size=args.prompt_len,
@@ -111,6 +139,18 @@ def main(argv=None):
         print(f"  warm starts={sum(s.warm_starts for s in stats)} "
               f"cold={sum(s.cold_starts for s in stats)} "
               f"prewarmed={sum(s.prewarmed for s in stats)}")
+    if res.runtime is not None:
+        st = res.runtime.finalize(res.clock_s)
+        print(f"  expert runtime [slot_dtype={args.slot_dtype}]: "
+              f"c/w/p {st.cold_starts}/{st.warm_starts}/{st.prewarmed}, "
+              f"{st.transfers} transfers, "
+              f"{st.bytes_moved / 1e6:.1f}MB moved, "
+              f"{st.instance_seconds_gb:.3g} GB-s resident")
+        print(f"  overlap: {st.overlap_eligible_copies} eligible / "
+              f"{st.exposed_copies} exposed copies, "
+              f"{st.overlap_hidden_s:.3g}s hidden; per-rank MB "
+              + str({r: round(b / 1e6, 2)
+                     for r, b in sorted(st.rank_bytes.items())}))
     print("sample continuations:",
           np.asarray([h.tokens[:8] for h in handles[:2]]))
 

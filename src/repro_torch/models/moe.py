@@ -49,14 +49,19 @@ def experts_ffn(p, x, act: str, *, group_sizes=None, impl: str = "ref"):
     beyond it as padding (outputs zeroed; the kernels also skip whole row
     tiles there). None => all rows active."""
     from repro_torch.kernels import ops as OPS
-    if act != "swiglu" or "w_up_scale" in p:
+    if act != "swiglu":
         raise NotImplementedError(
-            "only unquantized SwiGLU experts are ported so far (gelu "
-            "experts come with the model-family slice, int8 banks with "
-            "the expert-runtime slice)")
+            "only SwiGLU experts are ported so far (gelu experts come "
+            "with the model-family slice of the PyTorch port)")
     if group_sizes is None:
         group_sizes = torch.full((x.shape[0],), x.shape[1],
                                  dtype=torch.int32, device=x.device)
+    if "w_up_scale" in p:
+        # int8 bank + per-row fp32 scales (kernels.quant layout): the
+        # dequantizing kernels (the plain version returns float32)
+        return OPS.expert_ffn_quant_impl(
+            x, p["w_gate"], p["w_gate_scale"], p["w_up"], p["w_up_scale"],
+            p["w_down"], p["w_down_scale"], group_sizes, impl).to(x.dtype)
     return OPS.expert_ffn_impl(x, p["w_gate"], p["w_up"], p["w_down"],
                                group_sizes, impl)
 

@@ -149,9 +149,12 @@ def _period(tree, i: int):
 
 def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     cache_len=None, window=0, collect: bool = False,
-                    token_mask=None, block_tables=None, new_counts=None):
+                    token_mask=None, block_tables=None, new_counts=None,
+                    ep_ctx=None, ep_state=None):
     """One sublayer (attention + ffn) with residuals. The layer's cache
-    slice is written in place. Returns (x, metrics)."""
+    slice is written in place. With `ep_ctx` and this sublayer's
+    `ep_state` the MoE runs through the EP slot data plane. Returns
+    (x, metrics)."""
     metrics = {}
     h = L.norm(x, p["norm1"], cfg.norm)
     y, _ = L.attention_block(p["attn"], cfg, h, positions,
@@ -163,12 +166,19 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
     if sub.ffn != "none":
         h = L.norm(x, p["norm2"], cfg.norm)
         if sub.ffn == "moe":
-            y, m = MOE.dispatch_moe(
-                p["moe"], h, top_k=cfg.moe.top_k,
-                num_experts=cfg.moe.num_experts,
-                capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
-                groups=_moe_groups(h), token_mask=token_mask,
-                impl=cfg.impl)
+            if ep_ctx is not None and ep_state is not None:
+                # serving hot path with the expert runtime on: the EP slot
+                # data plane with the runtime's live tables/weights
+                from repro_torch.distributed.ep import moe_ep_ffn
+                y, m = moe_ep_ffn(p["moe"], h, ep_state, ep_ctx, cfg,
+                                  token_mask=token_mask)
+            else:
+                y, m = MOE.dispatch_moe(
+                    p["moe"], h, top_k=cfg.moe.top_k,
+                    num_experts=cfg.moe.num_experts,
+                    capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
+                    groups=_moe_groups(h), token_mask=token_mask,
+                    impl=cfg.impl)
             metrics["expert_load"] = m["expert_load"]
             metrics["aux_loss"] = m["aux_loss"]
             metrics["dropped"] = m["dropped"]
@@ -219,7 +229,7 @@ def init_paged_cache(cfg, params, num_blocks: int, block: int):
 
 
 def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
-                collect: bool = False):
+                collect: bool = False, ep_ctx=None, ep_state=None):
     """One decode iteration: batch['tokens'] is (B, S_new) — S_new=1 for
     token-by-token decode, S_new=prompt_len for prefill-into-cache
     (cache_len=0). `cache_len` is an int (uniform batch) or a (B,) int32
@@ -229,9 +239,13 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     carries 'block_tables' (B, nbs) int32 and 'new_counts' (B,) — the
     tokens each row really writes this step (a chunk for prefilling
     rows, 1 for decoding rows, 0 for inactive rows); without a
-    'token_mask' the mask is built from 'new_counts'. The cache is
-    updated in place and returned. Returns (logits (B,S_new,V), cache,
-    metrics)."""
+    'token_mask' the mask is built from 'new_counts'. `ep_ctx`
+    (``distributed.ep.EPContext``) + `ep_state` (one entry per sublayer
+    pattern position, None for non-MoE positions, else that position's
+    slot tables/weights stacked over periods, from
+    ``serving.expert_runtime.ExpertRuntime.ep_state``) route every MoE
+    sublayer through the EP slot data plane. The cache is updated in
+    place and returned. Returns (logits (B,S_new,V), cache, metrics)."""
     pattern = layer_pattern(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
@@ -262,7 +276,10 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
                                    cache_len=cache_len, window=window,
                                    collect=collect, token_mask=token_mask,
                                    block_tables=block_tables,
-                                   new_counts=new_counts)
+                                   new_counts=new_counts, ep_ctx=ep_ctx,
+                                   ep_state=None if ep_state is None
+                                   or ep_state[j] is None
+                                   else _period(ep_state[j], i))
             ms.append(m)
     x = L.norm(x, params["final_norm"], cfg.norm)
     metrics = {}

@@ -27,12 +27,21 @@ cost model's modeled iteration latency advances the serving clock that
 TTFT / TPOT / E2E are recorded against (without one, measured wall time
 does).
 
+``expert_runtime="on"`` attaches a ``serving.expert_runtime.
+ExpertRuntime`` to every session: the session control plane's replica
+plans are EXECUTED as slot diffs on device-resident expert weight banks
+(int8 under ``cfg.moe.slot_dtype="int8"``), and both phases' MoE layers
+(each prefill and the batched step) run through the EP slot data plane
+(``distributed.ep.moe_ep_layer``) with the runtime's live tables and
+banks, at (data, ep, tp) = (1, 1, 1).
+
 Not yet in this package (each raises ``NotImplementedError``): sampling
-with temperature > 0 (sampling slice), the expert runtime (expert-runtime
-slice) and a device mesh (multi-rank slice).
+with temperature > 0 (sampling slice) and a device mesh (multi-rank
+slice).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
 import time
@@ -110,7 +119,7 @@ class ServeResult:
     mean_batch_occupancy: float
     wall_s: float
     control: ControlPlane | None = None
-    runtime: object | None = None     # the expert runtime (later slice)
+    runtime: object | None = None     # ExpertRuntime when enabled
     clock_s: float = 0.0              # final serving-clock time
     dropped_tokens: float = 0.0       # MoE capacity drops (all phases)
 
@@ -127,7 +136,8 @@ class _Session:
     scheduler, the serving clock, and the last token of every slot."""
 
     def __init__(self, cfg, params, num_slots: int, max_len: int,
-                 eos_id, control, time_scale: float, serving):
+                 eos_id, control, time_scale: float, serving,
+                 runtime=None):
         if serving.kv == "paged":
             self.kv = PagedKVCache(cfg, params, num_slots, max_len,
                                    block=serving.kv_block,
@@ -138,7 +148,7 @@ class _Session:
             self.kv = SlotKVCache(cfg, params, num_slots, max_len)
         self.sched = ContinuousBatchingScheduler(self.kv, eos_id=eos_id)
         self.control = control
-        self.runtime = None
+        self.runtime = runtime
         self.time_scale = time_scale
         self.now = 0.0
         self.cur = np.zeros(self.kv.rows, np.int64)   # last token per slot
@@ -163,23 +173,25 @@ def _greedy_only(sampling: SamplingParams | None) -> None:
 
 class ServingEngine:
     """Prefill + decode with KV caches behind a request-level API;
-    optionally drives a MoEless controller each iteration."""
+    optionally drives a MoEless controller each iteration, and with
+    ``expert_runtime="on"`` executes the session control plane's plans
+    through the expert runtime and the EP slot data plane (a session
+    ``control`` is then required)."""
 
     def __init__(self, cfg, params, *, max_len: int = 512,
                  controller: ControlPlane | None = None,
                  window: int = 0, impl: str | None = None,
                  expert_runtime: str = "off", mesh=None,
-                 telemetry=None, name: str = "engine", serving=None):
+                 telemetry=None, name: str = "engine", serving=None,
+                 runtime_double_buffer: bool = True):
         if impl is not None:   # override the config's kernel backend
             cfg = cfg.with_(impl=impl)
         resolve_impl(cfg.impl)   # validate eagerly, not at first step
         if expert_runtime not in ("off", "on"):
             raise ValueError(f"expert_runtime={expert_runtime!r} "
                              "(expected 'off' or 'on')")
-        if expert_runtime == "on":
-            raise NotImplementedError(
-                "expert_runtime='on' arrives with the expert-runtime / EP "
-                "slot-plane slice of the PyTorch port")
+        if expert_runtime == "on" and not cfg.is_moe:
+            raise ValueError("expert_runtime='on' needs an MoE model")
         if mesh is not None:
             raise NotImplementedError(
                 "a serving mesh arrives with the multi-rank EP slice of the "
@@ -214,6 +226,10 @@ class ServingEngine:
         self._marks: dict[int, float] = {}   # rid -> prefill-end clock t
         self.window = window
         self.expert_runtime = expert_runtime
+        # False: the runtime writes replica copies into the one bank the
+        # step reads (half the bank memory; a step never overlaps a flush
+        # here, as the copies are enqueued on the step's own stream)
+        self.runtime_double_buffer = runtime_double_buffer
         self._collect = controller is not None and cfg.is_moe
         self.iteration = 0
         self._session: _Session | None = None
@@ -223,11 +239,24 @@ class ServingEngine:
         self._lock = threading.RLock()
         self._step_hooks: list[Callable] = []
 
-    def _step(self, batch, cache, cache_len, collect: bool):
+    def _step(self, batch, cache, cache_len, collect: bool, ep=None):
+        """One model call; `ep` = (EPContext, ep_state) routes the MoE
+        sublayers through the EP slot data plane."""
+        ep_ctx, ep_state = ep if ep is not None else (None, None)
         with torch.no_grad():
             return T.decode_step(self.cfg, self.params, batch, cache,
                                  cache_len, window=self.window,
-                                 collect=collect)
+                                 collect=collect, ep_ctx=ep_ctx,
+                                 ep_state=ep_state)
+
+    @staticmethod
+    def _ep(sess, pad_rows: int = 0):
+        """(context, live tables/banks) of the session's expert runtime,
+        or None when it is off."""
+        rt = sess.runtime if sess is not None else None
+        if rt is None:
+            return None
+        return dataclasses.replace(rt.ctx, pad_rows=pad_rows), rt.ep_state()
 
     def new_cache(self, batch_size: int):
         return T.init_cache(self.cfg, self.params, batch_size, self.max_len)
@@ -247,8 +276,10 @@ class ServingEngine:
         """Prefill ONE request (B=1) into a fresh cache, right-padded to
         a power-of-two bucket (pad tokens sit after the prompt so causal
         attention never sees them and the masked metrics ignore them;
-        pad rows DO occupy MoE capacity, as in the reference). The first
-        output token is the argmax of the last prompt position.
+        pad rows DO occupy MoE capacity, as in the reference). With a
+        session expert runtime the MoE sublayers run through the EP slot
+        data plane, as the batched step does. The first output token is
+        the argmax of the last prompt position.
         Returns (first_token, cache, prompt_len, metrics, token_mask)."""
         _greedy_only(sampling)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -266,7 +297,8 @@ class ServingEngine:
         batch = {"tokens": torch.from_numpy(toks[None].astype(np.int64))
                  .to(self.device),
                  "token_mask": torch.from_numpy(mask[None]).to(self.device)}
-        logits, cache, metrics = self._step(batch, cache, 0, collect)
+        logits, cache, metrics = self._step(batch, cache, 0, collect,
+                                            ep=self._ep(self._session))
         first_tok = int(torch.argmax(logits[0, plen - 1]))
         return first_tok, cache, plen, metrics, \
             batch["token_mask"].reshape(-1)
@@ -279,11 +311,26 @@ class ServingEngine:
         """Open a serving session (slot pool + scheduler + clock). The
         serving clock starts at t=0 and advances by the modeled iteration
         latency when a `control` plane is attached, else by measured wall
-        time; `time_scale` multiplies the advance."""
+        time; `time_scale` multiplies the advance. With
+        ``expert_runtime="on"`` the session's runtime is built for
+        `control` and bootstrapped here."""
+        runtime = None
+        if self.expert_runtime == "on":
+            if control is None:
+                raise ValueError(
+                    "expert_runtime='on' needs a session control plane — "
+                    "the runtime executes ITS replica plans")
+            from repro_torch.serving.expert_runtime import ExpertRuntime
+            runtime = ExpertRuntime.for_control(
+                self.cfg, self.params, control, telemetry=self.telemetry,
+                track=f"{self.name}/runtime",
+                double_buffer=self.runtime_double_buffer)
+            runtime.bootstrap(control)
         with self._lock:
             self._session = _Session(self.cfg, self.params, num_slots,
                                      self.max_len, eos_id, control,
-                                     time_scale, self.serving)
+                                     time_scale, self.serving,
+                                     runtime=runtime)
 
     def close(self) -> None:
         with self._lock:
@@ -389,6 +436,10 @@ class ServingEngine:
                     metrics["expert_load"], token_mask=mask,
                     dropped=metrics.get("dropped"), phase="prefill")
                 dt = out.latency_s
+                if sess.runtime is not None:
+                    sess.runtime.apply(sess.now, out.events,
+                                       phase="prefill",
+                                       compute_s=out.latency_s)
             self._drive_controller(metrics, token_mask=mask)
             if dt is None:
                 dt = time.perf_counter() - t0
@@ -434,8 +485,11 @@ class ServingEngine:
         else:
             lengths, active = kv.step_lengths()
             batch = {"tokens": tokens, "active": active}
-        logits, kv.cache, metrics = self._step(batch, kv.cache, lengths,
-                                               collect)
+        # with the runtime on, the KV pool's pad rows (none at one rank)
+        # are capacity-neutral
+        logits, kv.cache, metrics = self._step(
+            batch, kv.cache, lengths, collect,
+            ep=self._ep(sess, kv.rows - kv.num_slots))
         t_sync = time.perf_counter()
         toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
         sync_s = time.perf_counter() - t_sync   # device->host token fetch
@@ -446,6 +500,9 @@ class ServingEngine:
                 metrics["expert_load"], token_mask=active,
                 dropped=metrics.get("dropped"), phase="decode")
             dt = out.latency_s
+            if sess.runtime is not None:
+                sess.runtime.apply(sess.now, out.events, phase="decode",
+                                   compute_s=out.latency_s)
         self._drive_controller(metrics, token_mask=active)
         if dt is None:
             dt = time.perf_counter() - t0
@@ -557,8 +614,9 @@ class ServingEngine:
                  "active": active, "token_mask": mask,
                  "block_tables": tables, "new_counts": counts_t}
         phase = "mixed" if any_prefill else "decode"
-        logits, kv.cache, metrics = self._step(batch, kv.cache, lengths,
-                                               collect)
+        logits, kv.cache, metrics = self._step(
+            batch, kv.cache, lengths, collect,
+            ep=self._ep(sess, kv.rows - kv.num_slots))
         t_sync = time.perf_counter()
         # each row's next-token logits sit at its LAST written position
         idx = (counts_t - 1).clamp(min=0).long()
@@ -572,6 +630,9 @@ class ServingEngine:
                 metrics["expert_load"], token_mask=mask.reshape(-1),
                 dropped=metrics.get("dropped"), phase=phase)
             dt = out.latency_s
+            if sess.runtime is not None:
+                sess.runtime.apply(sess.now, out.events, phase=phase,
+                                   compute_s=out.latency_s)
         self._drive_controller(metrics, token_mask=mask.reshape(-1))
         if dt is None:
             dt = time.perf_counter() - t0
@@ -668,7 +729,7 @@ class ServingEngine:
             mean_batch_occupancy=float(np.mean(sess.occupancy))
             if sess.occupancy else 0.0,
             wall_s=time.perf_counter() - sess.wall0, control=sess.control,
-            runtime=None, clock_s=sess.now,
+            runtime=sess.runtime, clock_s=sess.now,
             dropped_tokens=float(getattr(sess.control, "dropped_tokens",
                                          0.0) or 0.0))
 

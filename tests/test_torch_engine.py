@@ -140,8 +140,9 @@ def test_engine_guards():
     cfg, jcfg, jp, tp = _setup(1.25)
     with pytest.raises(ValueError):
         ServingEngine(cfg, tp, impl="pallas")
-    with pytest.raises(NotImplementedError, match="expert-runtime"):
-        ServingEngine(cfg, tp, expert_runtime="on")
+    # the expert runtime executes a session control plane's plans
+    with pytest.raises(ValueError, match="control"):
+        ServingEngine(cfg, tp, expert_runtime="on").start(num_slots=1)
     # the reference's serving-knob guards (paged KV itself is served)
     for bad in (ServingSpec(prefill_chunk=4), ServingSpec(prefix_cache=True),
                 ServingSpec(kv="paged", prefix_cache=True),
@@ -165,8 +166,11 @@ def test_engine_guards():
     eng = ServingEngine(cfg, tp, max_len=16, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         eng.serve(_reqs(GenRequest, cfg, [(4, 2, 0.0)]), num_slots=1)
-    with pytest.raises(NotImplementedError):
-        MoElessController(cfg).plan_tables(0)
+    ctrl = MoElessController(cfg)
+    ctrl.step(0.0, None, np.ones((cfg.num_layers, cfg.moe.num_experts),
+                                 np.int32))
+    assert ctrl.plan_tables(0)["slot_expert"].shape == \
+        (ctrl.num_devices * ctrl.slots_per_device,)
     assert isinstance(ControlPlane(cfg, "eplb"), ControlPlane)
 
 
@@ -190,6 +194,8 @@ def test_port_imports_neither_jax_nor_reference_ast():
 
 def test_port_imports_neither_jax_nor_reference_at_runtime():
     code = ("import repro_torch.serving.engine, repro_torch.launch.serve, "
+            "repro_torch.serving.expert_runtime, repro_torch.distributed.ep, "
+            "repro_torch.kernels.quant, "
             "sys; assert not any(m == 'jax' or m.startswith(('jax.', "
             "'repro.')) or m == 'repro' for m in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(SRC))

@@ -1,6 +1,8 @@
 """PyTorch port, on the card: the hand-written CUDA kernels against their
 plain PyTorch versions at the adversarial shapes (non-tile-aligned
-C/D/F, all-zero and partial group sizes, E=1, GQA groups 1/2/4,
+C/D/F, all-zero and partial group sizes, E=1 — for the int8-weight
+kernels too, whose f32 inputs are quantized with ``kernels.quant`` —
+GQA groups 1/2/4,
 kv_len < S, wrapped ring positions, window > 0; for the paged kernel
 block sizes 1/3/16/32, shuffled tables that share blocks, kv_len = 0
 rows and full rows). Every test here skips
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.kernels import decode_attn as DA
 from repro_torch.kernels import moe_gmm as MG
+from repro_torch.kernels import quant as QT
 
 torch.set_num_threads(1)
 
@@ -168,3 +171,61 @@ def test_decode_attention_paged_kernel_matches_plain_on_card(cuda, dtype):
                                              q_pos, window=window)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+# (E, C, D, F, group sizes) of the int8-weight kernels: C = 7, D = 96,
+# F = 40 (not a multiple of 16: byte loads), empty slots, E = 1, an
+# aligned F with a split D reduction, and C > 8 (bf16: the tensor-core
+# path) with partial row, column and depth tiles
+QUANT_CASES = [
+    (3, 7, 96, 40, [7, 3, 0]),
+    (2, 16, 96, 40, [0, 0]),
+    (1, 7, 96, 40, [5]),
+    (4, 3, 512, 64, [3, 0, 1, 2]),
+    (3, 40, 96, 48, [40, 17, 0]),
+    (2, 70, 200, 64, [70, 65]),
+]
+
+
+def _quant_case(e, c, d, f, device, dtype, seed=0):
+    x, wg, wu = _gmm_case(e, c, d, f, seed)
+    qg, sg = QT.quantize_rows(torch.from_numpy(wg))
+    qu, su = QT.quantize_rows(torch.from_numpy(wu))
+    return (torch.from_numpy(x).to(device, dtype),
+            *(t.to(device) for t in (qg, sg, qu, su)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_kernels_match_plain_on_card(cuda, dtype):
+    tol = TOL[dtype]
+    for e, c, d, f, gs in QUANT_CASES:
+        x, qg, sg, qu, su = _quant_case(e, c, d, f, cuda, dtype)
+        g = torch.tensor(gs, dtype=torch.int32, device=cuda)
+        got = MG.fused_gate_up_quant(x, qg, sg, qu, su, g)
+        assert got.dtype == dtype
+        torch.testing.assert_close(
+            got.float(),
+            MG.fused_gate_up_quant_ref(x, qg, sg, qu, su, g).float(),
+            atol=tol, rtol=tol)
+        past = torch.arange(c, device=cuda)[None] >= g[:, None]
+        assert torch.all(got[past] == 0)
+        got = MG.gmm_quant(x, qg, sg, g)
+        torch.testing.assert_close(
+            got.float(), MG.gmm_quant_ref(x, qg, sg, g).float(),
+            atol=tol, rtol=tol)
+        assert torch.all(got[past] == 0)
+
+
+def test_quant_kernels_cuda_impl_rejects_cpu_tensors():
+    """impl='cuda' on CPU tensors raises for both int8-weight kernels
+    (no fallback to the plain version)."""
+    from repro_torch.kernels import ops as OPS
+    e, c, d, f, gs = QUANT_CASES[0]
+    x, qg, sg, qu, su = _quant_case(e, c, d, f, "cpu", torch.float32)
+    qd, sd = QT.quantize_rows(torch.from_numpy(_gmm_case(e, c, f, d)[1]))
+    g = torch.tensor(gs, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        OPS.expert_ffn_quant_impl(x, qg, sg, qu, su, qd, sd, g, "cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        OPS.gmm_quant_impl(x, qg, sg, g, "cuda")
