@@ -11,7 +11,10 @@ Phases, each fatal on failure:
      adversarial shapes (f32 and bf16), with its time, its bound, the
      plain version's time and one PyTorch library call's time — the
      int8-weight kernels at the EP slot plane's shapes (64 slots, 16 of
-     them active);
+     them active); ``moe_gmm``'s path ("simt" or "wgmma") is named for
+     every shape, the main path's decode and prefill shapes must take
+     "wgmma", and each is timed in turns against another path that could
+     take it;
   4. the slice at full width: mixtral-8x7b at its published widths (8 of
      32 layers, bf16, random seeded weights) serving 12 requests through
      ``ServingEngine`` with the MoEless controller attached, counting
@@ -182,75 +185,165 @@ def _gmm_bytes_flops(x, wg, wu, gs):
     return nbytes, 2.0 * n_w * rows * d * f
 
 
+def _gmm_run(name, fused, x, wg, wu, g, path=None):
+    """The kernel on `path` (None: its plan's; else a key of MG.PATHS,
+    forced to time one path against another)."""
+    return MG._launch(name, fused, x, wg, wu if fused else None, g,
+                      path=path)
+
+
+def _gmm_check(name, fused, label, x, wg, wu, g, dtype, path=None):
+    """The kernel (on `path`) against its plain version, rows past the
+    group size exactly 0; returns the largest error."""
+    got = _gmm_run(name, fused, x, wg, wu, g, path)
+    want = (MG.fused_gate_up_ref(x, wg, wu, g) if fused
+            else MG.gmm_ref(x, wg, g))
+    torch.cuda.synchronize()
+    err = check(f"{name} [{label}, {dtype}]", got, want, dtype)
+    zero = torch.arange(x.shape[1], device="cuda")[None] >= g[:, None]
+    if got[zero].abs().sum() != 0:
+        raise AssertionError(f"{name} [{label}]: rows past the group size "
+                             "are not zero")
+    return err
+
+
+def _alternate(fn_a, fn_b, timer=None) -> tuple[float, float]:
+    """Times of two versions taken in turns (a, b, b, a) by `timer`
+    (default time_ms): the mean of each."""
+    timer = timer or time_ms
+    ta1, tb1, tb2, ta2 = timer(fn_a), timer(fn_b), timer(fn_b), timer(fn_a)
+    return (ta1 + ta2) / 2, (tb1 + tb2) / 2
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host microseconds per call of `fn`, `n` calls enqueued back to back
+    (far fewer than the launch queue holds, so the host never waits on
+    the card), from the host clock."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
 def check_gmm_kernels(gen, shapes) -> dict:
-    """fused_gate_up and gmm against their plain versions; returns the
-    per-kernel record of the main path's decode shape."""
+    """fused_gate_up and gmm against their plain versions at adversarial
+    shapes (both dtypes; bf16 with D, F multiples of 8 takes wgmma), then
+    at the main path's decode and prefill shapes (bf16), which must take
+    the wgmma path, timed beside the bound, the plain version and the
+    library call, and at decode in turns against the simt path. Returns
+    the per-kernel records."""
     rec = {}
-    cases = [  # (label, E, C, D, F, dtype, group sizes)
-        ("C7/D96/F40", 3, 7, 96, 40, None, [7, 3, 0]),
-        ("all-zero gs", 2, 16, 96, 40, None, [0, 0]),
-        ("one partial expert", 4, 33, 64, 72, None, [0, 0, 17, 0]),
-        ("E=1", 1, 40, 128, 136, None, [40]),
-        ("odd F=37", 2, 12, 40, 37, None, [12, 5]),
+    cases = [  # (label, E, C, D, F, group sizes)
+        ("C7/D96/F40", 3, 7, 96, 40, [7, 3, 0]),
+        ("all-zero gs", 2, 16, 96, 40, [0, 0]),
+        ("one partial expert", 4, 33, 64, 72, [0, 0, 17, 0]),
+        ("E=1", 1, 40, 128, 136, [40]),
+        ("odd F=37", 2, 12, 40, 37, [12, 5]),
+        ("C9 D40 F72 gs 9/1/0", 3, 9, 40, 72, [9, 1, 0]),
+        ("C64 D200 F136", 2, 64, 200, 136, [64, 33]),
+        ("C65 F200", 2, 65, 64, 200, [65, 0]),
+        ("C160 E=1", 1, 160, 128, 256, [160]),
+        ("C200: 2 row groups", 2, 200, 96, 136, [200, 161]),
+        ("long D: C24 D4104", 2, 24, 4104, 136, [24, 7]),
+        ("C300", 2, 300, 64, 72, [300, 257]),
+        ("C40 D4104 F200", 3, 40, 4104, 200, [1, 40, 0]),
     ]
     for name, fused in (("fused_gate_up", True), ("gmm", False)):
-        for label, e, c, d, f, _, gs in cases:
+        for label, e, c, d, f, gs in cases:
             for dtype in (torch.float32, torch.bfloat16):
                 x, wg, wu, g = _gmm_inputs(gen, e, c, d, f, dtype, gs, fused)
-                if fused:
-                    got = MG.fused_gate_up(x, wg, wu, g)
-                    want = MG.fused_gate_up_ref(x, wg, wu, g)
-                else:
-                    got = MG.gmm(x, wg, g)
-                    want = MG.gmm_ref(x, wg, g)
-                torch.cuda.synchronize()
-                err = check(f"{name} [{label}, {dtype}]", got, want, dtype)
-                zero = torch.arange(c, device="cuda")[None] >= g[:, None]
-                if got[zero].abs().sum() != 0:
-                    raise AssertionError(f"{name} [{label}]: rows past the "
-                                         "group size are not zero")
+                err = _gmm_check(name, fused, label, x, wg, wu, g, dtype)
+                path, info = MG.kernel_path(x, wg, fused)
+                tma = dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+                if path != ("wgmma" if tma else "simt"):
+                    raise AssertionError(f"{name} [{label}]: path {path}")
                 log(f"  {name:<16} {label:<20} {str(dtype):<15} "
+                    f"{path:<5} N={info['rows']:<3} max_abs_err={err:.3e}")
+                if not tma:
+                    continue
+                # the forced path timed below holds at every shape too
+                err = _gmm_check(name, fused, f"{label}, simt", x, wg, wu, g,
+                                 dtype, "simt")
+                log(f"  {name:<16} {label:<20} forced simt "
                     f"max_abs_err={err:.3e}")
+        # x 2 bytes past an aligned buffer: no tensor map takes it
+        e, c, d, f, gs = 2, 64, 96, 136, [64, 30]
+        x, wg, wu, g = _gmm_inputs(gen, e, c, d, f, torch.bfloat16, gs,
+                                   fused)
+        buf = torch.zeros(x.numel() + 8, dtype=x.dtype, device="cuda")
+        xm = buf[1:1 + x.numel()].view(x.shape)
+        xm.copy_(x)
+        path = MG.kernel_path(xm, wg, fused)[0]
+        if path != "simt" or xm.data_ptr() % 16 != 2:
+            raise AssertionError(f"{name}: misaligned x took {path}")
+        err = _gmm_check(name, fused, "x misaligned by 2 B", xm, wg, wu, g,
+                         torch.bfloat16)
+        log(f"  {name:<16} {'x misaligned by 2 B':<20} torch.bfloat16  "
+            f"{path:<5} max_abs_err={err:.3e}")
         for phase in ("decode", "prefill"):
             e, c, d, f, gs = shapes[name][phase]
             dtype = torch.bfloat16
             x, wg, wu, g = _gmm_inputs(gen, e, c, d, f, dtype, gs, fused)
+            path, info = MG.kernel_path(x, wg, fused)
+            if path != "wgmma":
+                raise AssertionError(f"{name}: the {phase} shape took "
+                                     f"{path}, not wgmma")
+            alt = "simt" if phase == "decode" else None
+            run = lambda: _gmm_run(name, fused, x, wg, wu, g)  # noqa: E731
+            mask = torch.arange(c, device="cuda")[None, :, None] \
+                < g[:, None, None]
             if fused:
-                run = lambda: MG.fused_gate_up(x, wg, wu, g)  # noqa: E731
                 plain = lambda: MG.fused_gate_up_ref(x, wg, wu, g)  # noqa
-                mask = torch.arange(c, device="cuda")[None, :, None] \
-                    < g[:, None, None]
 
                 def library():
                     return torch.where(mask, F.silu(torch.bmm(x, wg))
                                        * torch.bmm(x, wu), 0.0)
             else:
-                run = lambda: MG.gmm(x, wg, g)  # noqa: E731
                 plain = lambda: MG.gmm_ref(x, wg, g)  # noqa: E731
-                mask = torch.arange(c, device="cuda")[None, :, None] \
-                    < g[:, None, None]
 
                 def library():
                     return torch.where(mask, torch.bmm(x, wg), 0.0)
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            err = check(f"{name} [{phase} {e}x{c}x{d}x{f}]", got, want,
-                        dtype)
-            ms = time_ms(run)
+            err = _gmm_check(name, fused, f"{phase} {e}x{c}x{d}x{f}", x, wg,
+                             wu, g, dtype)
+            if alt is None:
+                ms, alt_ms = time_ms(run), None
+            else:
+                alt_err = _gmm_check(name, fused, f"{phase}, {alt}", x, wg,
+                                     wu, g, dtype, alt)
+                run_alt = lambda: _gmm_run(  # noqa: E731
+                    name, fused, x, wg, wu, g, alt)
+                ms, alt_ms = _alternate(run, run_alt)
+                if phase == "decode":   # the host cost of each path a call
+                    us, alt_us = _alternate(run, run_alt, host_us)
+                    log(f"  {name:<16} {phase:<8} host us a call, in turns: "
+                        f"{path} {us:.1f}, {alt} {alt_us:.1f}")
             plain_ms = time_ms(plain)
             lib_ms = time_ms(library)
             nbytes, flops = _gmm_bytes_flops(x, wg, wu, g)
             b_ms, b_by = bound(nbytes, flops, dtype)
-            path = "tensor cores" if MG.uses_tensor_cores(x, wg) else "simt"
             log(f"  {name:<16} {phase:<8} E={e} C={c} D={d} F={f} bf16 "
-                f"({path}) "
-                f"max_abs_err={err:.3e} ms={ms:.4f} bound_ms={b_ms:.4f} "
-                f"({b_by}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+                f"({path}, N={info['rows']}, {info['stages']} stages, "
+                f"{info['smem']} B shared a CTA) max_abs_err={err:.3e} "
+                f"ms={ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f}")
+            if alt is not None:
+                log(f"  {name:<16} {phase:<8} in turns with the plan's: "
+                    f"{alt} ms={alt_ms:.4f} (max_abs_err={alt_err:.3e})")
             if phase == "decode":
                 rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=lib_ms)
-            del x, wg, wu, got, want
+                                 library_ms=lib_ms, path=path,
+                                 **{f"decode_{alt}_ms": alt_ms})
+            else:
+                rec[name].update(
+                    prefill_ms=ms, prefill_bound_ms=b_ms,
+                    prefill_plain_ms=plain_ms, prefill_library_ms=lib_ms,
+                    prefill_max_abs_err=err, prefill_path=path)
+            del x, wg, wu
             torch.cuda.empty_cache()
     return rec
 

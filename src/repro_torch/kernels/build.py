@@ -17,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import tempfile
 import threading
 from pathlib import Path
 
@@ -112,3 +114,30 @@ def num_sms(device) -> int:
     dev = torch.device(device)
     return _sm_count(torch.cuda.current_device() if dev.index is None
                      else dev.index)
+
+
+def ptxas_report(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` once more with ``-Xptxas -v`` into a
+    scratch file and return the compiler's report: each kernel's
+    registers, spill stores and loads, and static shared memory."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               str(Path(tmp) / f"{name}.so"), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+if __name__ == "__main__":
+    # python -m repro_torch.kernels.build [--ptxas] [source ...]
+    args = sys.argv[1:]
+    verbose = "--ptxas" in args
+    names = [a for a in args if a != "--ptxas"] or list(SOURCES)
+    if verbose:
+        for n in names:
+            print(f"== csrc/{n}.cu\n{ptxas_report(n)}", flush=True)
+    else:
+        for n, path in build(names).items():
+            print(f"{n}: {path}")

@@ -21,32 +21,34 @@
 //
 // Design, two paths chosen per call (make_plan):
 //
-//  * simt (small C, float32, or shapes the tensor-core path does not
-//    take): one block owns one expert, a tile of R rows and NT*VEC output
-//    columns; each thread owns VEC adjacent columns and reads its weight
-//    rows as one 16-byte load per row (VEC = 8 bf16 or 4 f32) into R*VEC
+//  * wgmma (bf16 with D % 8 == 0, F % 8 == 0 and 16-byte aligned
+//    operands, any C): a TMA-fed wgmma weight stream in which one CTA
+//    owns all rows of its expert for its weight tile, so every weight
+//    byte is read from HBM once per call (moe_gmm_sm90.cuh, where its
+//    design is set out). It takes decode too: at mixtral-8x7b's decode
+//    shapes (C = 3, N = 8) it streamed the weights faster than the simt
+//    path on an H100 at 700 W (about 0.62 against 0.78 ms fused, 0.32
+//    against 0.36 ms gmm, timed in turns by chip_smoke.py).
+//  * simt (float32, and the shapes TMA cannot take): one block owns one
+//    expert, a tile of R rows and NT*VEC output columns; each thread owns
+//    VEC adjacent columns and reads its weight rows as one 16-byte load
+//    per row (VEC = 8 bf16 or 4 f32, 1 for unaligned operands) into R*VEC
 //    f32 accumulators (two sets for the fused kernel). Latency is hidden
-//    by resident warps, not by rows loaded ahead in registers: on the
-//    H100, several rows ahead per thread cost more resident blocks than
-//    they added loads in flight, and ran slower at decode shapes. The x tile is staged in shared memory transposed, so
-//    the R rows of one depth are one broadcast float4. The D reduction is
-//    a loop inside the block. With C tiny the (row x column x expert)
-//    tiles alone cannot keep 132 SMs streaming, so D is also split over
-//    `ksplit` blocks that write f32 partial sums to a workspace, and a
-//    second kernel adds them, applies the activation, masks and casts.
-//  * tensor cores (bf16, C > 8): 64x64 output tiles of one expert, four
-//    warps of 32x32 built from 16x16x16 bf16 WMMA products with f32
-//    accumulators; the 32-deep x and weight tiles are double-buffered in
-//    shared memory by cp.async, so the next tile's loads overlap this
-//    tile's products. Row tiles are the fastest grid axis, so the blocks
-//    that share one weight tile run together and read it from L2.
+//    by resident warps, not by rows loaded ahead in registers (on the
+//    H100, rows ahead cost more resident blocks than they added loads in
+//    flight). The x tile is staged in shared memory transposed, so the R
+//    rows of one depth are one broadcast float4. The D reduction is a
+//    loop inside the block.
+//    With C tiny the (row x column x expert) tiles alone cannot keep 132
+//    SMs streaming, so D is also split over `ksplit` blocks that write
+//    f32 partial sums to a workspace, and a second kernel adds them,
+//    applies the activation, masks and casts.
 //
-// A block whose first row is past its expert's group size writes zeros
-// and exits before loading anything. wgmma/TMA are later work. The parts
-// shared with the int8 kernels of moe_gmm_q.cu (helpers, epilogues, the
-// split-D finish and plan, the tensor-core tiles) are in
-// moe_gmm_common.cuh.
-#include "moe_gmm_common.cuh"
+// A block whose rows all lie past its expert's group size writes zeros
+// and exits before loading anything. The parts shared with the int8
+// kernels of moe_gmm_q.cu (helpers, epilogues, the split-D finish and
+// plan) are in moe_gmm_common.cuh.
+#include "moe_gmm_sm90.cuh"
 
 namespace {
 
@@ -147,109 +149,81 @@ simt_kernel(const T* __restrict__ x, const T* __restrict__ wg,
                             col0, ksplit, split);
 }
 
-// ---------------------------------------------------- tensor-core path
-
-// grid: (row tiles, column tiles, E); block: WNT threads.
-// Needs D % 8 == 0, F % 8 == 0 and 16-byte aligned x / weights.
-template <bool FUSED>
-__global__ void __launch_bounds__(WNT)
-wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
-            const bf16* __restrict__ wu, const int* __restrict__ gs,
-            bf16* __restrict__ out, int C, int D, int F) {
-  constexpr int NB = FUSED ? 2 : 1;
-  const int e = blockIdx.z;
-  const int row0 = blockIdx.x * WBM;
-  const int col0 = blockIdx.y * WBN;
-  const int g = min(max(gs[e], 0), C);
-  const int tid = threadIdx.x;
-  if (row0 >= g) {
-    wmma_zero_tile(out, e, C, F, row0, col0);
-    return;
-  }
-  __shared__ __align__(128) WmmaSmem<NB> sm;
-  const bf16* xe = x + (int64_t)e * C * D;
-  const bf16* w[2] = {wg + (int64_t)e * D * F,
-                      FUSED ? wu + (int64_t)e * D * F : nullptr};
-
-  auto load_stage = [&](int buf, int k0) {
-    // x: WBM rows x WBK depth = 256 chunks of 8; weights: WBK x WBN each
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int i = tid + t * WNT;
-      const int r = i / (WBK / 8), c = (i % (WBK / 8)) * 8;
-      const bool ok = row0 + r < C && k0 + c < D;
-      cp_async16(&sm.st[buf].a[r][c],
-                 ok ? xe + (int64_t)(row0 + r) * D + k0 + c : xe, ok);
-    }
-#pragma unroll
-    for (int m = 0; m < NB; ++m)
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int i = tid + t * WNT;
-        const int r = i / (WBN / 8), c = (i % (WBN / 8)) * 8;
-        const bool ok = k0 + r < D && col0 + c < F;
-        cp_async16(&sm.st[buf].b[m][r][c],
-                   ok ? w[m] + (int64_t)(k0 + r) * F + col0 + c : w[m], ok);
-      }
-    cp_async_commit();
-  };
-
-  const int warp = tid / 32;
-  const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-  Acc<NB> acc;
-  wmma_zero_acc<NB>(acc);
-
-  const int nk = (D + WBK - 1) / WBK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {
-      load_stage(buf ^ 1, (kt + 1) * WBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    wmma_stage_mma<NB>(sm.st[buf], acc, wr, wc);
-    __syncthreads();   // the next iteration overwrites this buffer
-  }
-  wmma_epilogue<FUSED>(sm, acc, out, e, C, F, row0, col0, g, wr, wc);
-}
-
 // ------------------------------------------------------------ planning
 
-Plan make_plan(int dtype, int E, int C, int D, int F, int aligned,
-               int num_sms) {
-  Plan p{};
-  if (dtype == 1 && C > 2 * R && D % 8 == 0 && F % 8 == 0 && aligned) {
-    p.tensor_cores = true;
-    p.vec = 8;
-    p.ksplit = 1;
-    p.kchunk = D;
+// The wgmma kernel's instantiated N (rows a CTA owns), and the largest a
+// CTA's registers hold: two accumulators of 64 x N f32 take N of a
+// consumer thread's 232 registers.
+constexpr int WG_N[] = {8, 16, 32, 64, 96, 128, 160};
+constexpr int WG_N_MAX = 160;
+enum Path { SIMT = 0, WGMMA = 1 };
+
+struct GemmPlan {
+  Plan simt;   // the simt path's columns a thread and D split
+  int path;    // Path
+  int n;       // wgmma: rows a CTA owns
+};
+
+// smallest instantiated N that covers C rows in as few row groups as
+// WG_N_MAX allows
+inline int wgmma_rows(int C) {
+  const int groups = (C + WG_N_MAX - 1) / WG_N_MAX;
+  const int per = (C + groups - 1) / groups;
+  for (int n : WG_N)
+    if (n >= per) return n;
+  return WG_N_MAX;
+}
+
+// path: -1 = the plan's choice; else the Path to take (a shape that
+// Path cannot take is refused with n = 0)
+GemmPlan make_plan(int fused, int dtype, int E, int C, int D, int F,
+                   int aligned, int num_sms, int path) {
+  GemmPlan p{};
+  const bool eligible =
+      dtype == 1 && D > 0 && D % 8 == 0 && F % 8 == 0 && aligned;
+  p.path = path >= 0 ? path : (eligible ? WGMMA : SIMT);
+  if (p.path != SIMT) {
+    if (eligible && p.path == WGMMA) p.n = wgmma_rows(C);
     return p;
   }
   const int vec = dtype == 1 ? 8 : 4;
-  p.vec = (aligned && F % vec == 0) ? vec : 1;
+  p.simt.vec = (aligned && F % vec == 0) ? vec : 1;
   const int64_t tiles = (int64_t)((C + R - 1) / R) *
-                        ((F + NT * p.vec - 1) / (NT * p.vec)) * E;
-  plan_split(p, tiles, D, num_sms);
+                        ((F + NT * p.simt.vec - 1) / (NT * p.simt.vec)) * E;
+  plan_split(p.simt, tiles, D, num_sms);
   return p;
 }
 
-template <typename T, bool FUSED>
-cudaError_t launch(const Plan& p, const void* x, const void* wg,
-                   const void* wu, const int* gs, void* out, float* ws,
-                   int E, int C, int D, int F, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (p.tensor_cores) {
-      dim3 grid((C + WBM - 1) / WBM, (F + WBN - 1) / WBN, E);
-      wmma_kernel<FUSED><<<grid, WNT, 0, stream>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
-          static_cast<const bf16*>(wu), gs, static_cast<bf16*>(out), C, D,
-          F);
-      return cudaGetLastError();
-    }
+template <bool FUSED>
+int launch_wgmma_rows(int n, const bf16* x, const bf16* wg, const bf16* wu,
+                      const int* gs, bf16* out, int E, int C, int D, int F,
+                      cudaStream_t stream) {
+#define MOE_GMM_N(V) \
+  case V:            \
+    return launch_wgmma<FUSED, V>(x, wg, wu, gs, out, E, C, D, F, stream);
+  switch (n) {
+    MOE_GMM_N(8) MOE_GMM_N(16) MOE_GMM_N(32) MOE_GMM_N(64) MOE_GMM_N(96)
+    MOE_GMM_N(128) MOE_GMM_N(160)
   }
+#undef MOE_GMM_N
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool FUSED>
+int launch(const GemmPlan& gp, const void* x, const void* wg, const void* wu,
+           const int* gs, void* out, float* ws, int E, int C, int D, int F,
+           cudaStream_t stream) {
+  if (gp.path != SIMT) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (gp.n == 0) return (int)cudaErrorInvalidValue;
+      return launch_wgmma_rows<FUSED>(
+          gp.n, static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
+          static_cast<const bf16*>(wu), gs, static_cast<bf16*>(out), E, C, D,
+          F, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  const Plan& p = gp.simt;
   dim3 grid((F + NT * p.vec - 1) / (NT * p.vec), (C + R - 1) / R,
             E * p.ksplit);
   const T* xt = static_cast<const T*>(x);
@@ -264,8 +238,8 @@ cudaError_t launch(const Plan& p, const void* x, const void* wg,
         <<<grid, NT, 0, stream>>>(xt, wgt, wut, gs, o, ws, E, C, D, F,
                                   p.ksplit, p.kchunk);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.ksplit == 1) return err;
-  return launch_finish<T, FUSED>(ws, gs, o, E, C, F, p.ksplit, stream);
+  if (err != cudaSuccess || p.ksplit == 1) return (int)err;
+  return (int)launch_finish<T, FUSED>(ws, gs, o, E, C, F, p.ksplit, stream);
 }
 
 }  // namespace
@@ -273,31 +247,45 @@ cudaError_t launch(const Plan& p, const void* x, const void* wg,
 // f32 workspace (in floats) that moe_gmm_launch needs for these
 // arguments: the split-reduction partial sums, 0 when D is not split.
 // dtype: 0 = float32, 1 = bfloat16; aligned: x, weights and out are
-// 16-byte aligned.
+// 16-byte aligned; path: -1 = the plan's, else the path to force (0 =
+// simt, 1 = wgmma), for measuring one path against the other.
 extern "C" long long moe_gmm_workspace(int fused, int dtype, int E, int C,
                                        int D, int F, int aligned,
-                                       int num_sms) {
-  const Plan p = make_plan(dtype, E, C, D, F, aligned, num_sms);
-  if (p.tensor_cores || p.ksplit == 1) return 0;
-  return (long long)(fused ? 2 : 1) * p.ksplit * E * C * F;
+                                       int num_sms, int path) {
+  const GemmPlan p =
+      make_plan(fused, dtype, E, C, D, F, aligned, num_sms, path);
+  if (p.path != SIMT || p.simt.ksplit == 1) return 0;
+  return (long long)(fused ? 2 : 1) * p.simt.ksplit * E * C * F;
 }
 
-// 1 when these arguments take the tensor-core path, else 0.
-extern "C" int moe_gmm_uses_tensor_cores(int dtype, int E, int C, int D,
-                                         int F, int aligned, int num_sms) {
-  return make_plan(dtype, E, C, D, F, aligned, num_sms).tensor_cores;
+// The path the plan takes for these arguments (0 = simt, 1 = wgmma).
+// info, when given, receives the wgmma CTA's rows (N), ring stages and
+// dynamic shared memory in bytes (zeros on the simt path).
+extern "C" int moe_gmm_path(int fused, int dtype, int E, int C, int D,
+                            int F, int aligned, int num_sms, int* info) {
+  const GemmPlan p =
+      make_plan(fused, dtype, E, C, D, F, aligned, num_sms, -1);
+  if (info) {
+    info[0] = p.n;
+    info[1] = p.n ? sm90_stages(p.n) : 0;
+    info[2] = p.n ? sm90_smem(p.n) : 0;
+  }
+  return p.path;
 }
 
 // fused: 1 = silu(x@wg) * (x@wu), 0 = x@wg (wu unused).
 // ws: f32 workspace of moe_gmm_workspace(...) floats for the same
-// arguments. Returns the cudaError_t of the launches (0 = success).
+// arguments. Returns the cudaError_t of the launches (0 = success), or
+// 100000 + the CUresult of cuTensorMapEncodeTiled when a tensor map
+// cannot be encoded.
 extern "C" int moe_gmm_launch(int fused, int dtype, const void* x,
                               const void* wg, const void* wu, const int* gs,
                               void* out, float* ws, int E, int C, int D,
-                              int F, int aligned, int num_sms,
+                              int F, int aligned, int num_sms, int path,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(dtype, E, C, D, F, aligned, num_sms);
+  const GemmPlan p =
+      make_plan(fused, dtype, E, C, D, F, aligned, num_sms, path);
   if (dtype == 0)
     return fused ? launch<float, true>(p, x, wg, wu, gs, out, ws, E, C, D,
                                        F, s)

@@ -1,9 +1,10 @@
 // Pieces shared by the grouped expert matmuls of moe_gmm.cu (weights in
 // x's dtype) and moe_gmm_q.cu (int8 weights with row scales): the type
 // helpers, the simt path's tile geometry and epilogue, the split-D
-// finishing kernel and its plan, and the tensor-core path's tiles,
-// cp.async helpers, per-stage products and epilogue. Each source keeps
-// only its own main loops, the part where the weight type differs.
+// finishing kernel and its plan, and the WMMA tiles, cp.async helpers,
+// per-stage products and epilogue of moe_gmm_q.cu's tensor-core path.
+// Each source keeps only its own main loops, the part where the weight
+// type differs; moe_gmm.cu's tensor-core path is moe_gmm_sm90.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -48,32 +48,46 @@ def _lib():
     """The loaded library with its C signatures declared (once)."""
     lib = load("moe_gmm")
     lib.moe_gmm_workspace.restype = ctypes.c_longlong
-    lib.moe_gmm_workspace.argtypes = [ctypes.c_int] * 8
-    lib.moe_gmm_uses_tensor_cores.restype = ctypes.c_int
-    lib.moe_gmm_uses_tensor_cores.argtypes = [ctypes.c_int] * 7
+    lib.moe_gmm_workspace.argtypes = [ctypes.c_int] * 9
+    lib.moe_gmm_path.restype = ctypes.c_int
+    lib.moe_gmm_path.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.moe_gmm_launch.restype = ctypes.c_int
     lib.moe_gmm_launch.argtypes = ([ctypes.c_int] * 2
                                    + [ctypes.c_void_p] * 6
-                                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     return lib
+
+
+# the paths of csrc/moe_gmm.cu; a caller forces one only to measure it
+# against the other
+PATHS = {"simt": 0, "wgmma": 1}
+# moe_gmm_launch's code for a tensor map cuTensorMapEncodeTiled refused
+_ENCODE_ERROR = 100000
 
 
 def _plan_args(x, ws, out):
     """(aligned, number of SMs): what the kernel's launch plan reads
-    besides the shapes (16-byte alignment allows the vector loads)."""
+    besides the shapes (16-byte alignment allows the vector loads and
+    the TMA tensor maps)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, *ws, out))
     sms = num_sms(x.device)
     return int(aligned), sms
 
 
-def uses_tensor_cores(x, w) -> bool:
-    """Whether a launch on these (CUDA) operands takes the tensor-core
-    path of ``csrc/moe_gmm.cu`` (bf16 with more than a few rows)."""
+def kernel_path(x, w, fused: bool = False) -> tuple[str, dict]:
+    """The path of a launch of ``csrc/moe_gmm.cu`` on these (CUDA)
+    operands, from the kernel's own plan: "wgmma" (bf16, D and F
+    multiples of 8, 16-byte aligned) or "simt"; with the wgmma CTA's
+    rows (N), ring stages and dynamic shared memory in bytes (zeros on
+    the simt path)."""
     e, c, d = x.shape
     out = torch.empty(0, dtype=x.dtype, device=x.device)
     aligned, sms = _plan_args(x, (w,), out)
-    return bool(_lib().moe_gmm_uses_tensor_cores(
-        _DTYPES[x.dtype], e, c, d, w.shape[2], aligned, sms))
+    info = (ctypes.c_int * 3)()
+    path = _lib().moe_gmm_path(int(fused), _DTYPES[x.dtype], e, c, d,
+                               w.shape[2], aligned, sms, info)
+    name = {v: k for k, v in PATHS.items()}[path]
+    return name, dict(rows=info[0], stages=info[1], smem=info[2])
 
 
 def _check(name, x, ws, group_sizes):
@@ -100,7 +114,9 @@ def _check(name, x, ws, group_sizes):
             raise TypeError(f"{name}: weight dtype {w.dtype} != {x.dtype}")
 
 
-def _launch(name, fused, x, wg, wu, group_sizes):
+def _launch(name, fused, x, wg, wu, group_sizes, path=None):
+    """Launch the kernel; `path` (a key of PATHS) forces a path, else the
+    kernel's plan picks it."""
     ws = (wg, wu) if fused else (wg,)
     _check(name, x, ws, group_sizes)
     e, c, d = x.shape
@@ -111,15 +127,19 @@ def _launch(name, fused, x, wg, wu, group_sizes):
     lib = _lib()
     aligned, sms = _plan_args(x, ws, out)
     dt = _DTYPES[x.dtype]
+    forced = -1 if path is None else PATHS[path]
     work = torch.empty((lib.moe_gmm_workspace(int(fused), dt, e, c, d, f,
-                                              aligned, sms),),
+                                              aligned, sms, forced),),
                        dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.moe_gmm_launch(int(fused), dt, x.data_ptr(), wg.data_ptr(),
                             (wu if fused else wg).data_ptr(),
                             group_sizes.data_ptr(), out.data_ptr(),
                             work.data_ptr(), e, c, d, f, aligned, sms,
-                            stream)
+                            forced, stream)
+    if rc >= _ENCODE_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a TMA "
+                           f"tensor map (CUresult {rc - _ENCODE_ERROR})")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     LAUNCHES[name] += 1

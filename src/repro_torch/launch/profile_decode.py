@@ -4,6 +4,7 @@
         [--kv contiguous,paged]
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         --layers 4 --kv contiguous,ep-int8
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode --prefill 10
 
 Serves the same traffic as ``chip_smoke.py``'s full-width phase
 (mixtral-8x7b at its published widths, depth cut to ``--layers``, bf16,
@@ -34,7 +35,12 @@ difference against the first layout, and from the traced steps the
 device busy time (one stream, so kernels do not overlap), the device's
 idle share of the untraced step, the kernels by device time, the host
 operators by their own host time, and the call sites that block the
-host on the device. Needs a CUDA card.
+host on the device. With ``--prefill N``, the first layout's engine
+then prefills one prompt of each bucket length (128, 256, 512) N times
+(solo prefill, as a request's admission runs it) and once more traced:
+per bucket, the wall time (median), the device busy time of the traced
+prefill and the idle share, and its kernels by device time. Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -56,6 +62,15 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _kernel_ms(prof, steps: int) -> list[tuple[str, float]]:
+    """(kernel name, device ms per step) of a trace over `steps` steps,
+    largest first."""
+    return sorted(((e.key, _device_us(e) / steps / 1e3)
+                   for e in prof.key_averages()
+                   if "cuda" in str(getattr(e, "device_type", "")).lower()
+                   and _device_us(e) > 0), key=lambda kv_: -kv_[1])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=8)
@@ -63,6 +78,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv", default="contiguous",
                     help="comma-separated KV layouts: contiguous, paged")
+    ap.add_argument("--prefill", type=int, default=0,
+                    help="solo prefills timed per bucket (0: none)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
@@ -195,6 +212,9 @@ def main(argv=None) -> int:
                 rows[kv].append(row)
     for engine in engines.values():
         engine.run()
+    prefill_rows = _time_prefills(engines[layouts[0]], cfg, args, profile,
+                                  ProfilerActivity)
+    for engine in engines.values():
         engine.close()
 
     print(f"card: {card}")
@@ -226,11 +246,7 @@ def main(argv=None) -> int:
         print(f"traced steps: wall {wall_on * 1e3:.3f} ms (profiler on)")
         print(f"host-blocking calls in one step: "
               f"{dict(syncs[kv].most_common()) or 'none'}")
-        kern = sorted(((e.key, _device_us(e) / args.steps / 1e3)
-                       for e in prof.key_averages()
-                       if "cuda" in str(getattr(e, "device_type",
-                                                "")).lower()
-                       and _device_us(e) > 0), key=lambda kv_: -kv_[1])
+        kern = _kernel_ms(prof, args.steps)
         busy = sum(ms for _, ms in kern)
         if busy == 0.0:
             print("device busy: not measured (the profiler saw no kernels)")
@@ -248,7 +264,40 @@ def main(argv=None) -> int:
         print("host operators by own host time per step (profiler on):")
         for name, calls, ms in ops[:12]:
             print(f"  {ms:9.4f} ms  {calls:7.1f} calls  {name[:80]}")
+    for bucket, walls, kern in prefill_rows:
+        wall = float(np.median(walls)) * 1e3
+        busy = sum(ms for _, ms in kern)
+        print(f"== solo prefill, kv={layouts[0]}, bucket {bucket}: wall "
+              f"median {wall:.3f} ms over {len(walls)} (min "
+              f"{min(walls) * 1e3:.3f}); device busy {busy:.3f} ms (one "
+              f"traced prefill), idle share {max(0.0, 1 - busy / wall):.3f}")
+        for name, ms in kern[:6]:
+            print(f"  {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
     return status
+
+
+def _time_prefills(engine, cfg, args, profile, activity):
+    """[(bucket, wall seconds of each untraced solo prefill, kernels of one
+    traced prefill as (name, device ms))] for prompts of each bucket's
+    length, with the engine's session open."""
+    rows = []
+    rng = np.random.default_rng(args.seed + 1)
+    for bucket in (128, 256, 512) if args.prefill else ():
+        prompt = rng.integers(0, cfg.vocab_size, size=bucket,
+                              dtype=np.int32)
+        engine.prefill_request(prompt)   # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(args.prefill):
+            t = time.perf_counter()
+            engine.prefill_request(prompt)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+            engine.prefill_request(prompt)
+            torch.cuda.synchronize()
+        rows.append((bucket, walls, _kernel_ms(prof, 1)))
+    return rows
 
 
 if __name__ == "__main__":

@@ -27,13 +27,27 @@ torch.set_num_threads(1)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
-# (E, C, D, F, group sizes)
+# (E, C, D, F, group sizes). bf16 with D and F multiples of 8 takes the
+# wgmma path (csrc/moe_gmm_sm90.cuh): C 9/64/65/160/200/300 (200 and
+# 300: two row groups, N at most 160), D not a multiple of the 64-deep
+# stage (40, 200, 4104), F not a multiple of a CTA's 128 or 256 columns
+# (72, 136, 200), group sizes 0, 1, C and a partly filled last row
+# group, E = 1, and a long D at narrow F (E2 C24 D4104 F136) that wraps
+# the stage ring many times.
 GMM_CASES = [
     (3, 7, 96, 40, [7, 3, 0]),
     (2, 16, 96, 40, [0, 0]),
     (4, 33, 64, 72, [0, 0, 17, 0]),
     (1, 40, 128, 136, [40]),
     (2, 12, 40, 37, [12, 5]),
+    (3, 9, 40, 72, [9, 1, 0]),
+    (2, 64, 200, 136, [64, 33]),
+    (2, 65, 64, 200, [65, 0]),
+    (1, 160, 128, 256, [160]),
+    (2, 200, 96, 136, [200, 161]),
+    (2, 24, 4104, 136, [24, 7]),
+    (2, 300, 64, 72, [300, 257]),
+    (3, 40, 4104, 200, [1, 40, 0]),
 ]
 
 # (B, H, KV, hd, S, kv_len, q_pos, wrapped ring, window)
@@ -95,6 +109,57 @@ def test_gmm_kernels_match_plain_on_card(cuda, dtype):
         torch.testing.assert_close(MG.gmm(x, wg, g).float(),
                                    MG.gmm_ref(x, wg, g).float(),
                                    atol=tol, rtol=tol)
+
+
+def _gmm_both(x, wg, wu, g, path=None):
+    """(fused_gate_up, gmm) through the kernel on `path` (None: the
+    plan's), each held to its plain version at the bf16 tolerance with
+    rows past the group size exactly 0."""
+    tol = TOL[torch.bfloat16]
+    past = torch.arange(x.shape[1], device=x.device)[None] >= g[:, None]
+    for name, fused, want in (
+            ("fused_gate_up", True, MG.fused_gate_up_ref(x, wg, wu, g)),
+            ("gmm", False, MG.gmm_ref(x, wg, g))):
+        got = MG._launch(name, fused, x, wg, wu if fused else None, g,
+                         path=path)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        assert torch.all(got[past] == 0)
+
+
+@pytest.mark.cuda
+def test_wgmma_paths_match_plain_on_card(cuda):
+    """bf16 with D and F multiples of 8 takes "wgmma" by the plan, decode's
+    C <= 8 included (N = 8); every such case also forced through the simt
+    path, which chip_smoke.py times against the plan's at decode."""
+    for e, c, d, f, gs in GMM_CASES + [(8, 3, 96, 136, [3, 1, 0, 2, 3,
+                                                          0, 1, 2])]:
+        if d % 8 or f % 8:
+            continue
+        x, wg, wu = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                     for a in _gmm_case(e, c, d, f))
+        g = torch.tensor(gs, dtype=torch.int32, device=cuda)
+        assert MG.kernel_path(x, wg, fused=True)[0] == "wgmma"
+        assert MG.kernel_path(x, wg)[0] == "wgmma"
+        for path in (None, "simt"):
+            _gmm_both(x, wg, wu, g, path)
+
+
+@pytest.mark.cuda
+def test_misaligned_x_takes_simt_on_card(cuda):
+    """x as a contiguous view 2 bytes past an aligned buffer: no TMA
+    tensor map can take it, so the plan takes the simt path, which holds
+    the plain version."""
+    e, c, d, f = 2, 64, 96, 136
+    xs, wg, wu = _gmm_case(e, c, d, f)
+    buf = torch.zeros(e * c * d + 8, dtype=torch.bfloat16, device=cuda)
+    x = buf[1:1 + e * c * d].view(e, c, d)
+    x.copy_(torch.from_numpy(xs))
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    wg, wu = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (wg, wu))
+    assert MG.kernel_path(x, wg, fused=True)[0] == "simt"
+    _gmm_both(x, wg, wu, torch.tensor([64, 30], dtype=torch.int32,
+                                      device=cuda))
 
 
 @pytest.mark.cuda
