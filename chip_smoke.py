@@ -14,7 +14,12 @@ Phases, each fatal on failure:
      them active); ``moe_gmm``'s path ("simt" or "wgmma") is named for
      every shape, the main path's decode and prefill shapes must take
      "wgmma", and each is timed in turns against another path that could
-     take it;
+     take it; ``decode_attn``'s path ("mma" or "simt") and cluster size
+     are named for every case (rows with no visible lane, lanes past
+     kv_len holding 1e4, k/v off alignment among them), the main shapes
+     must take "mma" and run one launch a call (torch.profiler), and
+     beside the eager time each has ``device_ms``, 20 launches captured
+     in a CUDA graph and timed by replay, as has its library call;
   4. the slice at full width: mixtral-8x7b at its published widths (8 of
      32 layers, bf16, random seeded weights) serving 12 requests through
      ``ServingEngine`` with the MoEless controller attached, counting
@@ -213,6 +218,56 @@ def _alternate(fn_a, fn_b, timer=None) -> tuple[float, float]:
     timer = timer or time_ms
     ta1, tb1, tb2, ta2 = timer(fn_a), timer(fn_b), timer(fn_b), timer(fn_a)
     return (ta1 + ta2) / 2, (tb1 + tb2) / 2
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device milliseconds per call: `iters` calls of `fn` captured once in
+    a CUDA graph, each replay timed by CUDA events, over the count; the
+    median of `reps` replays after a warm-up replay. Unlike time_ms, the
+    host's cost of a call is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    del graph
+    return float(np.median(times))
+
+
+def one_launch(name: str, fn, n: int = 4) -> None:
+    """Fail unless each call of `fn` runs exactly one device operation,
+    the decode-attention kernel, in a torch.profiler trace of `n` calls
+    after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ops = {e.key: e.count / n for e in prof.key_averages()
+           if "cuda" in str(getattr(e, "device_type", "")).lower()}
+    if len(ops) != 1 or "decode_attn" not in next(iter(ops)) \
+            or next(iter(ops.values())) != 1:
+        raise AssertionError(f"{name}: a call should run one kernel "
+                             f"launch; the profiler saw {ops}")
+    log(f"  {name:<22} one launch a call: {next(iter(ops))[:60]}")
 
 
 def host_us(fn, n: int = 50) -> float:
@@ -462,7 +517,21 @@ def check_quant_kernels(gen, shapes) -> dict:
     return rec
 
 
-def _attn_inputs(gen, b, h, kvh, hd, s, dtype, kv_len, q_pos, wrap):
+def _offset_copy(t):
+    """A contiguous copy of `t` starting one element (2 bytes in bf16, 4
+    in f32) past a 16-byte-aligned buffer: no 16-byte copy can take it."""
+    buf = torch.zeros(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == t.element_size()
+    return out
+
+
+def _attn_inputs(gen, b, h, kvh, hd, s, dtype, kv_len, q_pos, wrap,
+                 past=None, offset=False):
+    """Seeded inputs; with `past`, k and v hold that value in every lane
+    at or past the row's kv_len; with `offset`, k and v start one
+    element past an aligned buffer."""
     dev = "cuda"
     q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dtype)
@@ -470,6 +539,12 @@ def _attn_inputs(gen, b, h, kvh, hd, s, dtype, kv_len, q_pos, wrap):
     kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     q_pos = torch.tensor(q_pos, dtype=torch.int32, device=dev)
     slot = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    if past is not None:
+        beyond = (slot >= kv_len[:, None])[:, :, None, None]
+        k = torch.where(beyond, past, k).to(dtype)
+        v = torch.where(beyond, past, v).to(dtype)
+    if offset:
+        k, v = _offset_copy(k), _offset_copy(v)
     if wrap:
         # ring holding the last s positions up to q_pos: slot i holds the
         # largest position p <= q_pos with p % s == i
@@ -480,24 +555,67 @@ def _attn_inputs(gen, b, h, kvh, hd, s, dtype, kv_len, q_pos, wrap):
     return q, k, v, pos.contiguous().to(torch.int32), kv_len, q_pos
 
 
+def _path_label(q, k, v, tables=None) -> str:
+    path, info = DA.kernel_path(q, k, v, block_tables=tables)
+    return f"{path}, cluster {info['nsplit']}"
+
+
+# rows with no visible lane: kv_len = 0; every lane below kv_len hidden
+# by position (q_pos = -1); under a window of 16, every lane older than
+# it (q_pos = 100, positions 0..19); beside a partial and a full row
+HIDDEN_LEN = [0, 10, 23, 40, 20]
+HIDDEN_QPOS = [5, -1, 22, 39, 100]
+
+
 def check_decode_attention(gen, shape) -> dict:
-    cases = [  # (label, B, H, KV, hd, S, kv_len, q_pos, wrap, window)
-        ("GQA 1", 2, 4, 4, 64, 96, [96, 50], [95, 49], False, 0),
-        ("GQA 2", 3, 8, 4, 128, 70, [70, 1, 33], [69, 0, 32], False, 0),
+    """The contiguous kernel against its plain version: GQA groups 1-8,
+    hd 18/32/64/128, kv_len < S, wrapped rings, windows, rows with no
+    visible lane, lanes past kv_len holding 1e4, an unsplit grid, the
+    largest cluster and k/v one element off alignment, in float32 and
+    bfloat16, each with its path; then the main path's shape: its path
+    ("mma"), one launch a call, and its time eager and in a CUDA graph
+    beside its bound, the plain version and SDPA."""
+    cases = [  # (label, B, H, KV, hd, S, kv_len, q_pos, wrap, window,
+        #          past, offset)
+        ("GQA 1", 2, 4, 4, 64, 96, [96, 50], [95, 49], False, 0, None,
+         False),
+        ("GQA 2", 3, 8, 4, 128, 70, [70, 1, 33], [69, 0, 32], False, 0,
+         None, False),
         ("GQA 4, kv_len<S", 2, 8, 2, 128, 130, [77, 130], [76, 129],
-         False, 0),
-        ("wrapped ring", 2, 8, 2, 64, 64, [64, 64], [150, 64], True, 0),
-        ("window 16", 2, 8, 2, 64, 100, [100, 60], [99, 59], False, 16),
-        ("ring + window", 2, 4, 2, 32, 48, [48, 48], [200, 90], True, 20),
+         False, 0, None, False),
+        ("wrapped ring", 2, 8, 2, 64, 64, [64, 64], [150, 64], True, 0,
+         None, False),
+        ("window 16", 2, 8, 2, 64, 100, [100, 60], [99, 59], False, 16,
+         None, False),
+        ("ring + window", 2, 4, 2, 32, 48, [48, 48], [200, 90], True, 20,
+         None, False),
         ("hd=18 (scalar loads)", 2, 4, 2, 18, 50, [50, 31], [49, 30],
-         False, 0),
-        ("B=40, S unsplit", 40, 8, 8, 64, 40, [40 - i % 7 for i in range(40)],
-         [39 - i % 7 for i in range(40)], False, 0),
+         False, 0, None, False),
+        ("B=40, S unsplit", 40, 8, 8, 64, 40,
+         [40 - i % 7 for i in range(40)], [39 - i % 7 for i in range(40)],
+         False, 0, None, False),
+        ("no visible lane", 5, 8, 2, 128, 40, HIDDEN_LEN, HIDDEN_QPOS, False,
+         16, 1e4, False),
+        ("no visible lane, G 1", 5, 2, 2, 64, 40, HIDDEN_LEN, HIDDEN_QPOS,
+         False, 16, 1e4, False),
+        ("no visible lane, G 8", 5, 16, 2, 64, 40, HIDDEN_LEN, HIDDEN_QPOS,
+         False, 16, 1e4, False),
+        ("no visible lane, hd 18", 5, 8, 2, 18, 40, HIDDEN_LEN, HIDDEN_QPOS,
+         False, 16, 1e4, False),
+        ("past kv_len 1e4", 3, 32, 8, 128, 561, [560, 301, 17],
+         [559, 300, 16], False, 0, 1e4, False),
+        ("B*KV 288, unsplit", 36, 32, 8, 128, 40,
+         [40 - i % 9 for i in range(36)], [39 - i % 9 for i in range(36)],
+         False, 0, 1e4, False),
+        ("one group, cluster 8", 1, 4, 1, 128, 2000, [1777], [1776], False,
+         300, 1e4, False),
+        ("k/v off alignment", 5, 8, 2, 64, 40, HIDDEN_LEN, HIDDEN_QPOS, False,
+         16, 1e4, True),
     ]
-    for label, b, h, kvh, hd, s, kl, qp, wrap, win in cases:
+    for label, b, h, kvh, hd, s, kl, qp, wrap, win, past, off in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, pos, kv_len, q_pos = _attn_inputs(
-                gen, b, h, kvh, hd, s, dtype, kl, qp, wrap)
+                gen, b, h, kvh, hd, s, dtype, kl, qp, wrap, past, off)
             got = DA.decode_attention(q, k, v, pos, kv_len, q_pos,
                                       window=win)
             want = DA.decode_attention_ref(q, k, v, pos, kv_len, q_pos,
@@ -505,18 +623,23 @@ def check_decode_attention(gen, shape) -> dict:
             torch.cuda.synchronize()
             err = check(f"decode_attention [{label}, {dtype}]", got, want,
                         dtype)
-            log(f"  {'decode_attention':<16} {label:<20} {str(dtype):<15} "
-                f"max_abs_err={err:.3e}")
+            log(f"  {'decode_attention':<16} {label:<22} {str(dtype):<15} "
+                f"{_path_label(q, k, v):<16} max_abs_err={err:.3e}")
     b, h, kvh, hd, s, kl = shape
     dtype = torch.bfloat16
     q, k, v, pos, kv_len, q_pos = _attn_inputs(
         gen, b, h, kvh, hd, s, dtype, kl, [x - 1 for x in kl], False)
+    path, info = DA.kernel_path(q, k, v)
+    if path != "mma":
+        raise AssertionError(f"decode_attention: the main shape took "
+                             f"{path!r}, not 'mma'")
     run = lambda: DA.decode_attention(q, k, v, pos, kv_len, q_pos)  # noqa
     plain = lambda: DA.decode_attention_ref(q, k, v, pos, kv_len,  # noqa
                                             q_pos)
     got, want = run(), plain()
     torch.cuda.synchronize()
     err = check("decode_attention [decode]", got, want, dtype)
+    one_launch("decode_attention", run)
     g = h // kvh
     kr = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     vr = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
@@ -528,6 +651,7 @@ def check_decode_attention(gen, shape) -> dict:
     def library():
         return F.scaled_dot_product_attention(q4, kr, vr, attn_mask=amask)
     ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(library)
+    dev_ms, lib_dev_ms = _alternate(run, library, graph_ms)
     n_vis = int(kv_len.clamp(max=s).sum())
     isz = q.element_size()
     nbytes = (2 * b * h * hd + 2 * n_vis * kvh * hd) * isz \
@@ -535,18 +659,27 @@ def check_decode_attention(gen, shape) -> dict:
     flops = 4.0 * n_vis * h * hd
     b_ms, b_by = bound(nbytes, flops, dtype)
     log(f"  {'decode_attention':<16} decode   B={b} H={h} KV={kvh} hd={hd} "
-        f"S={s} bf16 max_abs_err={err:.3e} ms={ms:.4f} bound_ms={b_ms:.4f} "
-        f"({b_by}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
-    return {"decode_attention": dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=lib_ms)}
+        f"S={s} bf16 path={path} cluster={info['nsplit']} "
+        f"stages={info['stages']} smem={info['smem']} B "
+        f"max_abs_err={err:.3e} ms={ms:.4f} device_ms={dev_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} library_device_ms={lib_dev_ms:.4f} "
+        f"(SDPA; device times in a CUDA graph, in turns)")
+    return {"decode_attention": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+        library_device_ms=lib_dev_ms, path=path)}
 
 
-def _paged_inputs(gen, b, h, kvh, hd, blk, nbs, kv_len, dtype, share=0):
+def _paged_inputs(gen, b, h, kvh, hd, blk, nbs, kv_len, dtype, share=0,
+                  q_pos=None, past=None, offset=False):
     """A shuffled pool: each row's chain is a random choice of pool
     blocks (not contiguous), rows 0 and 1 share their first `share`
     blocks, unassigned table entries point at trash block 0, and every
-    pool lane not on a chain holds a random position."""
+    pool lane not on a chain holds a random position. q_pos defaults to
+    kv_len - 1 (at least 0); with `past`, k and v hold that value in
+    block 0 and in every chain lane at or past the row's kv_len; with
+    `offset`, k and v start one element past an aligned buffer."""
     dev = gen.device
     nb = 1 + b * nbs
     order = torch.randperm(nb - 1, generator=gen, device=dev).cpu() + 1
@@ -566,8 +699,18 @@ def _paged_inputs(gen, b, h, kvh, hd, blk, nbs, kv_len, dtype, share=0):
     q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((nb, blk, kvh, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((nb, blk, kvh, hd), generator=gen, device=dev).to(dtype)
+    if past is not None:
+        for t in (k, v):
+            t[0] = past
+            for r, n in enumerate(kv_len):
+                if n % blk:
+                    t[int(tables[r, n // blk]), n % blk:] = past
+    if offset:
+        k, v = _offset_copy(k), _offset_copy(v)
+    q_pos = (torch.tensor(kv_len, dtype=torch.int32, device=dev) - 1).clamp(
+        min=0) if q_pos is None else torch.tensor(q_pos, dtype=torch.int32,
+                                                  device=dev)
     kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
-    q_pos = (kv_len - 1).clamp(min=0)
     return q, k, v, kv_pos, tables.to(dev), kv_len, q_pos
 
 
@@ -601,47 +744,73 @@ def _paged_bytes_flops(q, k, tables, kv_len, window, kv_pos, q_pos):
 
 def check_decode_attention_paged(gen, shape) -> dict:
     """The paged kernel against its plain version: adversarial block
-    sizes (1, 3, 16, 32), then the main path's shape with shuffled
-    tables, two rows sharing prefix blocks, a kv_len = 0 row and a full
-    row, with and without a window, in float32 and bfloat16; timed at
-    the main path's shape beside its bound, the plain version and the
-    nearest library composition (gather then SDPA: two calls)."""
-    cases = [  # (label, B, H, KV, hd, blk, nbs, kv_len, share, window)
-        ("blk 1", 3, 8, 2, 64, 1, 40, [40, 17, 0], 10, 0),
-        ("blk 3", 3, 8, 4, 32, 3, 13, [39, 20, 5], 4, 0),
-        ("blk 16, GQA 4", 4, 8, 2, 128, 16, 6, [96, 50, 0, 33], 3, 0),
-        ("blk 32 > tile", 2, 4, 2, 64, 32, 3, [96, 70], 2, 0),
-        ("blk 16, window 12", 3, 8, 2, 64, 16, 5, [80, 61, 30], 3, 12),
-        ("hd=18 (scalar loads)", 2, 4, 2, 18, 3, 7, [21, 10], 3, 0),
+    sizes (1, 3, 16, 32), rows with no visible lane beside lanes past
+    kv_len and a trash block holding 1e4, k/v one element off alignment,
+    then the main path's shape with shuffled tables, two rows sharing
+    prefix blocks, a kv_len = 0 row and a full row, with and without a
+    window, in float32 and bfloat16, each with its path; timed at the
+    main path's shape, eager and in a CUDA graph, beside its bound, the
+    plain version and the nearest library composition (gather then
+    SDPA: two calls)."""
+    cases = [  # (label, B, H, KV, hd, blk, nbs, kv_len, share, window,
+        #          q_pos, past, offset)
+        ("blk 1", 3, 8, 2, 64, 1, 40, [40, 17, 0], 10, 0, None, None,
+         False),
+        ("blk 3", 3, 8, 4, 32, 3, 13, [39, 20, 5], 4, 0, None, None, False),
+        ("blk 16, GQA 4", 4, 8, 2, 128, 16, 6, [96, 50, 0, 33], 3, 0, None,
+         None, False),
+        ("blk 32 > tile", 2, 4, 2, 64, 32, 3, [96, 70], 2, 0, None, None,
+         False),
+        ("blk 16, window 12", 3, 8, 2, 64, 16, 5, [80, 61, 30], 3, 12, None,
+         None, False),
+        ("hd=18 (scalar loads)", 2, 4, 2, 18, 3, 7, [21, 10], 3, 0, None,
+         None, False),
     ]
+    for cblk in (1, 3, 16, 32):
+        cnbs = -(-40 // cblk)
+        kl = [0, 10, 23, cnbs * cblk, 20]
+        qp = [5, -1, 22, cnbs * cblk - 1, 100]
+        cases.append((f"no visible lane, blk {cblk}", 5, 8, 2, 128, cblk,
+                      cnbs, kl, 0, 16, qp, 1e4, False))
+    cases.append(("k/v off alignment", 3, 8, 2, 64, 16, 3, [40, 0, 17], 0, 0,
+                  None, 1e4, True))
     b, h, kvh, hd, blk, nbs = shape
     full = nbs * blk
     main_len = [full, full - blk, 0, full - 3 * blk - 5, 2 * full // 3,
                 full // 2 + 3, full // 4 + 1, 17][:b]
     share = max(full // blk - 3, 0)
-    cases += [("main shape", b, h, kvh, hd, blk, nbs, main_len, share, 0),
+    cases += [("main shape", b, h, kvh, hd, blk, nbs, main_len, share, 0,
+               None, 1e4, False),
               ("main shape, window 64", b, h, kvh, hd, blk, nbs, main_len,
-               share, 64)]
-    for label, cb, ch, ckv, chd, cblk, cnbs, kl, sh, win in cases:
+               share, 64, None, 1e4, False)]
+    for (label, cb, ch, ckv, chd, cblk, cnbs, kl, sh, win, qp, past,
+         off) in cases:
         for dtype in (torch.float32, torch.bfloat16):
             args = _paged_inputs(gen, cb, ch, ckv, chd, cblk, cnbs, kl,
-                                 dtype, sh)
+                                 dtype, sh, qp, past, off)
             got = DA.decode_attention_paged(*args, window=win)
             want = DA.decode_attention_paged_ref(*args, window=win)
             torch.cuda.synchronize()
             err = check(f"decode_attention_paged [{label}, {dtype}]", got,
                         want, dtype)
             log(f"  {'decode_attention_paged':<22} {label:<22} "
-                f"{str(dtype):<15} max_abs_err={err:.3e}")
+                f"{str(dtype):<15} "
+                f"{_path_label(*args[:3], args[4]):<16} "
+                f"max_abs_err={err:.3e}")
     dtype = torch.bfloat16
     args = _paged_inputs(gen, b, h, kvh, hd, blk, nbs, main_len, dtype,
                          share)
     q, k, v, kv_pos, tables, kv_len, q_pos = args
+    path, info = DA.kernel_path(q, k, v, block_tables=tables)
+    if path != "mma":
+        raise AssertionError(f"decode_attention_paged: the main shape took "
+                             f"{path!r}, not 'mma'")
     run = lambda: DA.decode_attention_paged(*args)  # noqa: E731
     plain = lambda: DA.decode_attention_paged_ref(*args)  # noqa: E731
     got, want = run(), plain()
     torch.cuda.synchronize()
     err = check("decode_attention_paged [decode]", got, want, dtype)
+    one_launch("decode_attention_paged", run)
     g = h // kvh
     tab = tables.long()
     slot = torch.arange(full, device=q.device)
@@ -659,18 +828,23 @@ def check_decode_attention_paged(gen, shape) -> dict:
     lib_err = float((library()[:, :, 0].float() - want.float())[
         vis.any(dim=1)].abs().max())
     ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(library)
+    dev_ms, lib_dev_ms = _alternate(run, library, graph_ms)
     nbytes, flops = _paged_bytes_flops(q, k, tables, kv_len, 0, kv_pos,
                                        q_pos)
     b_ms, b_by = bound(nbytes, flops, dtype)
     log(f"  {'decode_attention_paged':<22} decode B={b} H={h} KV={kvh} "
-        f"hd={hd} blk={blk} nbs={nbs} NB={k.shape[0]} bf16 "
-        f"max_abs_err={err:.3e} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+        f"hd={hd} blk={blk} nbs={nbs} NB={k.shape[0]} bf16 path={path} "
+        f"cluster={info['nsplit']} stages={info['stages']} "
+        f"smem={info['smem']} B max_abs_err={err:.3e} ms={ms:.4f} "
+        f"device_ms={dev_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
         f"{nbytes / 1e6:.2f} MB) plain_ms={plain_ms:.4f} "
-        f"library_ms={lib_ms:.4f} (gather + SDPA, 2 calls; its max err on "
-        f"rows with a visible lane {lib_err:.3e})")
+        f"library_ms={lib_ms:.4f} library_device_ms={lib_dev_ms:.4f} "
+        f"(gather + SDPA, 2 calls; its max err on rows with a visible lane "
+        f"{lib_err:.3e}; device times in a CUDA graph, in turns)")
     return {"decode_attention_paged": dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)}
+        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+        library_device_ms=lib_dev_ms, path=path)}
 
 
 def main_path_shapes(cfg, slots: int, bucket: int, max_len: int):

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import load, num_sms
+from repro_torch.kernels.build import load
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -70,20 +70,53 @@ def decode_attention_paged_ref(q, k, v, kv_pos, block_tables, kv_len,
 
 @functools.cache
 def _lib():
-    """The loaded library with its C signatures declared (once)."""
+    """The loaded library with its C signatures declared, and the largest
+    G * hd its kernels take (both read once)."""
     lib = load("decode_attn")
     lib.decode_attn_launch.restype = ctypes.c_int
     lib.decode_attn_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.decode_attn_paged_launch.restype = ctypes.c_int
     lib.decode_attn_paged_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    lib.decode_attn_workspace.restype = ctypes.c_longlong
-    lib.decode_attn_workspace.argtypes = [ctypes.c_int] * 6
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.decode_attn_plan.restype = ctypes.c_int
+    lib.decode_attn_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.decode_attn_max_group_width.restype = ctypes.c_int
-    return lib
+    return lib, lib.decode_attn_max_group_width()
+
+
+# the paths of csrc/decode_attn.cu (its Path enum)
+PATHS = {"simt": 0, "mma": 1}
+
+
+def _aligned(k, v) -> int:
+    """1 when k and v are 16-byte aligned (the kernel's 16-byte copies)."""
+    return int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+
+
+def kernel_path(q, k, v, block_tables=None) -> tuple[str, dict]:
+    """The path a launch of ``csrc/decode_attn.cu`` takes on these (CUDA)
+    operands, from the kernel's own plan: "mma" (bf16, k/v 16-byte
+    aligned, hd a multiple of 16 up to 128, G = H/KV <= 8) or "simt";
+    with the cluster size (CTAs a (row, KV head) group: the largest, up
+    to 8, at which the card holds all B * KV clusters at once), the ring
+    stages and a CTA's dynamic shared memory in bytes. ``block_tables``
+    marks the paged layout (k/v the pool)."""
+    b, h, hd = q.shape
+    kvh = k.shape[2]
+    paged = block_tables is not None
+    s = k.shape[1] * (block_tables.shape[1] if paged else 1)
+    lib, _ = _lib()
+    info = (ctypes.c_int * 3)()
+    path = lib.decode_attn_plan(_DTYPES[q.dtype], int(paged), b, h, kvh, s,
+                                hd, _aligned(k, v), info)
+    if path < 0:
+        raise ValueError(f"decode_attention: no plan for H={h} KV={kvh} "
+                         f"hd={hd}")
+    name = {v_: k_ for k_, v_ in PATHS.items()}[path]
+    return name, dict(nsplit=info[0], stages=info[1], smem=info[2])
 
 
 def _check(q, k, v, kv_pos, kv_len, q_pos):
@@ -119,25 +152,19 @@ def decode_attention(q, k, v, kv_pos, kv_len, q_pos, *, window: int = 0):
     _check(q, k, v, kv_pos, kv_len, q_pos)
     b, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    lib = _lib()
-    max_width = lib.decode_attn_max_group_width()
+    lib, max_width = _lib()
     if (h // kvh) * hd > max_width:
         raise ValueError(f"decode_attention: (H/KV)*hd = {(h // kvh) * hd} "
                          f"exceeds the kernel's {max_width}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    sms = num_sms(q.device)
-    # the split-S partial (m, l, acc) of every (row, head)
-    work = torch.empty((lib.decode_attn_workspace(b, h, kvh, s, hd, sms),),
-                       dtype=torch.float32, device=q.device)
-    aligned = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attn_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_pos.data_ptr(), kv_len.data_ptr(), q_pos.data_ptr(),
-        out.data_ptr(), work.data_ptr(), b, h, kvh, s, hd, int(window),
-        1.0 / math.sqrt(hd), aligned, sms, stream)
+        out.data_ptr(), b, h, kvh, s, hd, int(window),
+        1.0 / math.sqrt(hd), _aligned(k, v), stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention: CUDA launch failed with "
                            f"error {rc}")
@@ -180,7 +207,8 @@ def decode_attention_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos, *,
                            window: int = 0):
     """(B, H, hd) flash-decoding output over the paged pool; CUDA tensors
     launch the kernel. Every table entry must name a pool block in
-    [0, NB): the kernel reads all nbs * blk lanes of every row."""
+    [0, NB): the kernel reads a row's lanes below kv_len, and all nbs *
+    blk of them for a row with no visible lane."""
     if q.device.type == "cpu":
         return decode_attention_paged_ref(q, k, v, kv_pos, block_tables,
                                           kv_len, q_pos, window=window)
@@ -188,8 +216,7 @@ def decode_attention_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos, *,
     b, h, hd = q.shape
     blk, kvh = k.shape[1], k.shape[2]
     nbs = block_tables.shape[1]
-    lib = _lib()
-    max_width = lib.decode_attn_max_group_width()
+    lib, max_width = _lib()
     if (h // kvh) * hd > max_width:
         raise ValueError(f"decode_attention_paged: (H/KV)*hd = "
                          f"{(h // kvh) * hd} exceeds the kernel's "
@@ -199,17 +226,12 @@ def decode_attention_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    sms = num_sms(q.device)
-    work = torch.empty(
-        (lib.decode_attn_workspace(b, h, kvh, nbs * blk, hd, sms),),
-        dtype=torch.float32, device=q.device)
-    aligned = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attn_paged_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_pos.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(),
-        q_pos.data_ptr(), out.data_ptr(), work.data_ptr(), b, h, kvh, blk,
-        nbs, hd, int(window), 1.0 / math.sqrt(hd), aligned, sms, stream)
+        q_pos.data_ptr(), out.data_ptr(), b, h, kvh, blk, nbs, hd,
+        int(window), 1.0 / math.sqrt(hd), _aligned(k, v), stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention_paged: CUDA launch failed "
                            f"with error {rc}")

@@ -32,8 +32,8 @@ calling thread and of the whole process per step (means: those clocks
 tick coarsely; a process share above the thread's means other threads
 were running), the median paired
 difference against the first layout, and from the traced steps the
-device busy time (one stream, so kernels do not overlap), the device's
-idle share of the untraced step, the kernels by device time, the host
+device busy time (one stream, so kernels do not overlap) and the kernel
+launches a step, the device's idle share of the untraced step, the kernels by device time, the host
 operators by their own host time, and the call sites that block the
 host on the device. With ``--prefill N``, the first layout's engine
 then prefills one prompt of each bucket length (128, 256, 512) N times
@@ -62,13 +62,24 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _device_events(prof):
+    return [e for e in prof.key_averages()
+            if "cuda" in str(getattr(e, "device_type", "")).lower()
+            and _device_us(e) > 0]
+
+
 def _kernel_ms(prof, steps: int) -> list[tuple[str, float]]:
     """(kernel name, device ms per step) of a trace over `steps` steps,
     largest first."""
     return sorted(((e.key, _device_us(e) / steps / 1e3)
-                   for e in prof.key_averages()
-                   if "cuda" in str(getattr(e, "device_type", "")).lower()
-                   and _device_us(e) > 0), key=lambda kv_: -kv_[1])
+                   for e in _device_events(prof)), key=lambda kv_: -kv_[1])
+
+
+def _launches(prof, steps: int) -> float:
+    """Kernel launches per step (device events other than copies and
+    fills)."""
+    return sum(e.count for e in _device_events(prof)
+               if not e.key.startswith(("Memcpy", "Memset"))) / steps
 
 
 def main(argv=None) -> int:
@@ -253,7 +264,8 @@ def main(argv=None) -> int:
             status = 1
             continue
         print(f"device busy {busy:.3f} ms per step ({len(kern)} kernel "
-              f"names); idle share {max(0.0, 1 - busy / wall):.3f} of the "
+              f"names, {_launches(prof, args.steps):.1f} kernel launches a "
+              f"step); idle share {max(0.0, 1 - busy / wall):.3f} of the "
               f"untraced step")
         for name, ms in kern[:15]:
             print(f"  {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")

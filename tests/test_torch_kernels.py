@@ -118,13 +118,19 @@ def test_expert_ffn_bf16_matches_jax():
     np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
 
 
-def _attn_case(b, h, kvh, hd, s, kv_len, q_pos, wrap, seed=0):
+def _attn_case(b, h, kvh, hd, s, kv_len, q_pos, wrap, seed=0, past=None):
+    """Seeded inputs; with `past`, k and v hold that value in every lane
+    at or past the row's kv_len."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, hd)).astype(np.float32)
     k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
     v = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
     kv_len = np.asarray(kv_len, np.int32)
     q_pos = np.asarray(q_pos, np.int32)
+    if past is not None:
+        for r in range(b):
+            k[r, kv_len[r]:] = past
+            v[r, kv_len[r]:] = past
     slot = np.arange(s, dtype=np.int32)[None]
     if wrap:   # ring holding the last s positions up to q_pos
         pos = q_pos[:, None] - np.mod(q_pos[:, None] - slot, s)
@@ -133,22 +139,30 @@ def _attn_case(b, h, kvh, hd, s, kv_len, q_pos, wrap, seed=0):
     return q, k, v, np.ascontiguousarray(pos, np.int32), kv_len, q_pos
 
 
-# (B, H, KV, hd, S, kv_len, q_pos, wrapped ring, window): GQA groups
-# 1/2/4, kv_len < S, wrapped ring positions, window > 0
+# (B, H, KV, hd, S, kv_len, q_pos, wrapped ring, window, past): GQA
+# groups 1/2/4, kv_len < S, wrapped ring positions, window > 0; then rows
+# with no visible lane (kv_len = 0, hidden by position, hidden by the
+# window), which average v over all S lanes, beside rows whose lanes
+# past kv_len hold 1e4 (`past`) that must weigh nothing
 ATTN_CASES = [
-    (2, 4, 4, 32, 24, [24, 10], [23, 9], False, 0),
-    (3, 8, 4, 16, 20, [20, 1, 7], [19, 0, 6], False, 0),
-    (2, 8, 2, 32, 40, [17, 40], [16, 39], False, 0),
-    (2, 4, 1, 16, 16, [16, 16], [40, 16], True, 0),
-    (2, 8, 2, 16, 32, [32, 21], [31, 20], False, 8),
-    (2, 4, 2, 16, 12, [12, 12], [50, 23], True, 5),
+    (2, 4, 4, 32, 24, [24, 10], [23, 9], False, 0, None),
+    (3, 8, 4, 16, 20, [20, 1, 7], [19, 0, 6], False, 0, None),
+    (2, 8, 2, 32, 40, [17, 40], [16, 39], False, 0, None),
+    (2, 4, 1, 16, 16, [16, 16], [40, 16], True, 0, None),
+    (2, 8, 2, 16, 32, [32, 21], [31, 20], False, 8, None),
+    (2, 4, 2, 16, 12, [12, 12], [50, 23], True, 5, None),
+    (3, 8, 2, 16, 24, [0, 10, 13], [5, -1, 12], False, 0, 1e4),
+    (2, 4, 2, 16, 20, [20, 12], [19, 100], False, 8, 1e4),
+    (2, 2, 2, 18, 12, [7, 0], [6, 3], False, 0, 1e4),
+    (2, 8, 1, 64, 16, [9, 16], [8, 200], True, 6, 1e4),
 ]
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
 def test_decode_attention_plain_matches_jax(case):
-    b, h, kvh, hd, s, kl, qp, wrap, window = case
-    q, k, v, pos, kv_len, q_pos = _attn_case(b, h, kvh, hd, s, kl, qp, wrap)
+    b, h, kvh, hd, s, kl, qp, wrap, window, past = case
+    q, k, v, pos, kv_len, q_pos = _attn_case(b, h, kvh, hd, s, kl, qp, wrap,
+                                             past=past)
     got = DA.decode_attention(*map(_t, (q, k, v, pos, kv_len, q_pos)),
                               window=window).numpy()
     jargs = list(map(jnp.asarray, (q, k, v, pos, kv_len, q_pos)))

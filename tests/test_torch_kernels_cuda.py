@@ -77,13 +77,20 @@ def _gmm_case(e, c, d, f, seed=0):
     return x, wg, wu
 
 
-def _attn_case(b, h, kvh, hd, s, kv_len, q_pos, wrap, seed=0):
+def _attn_case(b, h, kvh, hd, s, kv_len, q_pos, wrap, seed=0, past=None):
+    """Seeded inputs; with `past`, k and v hold that value in every lane
+    at or past the row's kv_len (a lane the result must not weigh unless
+    the row has no visible lane)."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, hd)).astype(np.float32)
     k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
     v = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
     kv_len = np.asarray(kv_len, np.int32)
     q_pos = np.asarray(q_pos, np.int32)
+    if past is not None:
+        for r in range(b):
+            k[r, kv_len[r]:] = past
+            v[r, kv_len[r]:] = past
     slot = np.arange(s, dtype=np.int32)[None]
     if wrap:   # ring holding the last s positions up to q_pos
         pos = q_pos[:, None] - np.mod(q_pos[:, None] - slot, s)
@@ -193,11 +200,14 @@ PAGED_CASES = [
 ]
 
 
-def _paged_case(b, h, kvh, hd, blk, nbs, kv_len, seed=0):
+def _paged_case(b, h, kvh, hd, blk, nbs, kv_len, seed=0, past=None,
+                q_pos=None):
     """A shuffled pool, also the CPU tests' (test_torch_paged_kv.py):
     each row's chain is a random choice of pool blocks, rows 0 and 1
     share their common full prefix blocks, and unassigned table entries
-    point at trash block 0."""
+    point at trash block 0. q_pos defaults to kv_len - 1 (at least 0);
+    with `past`, k and v hold that value in block 0 and in every chain
+    lane at or past the row's kv_len."""
     rng = np.random.default_rng(seed)
     nb = 1 + b * nbs
     kv_len = np.asarray(kv_len, np.int32)
@@ -216,7 +226,16 @@ def _paged_case(b, h, kvh, hd, blk, nbs, kv_len, seed=0):
     q = rng.standard_normal((b, h, hd)).astype(np.float32)
     k = rng.standard_normal((nb, blk, kvh, hd)).astype(np.float32)
     v = rng.standard_normal((nb, blk, kvh, hd)).astype(np.float32)
-    q_pos = np.maximum(kv_len - 1, 0).astype(np.int32)
+    if q_pos is None:
+        q_pos = np.maximum(kv_len - 1, 0)
+    q_pos = np.asarray(q_pos, np.int32)
+    if past is not None:
+        for t in (k, v):
+            t[0] = past
+            for r in range(b):
+                n = int(kv_len[r])
+                if n % blk:
+                    t[tables[r, n // blk], n % blk:] = past
     return q, k, v, kv_pos, tables, kv_len, q_pos
 
 
@@ -236,6 +255,167 @@ def test_decode_attention_paged_kernel_matches_plain_on_card(cuda, dtype):
                                              q_pos, window=window)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+def _to_card(device, dtype, *arrays):
+    """numpy inputs on the card: floats in `dtype`, ints as they are."""
+    out = [torch.from_numpy(np.array(a)) for a in arrays]
+    return [t.to(device, dtype) if t.is_floating_point() else t.to(device)
+            for t in out]
+
+
+def _want_path(dtype, hd):
+    return "mma" if dtype == torch.bfloat16 and hd % 16 == 0 else "simt"
+
+
+# rows of the hidden-row cases: kv_len = 0; every lane below kv_len
+# hidden by position (q_pos = -1); a partial row; a full row; and, under
+# the window of 16, a row whose lanes are all older than the window
+HIDDEN_KV_LEN = [0, 10, 23, 40, 20]
+HIDDEN_Q_POS = [5, -1, 22, 39, 100]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [18, 64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_decode_attention_hidden_rows_on_card(cuda, dtype, hd, g):
+    """G = H/KV of 1, 4 and 8 at hd 18, 64 and 128: rows with no visible
+    lane (kv_len = 0, hidden by position, hidden by the window) average v
+    over all S lanes, and lanes past kv_len hold 1e4 in k and v, so a
+    kernel that weighs any of them in a row with a visible lane fails.
+    bf16 with hd % 16 == 0 takes "mma", everything else "simt"."""
+    tol = TOL[dtype]
+    b, kvh, s = len(HIDDEN_KV_LEN), 2, 40
+    args = _to_card(cuda, dtype, *_attn_case(
+        b, g * kvh, kvh, hd, s, HIDDEN_KV_LEN, HIDDEN_Q_POS, False,
+        past=1e4))
+    assert DA.kernel_path(*args[:3])[0] == _want_path(dtype, hd)
+    for window in (0, 16):
+        torch.testing.assert_close(
+            DA.decode_attention(*args, window=window).float(),
+            DA.decode_attention_ref(*args, window=window).float(),
+            atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split_extremes_on_card(cuda, dtype):
+    """An unsplit grid (B * KV = 288 >= 2 CTAs an SM: one CTA a group)
+    and the largest split (one group, a long row: clusters of 8)."""
+    tol = TOL[dtype]
+    b, h, kvh, hd, s = 36, 32, 8, 128, 40
+    kl = [40 - i % 9 for i in range(b)]
+    args = _to_card(cuda, dtype, *_attn_case(
+        b, h, kvh, hd, s, kl, [x - 1 for x in kl], False, past=1e4))
+    assert DA.kernel_path(*args[:3])[1]["nsplit"] == 1
+    torch.testing.assert_close(DA.decode_attention(*args).float(),
+                               DA.decode_attention_ref(*args).float(),
+                               atol=tol, rtol=tol)
+    args = _to_card(cuda, dtype, *_attn_case(
+        1, 4, 1, 128, 2000, [1777], [1776], False, past=1e4))
+    assert DA.kernel_path(*args[:3])[1]["nsplit"] == 8
+    for window in (0, 300):
+        torch.testing.assert_close(
+            DA.decode_attention(*args, window=window).float(),
+            DA.decode_attention_ref(*args, window=window).float(),
+            atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blk", [1, 3, 16, 32])
+def test_decode_attention_paged_hidden_rows_on_card(cuda, dtype, blk):
+    """The paged kernel on the hidden-row rows, with 1e4 in pool block 0
+    (where unassigned table entries point) and in every chain lane past
+    kv_len; a row with no visible lane averages all nbs * blk lanes, the
+    trash block's included."""
+    tol = TOL[dtype]
+    nbs = -(-40 // blk)
+    kl = [0, 10, 23, nbs * blk, 20]
+    qp = [5, -1, 22, nbs * blk - 1, 100]
+    for hd in (18, 128):
+        args = _to_card(cuda, dtype, *_paged_case(
+            len(kl), 8, 2, hd, blk, nbs, kl, past=1e4, q_pos=qp))
+        assert DA.kernel_path(*args[:3], block_tables=args[4])[0] == \
+            _want_path(dtype, hd)
+        for window in (0, 16):
+            torch.testing.assert_close(
+                DA.decode_attention_paged(*args, window=window).float(),
+                DA.decode_attention_paged_ref(*args, window=window).float(),
+                atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_misaligned_kv_takes_simt_on_card(cuda):
+    """bf16 k/v as contiguous views 2 bytes past an aligned buffer: no
+    16-byte copy can take them, so both launches take the simt path,
+    which holds the plain version."""
+    tol = TOL[torch.bfloat16]
+
+    def offset(a):
+        buf = torch.zeros(a.size + 8, dtype=torch.bfloat16, device=cuda)
+        t = buf[1:1 + a.size].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        assert t.is_contiguous() and t.data_ptr() % 16 == 2
+        return t
+
+    q, k, v, pos, kv_len, q_pos = _attn_case(
+        5, 8, 2, 64, 40, HIDDEN_KV_LEN, HIDDEN_Q_POS, False, past=1e4)
+    q, pos, kv_len, q_pos = _to_card(cuda, torch.bfloat16, q, pos, kv_len,
+                                     q_pos)
+    k, v = offset(k), offset(v)
+    assert DA.kernel_path(q, k, v)[0] == "simt"
+    torch.testing.assert_close(
+        DA.decode_attention(q, k, v, pos, kv_len, q_pos).float(),
+        DA.decode_attention_ref(q, k, v, pos, kv_len, q_pos).float(),
+        atol=tol, rtol=tol)
+    q, k, v, pos, tab, kv_len, q_pos = _paged_case(
+        3, 8, 2, 64, 16, 3, [40, 0, 17], past=1e4)
+    q, pos, tab, kv_len, q_pos = _to_card(cuda, torch.bfloat16, q, pos, tab,
+                                          kv_len, q_pos)
+    k, v = offset(k), offset(v)
+    assert DA.kernel_path(q, k, v, block_tables=tab)[0] == "simt"
+    torch.testing.assert_close(
+        DA.decode_attention_paged(q, k, v, pos, tab, kv_len, q_pos).float(),
+        DA.decode_attention_paged_ref(q, k, v, pos, tab, kv_len,
+                                      q_pos).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_graph_capture_on_card(cuda):
+    """Three calls (contiguous bf16, paged bf16, contiguous f32) captured
+    in one CUDA graph: a replay gives the eager calls' outputs bit for
+    bit, and after kv_len changes in place, the new eager outputs."""
+    cont = _to_card(cuda, torch.bfloat16, *_attn_case(
+        5, 8, 2, 128, 40, HIDDEN_KV_LEN, HIDDEN_Q_POS, False, past=1e4))
+    paged = _to_card(cuda, torch.bfloat16, *_paged_case(
+        3, 8, 2, 128, 16, 3, [40, 0, 17], past=1e4))
+    f32 = _to_card(cuda, torch.float32, *_attn_case(
+        2, 8, 2, 64, 30, [30, 11], [29, 10], False, past=1e4))
+
+    def calls():
+        return (DA.decode_attention(*cont), DA.decode_attention_paged(*paged),
+                DA.decode_attention(*f32))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for step in range(2):
+        if step:   # shorter rows: the replay reads the new lengths
+            for args in (cont, paged, f32):
+                args[-2].copy_(torch.clamp(args[-2] - 3, min=0))
+        graph.replay()
+        eager = calls()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
 
 
 # (E, C, D, F, group sizes) of the int8-weight kernels: C = 7, D = 96,

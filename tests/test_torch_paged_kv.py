@@ -102,6 +102,34 @@ def test_paged_attention_matches_reference(dtype, window, blk):
                                    atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("blk", [1, 3, 16])
+def test_paged_attention_hidden_rows_match_reference(dtype, window, blk):
+    """Rows with no visible lane against the reference's Pallas kernel in
+    interpret mode and its plain version: kv_len = 0, every lane hidden
+    by position (q_pos = -1) and, under the window, every lane older than
+    it (q_pos = 40); they average v over all nbs * blk lanes. Pool block
+    0 (where unassigned table entries point) and every chain lane past
+    kv_len hold 1e4, which the full and partial rows must not weigh."""
+    nbs = -(-24 // blk)
+    kl = [nbs * blk, 0, 13, 9, 9]
+    qp = [nbs * blk - 1, 3, 12, -1, 40]
+    case = _paged_case(len(kl), 4, 2, 16, blk, nbs, kl, past=1e4, q_pos=qp)
+    targs = [_torch(a, dtype) for a in case]
+    got = DA.decode_attention_paged(*targs, window=window)
+    jdt = getattr(jnp, dtype)
+    jargs = [jnp.asarray(a, jdt) if a.dtype == np.float32 else
+             jnp.asarray(a) for a in case]
+    tol = TOL[dtype]
+    for want in (JDA.decode_attention_paged(*jargs, window=window,
+                                            interpret=True),
+                 JDA.decode_attention_paged_ref(*jargs, window=window)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+
+
 def test_paged_plain_equals_contiguous_plain_on_gathered_chain():
     """Scatter a dense cache into a shuffled pool and read it back through
     the tables: the paged plain version equals the contiguous plain
