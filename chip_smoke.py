@@ -11,10 +11,12 @@ Phases, each fatal on failure:
      adversarial shapes (f32 and bf16), with its time, its bound, the
      plain version's time and one PyTorch library call's time — the
      int8-weight kernels at the EP slot plane's shapes (64 slots, 16 of
-     them active); ``moe_gmm``'s path ("simt" or "wgmma") is named for
-     every shape, the main path's decode and prefill shapes must take
-     "wgmma", and each is timed in turns against another path that could
-     take it; ``decode_attn``'s path ("mma" or "simt") and cluster size
+     them active); the path of ``moe_gmm`` and of the int8 kernels
+     ("simt" or "wgmma") is named for every shape, the main path's decode
+     and prefill shapes must take "wgmma" (the int8 kernels in one launch
+     a call, torch.profiler, with no workspace), and each is timed in
+     turns against the simt path (the int8 decode also against the same
+     active slots packed into a bank of their own); ``decode_attn``'s path ("mma" or "simt") and cluster size
      are named for every case (rows with no visible lane, lanes past
      kv_len holding 1e4, k/v off alignment among them), the main shapes
      must take "mma" and run one launch a call (torch.profiler), and
@@ -39,8 +41,9 @@ Phases, each fatal on failure:
      through ``ServingEngine(expert_runtime="on")`` with a session
      MoEless controller (64 single-buffered slots a layer), counting
      that run's launches
-     (prefill and decode both through the int8 kernels, none through
-     the unquantized ones), checking the runtime's byte meters, then
+     (prefill and decode both through the int8 kernels, every launch on
+     their "wgmma" path, none through the unquantized kernels), checking
+     the runtime's byte meters, then
      every layer's EP MoE sublayer through the kernels against the plain
      path from the same input and tables;
   5. token identity: the mixtral-8x7b smoke config at float32 gives the
@@ -250,24 +253,31 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def one_launch(name: str, fn, n: int = 4) -> None:
+def one_launch(name: str, fn, kernel: str = "decode_attn",
+               n: int = 4) -> None:
     """Fail unless each call of `fn` runs exactly one device operation,
-    the decode-attention kernel, in a torch.profiler trace of `n` calls
-    after a warm-up."""
+    a kernel whose name holds `kernel`, in a torch.profiler trace of `n`
+    calls after a warm-up. A trace that misses some of the kernel's
+    events (and shows nothing else) is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    ops = {e.key: e.count / n for e in prof.key_averages()
-           if "cuda" in str(getattr(e, "device_type", "")).lower()}
-    if len(ops) != 1 or "decode_attn" not in next(iter(ops)) \
-            or next(iter(ops.values())) != 1:
-        raise AssertionError(f"{name}: a call should run one kernel "
-                             f"launch; the profiler saw {ops}")
-    log(f"  {name:<22} one launch a call: {next(iter(ops))[:60]}")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ops = {e.key: e.count / n for e in prof.key_averages()
+               if "cuda" in str(getattr(e, "device_type", "")).lower()}
+        if len(ops) != 1 or kernel not in next(iter(ops)) \
+                or next(iter(ops.values())) > 1:
+            break
+        if next(iter(ops.values())) == 1:
+            log(f"  {name:<22} one launch a call: "
+                f"{next(iter(ops))[:72]}")
+            return
+    raise AssertionError(f"{name}: a call should run one kernel launch; "
+                         f"the profiler saw {ops}")
 
 
 def host_us(fn, n: int = 50) -> float:
@@ -437,22 +447,58 @@ def _quant_bytes_flops(x, ws, gs):
     return nbytes, 2.0 * n_w * rows * d * f
 
 
+def _quant_run(name, fused, x, ws, g, max_active=0, path=None):
+    """The int8 kernel on `path` (None: its plan's; else a key of
+    MG.PATHS, forced to time one path against another)."""
+    qs = [(ws[i], ws[i + 1]) for i in range(0, len(ws), 2)]
+    return MG._launch_quant(name, fused, x, qs, g, max_active, path=path)
+
+
+def _quant_check(name, fused, label, x, ws, g, dtype, max_active=0,
+                 path=None):
+    """The int8 kernel (on `path`) against its plain version, in x's
+    dtype, rows past the group size exactly 0; returns the largest
+    error."""
+    got = _quant_run(name, fused, x, ws, g, max_active, path)
+    want = (MG.fused_gate_up_quant_ref(x, *ws, g) if fused
+            else MG.gmm_quant_ref(x, *ws, g))
+    torch.cuda.synchronize()
+    err = check(f"{name} [{label}, {dtype}]", got, want, dtype)
+    zero = torch.arange(x.shape[1], device=x.device)[None] >= g[:, None]
+    if got.dtype != dtype or got[zero].abs().sum() != 0:
+        raise AssertionError(f"{name} [{label}]: wrong dtype or rows past "
+                             "the group size not zero")
+    return err
+
+
 def check_quant_kernels(gen, shapes) -> dict:
     """fused_gate_up_quant and gmm_quant against their plain versions at
-    adversarial shapes (f32 and bf16), then at the EP slot plane's decode
-    and prefill shapes (bf16, 16 of 24 slots active), timed beside the
-    bound, the plain version and the library composition (dequantize
-    the active slots to x's dtype, ``bmm``, silu, mask). Returns the
-    record of the decode shape."""
+    adversarial shapes (f32 and bf16; bf16 with D % 8 == 0 and F % 16 ==
+    0 takes wgmma, the rest simt; the path is asserted and logged), then
+    at the EP slot plane's decode and prefill shapes (bf16, 16 of 64
+    slots active), which must take wgmma in one launch with no workspace,
+    timed in turns against the simt path, beside the bound, the plain
+    version and the library composition (dequantize the active slots to
+    x's dtype, ``bmm``, silu, mask). Returns the per-kernel records."""
     rec = {}
+    active16 = [(i % 3) + 1 if i % 4 == 1 else 0 for i in range(64)]
     cases = [  # (label, E, C, D, F, group sizes)
         ("C7/D96/F40", 3, 7, 96, 40, [7, 3, 0]),
         ("all-zero gs", 2, 16, 96, 40, [0, 0]),
         ("E=1", 1, 7, 96, 40, [5]),
         ("odd F=37", 2, 12, 40, 37, [12, 5]),
         ("split D, F%16=0", 4, 3, 1024, 64, [3, 0, 1, 2]),
-        ("C=40 (bf16: TC)", 3, 40, 96, 48, [40, 17, 0]),
-        ("C=70 D=200 (bf16: TC)", 2, 70, 200, 64, [70, 65]),
+        ("C=40", 3, 40, 96, 48, [40, 17, 0]),
+        ("C=70 D=200", 2, 70, 200, 64, [70, 65]),
+        ("C=1", 2, 1, 96, 48, [1, 0]),
+        ("C=8 F=144", 2, 8, 128, 144, [8, 5]),
+        ("C=9 D=200", 3, 9, 200, 64, [9, 1, 0]),
+        ("C=160", 1, 160, 128, 256, [160]),
+        ("C=161 D=200 F=144", 2, 161, 200, 144, [161, 9]),
+        ("C=320", 2, 320, 64, 48, [320, 161]),
+        ("C=160, rows 100/70/33", 3, 160, 64, 48, [100, 70, 33]),
+        ("E=64, 16 active", 64, 3, 128, 144, active16),
+        ("all-zero gs, F=48", 2, 16, 96, 48, [0, 0]),
     ]
     for name, fused in (("fused_gate_up_quant", True), ("gmm_quant", False)):
         run_k = MG.fused_gate_up_quant if fused else MG.gmm_quant
@@ -460,22 +506,42 @@ def check_quant_kernels(gen, shapes) -> dict:
         for label, e, c, d, f, gs in cases:
             for dtype in (torch.float32, torch.bfloat16):
                 x, ws, g = _quant_inputs(gen, e, c, d, f, dtype, gs, fused)
-                got, want = run_k(x, *ws, g), run_p(x, *ws, g)
-                torch.cuda.synchronize()
-                err = check(f"{name} [{label}, {dtype}]", got, want, dtype)
-                zero = torch.arange(c, device=x.device)[None] >= g[:, None]
-                if got.dtype != dtype or got[zero].abs().sum() != 0:
-                    raise AssertionError(f"{name} [{label}]: wrong dtype or "
-                                         "rows past the group size not zero")
+                path, info = MG.quant_plan(x, ws[0], scale=ws[1])
+                tma = dtype == torch.bfloat16 and d % 8 == 0 and f % 16 == 0
+                if path != ("wgmma" if tma else "simt"):
+                    raise AssertionError(f"{name} [{label}]: path {path}")
+                err = _quant_check(name, fused, label, x, ws, g, dtype)
                 log(f"  {name:<20} {label:<18} {str(dtype):<15} "
-                    f"max_abs_err={err:.3e}")
+                    f"{path:<5} N={info['rows']:<3} D split "
+                    f"{info['ksplit']:<2} max_abs_err={err:.3e}")
+        # x 2 bytes past an aligned buffer: no tensor map takes it
+        e, c, d, f, gs = 2, 64, 96, 144, [64, 30]
+        x, ws, g = _quant_inputs(gen, e, c, d, f, torch.bfloat16, gs, fused)
+        xm = _offset_copy(x)
+        path = MG.quant_plan(xm, ws[0], scale=ws[1])[0]
+        if path != "simt":
+            raise AssertionError(f"{name}: misaligned x took {path}")
+        err = _quant_check(name, fused, "x misaligned by 2 B", xm, ws, g,
+                           torch.bfloat16)
+        log(f"  {name:<20} {'x misaligned by 2 B':<18} torch.bfloat16  "
+            f"{path:<5} max_abs_err={err:.3e}")
         for phase in ("decode", "prefill"):
             e, c, d, f, gs = shapes[name][phase]
             ma = shapes["max_active"][phase]
             dtype = torch.bfloat16
             x, ws, g = _quant_inputs(gen, e, c, d, f, dtype, gs, fused)
+            path, info = MG.quant_plan(x, ws[0], ma, scale=ws[1])
+            work = MG._qplan(fused, x, ws, f, ma)[1][4]
+            if path != "wgmma" or work != 0:
+                raise AssertionError(f"{name}: the {phase} shape took "
+                                     f"{path} with {work} floats of "
+                                     "workspace, not wgmma with none")
+            simt_split = MG._qplan(fused, x, ws, f, ma, "simt")[1][0]
             run = lambda: run_k(x, *ws, g, max_active=ma)  # noqa: E731
+            run_simt = lambda: _quant_run(  # noqa: E731
+                name, fused, x, ws, g, ma, "simt")
             plain = lambda: run_p(x, *ws, g)  # noqa: E731
+            one_launch(name, run, "wgmma_q_kernel")
             idx = torch.nonzero(g > 0).flatten()
             rows = g[idx].long()
             mask = torch.arange(c, device=x.device)[None, :, None] \
@@ -491,28 +557,57 @@ def check_quant_kernels(gen, shapes) -> dict:
                 out = torch.zeros((e, c, f), dtype=dtype, device=x.device)
                 out[idx] = torch.where(mask, y, 0.0)
                 return out
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            err = check(f"{name} [{phase} {e}x{c}x{d}x{f}]", got, want,
-                        dtype)
+            err = _quant_check(name, fused, f"{phase} {e}x{c}x{d}x{f}", x,
+                               ws, g, dtype, ma)
+            simt_err = _quant_check(name, fused, f"{phase}, simt", x, ws, g,
+                                    dtype, ma, "simt")
+            want = plain()
             lib_err = float((library().float() - want.float()).abs().max())
-            ms = time_ms(run)
+            # the simt path at prefill takes ~10x the wgmma's time a call
+            timer = None if phase == "decode" else \
+                (lambda fn: time_ms(fn, iters=5, reps=3))
+            ms, simt_ms = _alternate(run, run_simt, timer)
+            if phase == "decode":   # the host cost of each path a call
+                us, simt_us = _alternate(run, run_simt, host_us)
+                log(f"  {name:<20} {phase:<8} host us a call, in turns: "
+                    f"wgmma {us:.1f}, simt {simt_us:.1f}")
+                # the same active slots packed into a bank of their own:
+                # what the bank's empty slots cost a call
+                xp, gp = x[idx].contiguous(), g[idx].contiguous()
+                wsp = [w[idx].contiguous() for w in ws]
+                run_packed = lambda: run_k(  # noqa: E731
+                    xp, *wsp, gp, max_active=ma)
+                sparse_ms, packed_ms = _alternate(run, run_packed)
+                log(f"  {name:<20} {phase:<8} in turns: E={e} with "
+                    f"{len(idx)} active ms={sparse_ms:.4f}, the same slots "
+                    f"packed as E={len(idx)} ms={packed_ms:.4f}")
+                del xp, gp, wsp
             plain_ms = time_ms(plain, iters=5, reps=3)
             lib_ms = time_ms(library, iters=5, reps=3)
             nbytes, flops = _quant_bytes_flops(x, ws, g)
             b_ms, b_by = bound(nbytes, flops, dtype)
-            path, ksplit = MG.quant_plan(x, ws[0], ma)
             log(f"  {name:<20} {phase:<8} E={e} C={c} D={d} F={f} bf16 x, "
-                f"int8 W, {len(idx)} active slots ({path}, D split "
-                f"{ksplit}) max_abs_err={err:.3e} ms={ms:.4f} "
+                f"int8 W, {len(idx)} active slots ({path}, N="
+                f"{info['rows']}, {info['stages']} stages, {info['smem']} B "
+                f"shared a CTA) max_abs_err={err:.3e} ms={ms:.4f} "
                 f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e9:.3f} GB) "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"(library max err {lib_err:.3e})")
+            log(f"  {name:<20} {phase:<8} in turns with the plan's: simt "
+                f"ms={simt_ms:.4f} (D split {simt_split}, max_abs_err="
+                f"{simt_err:.3e})")
             if phase == "decode":
                 rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=lib_ms)
-            del x, ws, got, want
+                                 library_ms=lib_ms, path=path,
+                                 decode_simt_ms=simt_ms)
+            else:
+                rec[name].update(
+                    prefill_ms=ms, prefill_bound_ms=b_ms,
+                    prefill_plain_ms=plain_ms, prefill_library_ms=lib_ms,
+                    prefill_max_abs_err=err, prefill_path=path,
+                    prefill_simt_ms=simt_ms)
+            del x, ws, want
             torch.cuda.empty_cache()
     return rec
 
@@ -1310,6 +1405,12 @@ def runtime_phase(full, max_len: int, slots: int, card: str) -> dict:
         if launches[k_name] != 0:
             raise AssertionError(f"{k_name} launched {launches[k_name]} "
                                  "times: a MoE layer bypassed the slot plane")
+    by_path = {k: dict(v) for k, v in MG.QUANT_PATH_LAUNCHES.items()}
+    log(f"  int8 launches by path in this run: {by_path}")
+    for k_name, paths in by_path.items():
+        if paths["wgmma"] != launches[k_name] or paths["simt"] != 0:
+            raise AssertionError(f"{k_name}: {paths} launches by path; every "
+                                 "one of the bf16 run should take wgmma")
     row = param_bytes(cfg)
     if st.bytes_moved != st.transfers * row or \
             st.rank_bytes != {"rank0": st.bytes_moved}:

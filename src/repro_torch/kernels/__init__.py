@@ -21,7 +21,10 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's launches, and the int8 kernels' launches by
+    path (``moe_gmm.QUANT_PATH_LAUNCHES``)."""
     from repro_torch.kernels import decode_attn, moe_gmm
-    for counts in (moe_gmm.LAUNCHES, decode_attn.LAUNCHES):
+    for counts in (moe_gmm.LAUNCHES, decode_attn.LAUNCHES,
+                   *moe_gmm.QUANT_PATH_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0

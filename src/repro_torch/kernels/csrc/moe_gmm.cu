@@ -46,8 +46,9 @@
 //
 // A block whose rows all lie past its expert's group size writes zeros
 // and exits before loading anything. The parts shared with the int8
-// kernels of moe_gmm_q.cu (helpers, epilogues, the split-D finish and
-// plan) are in moe_gmm_common.cuh.
+// kernels of moe_gmm_q.cu are in moe_gmm_common.cuh (helpers, the simt
+// epilogue, the split-D finish and plan) and sm90.cuh (the wgmma CTA's
+// PTX, epilogue and tensor maps).
 #include "moe_gmm_sm90.cuh"
 
 namespace {
@@ -150,29 +151,6 @@ simt_kernel(const T* __restrict__ x, const T* __restrict__ wg,
 }
 
 // ------------------------------------------------------------ planning
-
-// The wgmma kernel's instantiated N (rows a CTA owns), and the largest a
-// CTA's registers hold: two accumulators of 64 x N f32 take N of a
-// consumer thread's 232 registers.
-constexpr int WG_N[] = {8, 16, 32, 64, 96, 128, 160};
-constexpr int WG_N_MAX = 160;
-enum Path { SIMT = 0, WGMMA = 1 };
-
-struct GemmPlan {
-  Plan simt;   // the simt path's columns a thread and D split
-  int path;    // Path
-  int n;       // wgmma: rows a CTA owns
-};
-
-// smallest instantiated N that covers C rows in as few row groups as
-// WG_N_MAX allows
-inline int wgmma_rows(int C) {
-  const int groups = (C + WG_N_MAX - 1) / WG_N_MAX;
-  const int per = (C + groups - 1) / groups;
-  for (int n : WG_N)
-    if (n >= per) return n;
-  return WG_N_MAX;
-}
 
 // path: -1 = the plan's choice; else the Path to take (a shape that
 // Path cannot take is refused with n = 0)

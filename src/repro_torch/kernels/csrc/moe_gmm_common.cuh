@@ -1,15 +1,13 @@
 // Pieces shared by the grouped expert matmuls of moe_gmm.cu (weights in
 // x's dtype) and moe_gmm_q.cu (int8 weights with row scales): the type
 // helpers, the simt path's tile geometry and epilogue, the split-D
-// finishing kernel and its plan, and the WMMA tiles, cp.async helpers,
-// per-stage products and epilogue of moe_gmm_q.cu's tensor-core path.
-// Each source keeps only its own main loops, the part where the weight
-// type differs; moe_gmm.cu's tensor-core path is moe_gmm_sm90.cuh.
+// finishing kernel, and the plan of a launch. Each source keeps only its
+// own main loops, the part where the weight type differs; the pieces of
+// their wgmma paths that both share are in sm90.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 #include <type_traits>
 
@@ -132,7 +130,6 @@ cudaError_t launch_finish(const float* ws, const int* gs, T* out, int E,
 // ------------------------------------------------------------ planning
 
 struct Plan {
-  bool tensor_cores;
   int vec;      // simt: columns per thread
   int ksplit;   // simt: blocks sharing one output tile's D reduction
   int kchunk;   // simt: reduction depth of each
@@ -157,118 +154,12 @@ __host__ inline void plan_split(Plan& p, int64_t tiles, int D, int num_sms) {
   if (p.ksplit < 1) p.ksplit = 1;
 }
 
-// ---------------------------------------------------- tensor-core path
+enum Path { SIMT = 0, WGMMA = 1 };
 
-constexpr int WBM = 64, WBN = 64, WBK = 32;  // block tile
-constexpr int APAD = 8, BPAD = 8, CPAD = 4;  // shared-memory row padding
-constexpr int WNT = 128;                     // 4 warps, 2 x 2 of 32 x 32
-
-// one stage: the x tile (WBM x WBK) and NB weight tiles (WBK x WBN), bf16
-template <int NB>
-struct Stage {
-  bf16 a[WBM][WBK + APAD];
-  bf16 b[NB][WBK][WBN + BPAD];
+struct GemmPlan {
+  Plan simt;   // the simt path's columns a thread and D split
+  int path;    // Path
+  int n;       // wgmma: rows a CTA owns (0: the shape is refused)
 };
-template <int NB>
-union WmmaSmem {
-  Stage<NB> st[2];
-  float c[NB][WBM][WBN + CPAD];
-};
-
-template <int NB>
-using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                   float>[NB][2][2];
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// the tile of rows wholly past the group size: zeros
-__device__ __forceinline__ void wmma_zero_tile(bf16* __restrict__ out, int e,
-                                               int C, int F, int row0,
-                                               int col0) {
-  for (int i = threadIdx.x; i < WBM * WBN; i += WNT) {
-    const int r = row0 + i / WBN, c = col0 + i % WBN;
-    if (r < C && c < F) out[((int64_t)e * C + r) * F + c] = from_f<bf16>(0.f);
-  }
-}
-
-template <int NB>
-__device__ __forceinline__ void wmma_zero_acc(Acc<NB>& acc) {
-#pragma unroll
-  for (int m = 0; m < NB; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[m][i][j], 0.f);
-}
-
-// this warp's 32 x 32 products over one staged WBK-deep tile
-template <int NB>
-__device__ __forceinline__ void wmma_stage_mma(const Stage<NB>& st,
-                                               Acc<NB>& acc, int wr, int wc) {
-  using namespace nvcuda;
-#pragma unroll
-  for (int kk = 0; kk < WBK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(fa[i], &st.a[wr + 16 * i][kk], WBK + APAD);
-#pragma unroll
-    for (int m = 0; m < NB; ++m)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, &st.b[m][kk][wc + 16 * j], WBN + BPAD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::mma_sync(acc[m][i][j], fa[i], fb, acc[m][i][j]);
-      }
-  }
-}
-
-// epilogue through shared memory (reusing the stage buffers): the
-// activation, the row mask and the cast of the block's WBM x WBN outputs
-template <bool FUSED>
-__device__ __forceinline__ void wmma_epilogue(WmmaSmem<FUSED ? 2 : 1>& sm,
-                                              Acc<FUSED ? 2 : 1>& acc,
-                                              bf16* __restrict__ out, int e,
-                                              int C, int F, int row0,
-                                              int col0, int g, int wr,
-                                              int wc) {
-  using namespace nvcuda;
-  constexpr int NB = FUSED ? 2 : 1;
-#pragma unroll
-  for (int m = 0; m < NB; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(&sm.c[m][wr + 16 * i][wc + 16 * j],
-                                acc[m][i][j], WBN + CPAD,
-                                wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < WBM * WBN; i += WNT) {
-    const int r = i / WBN, c = i % WBN;
-    const int row = row0 + r, col = col0 + c;
-    if (row < C && col < F) {
-      float v = 0.f;
-      if (row < g)
-        v = FUSED ? silu(sm.c[0][r][c]) * sm.c[NB - 1][r][c] : sm.c[0][r][c];
-      out[((int64_t)e * C + row) * F + col] = from_f<bf16>(v);
-    }
-  }
-}
 
 }  // namespace

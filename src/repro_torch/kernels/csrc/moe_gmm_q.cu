@@ -14,55 +14,81 @@
 // per-row scales (E, D) on the contraction axis (deq(W, s)[d, f] =
 // W[d, f] * s[d], the layout of repro_torch/kernels/quant.py), f32
 // accumulation, output in x's dtype, and rows c >= group_sizes[e]
-// written as 0. The weights are dequantized in registers, one element
-// at a time, never as a bank in device memory.
+// written as 0. The weights are dequantized on chip, never as a bank in
+// device memory.
 //
-// Rounding: the TPU kernel forms w * s and then x * (w * s). Here the
-// scale is folded into x once per staged depth, as (x[c, d] * s[d]) *
+// What bounds it on this card: the weight bytes. In the EP slot plane
+// at decode (8 slots a device, up to 16 of them active, C = 3 rows) every
+// int8 weight feeds at most C multiply-adds, so the kernel is a stream of
+// the active slots' bytes (16 x 2 x 4096 x 14336 B = 1.88 GB for Wg + Wu
+// of mixtral-8x7b, >= 0.56 ms at 3.35 TB/s). At prefill (C = 160) each
+// byte feeds 160 multiply-adds: still under the ridge, but far beyond
+// what the CUDA cores issue in f32, so the products run on the tensor
+// cores. A slot whose group size is 0 reads none of its weight bytes:
+// its blocks return before loading.
+//
+// Two paths, chosen per call (make_plan):
+//
+//  * wgmma (bf16 x with D % 8 == 0, F % 16 == 0 and 16-byte aligned x,
+//    weights, scales and out; any C, decode included): the CTA of
+//    moe_gmm.cu's bf16 stream (sm90.cuh: A and B swapped, one CTA owns
+//    every row of its expert for its weight tile, so each weight byte is
+//    read once a call; a TMA producer warpgroup and two consumer
+//    warpgroups; 3-D tensor maps zero-fill the ragged edges). What
+//    differs is the weight: the producer's ring carries int8 boxes of 128
+//    columns x 64 deep (128-byte swizzle, half the bytes of a bf16 stage)
+//    and the stage's row scales (a box of 64 floats each, on the same
+//    "full" barrier). Each consumer dequantizes its columns of the stage,
+//    bf16(w * s[d]) (one 16-byte chunk is 16 columns at one depth, so one
+//    scale), into its own bf16 A tiles in the 128-byte-swizzled MN-major
+//    layout a bf16 TMA box would have had, then fences the writes to the
+//    async proxy, meets its warpgroup at a named barrier and issues the
+//    wgmma products on them. Above N = 32 a CTA has an SM to itself and
+//    triple-buffers its A tiles: the conversion of one stage overlaps the
+//    products of the one before, which may queue behind those of the one
+//    before that, and the barrier both publishes this stage's tiles and
+//    shows that every warp has seen done the products that read the
+//    buffer the next stage writes. At decode's N <= 32 the products are
+//    short and the dequantization's latency is what a CTA cannot hide
+//    alone: two CTAs share an SM, each with one A buffer (a second
+//    barrier waits for the products before it is rewritten) and half the
+//    shared memory and registers. A stage is released once its products
+//    are done (its x box is B). Rounding to bf16 (2^-9 relative) holds
+//    this path to the bf16 tolerance. Measured against this design on an
+//    H100 (chip_smoke.py phase 3, in turns): wgmma with A from registers
+//    (each thread loading its fragment's int8 bytes from the box, no bf16
+//    tile in shared memory) was slower for the fused kernel at decode and
+//    prefill and faster only for gmm_quant at decode, so shared-memory
+//    traffic is not what bounds this kernel; products at the smallest N
+//    covering each CTA's rows, picked by a branch in the main loop, were
+//    slower at prefill than products at the N of C; one A buffer above
+//    N = 32 (more ring stages) tied or lost at prefill.
+//  * simt (float32 x, and bf16 shapes TMA cannot take): one block owns
+//    one expert (slot), a tile of R = 4 rows and NT * VEC output columns;
+//    each thread owns VEC = 16 adjacent columns and reads its weight rows
+//    as one 16-byte load (16 int8 values) per row, into R * 16 f32
+//    accumulators (two sets for the fused kernel). U = 4 rows are loaded
+//    before any is used. The x tile, already multiplied by the row
+//    scales, is staged in shared memory transposed, so the R rows of one
+//    depth are one broadcast float4. When C is small the (row x column x
+//    expert) tiles cannot keep 132 SMs streaming, so D is split over
+//    `ksplit` blocks writing f32 partial sums, and a second kernel adds
+//    them, applies the activation, masks and casts. The split is sized
+//    for the slots that can have rows (the caller's `max_active` bound:
+//    the plan cannot read the group sizes without a device sync). F not a
+//    multiple of 16, or unaligned operands, take one-byte loads (VEC = 1).
+//
+// simt rounding: the TPU kernel forms w * s and then x * (w * s). Here
+// the scale is folded into x once per staged depth, as (x[c, d] * s[d]) *
 // w[d, f]: one multiply per (row, depth) instead of one per weight
 // element. The two differ by float32 rounding of the products (a few
 // ulps), well inside the float32 tolerance the callers state.
 //
-// What bounds it on this card: the weight bytes. In the EP slot plane
-// at decode (8 slots a device, up to 16 of them active, C = 3 rows) every int8
-// weight feeds at most C multiply-adds, so the kernel is a stream of the
-// active slots' bytes (16 x 2 x 4096 x 14336 B = 1.88 GB for Wg + Wu of
-// mixtral-8x7b, >= 0.56 ms at 3.35 TB/s). A slot whose group size is 0
-// reads none of its weight bytes: its blocks return before loading.
-//
-// Design (the simt path of moe_gmm.cu, with int8 weights): one block
-// owns one expert (slot), a tile of R = 4 rows and NT * VEC output
-// columns; each thread owns VEC = 16 adjacent columns and reads its
-// weight rows as one 16-byte load (16 int8 values) per row, into R * 16
-// f32 accumulators (two sets for the fused kernel). U = 4 rows are
-// loaded before any is used: with ~128 accumulators a thread, few warps
-// fit an SM, and one load in flight per thread left the stream at a
-// third of the HBM rate (gmm_quant decode, H100). The x tile, already
-// multiplied by the row scales, is staged in shared memory transposed,
-// so the R rows of one depth are one broadcast float4 (one per weight
-// matrix in the fused kernel, whose two matrices have their own scales).
-// When C is small the (row x column x expert) tiles cannot keep 132 SMs
-// streaming, so D is split over `ksplit` blocks writing f32 partial
-// sums, and a second kernel adds them, applies the activation, masks
-// and casts. The split is sized for the slots that can have rows (the
-// caller's `max_active` bound: the plan cannot read the group sizes
-// without a device sync), not for every slot of the bank. F not a multiple of 16, or unaligned operands, take
-// one-byte loads (VEC = 1).
-//
-// Prefill (bf16 x, C > 8): 160 rows a slot make the products, not the
-// bytes, the limit, beyond what the CUDA cores issue in f32. A
-// tensor-core path takes them: the tiles of moe_gmm.cu's WMMA path (64 x
-// 64 outputs of one expert, four warps of 32 x 32 from 16x16x16 bf16
-// products, f32 accumulators), with each 32 x 64 int8 weight tile loaded
-// as one 16-byte word a thread, dequantized in registers to bf16 as
-// bf16(w * s[d]) and stored to shared memory; the x tile comes by
-// cp.async. The next tile's loads are issued before this tile's
-// products. Dequantized weights are rounded to bf16 there (2^-9
-// relative), so this path is held at the bf16 tolerance; float32 x stays
-// on the simt path. The parts shared with moe_gmm.cu (helpers,
-// epilogues, the split-D finish and plan, the tensor-core tiles) are in
-// moe_gmm_common.cuh.
-#include "moe_gmm_common.cuh"
+// Each int8 byte becomes a float without the conversion unit (to_float).
+// The parts shared with moe_gmm.cu are in moe_gmm_common.cuh (helpers,
+// the simt epilogue, the split-D finish and plan) and sm90.cuh (the
+// wgmma CTA's PTX, epilogue and tensor maps).
+#include "sm90.cuh"
 
 namespace {
 
@@ -208,133 +234,359 @@ simt_q_kernel(const T* __restrict__ x, const int8_t* __restrict__ wg,
                             col0, ksplit, split);
 }
 
-// ---------------------------------------------------- tensor-core path
+// ------------------------------------------------------------ wgmma path
 
-// grid: (row tiles, column tiles, E); block: WNT threads.
-// Needs bf16 x, D % 8 == 0, F % 16 == 0 and 16-byte aligned x / weights.
-template <bool FUSED>
-__global__ void __launch_bounds__(WNT)
-wmma_q_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wg,
-              const float* __restrict__ sg, const int8_t* __restrict__ wu,
-              const float* __restrict__ su, const int* __restrict__ gs,
-              bf16* __restrict__ out, int C, int D, int F) {
-  constexpr int NB = FUSED ? 2 : 1;
+constexpr int Q_BOXF = 128;                // columns of an int8 weight box
+constexpr int Q_BOX = Q_BOXF * SM90_BK;    // bytes of one (128 x 64 int8)
+// a stage's row scales (64 floats for each of at most two matrices),
+// padded so the next stage starts 1024-byte aligned
+constexpr int Q_SCALES = 1024;
+constexpr int Q_TILE = 64 * SM90_BK * 2;   // a bf16 A tile, 64 x 64
+
+// CTAs an SM holds at N: two at the small N of decode, where the
+// products are short and a second CTA's warps hide the latency of the
+// dequantization; one above
+__host__ __device__ constexpr int q_ctas(int n) { return n <= 32 ? 2 : 1; }
+
+// A-tile buffers a consumer: one when two CTAs share an SM (the products
+// that read it finish before it is written again); else three, one being
+// written while the products of the two stages before may still read
+// theirs
+__host__ __device__ constexpr int q_bufs(int n) {
+  return q_ctas(n) == 2 ? 1 : 3;
+}
+
+// the consumers' A tiles: 2 consumers x q_bufs(n) buffers x SM90_NA
+__host__ __device__ constexpr int q_atiles(int n) {
+  return 2 * q_bufs(n) * SM90_NA * Q_TILE;
+}
+
+// bytes of one stage: the x box (N rows x 64 deep, bf16), two int8
+// weight boxes and the scales
+__host__ __device__ constexpr int q_stage_bytes(int n) {
+  return n * SM90_BK * 2 + 2 * Q_BOX + Q_SCALES;
+}
+
+// shared memory a CTA may use: all of a CTA's 227 KB, or half of the
+// SM's 228 KB less the 1 KB the system keeps for each CTA
+constexpr int q_smem_cap(int n) {
+  return q_ctas(n) == 2 ? 233472 / 2 - 1024 : SM90_SMEM;
+}
+
+// stages of the ring that fit beside the A tiles (with the 1024-byte
+// alignment slack and two barriers a stage)
+constexpr int q_stages(int n) {
+  return (q_smem_cap(n) - 1024 - q_atiles(n)) / (q_stage_bytes(n) + 16) <
+                 SM90_MAX_STAGES
+             ? (q_smem_cap(n) - 1024 - q_atiles(n)) / (q_stage_bytes(n) + 16)
+             : SM90_MAX_STAGES;
+}
+
+// dynamic shared memory of a CTA
+constexpr int q_smem(int n) {
+  return 1024 + q_atiles(n) + q_stages(n) * (q_stage_bytes(n) + 16);
+}
+
+// 16 int8 weights of one depth (a 16-byte word) times that depth's
+// scale, each rounded once to bf16 as bf16(w * s): columns 0-7 in lo,
+// 8-15 in hi
+__device__ __forceinline__ void dequant16(uint4 raw, float s, uint4& lo,
+                                          uint4& hi) {
+  float q[16];
+  to_float(make_int4((int)raw.x, (int)raw.y, (int)raw.z, (int)raw.w), q);
+  uint32_t p[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(q[2 * i] * s,
+                                                   q[2 * i + 1] * s);
+    p[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  lo = make_uint4(p[0], p[1], p[2], p[3]);
+  hi = make_uint4(p[4], p[5], p[6], p[7]);
+}
+
+// grid: (row groups, column tiles, E); block: SM90_THREADS; dynamic
+// shared memory q_smem(N): the consumers' bf16 A tiles, then a ring of
+// `stages` = q_stages(N) stages, each the x box, two int8 weight boxes
+// and the row scales. FUSED: the boxes are Wg's and Wu's columns
+// [col0, col0 + 128), and consumer cw converts columns 64 cw .. of each
+// (its gate and up accumulators); else W's columns [col0, + 128) and
+// [col0 + 128, + 128), and consumer cw converts box cw (its two
+// 64-column slices). A CTA owns rows [blockIdx.x * N, + N) of its
+// expert.
+template <bool FUSED, int N>
+__global__ void __launch_bounds__(SM90_THREADS, q_ctas(N))
+wgmma_q_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap gmap,
+               const __grid_constant__ CUtensorMap umap,
+               const __grid_constant__ CUtensorMap sgmap,
+               const __grid_constant__ CUtensorMap sumap,
+               const int* __restrict__ gs, bf16* __restrict__ out, int C,
+               int D, int F, int stages) {
+  constexpr int NA = SM90_NA;
+  constexpr int XBYTES = N * SM90_BK * 2;
+  constexpr int STAGE = q_stage_bytes(N);
+  constexpr int NS = FUSED ? 2 : 1;   // scale vectors a stage
+  constexpr int COLS = sm90_cols(FUSED);
+  constexpr int BUFS = q_bufs(N);
+  // registers a thread: the producer gives its away to the consumers,
+  // within the share of the SM's 64K that each of q_ctas(N) CTAs holds
+  constexpr int PRODUCER_REGS = q_ctas(N) == 2 ? 24 : 40;
+  constexpr int CONSUMER_REGS = q_ctas(N) == 2 ? 104 : 232;
   const int e = blockIdx.z;
-  const int row0 = blockIdx.x * WBM;
-  const int col0 = blockIdx.y * WBN;
+  const int row0 = blockIdx.x * N;
+  const int col0 = blockIdx.y * COLS;
   const int g = min(max(gs[e], 0), C);
-  const int tid = threadIdx.x;
-  if (row0 >= g) {
-    wmma_zero_tile(out, e, C, F, row0, col0);
+  if (row0 >= g) {   // every row of the tile is padding: no weight byte
+    sm90_zero_tile(out, e, C, F, row0, col0, N, COLS);
     return;
   }
-  __shared__ __align__(128) WmmaSmem<NB> sm;
-  const bf16* xe = x + (int64_t)e * C * D;
-  const int8_t* w[2] = {wg + (int64_t)e * D * F,
-                        FUSED ? wu + (int64_t)e * D * F : nullptr};
-  const float* sc[2] = {sg + (int64_t)e * D,
-                        FUSED ? su + (int64_t)e * D : nullptr};
-  // this thread's 16 int8 weights of a 32 x 64 tile: row br, columns bc..
-  const int br = tid / (WBN / 16), bc = (tid % (WBN / 16)) * 16;
-
-  auto load_a = [&](int buf, int k0) {
-    // x: WBM rows x WBK depth = 256 chunks of 8
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int i = tid + t * WNT;
-      const int r = i / (WBK / 8), c = (i % (WBK / 8)) * 8;
-      const bool ok = row0 + r < C && k0 + c < D;
-      cp_async16(&sm.st[buf].a[r][c],
-                 ok ? xe + (int64_t)(row0 + r) * D + k0 + c : xe, ok);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = smem + q_atiles(N);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
+  uint64_t* empty = full + stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
     }
-    cp_async_commit();
-  };
-  auto load_b = [&](int k0, int4* raw, float* scale) {
-    const bool ok = k0 + br < D && col0 + bc < F;
-#pragma unroll
-    for (int m = 0; m < NB; ++m) {
-      raw[m] = ok ? __ldg(reinterpret_cast<const int4*>(
-                        w[m] + (int64_t)(k0 + br) * F + col0 + bc))
-                  : make_int4(0, 0, 0, 0);
-      scale[m] = ok ? __ldg(sc[m] + k0 + br) : 0.f;
-    }
-  };
-  auto store_b = [&](int buf, const int4* raw, const float* scale) {
-#pragma unroll
-    for (int m = 0; m < NB; ++m) {
-      float q[16];
-      to_float(raw[m], q);
-      __align__(16) bf16 v[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) v[i] = __float2bfloat16(q[i] * scale[m]);
-      int4* dst = reinterpret_cast<int4*>(&sm.st[buf].b[m][br][bc]);
-      dst[0] = reinterpret_cast<const int4*>(v)[0];
-      dst[1] = reinterpret_cast<const int4*>(v)[1];
-    }
-  };
-
-  const int warp = tid / 32;
-  const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-  Acc<NB> acc;
-  wmma_zero_acc<NB>(acc);
-
-  const int nk = (D + WBK - 1) / WBK;
-  int4 raw[NB];
-  float scale[NB];
-  load_a(0, 0);
-  load_b(0, raw, scale);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    store_b(buf, raw, scale);
-    cp_async_wait<0>();
-    __syncthreads();
-    if (kt + 1 < nk) {   // the next tile's loads overlap these products
-      load_a(buf ^ 1, (kt + 1) * WBK);
-      load_b((kt + 1) * WBK, raw, scale);
-    }
-    wmma_stage_mma<NB>(sm.st[buf], acc, wr, wc);
-    __syncthreads();   // the next iteration overwrites the other buffer
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  wmma_epilogue<FUSED>(sm, acc, out, e, C, F, row0, col0, g, wr, wc);
+  __syncthreads();
+  const int nk = (D + SM90_BK - 1) / SM90_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    // ---------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int s = 0, phase = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        if (kt >= stages) mbar_wait(&empty[s], phase ^ 1);
+        uint8_t* st = ring + s * STAGE;
+        const int k0 = kt * SM90_BK;
+        mbar_expect_tx(&full[s], XBYTES + 2 * Q_BOX + NS * SM90_BK * 4);
+        tma_load_3d(st, &xmap, &full[s], k0, row0, e);
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          tma_load_3d(st + XBYTES + b * Q_BOX,
+                      (FUSED && b == 1) ? &umap : &gmap, &full[s],
+                      FUSED ? col0 : col0 + b * Q_BOXF, k0, e);
+#pragma unroll
+        for (int v = 0; v < NS; ++v)
+          tma_load_3d(st + XBYTES + 2 * Q_BOX + v * SM90_BK * 4,
+                      v ? &sumap : &sgmap, &full[s], k0, e, 0);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = wg - 1, t = threadIdx.x % 128;
+    // this thread's depth of a stage, and the first of its two 16-column
+    // chunks (q0, q0 + 2) of each 64-column slice: eight neighbouring
+    // threads take eight depths, so their 16-byte reads and writes fall
+    // on eight different bank groups of the swizzled rows
+    const int dr = t % 64, q0 = t / 64;
+    uint8_t* atiles = smem + cw * BUFS * NA * Q_TILE;
+    float acc[NA][N / 2];
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_acc(acc[a]);
+    int s = 0, phase = 0, prev = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&full[s], phase);
+      const uint8_t* st = ring + s * STAGE;
+      uint8_t* buf = atiles + (kt % BUFS) * NA * Q_TILE;
+      const float* sc =
+          reinterpret_cast<const float*>(st + XBYTES + 2 * Q_BOX);
+      if constexpr (BUFS == 1) {
+        // the products of the stage before read the buffer: every warp
+        // has to be past them before any writes it
+        wgmma_wait<0>();
+        named_sync(2 + cw, 128);
+        if (kt > 0 && t == 0) mbar_arrive(&empty[prev]);
+      }
+      // the int8 slices of this consumer -> its bf16 A tiles, each
+      // 16-byte chunk at its swizzled place (chunk j of row d at j ^ d % 8)
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        const uint8_t* box = st + XBYTES + (FUSED ? a : cw) * Q_BOX;
+        const int qb = FUSED ? cw * 4 : a * 4;   // the slice's first chunk
+        const float sd = sc[(FUSED ? a : 0) * SM90_BK + dr];
+        uint8_t* tile = buf + a * Q_TILE + dr * 128;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int q = q0 + 2 * j;
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              box + dr * 128 + (((qb + q) ^ (dr & 7)) << 4));
+          uint4 lo, hi;
+          dequant16(raw, sd, lo, hi);
+          *reinterpret_cast<uint4*>(tile + (((2 * q) ^ (dr & 7)) << 4)) = lo;
+          *reinterpret_cast<uint4*>(tile + (((2 * q + 1) ^ (dr & 7)) << 4)) =
+              hi;
+        }
+      }
+      fence_proxy_async();
+      // every warp of the consumer has written its part of this stage's
+      // tiles and (three buffers), at its wait one stage ago, seen the
+      // products of stage kt - 2 done: the next stage overwrites their
+      // buffer
+      named_sync(2 + cw, 128);
+      const uint64_t db = sw128_desc(st, 16);
+      uint64_t da[NA];
+#pragma unroll
+      for (int a = 0; a < NA; ++a) da[a] = sw128_desc(buf + a * Q_TILE, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SM90_BK / 16; ++kk)
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+          // A: 16 rows of depth = two 1024-byte groups further; B: 16
+          // elements = 32 bytes further along its 128-byte rows
+          wgmma_tn<N>(acc[a], da[a] + kk * (2048 >> 4), db + kk * (32 >> 4),
+                      kt > 0 || kk > 0);
+      wgmma_commit();
+      if constexpr (BUFS != 1) {
+        wgmma_wait<1>();   // the products of the stage before are done
+        if (kt > 0 && t == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_acc(acc[a]);
+    // both consumers are done with the tiles and the ring, which now
+    // hold the output tile as rows
+    sm90_epilogue<FUSED, N>(acc, smem, out, e, C, F, row0, col0, g, cw);
+  }
+}
+
+// x (E, C, D) bf16, int8 weights (E, D, F) with f32 scales (E, D), out
+// (E, C, F) bf16; wu, su unused unless FUSED. Returns a cudaError_t, or
+// SM90_ENCODE_ERROR + the encoder's CUresult when a tensor map cannot be
+// encoded.
+template <bool FUSED, int N>
+int launch_wgmma_q(const bf16* x, const int8_t* wg, const float* sg,
+                   const int8_t* wu, const float* su, const int* gs,
+                   bf16* out, int E, int C, int D, int F,
+                   cudaStream_t stream) {
+  constexpr int stages = q_stages(N);
+  constexpr int cols = sm90_cols(FUSED);
+  static_assert(stages >= 2, "a ring needs two stages");
+  static_assert(sm90_out_bytes(FUSED, N) <=
+                    q_atiles(N) + stages * q_stage_bytes(N),
+                "the epilogue tile reuses the A tiles and the ring");
+  constexpr int smem = q_smem(N);
+  auto kernel = wgmma_q_kernel<FUSED, N>;
+  // once a process (the port drives one card): the dynamic shared memory,
+  // and the largest carve-out, so that q_ctas(N) CTAs fit an SM
+  static const cudaError_t attr = [&] {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    return err;
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapDataType U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr CUtensorMapSwizzle SW128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  constexpr CUtensorMapSwizzle FLAT = CU_TENSOR_MAP_SWIZZLE_NONE;
+  CUtensorMap xmap, gmap, umap, sgmap, sumap;
+  int rc = encode_3d(&xmap, x, BF16, 2, D, C, E, SM90_BK, N, SW128);
+  // int8 bytes move as uint8: TMA copies them without reading them
+  if (rc == 0)
+    rc = encode_3d(&gmap, wg, U8, 1, F, D, E, Q_BOXF, SM90_BK, SW128);
+  // the scales as (1, E, D): a stage's box is 64 depths of one expert
+  if (rc == 0) rc = encode_3d(&sgmap, sg, F32, 4, D, E, 1, SM90_BK, 1, FLAT);
+  if (rc == 0 && FUSED)
+    rc = encode_3d(&umap, wu, U8, 1, F, D, E, Q_BOXF, SM90_BK, SW128);
+  if (rc == 0 && FUSED)
+    rc = encode_3d(&sumap, su, F32, 4, D, E, 1, SM90_BK, 1, FLAT);
+  if (rc != 0) return SM90_ENCODE_ERROR + rc;
+  if (!FUSED) {   // unused
+    umap = gmap;
+    sumap = sgmap;
+  }
+  dim3 grid((C + N - 1) / N, (F + cols - 1) / cols, E);
+  kernel<<<grid, SM90_THREADS, smem, stream>>>(xmap, gmap, umap, sgmap,
+                                                sumap, gs, out, C, D, F,
+                                                stages);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ planning
 
 // max_active: at most this many experts (slots) have rows (0: all E).
-// The launch covers all E; the split is sized for the active ones, whose
-// blocks are the only ones that stream weights.
-// aligned: x, the weights and out are 16-byte aligned.
-Plan make_plan(int dtype, int E, int C, int D, int F, int aligned,
-               int num_sms, int max_active) {
-  Plan p{};
-  p.vec = (aligned && F % 16 == 0) ? 16 : 1;
-  if (dtype == 1 && C > 2 * R && D % 8 == 0 && p.vec == 16) {
-    p.tensor_cores = true;
-    p.ksplit = 1;
-    p.kchunk = D;
+// The simt launch covers all E; its split is sized for the active ones,
+// whose blocks are the only ones that stream weights.
+// aligned: x, the int8 weights, their scales and out are 16-byte
+// aligned. path: -1 = the plan's choice; else the Path to take (a shape
+// that Path cannot take is refused with n = 0).
+GemmPlan make_plan(int dtype, int E, int C, int D, int F, int aligned,
+                   int num_sms, int max_active, int path) {
+  GemmPlan p{};
+  const bool eligible =
+      dtype == 1 && D > 0 && D % 8 == 0 && F % 16 == 0 && aligned;
+  p.path = path >= 0 ? path : (eligible ? WGMMA : SIMT);
+  if (p.path != SIMT) {
+    if (eligible && p.path == WGMMA) p.n = wgmma_rows(C);
     return p;
   }
+  p.simt.vec = (aligned && F % 16 == 0) ? 16 : 1;
   const int e_live = max_active > 0 && max_active < E ? max_active : E;
-  const int64_t tiles = (int64_t)((C + R - 1) / R) *
-                        ((F + NT * p.vec - 1) / (NT * p.vec)) * e_live;
-  plan_split(p, tiles, D, num_sms);
+  const int64_t tiles =
+      (int64_t)((C + R - 1) / R) *
+      ((F + NT * p.simt.vec - 1) / (NT * p.simt.vec)) * e_live;
+  plan_split(p.simt, tiles, D, num_sms);
   return p;
 }
 
-template <typename T, bool FUSED>
-cudaError_t launch(const Plan& p, const void* x, const int8_t* wg,
-                   const float* sg, const int8_t* wu, const float* su,
-                   const int* gs, void* out, float* ws, int E, int C, int D,
-                   int F, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (p.tensor_cores) {
-      dim3 grid((C + WBM - 1) / WBM, (F + WBN - 1) / WBN, E);
-      wmma_q_kernel<FUSED><<<grid, WNT, 0, stream>>>(
-          static_cast<const bf16*>(x), wg, sg, wu, su, gs,
-          static_cast<bf16*>(out), C, D, F);
-      return cudaGetLastError();
-    }
+template <bool FUSED>
+int launch_wgmma_q_rows(int n, const bf16* x, const int8_t* wg,
+                        const float* sg, const int8_t* wu, const float* su,
+                        const int* gs, bf16* out, int E, int C, int D, int F,
+                        cudaStream_t stream) {
+#define MOE_GMM_Q_N(V)                                                    \
+  case V:                                                                 \
+    return launch_wgmma_q<FUSED, V>(x, wg, sg, wu, su, gs, out, E, C, D, \
+                                    F, stream);
+  switch (n) {
+    MOE_GMM_Q_N(8) MOE_GMM_Q_N(16) MOE_GMM_Q_N(32) MOE_GMM_Q_N(64)
+    MOE_GMM_Q_N(96) MOE_GMM_Q_N(128) MOE_GMM_Q_N(160)
   }
+#undef MOE_GMM_Q_N
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool FUSED>
+int launch(const GemmPlan& gp, const void* x, const int8_t* wg,
+           const float* sg, const int8_t* wu, const float* su,
+           const int* gs, void* out, float* ws, int E, int C, int D, int F,
+           cudaStream_t stream) {
+  if (gp.path != SIMT) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (gp.n == 0) return (int)cudaErrorInvalidValue;
+      return launch_wgmma_q_rows<FUSED>(gp.n, static_cast<const bf16*>(x),
+                                        wg, sg, wu, su, gs,
+                                        static_cast<bf16*>(out), E, C, D, F,
+                                        stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  const Plan& p = gp.simt;
   dim3 grid((F + NT * p.vec - 1) / (NT * p.vec), (C + R - 1) / R,
             E * p.ksplit);
   const T* xt = static_cast<const T*>(x);
@@ -346,49 +598,53 @@ cudaError_t launch(const Plan& p, const void* x, const int8_t* wg,
     simt_q_kernel<T, FUSED, 1><<<grid, NT, 0, stream>>>(
         xt, wg, sg, wu, su, gs, o, ws, E, C, D, F, p.ksplit, p.kchunk);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.ksplit == 1) return err;
-  return launch_finish<T, FUSED>(ws, gs, o, E, C, F, p.ksplit, stream);
+  if (err != cudaSuccess || p.ksplit == 1) return (int)err;
+  return (int)launch_finish<T, FUSED>(ws, gs, o, E, C, F, p.ksplit, stream);
 }
 
 }  // namespace
 
-// f32 workspace (in floats) that moe_gmm_q_launch needs for these
-// arguments: the split-reduction partial sums, 0 when D is not split.
-// dtype of x: 0 = float32, 1 = bfloat16; aligned: x, the int8 weights
-// and out are 16-byte aligned.
-extern "C" long long moe_gmm_q_workspace(int fused, int dtype, int E, int C,
-                                         int D, int F, int aligned,
-                                         int num_sms, int max_active) {
-  const Plan p = make_plan(dtype, E, C, D, F, aligned, num_sms, max_active);
-  if (p.tensor_cores || p.ksplit == 1) return 0;
-  return (long long)(fused ? 2 : 1) * p.ksplit * E * C * F;
-}
-
-// The path these arguments launch: 0 for the tensor cores, else the simt
-// path's columns per thread (16: one 16-byte load per weight row; 1:
-// byte loads), with its number of D splits in *ksplit.
-extern "C" int moe_gmm_q_plan(int dtype, int E, int C, int D, int F,
-                              int aligned, int num_sms, int max_active,
-                              int* ksplit) {
-  const Plan p = make_plan(dtype, E, C, D, F, aligned, num_sms, max_active);
-  if (ksplit) *ksplit = p.ksplit;
-  return p.tensor_cores ? 0 : p.vec;
+// The path a launch with these arguments takes (0 = simt, 1 = wgmma).
+// dtype of x: 0 = float32, 1 = bfloat16; aligned: x, the int8 weights,
+// their scales and out are 16-byte aligned; max_active: an upper bound
+// on the experts with rows (0: unknown), which sizes the simt D split;
+// path: -1 = the plan's, else the path to force (for measuring one path
+// against the other). info receives: [0] the D splits (1 on wgmma), [1]
+// the wgmma CTA's rows N (0 on simt, or when a forced wgmma cannot take
+// the shape), [2] its ring stages, [3] its dynamic shared memory in
+// bytes, [4] the f32 workspace in floats that moe_gmm_q_launch needs (the
+// split-D partial sums; 0 unless simt splits D).
+extern "C" int moe_gmm_q_plan(int fused, int dtype, int E, int C, int D,
+                              int F, int aligned, int num_sms,
+                              int max_active, int path, long long* info) {
+  const GemmPlan p =
+      make_plan(dtype, E, C, D, F, aligned, num_sms, max_active, path);
+  const bool split = p.path == SIMT && p.simt.ksplit > 1;
+  info[0] = p.path == SIMT ? p.simt.ksplit : 1;
+  info[1] = p.n;
+  info[2] = p.n ? q_stages(p.n) : 0;
+  info[3] = p.n ? q_smem(p.n) : 0;
+  info[4] = split ? (long long)(fused ? 2 : 1) * p.simt.ksplit * E * C * F
+                  : 0;
+  return p.path;
 }
 
 // fused: 1 = silu(x @ deq(wg, sg)) * (x @ deq(wu, su)), 0 = x @ deq(wg,
 // sg) (wu, su unused). dtype of x and out: 0 = float32, 1 = bfloat16.
-// max_active: an upper bound on the experts with rows (0: unknown), which
-// sizes the D split. ws: f32 workspace of moe_gmm_q_workspace(...)
-// floats for the same arguments. Returns the cudaError_t of the launches (0 = success).
+// aligned, max_active and path as for moe_gmm_q_plan; ws: f32 workspace
+// of the floats moe_gmm_q_plan names for the same arguments. Returns the
+// cudaError_t of the launches (0 = success), or 100000 + the CUresult of
+// cuTensorMapEncodeTiled when a tensor map cannot be encoded.
 extern "C" int moe_gmm_q_launch(int fused, int dtype, const void* x,
                                 const void* wg, const void* sg,
                                 const void* wu, const void* su,
                                 const int* gs, void* out, float* ws, int E,
                                 int C, int D, int F, int aligned,
-                                int num_sms, int max_active,
+                                int num_sms, int max_active, int path,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(dtype, E, C, D, F, aligned, num_sms, max_active);
+  const GemmPlan p =
+      make_plan(dtype, E, C, D, F, aligned, num_sms, max_active, path);
   const int8_t* wgq = static_cast<const int8_t*>(wg);
   const int8_t* wuq = static_cast<const int8_t*>(wu);
   const float* sgf = static_cast<const float*>(sg);

@@ -58,8 +58,8 @@ def _lib():
     return lib
 
 
-# the paths of csrc/moe_gmm.cu; a caller forces one only to measure it
-# against the other
+# the paths of csrc/moe_gmm.cu and csrc/moe_gmm_q.cu; a caller forces one
+# only to measure it against the other
 PATHS = {"simt": 0, "wgmma": 1}
 # moe_gmm_launch's code for a tensor map cuTensorMapEncodeTiled refused
 _ENCODE_ERROR = 100000
@@ -188,16 +188,21 @@ def gmm_quant_ref(x, wq, scale, group_sizes):
 def _qlib():
     """The loaded int8 library with its C signatures declared (once)."""
     lib = load("moe_gmm_q")
-    lib.moe_gmm_q_workspace.restype = ctypes.c_longlong
-    lib.moe_gmm_q_workspace.argtypes = [ctypes.c_int] * 9
     lib.moe_gmm_q_plan.restype = ctypes.c_int
-    lib.moe_gmm_q_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.moe_gmm_q_plan.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.moe_gmm_q_launch.restype = ctypes.c_int
     lib.moe_gmm_q_launch.argtypes = ([ctypes.c_int] * 2
                                      + [ctypes.c_void_p] * 8
-                                     + [ctypes.c_int] * 7
+                                     + [ctypes.c_int] * 8
                                      + [ctypes.c_void_p])
     return lib
+
+
+# launches of each int8 kernel by the path they took (bumped where
+# LAUNCHES is): a run shows which path served it
+QUANT_PATH_LAUNCHES = {n: {p: 0 for p in PATHS}
+                       for n in ("fused_gate_up_quant", "gmm_quant")}
+_PATH_NAMES = {v: k for k, v in PATHS.items()}
 
 
 def _check_quant(name, x, qs, group_sizes):
@@ -228,48 +233,60 @@ def _check_quant(name, x, qs, group_sizes):
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _qaligned(x, ws) -> int:
-    """1 when x, the int8 weights and the output (fresh from the caching
-    allocator: aligned) allow 16-byte loads."""
-    return int(all(t.data_ptr() % 16 == 0 for t in (x, *ws)))
-
-
-def quant_plan(x, wq, max_active: int = 0) -> tuple[str, int]:
-    """(path, D splits) of a launch of ``csrc/moe_gmm_q.cu`` on these
-    (CUDA) operands: path is "tensor cores", "simt x16" (16-byte weight
-    loads) or "simt x1"."""
+def _qplan(fused, x, tensors, f, max_active, path=None):
+    """The plan of a launch of ``csrc/moe_gmm_q.cu``: (path taken, the
+    info of ``moe_gmm_q_plan``, aligned, number of SMs). `tensors` are
+    the int8 weights and their scales; the output, fresh from the caching
+    allocator, is aligned; `path` (a key of PATHS) forces a path."""
     e, c, d = x.shape
-    ks = ctypes.c_int(0)
-    vec = _qlib().moe_gmm_q_plan(_DTYPES[x.dtype], e, c, d, wq.shape[2],
-                                 _qaligned(x, [wq]), num_sms(x.device),
-                                 max_active, ctypes.byref(ks))
-    return ("tensor cores" if vec == 0 else f"simt x{vec}"), ks.value
+    aligned = int(all(t.data_ptr() % 16 == 0 for t in (x, *tensors)))
+    sms = num_sms(x.device)
+    info = (ctypes.c_longlong * 5)()
+    code = _qlib().moe_gmm_q_plan(int(fused), _DTYPES[x.dtype], e, c, d, f,
+                                  aligned, sms, max_active,
+                                  -1 if path is None else PATHS[path], info)
+    return _PATH_NAMES[code], list(info), aligned, sms
 
 
-def _launch_quant(name, fused, x, qs, group_sizes, max_active):
+def quant_plan(x, wq, max_active: int = 0, scale=None) -> tuple[str, dict]:
+    """The path of a launch of ``csrc/moe_gmm_q.cu`` on these (CUDA)
+    operands, from the kernel's own plan: "wgmma" (bf16 x, D a multiple
+    of 8, F of 16, 16-byte aligned x, weights and scales) or "simt"; with
+    the simt path's D splits (1 on wgmma) and the wgmma CTA's rows (N),
+    ring stages and dynamic shared memory in bytes (zeros on simt).
+    `scale` (the weight's (E, D) scales) joins the alignment check."""
+    tensors = (wq,) if scale is None else (wq, scale)
+    path, info, _, _ = _qplan(False, x, tensors, wq.shape[2], max_active)
+    return path, dict(ksplit=info[0], rows=info[1], stages=info[2],
+                      smem=info[3])
+
+
+def _launch_quant(name, fused, x, qs, group_sizes, max_active, path=None):
+    """Launch the int8 kernel; `path` (a key of PATHS) forces a path,
+    else the kernel's plan picks it."""
     _check_quant(name, x, qs, group_sizes)
     e, c, d = x.shape
     f = qs[0][0].shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _qlib()
-    aligned = _qaligned(x, [w for w, _ in qs])
-    sms = num_sms(x.device)
-    dt = _DTYPES[x.dtype]
-    work = torch.empty((lib.moe_gmm_q_workspace(int(fused), dt, e, c, d, f,
-                                                aligned, sms, max_active),),
-                       dtype=torch.float32, device=x.device)
     (wg, sg), (wu, su) = qs[0], qs[-1]
+    taken, info, aligned, sms = _qplan(fused, x, (wg, sg, wu, su), f,
+                                       max_active, path)
+    work = torch.empty((info[4],), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.moe_gmm_q_launch(int(fused), dt, x.data_ptr(),
-                              wg.data_ptr(), sg.data_ptr(), wu.data_ptr(),
-                              su.data_ptr(), group_sizes.data_ptr(),
-                              out.data_ptr(), work.data_ptr(), e, c, d, f,
-                              aligned, sms, max_active, stream)
+    rc = _qlib().moe_gmm_q_launch(
+        int(fused), _DTYPES[x.dtype], x.data_ptr(), wg.data_ptr(),
+        sg.data_ptr(), wu.data_ptr(), su.data_ptr(), group_sizes.data_ptr(),
+        out.data_ptr(), work.data_ptr(), e, c, d, f, aligned, sms,
+        max_active, -1 if path is None else PATHS[path], stream)
+    if rc >= _ENCODE_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a TMA "
+                           f"tensor map (CUresult {rc - _ENCODE_ERROR})")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     LAUNCHES[name] += 1
+    QUANT_PATH_LAUNCHES[name][taken] += 1
     return out
 
 

@@ -106,11 +106,16 @@ def test_quantize_expert_bank_bit_identical():
 
 
 # (E, C, D, F, group sizes): C = 7, D = 96, F = 40, an empty expert,
-# all-empty, E = 1
+# all-empty, E = 1; then the tile edges of the card's wgmma path: C = 161
+# (two row groups), D = 200 (a tail past the 64-deep stage), F = 144 (a
+# multiple of 16, not of a CTA's columns), and 16 slots of which 4 have
+# rows
 QUANT_CASES = [
     (3, 7, 96, 40, [7, 3, 0]),
     (2, 7, 96, 40, [0, 0]),
     (1, 7, 96, 40, [5]),
+    (2, 161, 200, 144, [161, 9]),
+    (16, 3, 64, 48, [0, 3, 0, 0, 1, 0, 0, 0, 0, 0, 2, 0, 0, 0, 0, 3]),
 ]
 
 

@@ -419,9 +419,14 @@ def test_decode_attention_graph_capture_on_card(cuda):
 
 
 # (E, C, D, F, group sizes) of the int8-weight kernels: C = 7, D = 96,
-# F = 40 (not a multiple of 16: byte loads), empty slots, E = 1, an
-# aligned F with a split D reduction, and C > 8 (bf16: the tensor-core
-# path) with partial row, column and depth tiles
+# F = 40 (not a multiple of 16: simt with byte loads), empty slots,
+# E = 1, an aligned F with a split D reduction (f32), C > 8 with partial
+# row, column and depth tiles; then the edges of the bf16 wgmma path
+# (D % 8 == 0, F % 16 == 0): C = 1, 8 and 9 (N = 8 and 16), 160 (one row
+# group of N = 160), 161 and 320 (two row groups of 96 and 160), D = 200
+# (a tail past the 64-deep stage), F = 144 (a multiple of 16, not of a
+# CTA's 128 or 256 columns), experts of 100, 70 and 33 rows at C = 160,
+# 64 slots of which 16 have rows, and all-zero group sizes
 QUANT_CASES = [
     (3, 7, 96, 40, [7, 3, 0]),
     (2, 16, 96, 40, [0, 0]),
@@ -429,7 +434,23 @@ QUANT_CASES = [
     (4, 3, 512, 64, [3, 0, 1, 2]),
     (3, 40, 96, 48, [40, 17, 0]),
     (2, 70, 200, 64, [70, 65]),
+    (2, 1, 96, 48, [1, 0]),
+    (2, 8, 128, 144, [8, 5]),
+    (3, 9, 200, 64, [9, 1, 0]),
+    (1, 160, 128, 256, [160]),
+    (2, 161, 200, 144, [161, 9]),
+    (2, 320, 64, 48, [320, 161]),
+    (3, 160, 64, 48, [100, 70, 33]),
+    (64, 3, 128, 144, [(i % 3) + 1 if i % 4 == 1 else 0 for i in range(64)]),
+    (2, 16, 96, 48, [0, 0]),
 ]
+
+
+def _want_qpath(dtype, d, f):
+    """The int8 kernels' path by the plan: bf16 with D % 8 == 0 and
+    F % 16 == 0 (aligned operands) takes "wgmma", the rest "simt"."""
+    ok = dtype == torch.bfloat16 and d % 8 == 0 and f % 16 == 0
+    return "wgmma" if ok else "simt"
 
 
 def _quant_case(e, c, d, f, device, dtype, seed=0):
@@ -443,10 +464,16 @@ def _quant_case(e, c, d, f, device, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_kernels_match_plain_on_card(cuda, dtype):
+    """Every case through both kernels on the plan's path (asserted, and
+    counted on that path), held to the plain version with rows past the
+    group size exactly 0."""
     tol = TOL[dtype]
     for e, c, d, f, gs in QUANT_CASES:
         x, qg, sg, qu, su = _quant_case(e, c, d, f, cuda, dtype)
         g = torch.tensor(gs, dtype=torch.int32, device=cuda)
+        want_path = _want_qpath(dtype, d, f)
+        assert MG.quant_plan(x, qg, scale=sg)[0] == want_path
+        before = {n: dict(v) for n, v in MG.QUANT_PATH_LAUNCHES.items()}
         got = MG.fused_gate_up_quant(x, qg, sg, qu, su, g)
         assert got.dtype == dtype
         torch.testing.assert_close(
@@ -460,6 +487,98 @@ def test_quant_kernels_match_plain_on_card(cuda, dtype):
             got.float(), MG.gmm_quant_ref(x, qg, sg, g).float(),
             atol=tol, rtol=tol)
         assert torch.all(got[past] == 0)
+        for name in MG.QUANT_PATH_LAUNCHES:
+            assert MG.QUANT_PATH_LAUNCHES[name][want_path] == \
+                before[name][want_path] + 1
+
+
+@pytest.mark.cuda
+def test_quant_misaligned_x_takes_simt_on_card(cuda):
+    """bf16 x as a contiguous view 2 bytes past an aligned buffer: no TMA
+    tensor map can take it, so both int8 kernels take the simt path,
+    which holds the plain version."""
+    tol = TOL[torch.bfloat16]
+    e, c, d, f, gs = 2, 64, 96, 144, [64, 30]
+    xa, qg, sg, qu, su = _quant_case(e, c, d, f, cuda, torch.bfloat16)
+    buf = torch.zeros(xa.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    x = buf[1:1 + xa.numel()].view(xa.shape)
+    x.copy_(xa)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    assert MG.quant_plan(x, qg, scale=sg)[0] == "simt"
+    g = torch.tensor(gs, dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(
+        MG.fused_gate_up_quant(x, qg, sg, qu, su, g).float(),
+        MG.fused_gate_up_quant_ref(x, qg, sg, qu, su, g).float(),
+        atol=tol, rtol=tol)
+    torch.testing.assert_close(MG.gmm_quant(x, qg, sg, g).float(),
+                               MG.gmm_quant_ref(x, qg, sg, g).float(),
+                               atol=tol, rtol=tol)
+
+
+def _slot_bank(device, e, d, f, gen):
+    """An int8 bank (E, D, F) with f32 row scales (E, D), made on the
+    card from a seeded generator: values in [-127, 127], scales so that
+    the dequantized weights are ~1/sqrt(D)."""
+    q = torch.randint(-127, 128, (e, d, f), generator=gen, device=device,
+                      dtype=torch.int8)
+    s = torch.rand((e, d), generator=gen, device=device) \
+        .add_(0.5).mul_(1.7 / (127 * d ** 0.5))
+    return q, s
+
+
+@pytest.mark.cuda
+def test_quant_wgmma_matches_simt_at_decode_on_card(cuda):
+    """mixtral-8x7b's decode shapes on the EP slot plane (64 slots, 16
+    with 1-3 rows, C = 3): the plan's wgmma path and the forced simt path
+    agree within the bf16 tolerance, for both kernels."""
+    tol = TOL[torch.bfloat16]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    rng = np.random.default_rng(0)
+    gs = [0] * 64
+    for i in rng.choice(64, 16, replace=False):
+        gs[i] = int(rng.integers(1, 4))
+    g = torch.tensor(gs, dtype=torch.int32, device=cuda)
+    for fused, d, f in ((True, 4096, 14336), (False, 14336, 4096)):
+        x = torch.randn((64, 3, d), generator=gen, device=cuda) \
+            .to(torch.bfloat16)
+        qs = [_slot_bank(cuda, 64, d, f, gen) for _ in range(2 if fused
+                                                              else 1)]
+        name = "fused_gate_up_quant" if fused else "gmm_quant"
+        assert MG.quant_plan(x, qs[0][0], 16, scale=qs[0][1])[0] == "wgmma"
+        out = {p: MG._launch_quant(name, fused, x, qs, g, 16, path=p)
+               for p in ("wgmma", "simt")}
+        torch.testing.assert_close(out["wgmma"].float(),
+                                   out["simt"].float(), atol=tol, rtol=tol)
+        assert torch.all(out["wgmma"][g == 0] == 0)
+        del qs, out
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_quant_graph_capture_on_card(cuda):
+    """One fused_gate_up_quant launch on the wgmma path captured in a
+    CUDA graph (its tensor maps are kernel parameters, encoded at
+    capture): a replay gives the eager output bit for bit, and after x
+    and the group sizes change in place, the new eager output."""
+    x, qg, sg, qu, su = _quant_case(4, 9, 200, 144, cuda, torch.bfloat16)
+    g = torch.tensor([9, 0, 4, 1], dtype=torch.int32, device=cuda)
+    assert MG.quant_plan(x, qg, scale=sg)[0] == "wgmma"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        MG.fused_gate_up_quant(x, qg, sg, qu, su, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = MG.fused_gate_up_quant(x, qg, sg, qu, su, g)
+    for step in range(2):
+        if step:
+            x.mul_(-0.5)
+            g.copy_(torch.tensor([3, 9, 0, 7], dtype=torch.int32))
+        graph.replay()
+        eager = MG.fused_gate_up_quant(x, qg, sg, qu, su, g)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 def test_quant_kernels_cuda_impl_rejects_cpu_tensors():
