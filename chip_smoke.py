@@ -46,14 +46,31 @@ Phases, each fatal on failure:
      the runtime's byte meters, then
      every layer's EP MoE sublayer through the kernels against the plain
      path from the same input and tables;
+  6. the OpenAI-compatible gateway at full width, on phase 4's weights
+     (so it runs right after 4b, before 4c's slot banks take the
+     memory): a ``GatewayServer`` on 127.0.0.1 in a thread over a
+     ``Router`` of 2 replicas on 4b's paged spec, drop-free, each with a
+     session MoEless controller; a greedy and a sampled request sent
+     alone over HTTP give ``engine.serve``'s tokens for each alone, the
+     sampled one sent again (SSE) gives them again; 16 concurrent
+     clients (half sampled, half SSE, completions and chat) all end
+     with their budget or stop sequence; ``/metrics`` is Prometheus text
+     with the router, scheduler, KV and control families; the paged
+     kernel and both bf16 ``moe_gmm`` kernels launched, counted after
+     the replicas stop; then the wall TTFT/TPOT medians over HTTP and
+     through offline engines, and the sampler's launches a step;
   5. token identity: the mixtral-8x7b smoke config at float32 gives the
      same greedy tokens through the kernels as the plain path on the
      contiguous cache, at its own capacity factor (where tokens are
      dropped) and at a drop-free one, where the paged runs (solo,
-     chunked, prefix-warm) through the kernels give them too; with the
-     expert runtime on, the kernels give the plain path's tokens with
-     float32 and int8 slot banks, and at the drop-free factor the
-     runtime gives the tokens of the runtime-off engine.
+     chunked, prefix-warm) through the kernels give them too, as they
+     give the tokens of a trace where half the requests sample, and
+     sampled batched serving gives the tokens of one request at a time;
+     with the expert runtime on, the kernels give the plain path's
+     tokens with float32 and int8 slot banks, and at the drop-free
+     factor the runtime gives the tokens of the runtime-off engine.
+
+Phases run in the order 1, 2, 3, 4, 4b, 6, 4c, 5.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -62,6 +79,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -995,14 +1013,21 @@ def _leaves(tree):
         yield tree
 
 
-def make_requests(cfg, lens, gens, n, seed=0):
-    from repro_torch.serving.scheduler import GenRequest
+def make_requests(cfg, lens, gens, n, seed=0, sampled=False):
+    """`n` requests at t=0 with random prompts; with `sampled`, every
+    odd request samples (temperature 0.9, top-p 0.9, top-k 40 on every
+    other one, its own seed)."""
+    from repro_torch.serving.scheduler import GenRequest, SamplingParams
     rng = np.random.default_rng(seed)
     return [GenRequest(rid=i, arrival=0.0,
                        prompt=rng.integers(0, cfg.vocab_size,
                                            size=lens[i % len(lens)],
                                            dtype=np.int32),
-                       max_new_tokens=gens[i % len(gens)])
+                       max_new_tokens=gens[i % len(gens)],
+                       sampling=SamplingParams(
+                           temperature=0.9, top_p=0.9,
+                           top_k=40 * (i % 4 == 1), seed=100 + i)
+                       if sampled and i % 2 else SamplingParams())
             for i in range(n)]
 
 
@@ -1351,6 +1376,345 @@ def paged_phase(cfg, params, max_len: int, slots: int, card: str) -> dict:
     return {"launches": launches, "sublayers": errs}
 
 
+# ------------------------------------------------------------ phase 6
+
+SYSTEM_LEN, GATEWAY_GEN = 256, 32   # phase 6: shared system prompt, budget
+
+
+class HostedGateway:
+    """A ``GatewayServer`` on 127.0.0.1 (a free port) on an asyncio loop
+    in a background thread, over `router`; ``close`` stops the server,
+    the loop, the thread and the router's replica threads."""
+
+    def __init__(self, router):
+        import asyncio
+        import threading
+
+        from repro_torch.serving.gateway import GatewayServer
+        self.router = router
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.srv = GatewayServer(router, host="127.0.0.1", port=0)
+        _, self.port = asyncio.run_coroutine_threadsafe(
+            self.srv.start(), self.loop).result(60)
+
+    def close(self) -> None:
+        import asyncio
+        try:
+            asyncio.run_coroutine_threadsafe(self.srv.close(),
+                                             self.loop).result(60)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(timeout=60)
+            self.router.stop()
+        alive = [d.replica_id for d in self.router.replicas.values()
+                 if d._thread is not None and d._thread.is_alive()]
+        if self.thread.is_alive() or alive:
+            raise AssertionError(f"gateway threads still running (replicas "
+                                 f"{alive})")
+
+
+def _choice_tokens(choice: dict) -> list[int]:
+    if "tokens" in choice:
+        return choice["tokens"]
+    return choice.get("message", choice.get("delta", {})).get("content", [])
+
+
+def http_completion(port: int, body: dict, chat: bool) -> dict:
+    """POST one completion to the gateway; SSE when body['stream']. Returns
+    the tokens, the finish reason, the send time and each token's
+    arrival time (host clock; unary: all at the response)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/chat/completions" if chat else
+                 "/v1/completions", body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    toks, times, reason = [], [], None
+    try:
+        if resp.status != 200:
+            raise AssertionError(f"HTTP {resp.status}: {resp.read()[:300]}")
+        if body.get("stream"):
+            while line := resp.readline():
+                if not line.startswith(b"data: ") or \
+                        line.strip() == b"data: [DONE]":
+                    continue
+                ch = json.loads(line[6:])["choices"][0]
+                got = _choice_tokens(ch)
+                toks += got
+                times += [time.perf_counter()] * len(got)
+                reason = ch.get("finish_reason") or reason
+        else:
+            ch = json.loads(resp.read())["choices"][0]
+            toks, reason = _choice_tokens(ch), ch["finish_reason"]
+            times = [time.perf_counter()] * len(toks)
+    finally:
+        conn.close()
+    return {"tokens": toks, "finish": reason, "t0": t0, "times": times}
+
+
+def gateway_traffic(cfg, n: int = 16, seed: int = 6):
+    """`n` requests sharing a SYSTEM_LEN-token system prompt, with
+    128-384-token tails and a budget of GATEWAY_GEN: odd ones sample
+    (temperature 0.8, top-k 50, top-p 0.95, a seed each), requests 2-3
+    of every 4 stream (SSE), 4-7 of every 8 use the chat endpoint, and
+    two carry a one-token stop sequence. Returns [(GenRequest, HTTP body,
+    chat)]."""
+    from repro_torch.serving.scheduler import GenRequest, SamplingParams
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_LEN).tolist()
+    out = []
+    for i in range(n):
+        tail = rng.integers(0, cfg.vocab_size, 128 + 16 * i).tolist()
+        samp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                              seed=1000 + i) if i % 2 else SamplingParams()
+        stop = [[int(rng.integers(cfg.vocab_size))]] if i in (3, 12) else []
+        body = {"max_tokens": GATEWAY_GEN, "stream": i % 4 >= 2,
+                "temperature": samp.temperature, "top_k": samp.top_k,
+                "top_p": samp.top_p, "seed": samp.seed}
+        if stop:
+            body["stop"] = stop
+        chat = i % 8 >= 4
+        if chat:
+            body["messages"] = [{"role": "system", "content": system},
+                                {"role": "user", "content": tail}]
+        else:
+            body["prompt"] = system + tail
+        req = GenRequest(rid=i, arrival=0.0,
+                         prompt=np.asarray(system + tail, np.int32),
+                         max_new_tokens=GATEWAY_GEN,
+                         sampling=dataclasses.replace(samp, stop=stop))
+        out.append((req, body, chat))
+    return out
+
+
+def _latencies(t0: float, times: list[float]) -> tuple[float, float, float]:
+    """(TTFT, TPOT, E2E) seconds of one request from its token times."""
+    ttft, e2e = times[0] - t0, times[-1] - t0
+    tpot = (times[-1] - times[0]) / (len(times) - 1) if len(times) > 1 \
+        else float("nan")
+    return ttft, tpot, e2e
+
+
+def _medians_ms(rows) -> str:
+    a = np.asarray(rows, float) * 1e3
+    return (f"TTFT {np.nanmedian(a[:, 0]):.1f} ms, TPOT "
+            f"{np.nanmedian(a[:, 1]):.2f} ms, E2E {np.nanmedian(a[:, 2]):.1f} "
+            f"ms")
+
+
+def offline_latencies(cfg, params, spec, max_len, slots, traffic):
+    """The same requests through two offline engines (the gateway's two
+    replicas' shapes; request i on engine i % 2), stepped in turns in
+    this thread, every request submitted at once: per request (TTFT,
+    TPOT, E2E) from host-clock token times, and its tokens."""
+    from repro_torch.serving.engine import ServingEngine
+    engines = [ServingEngine(cfg, params, max_len=max_len, serving=spec)
+               for _ in range(2)]
+    times: dict[int, list[float]] = {}
+
+    def hook(events):
+        now = time.perf_counter()
+        for ev in events:
+            times.setdefault(ev.rid, []).append(now)
+
+    reqs = [r for r, _, _ in traffic]
+    t0 = time.perf_counter()
+    for i, eng in enumerate(engines):
+        eng.add_step_hook(hook)
+        eng.start(num_slots=slots)
+        for r in reqs[i::2]:
+            eng.submit(r)
+    while any(e.has_work for e in engines):
+        for e in engines:
+            e.step()
+    for e in engines:
+        e.close()
+    return {r.rid: _latencies(t0, times[r.rid]) for r in reqs}, \
+        {r.rid: list(r.tokens) for r in reqs}
+
+
+def gateway_phase(cfg, params, card: str) -> dict:
+    """Phase 6: the OpenAI-compatible gateway at full width. A
+    ``GatewayServer`` (127.0.0.1, a free port, its own thread) over a
+    ``Router`` of 2 replicas that share `params`, each on the paged
+    spec of phase 4b (16-token blocks, 256-token chunked prefill, prefix
+    cache), drop-free (capacity factor = experts), 8 slots, with a
+    session ``MoElessController``; telemetry on. Checks, each fatal: a
+    greedy and a sampled request, each sent alone, give the tokens of
+    ``engine.serve`` of the same request alone; the sampled one sent
+    again (SSE) gives them again; 16 concurrent clients all end with
+    their budget or stop sequence; /metrics is Prometheus text with the
+    router, scheduler, KV and control families; the paged kernel and
+    both bf16 ``moe_gmm`` kernels launched. Returns this phase's
+    launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import ServingSpec
+    from repro_torch.launch.profile_decode import trace_sampler
+    from repro_torch.obs import Telemetry
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    from repro_torch.serving.gateway import (AutoscalerConfig, EngineDriver,
+                                             Router)
+    from repro_torch.serving.scheduler import GenRequest, SamplingParams
+    cfg = cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    spec = ServingSpec(kv="paged", kv_block=PAGED_BLOCK,
+                       prefill_chunk=PAGED_CHUNK, prefix_cache=True)
+    slots, max_len = 8, SYSTEM_LEN + 128 + 16 * 15 + GATEWAY_GEN + 1
+    tel = Telemetry()
+    # host seconds of each replica step, and of each submission the
+    # event loop makes (routing, subscribing and submitting take the
+    # replicas' engine locks)
+    step_s: list[float] = []
+    submit_s: list[float] = []
+
+    def timed(fn, out):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                out.append(time.perf_counter() - t)
+        return run
+
+    def factory(i: int):
+        eng = ServingEngine(cfg, params, max_len=max_len, serving=spec,
+                            telemetry=tel, name=f"replica{i}")
+        eng.step = timed(eng.step, step_s)
+        ctrl = MoElessController(cfg, num_devices=8, telemetry=tel,
+                                 track=f"replica{i}/control")
+        return EngineDriver(eng, replica_id=i, num_slots=slots,
+                            max_pending=64, control=ctrl)
+
+    log(f"  2 replicas sharing the weights: {spec}, {slots} slots each, "
+        f"max_len {max_len}, capacity factor {cfg.moe.capacity_factor} "
+        "(drop-free), a session MoElessController each, telemetry on")
+    traffic = gateway_traffic(cfg)
+    K.reset_launch_counts()
+    router = Router(factory, threaded=True, telemetry=tel,
+                    scaler=AutoscalerConfig(min_replicas=2, max_replicas=2))
+    router.submit = timed(router.submit, submit_s)
+    hosted = HostedGateway(router)
+    try:
+        # alone: a greedy and a sampled request (prompts of their own,
+        # sharing no prefix) against engine.serve of the same request
+        rng = np.random.default_rng(7)
+        alone = []
+        for samp in (SamplingParams(),
+                     SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                    seed=77)):
+            prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
+            body = {"prompt": prompt, "max_tokens": GATEWAY_GEN,
+                    "temperature": samp.temperature, "top_k": samp.top_k,
+                    "top_p": samp.top_p, "seed": samp.seed}
+            got = http_completion(hosted.port, body, chat=False)
+            req = GenRequest(rid=0, arrival=0.0,
+                             prompt=np.asarray(prompt, np.int32),
+                             max_new_tokens=GATEWAY_GEN, sampling=samp)
+            ServingEngine(cfg, params, max_len=max_len, serving=spec).serve(
+                [req], num_slots=slots)
+            if got["tokens"] != list(req.tokens):
+                raise AssertionError(
+                    f"alone, temperature {samp.temperature}: HTTP "
+                    f"{got['tokens']} != engine.serve {list(req.tokens)}")
+            alone.append((body, got["tokens"]))
+        body, want = alone[1]
+        again = http_completion(hosted.port, {**body, "stream": True},
+                                chat=False)
+        if again["tokens"] != want:
+            raise AssertionError(f"the sampled request sent again (SSE) gave "
+                                 f"{again['tokens']}, first {want}")
+        log(f"  alone: greedy and sampled (temperature 0.8, top-k 50, top-p "
+            f"0.95, seed 77) requests over HTTP == engine.serve of each "
+            f"alone ({GATEWAY_GEN} tokens each); the sampled one again over "
+            f"SSE == its first answer")
+        # 16 concurrent clients
+        del submit_s[:], step_s[:]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(traffic)) as ex:
+            futs = [ex.submit(http_completion, hosted.port, body, chat)
+                    for _, body, chat in traffic]
+            results = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        # /metrics as Prometheus text
+        import http.client
+        conn = http.client.HTTPConnection("127.0.0.1", hosted.port,
+                                          timeout=60)
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        text = resp.read().decode()
+        conn.close()
+        router_m = hosted.router.metrics()
+    finally:
+        hosted.close()
+    launches = K.launch_counts()
+    families = set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            float(line.rsplit(" ", 1)[1])
+    missing = [p for p in ("router_", "scheduler_", "kv_", "control_")
+               if not any(f.startswith(p) for f in families)]
+    if resp.status != 200 or missing:
+        raise AssertionError(f"/metrics: HTTP {resp.status}, families "
+                             f"missing {missing}")
+    for (req, body, chat), got in zip(traffic, results):
+        stop = [tuple(s) for s in body.get("stop", [])]
+        ok_len = got["finish"] == "length" and len(got["tokens"]) == \
+            GATEWAY_GEN
+        ok_stop = got["finish"] == "stop" and any(
+            tuple(got["tokens"][-len(s):]) == s for s in stop)
+        if not (ok_len or ok_stop):
+            raise AssertionError(f"request {req.rid}: {len(got['tokens'])} "
+                                 f"tokens, finish {got['finish']!r}")
+    for k_name in ("decode_attention_paged", "fused_gate_up", "gmm"):
+        if launches[k_name] <= 0:
+            raise AssertionError(f"{k_name} was never launched through the "
+                                 "gateway")
+    streamed = [i for i, (_, body, _) in enumerate(traffic)
+                if body["stream"]]
+    http_lat = [_latencies(results[i]["t0"], results[i]["times"])
+                for i in streamed]
+    off, off_tokens = offline_latencies(cfg, params, spec, max_len, slots,
+                                        traffic)
+    n_tok = sum(len(r["tokens"]) for r in results)
+    log(f"  16 clients (8 greedy, 8 sampled; 8 SSE; 8 chat; 2 with a stop "
+        f"sequence): {n_tok} tokens in {wall:.2f} s "
+        f"({n_tok / wall:.1f} tokens/s), finish reasons "
+        f"{sorted(set(r['finish'] for r in results))}; router admitted "
+        f"{router_m['router']['admitted']}, completed "
+        f"{router_m['router']['completed']}, by replica "
+        f"{[r['completed'] for r in router_m['replicas']]}")
+    log(f"  /metrics: {len(families)} families, router/scheduler/kv/control "
+        "present")
+    log(f"  the event loop blocked in Router.submit (route, subscribe, "
+        f"submit: the replicas' engine locks) {np.median(submit_s) * 1e3:.1f}"
+        f" ms median, {max(submit_s) * 1e3:.1f} ms max, {sum(submit_s):.2f} s "
+        f"in all over {len(submit_s)} submissions; a replica step took "
+        f"{np.median(step_s) * 1e3:.1f} ms median over {len(step_s)} steps")
+    log(f"  launches in this phase (HTTP and the two engine.serve runs of "
+        f"the alone checks): {launches}")
+    log(f"  wall latencies on {card}, medians over the 8 SSE requests:")
+    log(f"    over HTTP:                    {_medians_ms(http_lat)}")
+    log(f"    offline engines (2, in turns): "
+        f"{_medians_ms([off[i] for i in streamed])}")
+    same = sum(off_tokens[i] == results[i]["tokens"]
+               for i in range(len(traffic)))
+    log(f"    offline tokens equal to HTTP's for {same} of {len(traffic)} "
+        "requests (batch composition and prefix-cache timing differ "
+        "between the runs; not a check)")
+    s_launch, s_kern = trace_sampler(cfg.padded_vocab, rows=slots)
+    log(f"  sampler: {s_launch:.1f} kernel launches a sampled step (8 rows x "
+        f"{cfg.padded_vocab}), device busy "
+        f"{sum(ms for _, ms in s_kern):.4f} ms a call (torch.profiler)")
+    return launches
+
+
 # ------------------------------------------------------------ phase 4c
 
 
@@ -1501,7 +1865,9 @@ def token_identity(small, sp) -> None:
     """Float32 smoke config at a drop-free capacity factor: greedy tokens
     through the kernels on the contiguous cache, the paged pool (solo),
     chunked prefill and a prefix-warm pool equal the plain path's on the
-    contiguous cache, request by request."""
+    contiguous cache, request by request; and so do the tokens of a
+    trace where half the requests sample (temperature 0.9, top-p 0.9,
+    seeded), which differ from that trace's greedy tokens."""
     from repro_torch.configs import ServingSpec
     from repro_torch.serving.engine import MoElessController, ServingEngine
     max_len = 64 + 24 + 1
@@ -1513,15 +1879,18 @@ def token_identity(small, sp) -> None:
             ("paged chunked prefix-warm", "auto",
              ServingSpec(kv="paged", kv_block=4, prefill_chunk=8,
                          prefix_cache=True))]
-    for trace in ("random prompts", "shared system prompt, two waves"):
+    greedy = None
+    for trace in ("random prompts", "shared system prompt, two waves",
+                  "random prompts, half sampled"):
         got = {}
         for label, impl, spec in runs:
             eng = ServingEngine(small, sp, max_len=max_len, impl=impl,
                                 controller=MoElessController(small),
                                 serving=spec)
-            if trace == "random prompts":
+            if trace.startswith("random prompts"):
                 waves = [make_requests(small, (64, 17, 40, 9, 33),
-                                       (24, 7, 16), 10)]
+                                       (24, 7, 16), 10,
+                                       sampled=trace.endswith("sampled"))]
             else:
                 waves = shared_prefix_waves(small, 21, [[9, 30, 3, 17, 40],
                                                         [0, 5, 22, 11, 36]],
@@ -1539,8 +1908,8 @@ def token_identity(small, sp) -> None:
             if getattr(kv, "prefix", None) is not None:
                 extra = (f" (prefix hits {kv.prefix.hits}, copy-on-write "
                          f"{kv.cow_blocks})")
-                if trace != "random prompts" and (kv.prefix.hits < 5
-                                                  or kv.cow_blocks < 1):
+                if trace.startswith("shared") and (kv.prefix.hits < 5
+                                                   or kv.cow_blocks < 1):
                     raise AssertionError("prefix-warm run had no warm hits")
             base = got[("contiguous", "ref")]
             if got[(label, impl)] != base:
@@ -1550,6 +1919,43 @@ def token_identity(small, sp) -> None:
             log(f"  {trace}: {label} impl={impl}: "
                 f"{sum(map(len, base.values()))} tokens == contiguous "
                 f"impl=ref{extra}")
+        if trace == "random prompts":
+            greedy = got[("contiguous", "ref")]
+        elif trace.endswith("sampled"):
+            base = got[("contiguous", "ref")]
+            if any(base[i] == greedy[i] for i in base if i % 2) or \
+                    any(base[i] != greedy[i] for i in base if i % 2 == 0):
+                raise AssertionError("sampled requests gave their greedy "
+                                     "tokens, or greedy ones did not")
+
+
+def sampled_batching(small, sp) -> None:
+    """Float32 smoke config at a drop-free capacity factor, through the
+    kernels: a trace where half the requests sample gives, served in
+    one batch, the tokens of serving each request alone (keys fold per
+    request, not per slot), contiguous and paged with chunked prefill."""
+    from repro_torch.configs import ServingSpec
+    from repro_torch.serving.engine import ServingEngine
+    for label, spec in (("contiguous", ServingSpec()),
+                        ("paged chunked", ServingSpec(kv="paged",
+                                                      kv_block=5,
+                                                      prefill_chunk=7))):
+        eng = ServingEngine(small, sp, max_len=64 + 24 + 1, serving=spec)
+        alone = make_requests(small, (64, 17, 40, 9, 33), (24, 7, 16), 10,
+                              sampled=True)
+        for r in alone:
+            eng.serve([r], num_slots=4)
+        batch = make_requests(small, (64, 17, 40, 9, 33), (24, 7, 16), 10,
+                              sampled=True)
+        res = eng.serve(batch, num_slots=4)
+        if [r.tokens for r in batch] != [r.tokens for r in alone] or \
+                res.mean_batch_occupancy <= 1.0:
+            bad = [r.rid for r, q in zip(batch, alone) if r.tokens != q.tokens]
+            raise AssertionError(f"{label}: sampled batched tokens differ "
+                                 f"from sequential for requests {bad}")
+        log(f"  half sampled, {label} impl=auto: batched (occupancy "
+            f"{res.mean_batch_occupancy:.2f}) == one request at a time "
+            f"({sum(len(r.tokens) for r in batch)} tokens)")
 
 
 def runtime_identity(small, sp) -> None:
@@ -1708,7 +2114,14 @@ def main() -> int:
     log("[4b] paged KV, chunked prefill and the prefix cache at full width "
         "(same weights)")
     paged = paged_phase(cfg, params, max_len, slots, card)
+
+    log("[6] the OpenAI-compatible gateway at full width (phase 4's "
+        "weights; run before 4c, whose slot banks cannot sit beside them)")
+    gateway_phase(cfg, params, card)
     del params
+    # the phase's replicas, drivers and timing wrappers reference one
+    # another (and the weights): collect the cycles before 4c allocates
+    gc.collect()
     torch.cuda.empty_cache()
 
     log("[4c] the expert runtime on the EP slot plane at full width, int8 "
@@ -1723,6 +2136,7 @@ def main() -> int:
     free = small.with_(moe=dataclasses.replace(
         small.moe, capacity_factor=float(small.moe.num_experts)))
     token_identity(free, sp)
+    sampled_batching(free, sp)
     log("  expert runtime on (EP slot plane): float32 and int8 slot banks")
     runtime_identity(small, sp)
 

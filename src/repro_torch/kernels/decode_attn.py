@@ -23,12 +23,13 @@ import math
 
 import torch
 
+from repro_torch.kernels import LaunchCounts
 from repro_torch.kernels.build import load
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # launches of the wrapper (bumped only where the kernel is launched)
-LAUNCHES = {"decode_attention": 0, "decode_attention_paged": 0}
+LAUNCHES = LaunchCounts(decode_attention=0, decode_attention_paged=0)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -168,7 +169,7 @@ def decode_attention(q, k, v, kv_pos, kv_len, q_pos, *, window: int = 0):
     if rc != 0:
         raise RuntimeError(f"decode_attention: CUDA launch failed with "
                            f"error {rc}")
-    LAUNCHES["decode_attention"] += 1
+    LAUNCHES.bump("decode_attention")
     return out
 
 
@@ -235,5 +236,5 @@ def decode_attention_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos, *,
     if rc != 0:
         raise RuntimeError(f"decode_attention_paged: CUDA launch failed "
                            f"with error {rc}")
-    LAUNCHES["decode_attention_paged"] += 1
+    LAUNCHES.bump("decode_attention_paged")
     return out

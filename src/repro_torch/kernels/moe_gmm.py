@@ -23,12 +23,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import LaunchCounts, ref
 from repro_torch.kernels.build import load, num_sms
 
 # launches per wrapper (bumped only where the kernel is launched)
-LAUNCHES = {"fused_gate_up": 0, "gmm": 0, "fused_gate_up_quant": 0,
-            "gmm_quant": 0}
+LAUNCHES = LaunchCounts(fused_gate_up=0, gmm=0, fused_gate_up_quant=0,
+                        gmm_quant=0)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -142,7 +142,7 @@ def _launch(name, fused, x, wg, wu, group_sizes, path=None):
                            f"tensor map (CUresult {rc - _ENCODE_ERROR})")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES.bump(name)
     return out
 
 
@@ -200,7 +200,7 @@ def _qlib():
 
 # launches of each int8 kernel by the path they took (bumped where
 # LAUNCHES is): a run shows which path served it
-QUANT_PATH_LAUNCHES = {n: {p: 0 for p in PATHS}
+QUANT_PATH_LAUNCHES = {n: LaunchCounts({p: 0 for p in PATHS})
                        for n in ("fused_gate_up_quant", "gmm_quant")}
 _PATH_NAMES = {v: k for k, v in PATHS.items()}
 
@@ -285,8 +285,8 @@ def _launch_quant(name, fused, x, qs, group_sizes, max_active, path=None):
                            f"tensor map (CUresult {rc - _ENCODE_ERROR})")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    LAUNCHES[name] += 1
-    QUANT_PATH_LAUNCHES[name][taken] += 1
+    LAUNCHES.bump(name)
+    QUANT_PATH_LAUNCHES[name].bump(taken)
     return out
 
 

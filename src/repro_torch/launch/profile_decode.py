@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         --layers 4 --kv contiguous,ep-int8
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --prefill 10
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        --kv paged --temperature 0,0.8
 
 Serves the same traffic as ``chip_smoke.py``'s full-width phase
 (mixtral-8x7b at its published widths, depth cut to ``--layers``, bf16,
@@ -17,9 +19,11 @@ tokens, all arriving at t=0) through one engine per KV layout named in
 controller's plans executed on int8 slot banks of 8 slots a device,
 every MoE layer through the EP slot plane, as ``chip_smoke.py``'s phase
 4c; its single-buffered 64-slot bank and padded quantized bank take
-12.9 GB a layer, so it runs at ``--layers 4`` or fewer). The engines share the weights and live in one
-process. Once every slot of
-each decodes, each layout's next ``--steps`` steps are traced with
+12.9 GB a layer, so it runs at ``--layers 4`` or fewer), once per
+temperature named in ``--temperature`` (0: greedy; above 0 every request
+samples with top-k 50, top-p 0.95 and a seed of its own, so each step
+runs ``sample_tokens``). The engines share the weights and live in one
+process. Once every slot of each decodes, each layout's next ``--steps`` steps are traced with
 ``torch.profiler`` and one more runs under
 ``torch.cuda.set_sync_debug_mode``; then the engines take turns, one
 step each, until the first runs out of work. A round counts where every
@@ -35,9 +39,12 @@ difference against the first layout, and from the traced steps the
 device busy time (one stream, so kernels do not overlap) and the kernel
 launches a step, the device's idle share of the untraced step, the kernels by device time, the host
 operators by their own host time, and the call sites that block the
-host on the device. With ``--prefill N``, the first layout's engine
-then prefills one prompt of each bucket length (128, 256, 512) N times
-(solo prefill, as a request's admission runs it) and once more traced:
+host on the device. With a temperature above 0, the sampler alone is
+also traced at the decode step's shape (8 rows, the padded vocabulary):
+its kernel launches and device time a call. With ``--prefill N``, the
+first engine then prefills one prompt of each bucket length (128, 256,
+512) N times (solo prefill, as a request's admission runs it) and once
+more traced:
 per bucket, the wall time (median), the device busy time of the traced
 prefill and the idle share, and its kernels by device time. Needs a CUDA
 card.
@@ -91,6 +98,9 @@ def main(argv=None) -> int:
                     help="comma-separated KV layouts: contiguous, paged")
     ap.add_argument("--prefill", type=int, default=0,
                     help="solo prefills timed per bucket (0: none)")
+    ap.add_argument("--temperature", default="0",
+                    help="comma-separated sampling temperatures, one "
+                         "engine per layout and temperature (0: greedy)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
@@ -101,7 +111,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import ServingSpec, get_config
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import MoElessController, ServingEngine
-    from repro_torch.serving.scheduler import GenRequest
+    from repro_torch.serving.scheduler import GenRequest, SamplingParams
 
     specs = {"contiguous": ServingSpec(),
              "paged": ServingSpec(kv="paged", kv_block=16,
@@ -110,6 +120,10 @@ def main(argv=None) -> int:
     layouts = args.kv.split(",")
     if not layouts or any(k not in specs for k in layouts):
         raise SystemExit(f"profile_decode: --kv takes {', '.join(specs)}")
+    temps = [float(t) for t in args.temperature.split(",")]
+    runs = [(kv if len(temps) == 1 else f"{kv}@t={t:g}", kv, t)
+            for kv in layouts for t in temps]
+    names = [name for name, _, _ in runs]
     if "ep-int8" in layouts and args.layers > 4:
         raise SystemExit("profile_decode: ep-int8 holds 12.9 GB of slot "
                          "banks a layer; use --layers 4 or fewer")
@@ -133,7 +147,7 @@ def main(argv=None) -> int:
     # host seconds spent in the model call (enqueueing its kernels) and
     # in the control plane (its one device->host sync included)
     engines, hosts = {}, {}
-    for kv in layouts:
+    for name, kv, temp in runs:
         runtime = kv == "ep-int8"
         c = cfg.with_(moe=dataclasses.replace(cfg.moe, slot_dtype="int8")) \
             if runtime else cfg
@@ -146,7 +160,7 @@ def main(argv=None) -> int:
                                serving=specs[kv],
                                expert_runtime="on" if runtime else "off",
                                runtime_double_buffer=False)
-        host = hosts[kv] = {"model_call": 0.0, "control_plane": 0.0,
+        host = hosts[name] = {"model_call": 0.0, "control_plane": 0.0,
                             "runtime": 0.0}
         engine._step = timed(host, "model_call", engine._step)
         ctrl.step = timed(host, "control_plane", ctrl.step)
@@ -159,8 +173,10 @@ def main(argv=None) -> int:
             engine.submit(GenRequest(
                 rid=i, arrival=0.0, max_new_tokens=gens[i % 3],
                 prompt=rng.integers(0, cfg.vocab_size, size=lens[i % 4],
-                                    dtype=np.int32)))
-        engines[kv] = engine
+                                    dtype=np.int32),
+                sampling=SamplingParams(temperature=temp, top_k=50,
+                                        top_p=0.95, seed=i)))
+        engines[name] = engine
 
     def prefilling(sess):   # chunked loop: a slot still feeding its prompt
         return any(sess.kv.lengths[s] < sess.plen[s]
@@ -200,7 +216,7 @@ def main(argv=None) -> int:
 
     # the engines take turns, one step each; a round counts where every
     # step was decode-only at 8 slots (no admission, no prompt chunk)
-    rows = {kv: [] for kv in layouts}
+    rows = {name: [] for name in names}
     while all(not e._session.sched.done for e in engines.values()):
         rnd = {}
         for kv, engine in engines.items():
@@ -223,22 +239,23 @@ def main(argv=None) -> int:
                 rows[kv].append(row)
     for engine in engines.values():
         engine.run()
-    prefill_rows = _time_prefills(engines[layouts[0]], cfg, args, profile,
+    sampler = trace_sampler(cfg.padded_vocab) if max(temps) > 0 else None
+    prefill_rows = _time_prefills(engines[names[0]], cfg, args, profile,
                                   ProfilerActivity)
     for engine in engines.values():
         engine.close()
 
     print(f"card: {card}")
     print(f"mixtral-8x7b, {cfg.num_layers} of {full.num_layers} layers, "
-          f"{cfg.dtype}, 8 slots all decoding; layouts {', '.join(layouts)} in "
-          f"one process, taking turns step by step; {len(rows[layouts[0]])}"
+          f"{cfg.dtype}, 8 slots all decoding; layouts {', '.join(names)} in "
+          f"one process, taking turns step by step; {len(rows[names[0]])}"
           f" rounds counted, {args.steps} steps traced per layout")
-    if not rows[layouts[0]]:
+    if not rows[names[0]]:
         print("no round was decode-only in every layout")
         return 1
-    base = np.asarray(rows[layouts[0]]) * 1e3
+    base = np.asarray(rows[names[0]]) * 1e3
     status = 0
-    for kv in layouts:
+    for kv in names:
         r = np.asarray(rows[kv]) * 1e3
         wall, model, ctl, rtm = np.median(r[:, :4], axis=0)
         thread, proc = r[:, 4:].mean(axis=0)   # CPU clocks tick coarsely
@@ -248,9 +265,9 @@ def main(argv=None) -> int:
               f"control plane {ctl:.3f} ms, in the expert runtime's apply "
               f"{rtm:.3f} ms; CPU time (mean) of this thread "
               f"{thread:.3f} ms, of the process {proc:.3f} ms")
-        if kv != layouts[0]:
+        if kv != names[0]:
             d = r[:, 0] - base[:, 0]
-            print(f"wall minus kv={layouts[0]}, same round: median "
+            print(f"wall minus kv={names[0]}, same round: median "
                   f"{np.median(d):+.3f} ms, p10 {np.percentile(d, 10):+.3f},"
                   f" p90 {np.percentile(d, 90):+.3f}")
         prof, wall_on = traces[kv]
@@ -276,16 +293,52 @@ def main(argv=None) -> int:
         print("host operators by own host time per step (profiler on):")
         for name, calls, ms in ops[:12]:
             print(f"  {ms:9.4f} ms  {calls:7.1f} calls  {name[:80]}")
+    if sampler is not None:
+        launches, kern = sampler
+        busy = sum(ms for _, ms in kern)
+        print(f"== sample_tokens alone, 8 rows x {cfg.padded_vocab} "
+              f"(bf16 logits, temperature 0.8, top-k 50, top-p 0.95): "
+              f"{launches:.1f} kernel launches a call, device busy "
+              f"{busy:.4f} ms a call")
+        for name, ms in kern[:6]:
+            print(f"  {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
     for bucket, walls, kern in prefill_rows:
         wall = float(np.median(walls)) * 1e3
         busy = sum(ms for _, ms in kern)
-        print(f"== solo prefill, kv={layouts[0]}, bucket {bucket}: wall "
+        print(f"== solo prefill, kv={names[0]}, bucket {bucket}: wall "
               f"median {wall:.3f} ms over {len(walls)} (min "
               f"{min(walls) * 1e3:.3f}); device busy {busy:.3f} ms (one "
               f"traced prefill), idle share {max(0.0, 1 - busy / wall):.3f}")
         for name, ms in kern[:6]:
             print(f"  {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
     return status
+
+
+def trace_sampler(vocab: int, rows: int = 8, calls: int = 5):
+    """(kernel launches a call, kernels as (name, device ms a call)) of
+    ``sample_tokens`` over `rows` rows of bf16 logits of width `vocab`
+    on the CUDA card, every row sampled (temperature 0.8, top-k 50,
+    top-p 0.95), traced with ``torch.profiler`` over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import sample_tokens
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn((rows, vocab), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    args = (torch.full((rows,), 0.8, device=dev),
+            torch.full((rows,), 50, dtype=torch.int32, device=dev),
+            torch.full((rows,), 0.95, device=dev),
+            torch.arange(rows, dtype=torch.int32, device=dev),
+            torch.full((rows,), 3, dtype=torch.int32, device=dev))
+    sample_tokens(logits, *args)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sample_tokens(logits, *args)
+        torch.cuda.synchronize()
+    return _launches(prof, calls), _kernel_ms(prof, calls)
 
 
 def _time_prefills(engine, cfg, args, profile, activity):

@@ -13,6 +13,8 @@ Entry points:
                                              -> paged cache
   decode_step(cfg, params, batch, cache, cache_len)
                                              -> (logits, cache, metrics)
+  sample_tokens(logits, temperature, top_k, top_p, seed, step)
+                                             -> next tokens (B,)
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import prng
 
 
 @dataclass(frozen=True)
@@ -293,6 +296,50 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
         metrics["gate_input"] = torch.stack(
             [m["gate_input"] for m in ms if "gate_input" in m])
     return _lm_head(cfg, params, x), cache, metrics
+
+
+# ---------------------------------------------------------------- sampling
+
+
+def _filter_top_k_top_p(lg, k, p):
+    """Mask each row of logits (B, V) to its top-k entries (k <= 0: all)
+    and its top-p nucleus (the smallest prefix of the descending order
+    with cumulative mass >= p; the argmax always survives), with a
+    different k and p on every row. Ties keep vocabulary order (a stable
+    sort), as the reference's ``argsort`` does."""
+    v = lg.shape[-1]
+    order = torch.argsort(-lg, dim=-1, stable=True)      # descending
+    ranks = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(v, device=lg.device).expand_as(order))
+    keep_k = (k[:, None] <= 0) | (ranks < k[:, None])
+    srt = lg.gather(-1, order)
+    e = torch.exp(srt - srt.amax(-1, keepdim=True))
+    probs = e / e.sum(-1, keepdim=True)
+    cum = torch.cumsum(probs, -1) - probs               # exclusive mass
+    keep_p = (cum < p[:, None]).gather(-1, ranks)       # rank 0 kept
+    return torch.where(keep_k & keep_p, lg, -math.inf)
+
+
+@torch.no_grad()
+def sample_tokens(logits, temperature, top_k, top_p, seed, step):
+    """Next token of EVERY row in one call, with no host sync and no
+    data-dependent shape.
+
+    logits (B, V); temperature/top_p (B,) float32; top_k (B,) int32;
+    seed (B,) int32 per-request seeds; step (B,) int32 = tokens each
+    request has already sampled; all on the logits' device. Rows with
+    temperature <= 0 take ``torch.argmax``, bit-identical to greedy
+    decoding. Sampled rows take argmax(filtered(logits / t) + Gumbel
+    noise) with the key ``fold_in(PRNGKey(seed), step)`` (``models.
+    prng``, the reference's threefry bits): keyed by the request, not
+    the slot or the batch, so batched decoding samples what sequential
+    decoding does. Returns (B,) int32."""
+    greedy = torch.argmax(logits, dim=-1)
+    lg = logits.float() / temperature.clamp_min(1e-6)[:, None]
+    lg = _filter_top_k_top_p(lg, top_k, top_p)
+    key = prng.fold_in(prng.key(seed), step)
+    sampled = torch.argmax(prng.gumbel(key, lg.shape[-1]) + lg, dim=-1)
+    return torch.where(temperature > 0, sampled, greedy).to(torch.int32)
 
 
 def _lm_head(cfg, params, x):

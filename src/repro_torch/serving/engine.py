@@ -3,12 +3,13 @@ prefill/decode on the PyTorch model, with the MoEless control plane
 attached.
 
     engine.start(num_slots=8, control=..., time_scale=...)
-    h = engine.submit(GenRequest(...))
+    h = engine.submit(GenRequest(..., sampling=SamplingParams(...)))
     engine.step()            # one admission+decode iteration
     engine.run()             # drive until idle -> ServeResult
     for tok in engine.stream(h): ...   # incremental tokens
     engine.cancel(h)         # mid-decode: the KV slot is recycled
     engine.serve(requests)   # trace replay = thin driver over the above
+    engine.prefill(batch); engine.decode(...)   # fixed-batch greedy API
 
 Requests are prefilled alone, spliced into a free slot of the KV pool
 (``serving.kv``: contiguous ``SlotKVCache`` or paged ``PagedKVCache``),
@@ -18,7 +19,10 @@ slot for the next arrival. With ``serving.prefill_chunk > 0`` (paged
 only) admission is table work alone and prompts are fed chunk by chunk
 into the same batched step the decoding slots run (``_step_chunked``),
 optionally sharing prompt prefixes through the radix prefix cache.
-Decoding is greedy (argmax).
+Sampling is ONE call over all slots with per-request keys folded per
+generated token (``models.transformer.sample_tokens``); greedy is the
+``temperature=0`` case, bit-identical to argmax decoding, and a step
+whose running requests are all greedy takes the argmax alone.
 
 Every iteration drives the single control-plane implementation
 (``core.control.ControlPlane.step``): the Scaler sizes replicas, the
@@ -35,9 +39,8 @@ plans are EXECUTED as slot diffs on device-resident expert weight banks
 (``distributed.ep.moe_ep_layer``) with the runtime's live tables and
 banks, at (data, ep, tp) = (1, 1, 1).
 
-Not yet in this package (each raises ``NotImplementedError``): sampling
-with temperature > 0 (sampling slice) and a device mesh (multi-rank
-slice).
+Not yet in this package: a device mesh (``NotImplementedError``; the
+multi-rank slice).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ import torch
 from repro_torch.core.control import (ControlPlane,  # noqa: F401 (re-export)
                                       IterationOutcome, MoElessController)
 from repro_torch.kernels.ops import resolve_impl
+from repro_torch.models import prng
 from repro_torch.models import transformer as T
 from repro_torch.obs.telemetry import NOOP
 from repro_torch.serving.kv import PagedKVCache, SlotKVCache
@@ -133,7 +137,8 @@ class ServeResult:
 
 class _Session:
     """Mutable state of one serving session: the slot pool, the
-    scheduler, the serving clock, and the last token of every slot."""
+    scheduler, the serving clock, the last token of every slot and the
+    per-slot sampling arrays that feed the one ``sample_tokens`` call."""
 
     def __init__(self, cfg, params, num_slots: int, max_len: int,
                  eos_id, control, time_scale: float, serving,
@@ -151,7 +156,15 @@ class _Session:
         self.runtime = runtime
         self.time_scale = time_scale
         self.now = 0.0
-        self.cur = np.zeros(self.kv.rows, np.int64)   # last token per slot
+        rows = self.kv.rows
+        self.cur = np.zeros(rows, np.int64)            # last token per slot
+        self.temp = np.zeros(rows, np.float32)
+        self.topk = np.zeros(rows, np.int32)
+        self.topp = np.ones(rows, np.float32)
+        # a key keeps the low 32 bits of its seed (PRNGKey's rule), so any
+        # integer seed a client sends is stored as those bits
+        self.seed = np.zeros(rows, np.int64)
+        self.count = np.zeros(rows, np.int32)          # tokens sampled
         # chunked prefill: per-slot prompt (fed chunk by chunk into the
         # batched step) and its length; a slot is mid-prefill while
         # kv.lengths[slot] < plen[slot]
@@ -163,12 +176,25 @@ class _Session:
         self.prefills = 0
         self.wall0 = time.perf_counter()
 
+    def bind_slot(self, slot: int, req: GenRequest) -> None:
+        s = req.sampling
+        self.temp[slot] = s.temperature
+        self.topk[slot] = s.top_k
+        self.topp[slot] = s.top_p
+        self.seed[slot] = s.effective_seed(req.rid) & prng.MASK
+        self.count[slot] = 0
 
-def _greedy_only(sampling: SamplingParams | None) -> None:
-    if sampling is not None and sampling.temperature > 0:
-        raise NotImplementedError(
-            "sampling with temperature > 0 arrives with the sampling slice "
-            "of the PyTorch port; this engine decodes greedily")
+    def sampling(self) -> bool:
+        """True when a running request samples (temperature > 0): the
+        step then calls the sampler, else takes the argmax alone."""
+        return any(self.temp[s] > 0 for s in self.sched.running)
+
+    def sampling_args(self, device) -> tuple:
+        """The per-slot (temperature, top_k, top_p, seed, count) of
+        ``sample_tokens``, on `device`."""
+        return tuple(torch.from_numpy(a).to(device) for a in
+                     (self.temp, self.topk, self.topp, self.seed,
+                      self.count))
 
 
 class ServingEngine:
@@ -261,6 +287,38 @@ class ServingEngine:
     def new_cache(self, batch_size: int):
         return T.init_cache(self.cfg, self.params, batch_size, self.max_len)
 
+    # ------------------------------------------------ fixed-batch API
+
+    def prefill(self, batch):
+        """batch['tokens']: (B, S_prompt), every row a whole prompt (no
+        padding). Returns (greedy next tokens (B,), cache, S_prompt)."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
+        cache = self.new_cache(batch["tokens"].shape[0])
+        logits, cache, metrics = self._step(batch, cache, 0, self._collect)
+        self._drive_controller(metrics)
+        return torch.argmax(logits[:, -1], dim=-1), cache, \
+            batch["tokens"].shape[1]
+
+    def decode(self, tokens, cache, cache_len: int, steps: int,
+               extra=None):
+        """Greedy decode `steps` tokens after `tokens` (B,). Returns
+        (tokens (B, steps), cache, cache_len)."""
+        out = []
+        cur = torch.as_tensor(tokens, device=self.device)
+        for _ in range(steps):
+            batch = {"tokens": cur[:, None]}
+            if extra:
+                batch.update(extra)
+            logits, cache, metrics = self._step(batch, cache, cache_len,
+                                                self._collect)
+            self._drive_controller(metrics)
+            cur = torch.argmax(logits[:, -1], dim=-1)
+            out.append(cur)
+            cache_len += 1
+            self.iteration += 1
+        return torch.stack(out, dim=1), cache, cache_len
+
     def _drive_controller(self, metrics, token_mask=None):
         if self.controller is None or "expert_load" not in metrics:
             return
@@ -279,9 +337,9 @@ class ServingEngine:
         pad rows DO occupy MoE capacity, as in the reference). With a
         session expert runtime the MoE sublayers run through the EP slot
         data plane, as the batched step does. The first output token is
-        the argmax of the last prompt position.
+        sampled under `sampling` (the argmax when None or temperature
+        <= 0) from the last prompt position.
         Returns (first_token, cache, prompt_len, metrics, token_mask)."""
-        _greedy_only(sampling)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         plen = int(prompt.shape[0])
         if not 0 < plen <= self.max_len:
@@ -297,9 +355,20 @@ class ServingEngine:
         batch = {"tokens": torch.from_numpy(toks[None].astype(np.int64))
                  .to(self.device),
                  "token_mask": torch.from_numpy(mask[None]).to(self.device)}
+        s = sampling or SamplingParams()
+        dev = self.device
+        samp = None if s.temperature <= 0 else (
+            torch.tensor([s.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([s.top_k], dtype=torch.int32, device=dev),
+            torch.tensor([s.top_p], dtype=torch.float32, device=dev),
+            torch.tensor([s.effective_seed(rid) & prng.MASK], device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
         logits, cache, metrics = self._step(batch, cache, 0, collect,
                                             ep=self._ep(self._session))
-        first_tok = int(torch.argmax(logits[0, plen - 1]))
+        if samp is None:        # greedy: the argmax path
+            first_tok = int(torch.argmax(logits[0, plen - 1]))
+        else:
+            first_tok = int(T.sample_tokens(logits[:1, plen - 1], *samp)[0])
         return first_tok, cache, plen, metrics, \
             batch["token_mask"].reshape(-1)
 
@@ -363,7 +432,6 @@ class ServingEngine:
         defaults if needed). A NaN arrival means "now". Returns a handle
         whose status is `rejected` if the request cannot ever fit a KV
         slot (admission control). Thread-safe."""
-        _greedy_only(req.sampling)
         with self._lock:
             sess = self._sess
             if math.isnan(req.arrival):
@@ -445,10 +513,12 @@ class ServingEngine:
                 dt = time.perf_counter() - t0
             slot = kv.alloc()
             kv.insert(slot, cache1, plen, owner=req.rid)
+            sess.bind_slot(slot, req)
             sched.start(req, slot, sess.now)
             sess.now += dt * sess.time_scale
             sess.prefills += 1
             sess.cur[slot] = tok
+            sess.count[slot] = 1
             done = sched.on_token(slot, tok, sess.now)  # TTFT: prefill end
             events.append(TokenEvent(req.rid, tok, done))
             if tel.enabled:
@@ -472,8 +542,9 @@ class ServingEngine:
             tel.sched_pending.set(len(sched.pending))
         if not sched.running:
             return events
-        # one batched decode step over the whole pool, then one argmax
-        # over every slot
+        # one batched decode step over the whole pool, then one sampling
+        # call (or, all greedy, one argmax) over every slot; the sampling
+        # arrays go to the device before the model call is enqueued
         t0 = time.perf_counter()
         t_clock0 = sess.now
         tokens = torch.from_numpy(sess.cur[:, None].copy()).to(self.device)
@@ -485,13 +556,15 @@ class ServingEngine:
         else:
             lengths, active = kv.step_lengths()
             batch = {"tokens": tokens, "active": active}
+        samp = sess.sampling_args(self.device) if sess.sampling() else None
         # with the runtime on, the KV pool's pad rows (none at one rank)
         # are capacity-neutral
         logits, kv.cache, metrics = self._step(
             batch, kv.cache, lengths, collect,
             ep=self._ep(sess, kv.rows - kv.num_slots))
         t_sync = time.perf_counter()
-        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        toks = (T.sample_tokens(logits[:, -1], *samp) if samp is not None
+                else torch.argmax(logits[:, -1], dim=-1)).cpu().numpy()
         sync_s = time.perf_counter() - t_sync   # device->host token fetch
         dt = None
         if sess.control is not None and "expert_load" in metrics:
@@ -525,6 +598,7 @@ class ServingEngine:
         for slot in list(sched.running):
             tok = int(toks[slot])
             sess.cur[slot] = tok
+            sess.count[slot] += 1
             req = sched.running[slot]
             done = sched.on_token(slot, tok, sess.now)
             if not done and slot in capped:
@@ -558,6 +632,7 @@ class ServingEngine:
             hit = kv.begin(slot, req.prompt, req.max_new_tokens,
                            owner=req.rid)
             req.prefix_hit_len = hit
+            sess.bind_slot(slot, req)
             prompt = np.asarray(req.prompt, np.int32).reshape(-1)
             sess.prompts[slot] = prompt
             sess.plen[slot] = prompt.shape[0]
@@ -613,6 +688,7 @@ class ServingEngine:
         batch = {"tokens": torch.from_numpy(tokens).to(self.device),
                  "active": active, "token_mask": mask,
                  "block_tables": tables, "new_counts": counts_t}
+        samp = sess.sampling_args(self.device) if sess.sampling() else None
         phase = "mixed" if any_prefill else "decode"
         logits, kv.cache, metrics = self._step(
             batch, kv.cache, lengths, collect,
@@ -621,7 +697,8 @@ class ServingEngine:
         # each row's next-token logits sit at its LAST written position
         idx = (counts_t - 1).clamp(min=0).long()
         last = logits[torch.arange(rows, device=self.device), idx]
-        toks = torch.argmax(last, dim=-1).cpu().numpy()
+        toks = (T.sample_tokens(last, *samp) if samp is not None
+                else torch.argmax(last, dim=-1)).cpu().numpy()
         sync_s = time.perf_counter() - t_sync
         dt = None
         if sess.control is not None and "expert_load" in metrics:
@@ -656,6 +733,10 @@ class ServingEngine:
             req = sched.running[slot]
             if kv.lengths[slot] < sess.plen[slot]:
                 continue                 # still mid-prefill: no token yet
+            if slot in first_rows:
+                sess.count[slot] = 1     # the request's first token
+            else:
+                sess.count[slot] += 1
             tok = int(toks[slot])
             sess.cur[slot] = tok
             emitted += 1

@@ -156,12 +156,14 @@ def test_engine_guards():
         .serving.kv == "paged"
     with pytest.raises(NotImplementedError, match="multi-rank"):
         ServingEngine(cfg, tp, mesh=object())
+    # sampled requests are admitted (tests/test_torch_sampling.py holds
+    # their tokens to the reference's)
     eng = ServingEngine(cfg, tp, max_len=16)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.submit(GenRequest(rid=0, arrival=0.0,
+    h = eng.submit(GenRequest(rid=0, arrival=0.0,
                               prompt=np.arange(3, dtype=np.int32),
                               max_new_tokens=2,
                               sampling=SamplingParams(temperature=0.7)))
+    assert h.status == "queued" and len(eng.run().records) == 1
     # impl="cuda" with the weights on the CPU raises at the first kernel
     eng = ServingEngine(cfg, tp, max_len=16, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
@@ -195,7 +197,8 @@ def test_port_imports_neither_jax_nor_reference_ast():
 def test_port_imports_neither_jax_nor_reference_at_runtime():
     code = ("import repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.serving.expert_runtime, repro_torch.distributed.ep, "
-            "repro_torch.kernels.quant, "
+            "repro_torch.kernels.quant, repro_torch.serving.gateway, "
+            "repro_torch.core.simulator, repro_torch.models.prng, "
             "sys; assert not any(m == 'jax' or m.startswith(('jax.', "
             "'repro.')) or m == 'repro' for m in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(SRC))

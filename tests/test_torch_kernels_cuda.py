@@ -593,3 +593,114 @@ def test_quant_kernels_cuda_impl_rejects_cpu_tensors():
         OPS.expert_ffn_quant_impl(x, qg, sg, qu, su, qd, sd, g, "cuda")
     with pytest.raises(ValueError, match="CUDA"):
         OPS.gmm_quant_impl(x, qg, sg, g, "cuda")
+
+
+def test_launch_counts_survive_concurrent_bumps():
+    """Launch counters bumped from more threads than cores, with the
+    interpreter switching threads as often as it can, lose no count,
+    and a reset under the same lock zeroes them."""
+    import sys
+    import threading
+
+    from repro_torch import kernels as K
+    K.reset_launch_counts()
+    names = list(MG.LAUNCHES) + list(DA.LAUNCHES)
+    per_thread = 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda i=i: [
+            (DA.LAUNCHES if names[i % len(names)] in DA.LAUNCHES
+             else MG.LAUNCHES).bump(names[i % len(names)])
+            for _ in range(per_thread)]) for i in range(4 * len(names))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert K.launch_counts() == {n: 4 * per_thread for n in names}
+    K.reset_launch_counts()
+    assert set(K.launch_counts().values()) == {0}
+
+
+@pytest.mark.cuda
+def test_launch_counts_add_up_across_engine_threads(cuda):
+    """Two engines stepped from two threads (as the gateway's replicas
+    are) count exactly the launches the same two runs count one after
+    the other."""
+    import threading
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import GenRequest, SamplingParams
+    cfg = get_config("mixtral-8x7b", smoke=True)
+    params = init_params(cfg, 0, device=cuda)
+
+    def serve():
+        rng = np.random.default_rng(0)
+        reqs = [GenRequest(rid=i, arrival=0.0, max_new_tokens=12,
+                           prompt=rng.integers(0, cfg.vocab_size, 9 + i,
+                                               dtype=np.int32),
+                           sampling=SamplingParams(temperature=0.7 * (i % 2),
+                                                   seed=i))
+                for i in range(4)]
+        ServingEngine(cfg, params, max_len=32).serve(reqs, num_slots=4)
+
+    serve()                      # builds the kernels on this thread
+    K.reset_launch_counts()
+    serve()
+    serve()
+    sequential = K.launch_counts()
+    K.reset_launch_counts()
+    threads = [threading.Thread(target=serve) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert K.launch_counts() == sequential
+    assert sequential["fused_gate_up"] > 0 and \
+        sequential["decode_attention"] > 0
+
+
+@pytest.mark.cuda
+def test_sampler_on_card_matches_cpu_without_host_sync(cuda):
+    """``sample_tokens`` on the card makes no host sync (sync debug mode
+    'error'), its threefry bits and Gumbel draws equal the CPU's bit for
+    bit, and its tokens equal the CPU's where no top-p nucleus is cut
+    (the nucleus boundary rests on a float cumulative sum whose order
+    differs by device)."""
+    from repro_torch.models import prng
+    from repro_torch.models.transformer import sample_tokens
+    rng = np.random.default_rng(0)
+    b, v = 24, 32000
+    logits = torch.from_numpy(
+        (rng.standard_normal((b, v)) * 3).astype(np.float32))
+    t = torch.tensor(([0.0, 0.5, 0.8, 1.3] * 6), dtype=torch.float32)
+    k = torch.tensor(([0, 1, 50] * 8), dtype=torch.int32)
+    p = torch.tensor(([1.0] * 3 + [0.9] * 3) * 4, dtype=torch.float32)
+    seed = torch.from_numpy(rng.integers(-2**31, 2**31, b).astype(np.int32))
+    step = torch.from_numpy(rng.integers(0, 1000, b).astype(np.int32))
+    args = (t, k, p, seed, step)
+    want = sample_tokens(logits, *args)
+    dev_args = [a.to(cuda) for a in args]
+    dev_logits = logits.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sample_tokens(dev_logits, *dev_args)
+        keys = prng.fold_in(prng.key(dev_args[3]), dev_args[4])
+        draws = prng.gumbel(keys, 1000)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu_keys = prng.fold_in(prng.key(seed), step)
+    assert torch.equal(keys.cpu(), cpu_keys)
+    assert torch.equal(draws.cpu().view(torch.int32),
+                       prng.gumbel(cpu_keys, 1000).view(torch.int32))
+    uncut = (p >= 1.0).numpy()
+    np.testing.assert_array_equal(got.cpu().numpy()[uncut],
+                                  want.numpy()[uncut])
