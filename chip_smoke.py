@@ -52,9 +52,10 @@ Phases, each fatal on failure:
      ``Router`` of 2 replicas on 4b's paged spec, drop-free, each with a
      session MoEless controller; a greedy and a sampled request sent
      alone over HTTP give ``engine.serve``'s tokens for each alone, the
-     sampled one sent again (SSE) gives them again; 16 concurrent
-     clients (half sampled, half SSE, completions and chat) all end
-     with their budget or stop sequence; ``/metrics`` is Prometheus text
+     sampled one sent again (SSE) gives them again; each sent again
+     with a stop sequence taken from its own answer ends there, finish
+     "stop"; 16 concurrent clients (half sampled, half SSE, completions
+     and chat) all end with their budget; ``/metrics`` is Prometheus text
      with the router, scheduler, KV and control families; the paged
      kernel and both bf16 ``moe_gmm`` kernels launched, counted after
      the replicas stop; then the wall TTFT/TPOT medians over HTTP and
@@ -1460,9 +1461,8 @@ def gateway_traffic(cfg, n: int = 16, seed: int = 6):
     """`n` requests sharing a SYSTEM_LEN-token system prompt, with
     128-384-token tails and a budget of GATEWAY_GEN: odd ones sample
     (temperature 0.8, top-k 50, top-p 0.95, a seed each), requests 2-3
-    of every 4 stream (SSE), 4-7 of every 8 use the chat endpoint, and
-    two carry a one-token stop sequence. Returns [(GenRequest, HTTP body,
-    chat)]."""
+    of every 4 stream (SSE), 4-7 of every 8 use the chat endpoint.
+    Returns [(GenRequest, HTTP body, chat)]."""
     from repro_torch.serving.scheduler import GenRequest, SamplingParams
     rng = np.random.default_rng(seed)
     system = rng.integers(0, cfg.vocab_size, SYSTEM_LEN).tolist()
@@ -1471,12 +1471,9 @@ def gateway_traffic(cfg, n: int = 16, seed: int = 6):
         tail = rng.integers(0, cfg.vocab_size, 128 + 16 * i).tolist()
         samp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
                               seed=1000 + i) if i % 2 else SamplingParams()
-        stop = [[int(rng.integers(cfg.vocab_size))]] if i in (3, 12) else []
         body = {"max_tokens": GATEWAY_GEN, "stream": i % 4 >= 2,
                 "temperature": samp.temperature, "top_k": samp.top_k,
                 "top_p": samp.top_p, "seed": samp.seed}
-        if stop:
-            body["stop"] = stop
         chat = i % 8 >= 4
         if chat:
             body["messages"] = [{"role": "system", "content": system},
@@ -1486,9 +1483,18 @@ def gateway_traffic(cfg, n: int = 16, seed: int = 6):
         req = GenRequest(rid=i, arrival=0.0,
                          prompt=np.asarray(system + tail, np.int32),
                          max_new_tokens=GATEWAY_GEN,
-                         sampling=dataclasses.replace(samp, stop=stop))
+                         sampling=samp)
         out.append((req, body, chat))
     return out
+
+
+def _stop_cut(tokens: list[int], stop: list[int]) -> list[int]:
+    """`tokens` cut where they first end with `stop`, as the scheduler
+    ends a request on a stop sequence (the stop tokens kept)."""
+    for j in range(len(stop), len(tokens) + 1):
+        if tokens[j - len(stop):j] == stop:
+            return tokens[:j]
+    raise ValueError(f"{stop} is not in {tokens}")
 
 
 def _latencies(t0: float, times: list[float]) -> tuple[float, float, float]:
@@ -1546,11 +1552,13 @@ def gateway_phase(cfg, params, card: str) -> dict:
     session ``MoElessController``; telemetry on. Checks, each fatal: a
     greedy and a sampled request, each sent alone, give the tokens of
     ``engine.serve`` of the same request alone; the sampled one sent
-    again (SSE) gives them again; 16 concurrent clients all end with
-    their budget or stop sequence; /metrics is Prometheus text with the
-    router, scheduler, KV and control families; the paged kernel and
-    both bf16 ``moe_gmm`` kernels launched. Returns this phase's
-    launch counts."""
+    again (SSE) gives them again; each sent again with a stop sequence
+    from its own answer (greedy: one token, unary; sampled: two, SSE)
+    ends where its output first ends with it, finish "stop"; 16
+    concurrent clients all end with their budget; /metrics is
+    Prometheus text with the router, scheduler, KV and control
+    families; the paged kernel and both bf16 ``moe_gmm`` kernels
+    launched. Returns this phase's launch counts."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import ServingSpec
@@ -1628,6 +1636,23 @@ def gateway_phase(cfg, params, card: str) -> dict:
         if again["tokens"] != want:
             raise AssertionError(f"the sampled request sent again (SSE) gave "
                                  f"{again['tokens']}, first {want}")
+        # the stop path: each again with a stop sequence taken from its
+        # own answer (greedy: one token, unary; sampled: two, SSE) ends
+        # where its output first ends with it, finish "stop"
+        for body, want, at, n, stream in ((*alone[0], 8, 1, False),
+                                          (*alone[1], 12, 2, True)):
+            stop = want[at:at + n]
+            cut = _stop_cut(want, stop)
+            got = http_completion(hosted.port, {**body, "stop": [stop],
+                                                "stream": stream},
+                                  chat=False)
+            if got["finish"] != "stop" or got["tokens"] != cut:
+                raise AssertionError(
+                    f"stop {stop} (temperature {body['temperature']}): "
+                    f"{got['tokens']} finish {got['finish']!r}, want {cut}")
+            log(f"  stop {stop} (temperature {body['temperature']}, "
+                f"{'SSE' if stream else 'unary'}): finish 'stop' after "
+                f"{len(cut)} of {GATEWAY_GEN} tokens, ending with it")
         log(f"  alone: greedy and sampled (temperature 0.8, top-k 50, top-p "
             f"0.95, seed 77) requests over HTTP == engine.serve of each "
             f"alone ({GATEWAY_GEN} tokens each); the sampled one again over "
@@ -1664,12 +1689,7 @@ def gateway_phase(cfg, params, card: str) -> dict:
         raise AssertionError(f"/metrics: HTTP {resp.status}, families "
                              f"missing {missing}")
     for (req, body, chat), got in zip(traffic, results):
-        stop = [tuple(s) for s in body.get("stop", [])]
-        ok_len = got["finish"] == "length" and len(got["tokens"]) == \
-            GATEWAY_GEN
-        ok_stop = got["finish"] == "stop" and any(
-            tuple(got["tokens"][-len(s):]) == s for s in stop)
-        if not (ok_len or ok_stop):
+        if got["finish"] != "length" or len(got["tokens"]) != GATEWAY_GEN:
             raise AssertionError(f"request {req.rid}: {len(got['tokens'])} "
                                  f"tokens, finish {got['finish']!r}")
     for k_name in ("decode_attention_paged", "fused_gate_up", "gmm"):
@@ -1683,8 +1703,8 @@ def gateway_phase(cfg, params, card: str) -> dict:
     off, off_tokens = offline_latencies(cfg, params, spec, max_len, slots,
                                         traffic)
     n_tok = sum(len(r["tokens"]) for r in results)
-    log(f"  16 clients (8 greedy, 8 sampled; 8 SSE; 8 chat; 2 with a stop "
-        f"sequence): {n_tok} tokens in {wall:.2f} s "
+    log(f"  16 clients (8 greedy, 8 sampled; 8 SSE; 8 chat): {n_tok} "
+        f"tokens in {wall:.2f} s "
         f"({n_tok / wall:.1f} tokens/s), finish reasons "
         f"{sorted(set(r['finish'] for r in results))}; router admitted "
         f"{router_m['router']['admitted']}, completed "

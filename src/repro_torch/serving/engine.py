@@ -158,13 +158,20 @@ class _Session:
         self.now = 0.0
         rows = self.kv.rows
         self.cur = np.zeros(rows, np.int64)            # last token per slot
-        self.temp = np.zeros(rows, np.float32)
-        self.topk = np.zeros(rows, np.int32)
-        self.topp = np.ones(rows, np.float32)
+        # the per-slot sampling arrays are views of one host buffer
+        # (seed first, at 8-byte alignment), so a sampled step moves them
+        # to the device in one copy
+        self._samp = np.zeros(24 * rows, np.uint8)
+        seed, temp, topk, topp, count = np.split(
+            self._samp, np.cumsum([8, 4, 4, 4]) * rows)
         # a key keeps the low 32 bits of its seed (PRNGKey's rule), so any
         # integer seed a client sends is stored as those bits
-        self.seed = np.zeros(rows, np.int64)
-        self.count = np.zeros(rows, np.int32)          # tokens sampled
+        self.seed = seed.view(np.int64)
+        self.temp = temp.view(np.float32)
+        self.topk = topk.view(np.int32)
+        self.topp = topp.view(np.float32)
+        self.topp[:] = 1.0
+        self.count = count.view(np.int32)              # tokens sampled
         # chunked prefill: per-slot prompt (fed chunk by chunk into the
         # batched step) and its length; a slot is mid-prefill while
         # kv.lengths[slot] < plen[slot]
@@ -191,10 +198,17 @@ class _Session:
 
     def sampling_args(self, device) -> tuple:
         """The per-slot (temperature, top_k, top_p, seed, count) of
-        ``sample_tokens``, on `device`."""
-        return tuple(torch.from_numpy(a).to(device) for a in
-                     (self.temp, self.topk, self.topp, self.seed,
-                      self.count))
+        ``sample_tokens``, on `device`: one copy of the shared buffer,
+        on a card from pinned memory without blocking the host."""
+        buf = torch.from_numpy(self._samp)
+        if torch.device(device).type == "cuda":
+            buf = buf.pin_memory().to(device, non_blocking=True)
+        rows = self.kv.rows
+        seed, temp, topk, topp, count = torch.split(
+            buf, [8 * rows] + [4 * rows] * 4)
+        return (temp.view(torch.float32), topk.view(torch.int32),
+                topp.view(torch.float32), seed.view(torch.int64),
+                count.view(torch.int32))
 
 
 class ServingEngine:

@@ -668,6 +668,37 @@ def test_launch_counts_add_up_across_engine_threads(cuda):
 
 
 @pytest.mark.cuda
+def test_sampling_args_reach_the_card_without_host_sync(cuda):
+    """A session's per-slot sampling arrays go to the card in one copy
+    that does not block the host (sync debug mode 'error') and arrive
+    equal to the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import GenRequest, SamplingParams
+    cfg = get_config("mixtral-8x7b", smoke=True)
+    eng = ServingEngine(cfg, init_params(cfg, 0, device=cuda), max_len=32)
+    eng.start(num_slots=4)
+    sess = eng._session
+    for slot, t in ((1, 0.8), (3, 1.3)):
+        sess.bind_slot(slot, GenRequest(
+            rid=slot, arrival=0.0, prompt=np.arange(4, dtype=np.int32),
+            max_new_tokens=4, sampling=SamplingParams(
+                temperature=t, top_k=50, top_p=0.9, seed=-slot)))
+    sess.count[3] += 2
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sess.sampling_args(cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, sess.sampling_args("cpu")):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+    eng.close()
+
+
+@pytest.mark.cuda
 def test_sampler_on_card_matches_cpu_without_host_sync(cuda):
     """``sample_tokens`` on the card makes no host sync (sync debug mode
     'error'), its threefry bits and Gumbel draws equal the CPU's bit for

@@ -292,3 +292,27 @@ def test_sampled_batched_matches_sequential(layout):
         bat, num_slots=2)
     assert res.mean_batch_occupancy > 1.0
     assert [list(q.tokens) for q in bat] == [list(q.tokens) for q in seq]
+
+
+def test_session_sampling_args_are_the_slot_arrays():
+    """``sampling_args`` hands ``sample_tokens`` each slot's bound
+    temperature, top-k, top-p, seed (its low 32 bits) and count, with
+    their dtypes, from the one buffer they share."""
+    cfg, _, _, tp = _setup(float(4))
+    eng = ServingEngine(cfg, tp, max_len=32)
+    eng.start(num_slots=3)
+    sess = eng._session
+    reqs = _reqs(GenRequest, SamplingParams, cfg.vocab_size,
+                 [(5, 6, 0.0, 0.8, 50, 0.95, 2**40 + 3),
+                  (4, 6, 0.0, 1.3, 0, 0.1, -7)])
+    for slot, r in zip((2, 0), reqs):
+        sess.bind_slot(slot, r)
+    sess.count[2] += 5
+    want = ([1.3, 0.0, 0.8], [0, 0, 50], [0.1, 1.0, 0.95],
+            [2**32 - 7, 0, 3], [0, 0, 5])
+    dtypes = (torch.float32, torch.int32, torch.float32, torch.int64,
+              torch.int32)
+    for got, w, d in zip(sess.sampling_args("cpu"), want, dtypes):
+        assert got.dtype == d
+        assert torch.equal(got, torch.tensor(w, dtype=d))
+    eng.close()
