@@ -45,7 +45,10 @@ Phases, each fatal on failure:
      their "wgmma" path, none through the unquantized kernels), checking
      the runtime's byte meters, then
      every layer's EP MoE sublayer through the kernels against the plain
-     path from the same input and tables;
+     path from the same input and tables; then the same burst with the
+     load predictor (gate replicas at distance 1) on the session
+     controller: its cold/warm/prewarmed starts, transfers and bytes
+     against the first session's, every int8 launch on "wgmma";
   6. the OpenAI-compatible gateway at full width, on phase 4's weights
      (so it runs right after 4b, before 4c's slot banks take the
      memory): a ``GatewayServer`` on 127.0.0.1 in a thread over a
@@ -69,9 +72,25 @@ Phases, each fatal on failure:
      sampled batched serving gives the tokens of one request at a time;
      with the expert runtime on, the kernels give the plain path's
      tokens with float32 and int8 slot banks, and at the drop-free
-     factor the runtime gives the tokens of the runtime-off engine.
+     factor the runtime gives the tokens of the runtime-off engine;
+     with the load predictor on the session controller, the kernels give
+     the plain path's tokens and controller meters (contiguous, paged
+     with chunked prefill), and the runtime the runtime-off tokens;
+  7. the expert load predictor at full width, on phase 4's weights:
+     the gate dataset (4 batches of 4 x 512 tokens) through
+     ``transformer.forward``, whose MoE layers must launch the bf16
+     kernels on "wgmma" at (E, C, D) = (8, 640, 4096), where each is
+     timed beside its bound; forward's logits against ``decode_step``'s
+     and the plain path's; same-layer replicas against the router
+     (>= 0.98), replicas at distance 1 and 2, layer-aware fine-tuning at
+     distance 1 on the card (the tuned layers' mean accuracy must rise),
+     the load correlation; then phase 4's burst served with the tuned
+     predictor and with the oracle controller in turns, two rounds
+     each: the same tokens, one host transfer an iteration, the
+     predictor's launches and device time a call, decode wall and the
+     modeled clock under predicted against actual loads.
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 4c, 5.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 5.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -234,6 +253,19 @@ def _gmm_check(name, fused, label, x, wg, wu, g, dtype, path=None):
     return err
 
 
+def _gmm_plain_library(fused, x, wg, wu, g):
+    """The plain version of the call and one library call computing the
+    same function (``bmm``, silu and a row mask)."""
+    mask = torch.arange(x.shape[1], device="cuda")[None, :, None] \
+        < g[:, None, None]
+    if fused:
+        return (lambda: MG.fused_gate_up_ref(x, wg, wu, g),
+                lambda: torch.where(mask, F.silu(torch.bmm(x, wg))
+                                    * torch.bmm(x, wu), 0.0))
+    return (lambda: MG.gmm_ref(x, wg, g),
+            lambda: torch.where(mask, torch.bmm(x, wg), 0.0))
+
+
 def _alternate(fn_a, fn_b, timer=None) -> tuple[float, float]:
     """Times of two versions taken in turns (a, b, b, a) by `timer`
     (default time_ms): the mean of each."""
@@ -377,19 +409,7 @@ def check_gmm_kernels(gen, shapes) -> dict:
                                      f"{path}, not wgmma")
             alt = "simt" if phase == "decode" else None
             run = lambda: _gmm_run(name, fused, x, wg, wu, g)  # noqa: E731
-            mask = torch.arange(c, device="cuda")[None, :, None] \
-                < g[:, None, None]
-            if fused:
-                plain = lambda: MG.fused_gate_up_ref(x, wg, wu, g)  # noqa
-
-                def library():
-                    return torch.where(mask, F.silu(torch.bmm(x, wg))
-                                       * torch.bmm(x, wu), 0.0)
-            else:
-                plain = lambda: MG.gmm_ref(x, wg, g)  # noqa: E731
-
-                def library():
-                    return torch.where(mask, torch.bmm(x, wg), 0.0)
+            plain, library = _gmm_plain_library(fused, x, wg, wu, g)
             err = _gmm_check(name, fused, f"{phase} {e}x{c}x{d}x{f}", x, wg,
                              wu, g, dtype)
             if alt is None:
@@ -1852,9 +1872,295 @@ def runtime_phase(full, max_len: int, slots: int, card: str) -> dict:
         active = torch.ones((slots, 1), dtype=torch.bool, device=dev)
         sublayer_check("EP batched decode step", cfg, params, nxt, pool,
                        lengths, active, ep=ep)
-    del params, rt, res, ep, pool, lg
+    del rt, res, ep, pool, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same burst with the load predictor (gate replicas at distance
+    # 1) on the session controller: its plans move the slot traffic
+    pst = runtime_predictor_session(cfg, params, max_len, slots)
+    log(f"  runtime with the predictor (distance 1) against the oracle "
+        f"session (actual loads): cold/warm/prewarmed {pst.counts()} "
+        f"against {st.counts()}, {pst.transfers} against {st.transfers} "
+        f"transfers, {pst.bytes_moved:.0f} against {st.bytes_moved:.0f} "
+        f"B moved")
+    del params
     torch.cuda.empty_cache()
     return launches
+
+
+def runtime_predictor_session(cfg, params, max_len: int, slots: int):
+    """Phase 4c's burst through a fresh runtime engine whose session
+    controller carries the predictor (``from_gates`` at distance 1):
+    every int8 launch on "wgmma", host transfers = iterations, bytes =
+    transfers x a replica's bytes. Returns the runtime's meters."""
+    from repro_torch.core.costmodel import param_bytes
+    from repro_torch.core.predictor import from_gates
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    ctrl = MoElessController(cfg, num_devices=EP_DEVICES,
+                             slots_per_device=EP_SLOTS_PER_DEVICE,
+                             predictor=from_gates(cfg, params, 1))
+    engine = ServingEngine(cfg, params, max_len=max_len,
+                           expert_runtime="on", runtime_double_buffer=False)
+    reqs = make_requests(cfg, (128, 256, 384, 512), (16, 32, 48), 12)
+    res, launches, _, dec_s, _, wall = serve_timed(engine, reqs, slots,
+                                                   control=ctrl)
+    del engine
+    for r in reqs:
+        if len(r.tokens) != r.max_new_tokens:
+            raise AssertionError(f"predictor session, request {r.rid}: "
+                                 f"{len(r.tokens)} of {r.max_new_tokens}")
+    by_path = {k: dict(v) for k, v in MG.QUANT_PATH_LAUNCHES.items()}
+    log(f"  predictor session: launches {launches}, int8 by path "
+        f"{by_path}; decode step median {np.median(dec_s) * 1e3:.2f} ms, "
+        f"whole run {wall:.2f} s; {ctrl.iterations} iterations = "
+        f"{ctrl.host_transfers} host transfers")
+    for k_name, paths in by_path.items():
+        if launches[k_name] <= 0 or paths["wgmma"] != launches[k_name] \
+                or paths["simt"] != 0:
+            raise AssertionError(f"predictor session, {k_name}: {paths} "
+                                 "launches by path; every one should take "
+                                 "wgmma")
+    if ctrl.host_transfers != ctrl.iterations:
+        raise AssertionError("predictor session: more than one host "
+                             "transfer an iteration")
+    st = res.runtime.stats
+    if st.bytes_moved != st.transfers * param_bytes(cfg):
+        raise AssertionError(f"predictor session: {st.bytes_moved} B != "
+                             f"{st.transfers} transfers x "
+                             f"{param_bytes(cfg)} B")
+    return st
+
+
+# ------------------------------------------------------------ phase 7
+
+PRED_BATCHES, PRED_SHAPE = 4, (4, 512)   # 8,192 tokens through forward
+
+
+def forward_shape_kernels(gen, cfg, params, tokens: int) -> dict:
+    """fused_gate_up and gmm at the shape ``forward`` gives them for
+    `tokens` tokens in one dispatch group, (E, C, D) = (8, 640, 4096) at
+    mixtral's width: the path of the real weights (must be "wgmma"),
+    then one launch against its plain version (bf16 tolerance), timed
+    beside its byte bound, the plain version and the library call.
+    Returns {name: record}."""
+    from repro_torch.models import transformer as T
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    d, f = cfg.d_model, cfg.moe.d_ff
+    cap = max(1, math.ceil(cfg.moe.capacity_factor * k * tokens / e))
+    experts = T._period(params["layers"][0], 0)["moe"]["experts"]
+    x = torch.empty((e, cap, d), dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(3)
+    gs = rng.integers(cap // 2, cap + 1, e).tolist()
+    out = {}
+    for name, fused, (cd, cf_) in (("fused_gate_up", True, (d, f)),
+                                   ("gmm", False, (f, d))):
+        w = experts["w_gate" if fused else "w_down"]
+        xx = x if fused else torch.empty((e, cap, f), dtype=torch.bfloat16,
+                                         device="cuda")
+        path, info = MG.kernel_path(xx, w, fused)
+        if path != "wgmma":
+            raise AssertionError(f"{name}: forward's ({e}, {cap}, {cd}) "
+                                 f"shape took {path}, not wgmma")
+        xi, wg, wu, g = _gmm_inputs(gen, e, cap, cd, cf_, torch.bfloat16,
+                                    gs, fused)
+        err = _gmm_check(name, fused, f"forward {e}x{cap}x{cd}x{cf_}", xi,
+                         wg, wu, g, torch.bfloat16)
+        plain, library = _gmm_plain_library(fused, xi, wg, wu, g)
+        ms = time_ms(lambda: _gmm_run(name, fused, xi, wg, wu, g))
+        plain_ms, lib_ms = time_ms(plain), time_ms(library)
+        nbytes, flops = _gmm_bytes_flops(xi, wg, wu, g)
+        b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+        log(f"  {name:<16} forward  E={e} C={cap} D={cd} F={cf_} bf16 "
+            f"({path}, N={info['rows']}, {info['stages']} stages, "
+            f"{info['smem']} B shared a CTA) max_abs_err={err:.3e} "
+            f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+        out[name] = dict(ms=ms, bound_ms=b_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, max_abs_err=err, path=path)
+        del xi, wg, wu
+    torch.cuda.empty_cache()
+    return out
+
+
+def forward_logits_check(cfg, params, tokens, max_len: int) -> None:
+    """``forward``'s last-position logits through the kernels against
+    ``decode_step(cache_len=0)``'s from the same tokens (the same
+    kernels: bf16 tolerance elementwise, fatal) and against ``forward``
+    on the plain path (impl="ref"): compared as phase 4's logits are,
+    and elementwise within the bf16 tolerance when every layer routed
+    the same loads (a near-tied route flips on a last-bit difference)."""
+    from repro_torch.models import transformer as T
+    ref_cfg = cfg.with_(impl="ref")
+    b = tokens.shape[0]
+    with torch.no_grad():
+        fl, fm = T.forward(cfg, params, {"tokens": tokens}, last_only=True)
+        cache = T.init_cache(cfg, params, b, max_len)
+        dl, _, dm = T.decode_step(cfg, params, {"tokens": tokens}, cache, 0)
+        del cache
+        rl, rm = T.forward(ref_cfg, params, {"tokens": tokens},
+                           last_only=True)
+    err = check("forward vs decode_step, last position", fl[:, 0],
+                dl[:, -1], torch.bfloat16)
+    log(f"  forward vs decode_step(cache_len=0), last position of "
+        f"{b} x {tokens.shape[1]}: max_abs_err={err:.3e} "
+        f"(atol=rtol={TOL[torch.bfloat16]}), same expert loads "
+        f"{bool(torch.equal(fm['expert_load'], dm['expert_load']))}")
+    res = compare_logits("forward, kernels vs impl=ref, last position",
+                         fl[:, 0], rl[:, 0], fm["expert_load"],
+                         rm["expert_load"])
+    if res["same_expert_loads"]:
+        check("forward kernels vs impl=ref (same routes)", fl, rl,
+              torch.bfloat16)
+
+
+def predictor_phase(cfg, params, max_len: int, slots: int,
+                    card: str) -> dict:
+    """Phase 7: the expert load predictor at full width on phase 4's
+    weights. (a) the gate dataset through ``forward`` (4 batches of 4 x
+    512 tokens) with its MoE launches and their path, the kernels at
+    forward's shape, forward's logits checked; (b) same-layer replicas
+    against the router, replicas at distance 1 and 2, layer-aware
+    fine-tuning at distance 1 (timed); (c) phase 4's burst served with
+    the fine-tuned predictor on the session controller and with the
+    oracle controller (actual loads), in turns, two rounds each.
+    Returns this phase's launch counts."""
+    from repro_torch.core import predictor as P
+    from repro_torch.launch.profile_decode import trace_predictor
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    k = cfg.moe.top_k
+    dev = params["embed"].device
+    rng = np.random.default_rng(7)
+    batches = [rng.integers(0, cfg.vocab_size, PRED_SHAPE, dtype=np.int32)
+               for _ in range(PRED_BATCHES)]
+    n_moe = cfg.num_layers // cfg.moe.every_n_layers
+    phase_launches = dict.fromkeys(K.launch_counts(), 0)
+
+    def count(launches):
+        for n, v in launches.items():
+            phase_launches[n] += v
+
+    # (a) the dataset through forward
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = P.collect_gate_dataset(cfg, params, batches)
+    dt = time.perf_counter() - t0
+    fwd = K.launch_counts()
+    count(fwd)
+    n_tok = PRED_BATCHES * PRED_SHAPE[0] * PRED_SHAPE[1]
+    log(f"  gate dataset: {PRED_BATCHES} batches of {PRED_SHAPE} tokens "
+        f"through forward in {dt:.2f} s (host copies included): inputs "
+        f"{ds['inputs'].shape} ({ds['inputs'].nbytes / 1e9:.2f} GB on the "
+        f"host), logits {ds['logits'].shape}")
+    log(f"  launches in forward: {fwd}")
+    for name in ("fused_gate_up", "gmm"):
+        if fwd[name] != PRED_BATCHES * n_moe:
+            raise AssertionError(f"forward launched {name} {fwd[name]} "
+                                 f"times, not {PRED_BATCHES * n_moe}")
+    for name, arr in ds.items():
+        if arr.shape[:2] != (n_moe, n_tok) or not np.isfinite(arr).all():
+            raise AssertionError(f"gate dataset {name}: shape {arr.shape} "
+                                 "or non-finite values")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    kern = forward_shape_kernels(gen, cfg, params,
+                                 PRED_SHAPE[0] * PRED_SHAPE[1])
+    forward_logits_check(cfg, params,
+                         torch.from_numpy(batches[0]).long().to(dev),
+                         max_len)
+
+    # (b) replicas, accuracy, fine-tuning
+    train, test = P.split_dataset(ds)
+    del ds
+    same = P.profile_accuracy(P.from_gates(cfg, params, 0), test, k)
+    log(f"  same-layer replicas (distance 0) recover the router's top-{k}:"
+        f" {np.round(same, 4).tolist()}")
+    if same.min() < 0.98:
+        raise AssertionError(f"a same-layer replica recovers {same.min()} "
+                             "of the router's top-k (< 0.98)")
+    preds = {d: P.from_gates(cfg, params, d) for d in (1, 2)}
+    accs = {d: P.profile_accuracy(p, test, k) for d, p in preds.items()}
+    for d, a in accs.items():
+        log(f"  distance {d}: top-{k} accuracy per layer "
+            f"{np.round(a, 4).tolist()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ft = P.finetune(preds[1], train, test, k, threshold=0.85, steps=120)
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    sel = ft.finetuned_layers
+    after = P.profile_accuracy(ft, test, k)
+    if not sel:
+        raise AssertionError("no layer under the 0.85 threshold at "
+                             "distance 1: nothing was fine-tuned")
+    log(f"  finetune(threshold=0.85, steps=120) at distance 1 on "
+        f"{ft.weights.device}: {ft_s:.2f} s; layers {sel}: accuracy "
+        f"{np.round(accs[1][sel], 4).tolist()} -> "
+        f"{np.round(after[sel], 4).tolist()} (mean "
+        f"{accs[1][sel].mean():.4f} -> {after[sel].mean():.4f})")
+    if not after[sel].mean() > accs[1][sel].mean():
+        raise AssertionError("fine-tuning did not raise the fine-tuned "
+                             "layers' mean accuracy")
+    if not torch.isfinite(ft.weights).all():
+        raise AssertionError("non-finite fine-tuned predictor weights")
+    cors = []
+    for l in range(1, n_moe):
+        hid = test["inputs"][l - 1]
+        true = torch.as_tensor(test["logits"][l], device=dev)
+        actual = torch.bincount(P._topk_idx(true, k).reshape(-1),
+                                minlength=cfg.moe.num_experts)
+        cors.append(P.load_correlation(ft.predict_loads(l, hid, k),
+                                       actual.cpu().numpy()))
+    log(f"  load correlation at distance 1 (fine-tuned, test split, per "
+        f"layer): {np.round(cors, 4).tolist()}, mean {np.mean(cors):.4f}")
+    del train, test
+
+    # (c) serving: the fine-tuned predictor and the oracle, in turns
+    for n in (slots, PRED_SHAPE[1]):
+        launches, kern_ms = trace_predictor(ft, cfg, n)
+        busy = sum(ms for _, ms in kern_ms)
+        log(f"  predict_loads_all at {n} tokens a layer ({n_moe} layers): "
+            f"{launches:.1f} kernel launches a call, device busy "
+            f"{busy:.4f} ms a call (torch.profiler)")
+    runs = {"predictor": [], "oracle": []}
+    tokens = None
+    for _ in range(2):
+        for label, pred in (("predictor", ft), ("oracle", None)):
+            rs = make_requests(cfg, (128, 256, 384, 512), (16, 32, 48), 12)
+            ctrl = MoElessController(cfg, num_devices=8, predictor=pred)
+            engine = ServingEngine(cfg, params, max_len=max_len)
+            res, launches, _, dec_s, _, wall = serve_timed(
+                engine, rs, slots, control=ctrl)
+            count(launches)
+            del engine
+            toks = [list(r.tokens) for r in rs]
+            tokens = tokens or toks
+            if toks != tokens:
+                raise AssertionError(f"{label}: tokens differ from the "
+                                     "first run's")
+            if ctrl.host_transfers != ctrl.iterations:
+                raise AssertionError(f"{label}: {ctrl.host_transfers} host "
+                                     f"transfers in {ctrl.iterations} "
+                                     "iterations")
+            runs[label].append((res, ctrl, dec_s, wall))
+    for label, rows in runs.items():
+        res, ctrl = rows[-1][:2]
+        summ = res.summary()
+        dec = [np.median(r[2]) * 1e3 for r in rows]
+        log(f"  {label}: decode step wall median "
+            f"{', '.join(f'{d:.2f}' for d in dec)} ms (rounds 1, 2); "
+            f"modeled TTFT p50 {summ['ttft']['p50'] * 1e3:.4f} ms, TPOT "
+            f"p50 {summ['tpot']['p50'] * 1e3:.4f} ms, E2E p50 "
+            f"{summ['e2e']['p50'] * 1e3:.4f} ms, cost {ctrl.cost:.6g}, "
+            f"{ctrl.iterations} iterations = {ctrl.host_transfers} host "
+            f"transfers; replicas per layer "
+            f"{[p.total_replicas for p in ctrl.plans]}")
+    if runs["predictor"][-1][1].replica_counts == \
+            runs["oracle"][-1][1].replica_counts:
+        log("  note: the predictor's replica counts equal the oracle's in "
+            "every iteration")
+    log(f"  launches in this phase (forward, then the four serving runs): "
+        f"{phase_launches}")
+    return {"launches": phase_launches, "kernels": kern}
 
 
 # ------------------------------------------------------------ phase 5
@@ -2035,6 +2341,64 @@ def runtime_identity(small, sp) -> None:
         f"({sum(map(len, off.values()))} tokens)")
 
 
+def predictor_identity(small, sp) -> None:
+    """Float32 smoke config at a drop-free capacity factor with the load
+    predictor (gate replicas at distance 1) on the session controller:
+    through the kernels, the plain path's tokens (half the requests
+    sampled) and controller meters (iterations, host transfers, replica
+    counts, modeled layer latencies, cost), contiguous and paged with
+    chunked prefill; with the expert runtime on, the runtime-off
+    engine's tokens."""
+    from repro_torch.configs import ServingSpec
+    from repro_torch.core.predictor import from_gates
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    free = small.with_(moe=dataclasses.replace(
+        small.moe, capacity_factor=float(small.moe.num_experts)))
+    pred = from_gates(free, sp, 1)
+    max_len = 64 + 24 + 1
+    off = None
+
+    def serve(impl, spec, runtime="off"):
+        # E slots a device: no device ever holds more than E instances
+        ctrl = MoElessController(free, predictor=pred,
+                                 slots_per_device=free.moe.num_experts)
+        eng = ServingEngine(free, sp, max_len=max_len, impl=impl,
+                            serving=spec, expert_runtime=runtime)
+        rs = make_requests(free, (64, 17, 40, 9, 33), (24, 7, 16), 10,
+                           sampled=True)
+        res = eng.serve(rs, num_slots=4, control=ctrl)
+        if ctrl.host_transfers != ctrl.iterations:
+            raise AssertionError("predictor: more than one host transfer "
+                                 "an iteration")
+        meters = (ctrl.iterations, ctrl.host_transfers, ctrl.replica_counts,
+                  ctrl.layer_latency, ctrl.cost, res.clock_s)
+        return {r.rid: list(r.tokens) for r in rs}, meters
+
+    for label, spec in (("contiguous", ServingSpec()),
+                        ("paged chunked", ServingSpec(kv="paged", kv_block=5,
+                                                      prefill_chunk=7))):
+        got = {impl: serve(impl, spec) for impl in ("auto", "ref")}
+        if got["auto"][0] != got["ref"][0]:
+            raise AssertionError(f"predictor, {label}: kernel tokens differ "
+                                 "from the plain path's")
+        if got["auto"][1] != got["ref"][1]:
+            raise AssertionError(f"predictor, {label}: controller meters "
+                                 "differ between the kernels and the plain "
+                                 "path")
+        log(f"  predictor, {label}, half sampled: "
+            f"{sum(map(len, got['ref'][0].values()))} tokens and the "
+            f"controller's meters ({got['ref'][1][0]} iterations) impl=auto "
+            f"== impl=ref")
+        off = off or got["auto"][0]      # the contiguous run's tokens
+    on = serve("auto", ServingSpec(), "on")[0]
+    if on != off:
+        bad = [i for i in off if on[i] != off[i]]
+        raise AssertionError(f"predictor, drop-free: runtime on tokens "
+                             f"differ from runtime off for requests {bad}")
+    log(f"  predictor, drop-free, half sampled: runtime on == runtime off "
+        f"({sum(map(len, off.values()))} tokens)")
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2138,6 +2502,11 @@ def main() -> int:
     log("[6] the OpenAI-compatible gateway at full width (phase 4's "
         "weights; run before 4c, whose slot banks cannot sit beside them)")
     gateway_phase(cfg, params, card)
+
+    log("[7] the expert load predictor at full width (phase 4's weights)")
+    t7 = time.perf_counter()
+    pred = predictor_phase(cfg, params, max_len, slots, card)
+    log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
     del params
     # the phase's replicas, drivers and timing wrappers reference one
     # another (and the weights): collect the cycles before 4c allocates
@@ -2159,12 +2528,18 @@ def main() -> int:
     sampled_batching(free, sp)
     log("  expert runtime on (EP slot plane): float32 and int8 slot banks")
     runtime_identity(small, sp)
+    log("  the load predictor on the session controller (distance 1)")
+    predictor_identity(small, sp)
 
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \
         paged["launches"]["decode_attention_paged"]
     for k_name in ("fused_gate_up_quant", "gmm_quant"):
         launches[k_name] = ep_launches[k_name]
+    # phase 7: the bf16 kernels at forward's shape, and their launches
+    for k_name, r in pred["kernels"].items():
+        rec[k_name].update({f"forward_{k}": v for k, v in r.items()},
+                           forward_launches=pred["launches"][k_name])
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

@@ -7,6 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_decode --prefill 10
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         --kv paged --temperature 0,0.8
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        --predictor 0,1
 
 Serves the same traffic as ``chip_smoke.py``'s full-width phase
 (mixtral-8x7b at its published widths, depth cut to ``--layers``, bf16,
@@ -22,7 +24,11 @@ every MoE layer through the EP slot plane, as ``chip_smoke.py``'s phase
 12.9 GB a layer, so it runs at ``--layers 4`` or fewer), once per
 temperature named in ``--temperature`` (0: greedy; above 0 every request
 samples with top-k 50, top-p 0.95 and a seed of its own, so each step
-runs ``sample_tokens``). The engines share the weights and live in one
+runs ``sample_tokens``), and once per entry of ``--predictor`` (1: the
+controller carries the expert load predictor, gate replicas at distance
+1 from ``core.predictor.from_gates``, so each step runs its
+``predict_loads_all``; 0: the controller plans from the actual loads).
+The engines share the weights and live in one
 process. Once every slot of each decodes, each layout's next ``--steps`` steps are traced with
 ``torch.profiler`` and one more runs under
 ``torch.cuda.set_sync_debug_mode``; then the engines take turns, one
@@ -41,7 +47,9 @@ launches a step, the device's idle share of the untraced step, the kernels by de
 operators by their own host time, and the call sites that block the
 host on the device. With a temperature above 0, the sampler alone is
 also traced at the decode step's shape (8 rows, the padded vocabulary):
-its kernel launches and device time a call. With ``--prefill N``, the
+its kernel launches and device time a call; with a predictor, its
+``predict_loads_all`` alone likewise at the decode step's 8 tokens and
+at a 512-token prefill. With ``--prefill N``, the
 first engine then prefills one prompt of each bucket length (128, 256,
 512) N times (solo prefill, as a request's admission runs it) and once
 more traced:
@@ -101,6 +109,9 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", default="0",
                     help="comma-separated sampling temperatures, one "
                          "engine per layout and temperature (0: greedy)")
+    ap.add_argument("--predictor", default="0",
+                    help="comma-separated 0/1: one engine each without "
+                         "and with the load predictor on its controller")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
@@ -109,6 +120,7 @@ def main(argv=None) -> int:
     import dataclasses
 
     from repro_torch.configs import ServingSpec, get_config
+    from repro_torch.core.predictor import from_gates
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import MoElessController, ServingEngine
     from repro_torch.serving.scheduler import GenRequest, SamplingParams
@@ -121,9 +133,13 @@ def main(argv=None) -> int:
     if not layouts or any(k not in specs for k in layouts):
         raise SystemExit(f"profile_decode: --kv takes {', '.join(specs)}")
     temps = [float(t) for t in args.temperature.split(",")]
-    runs = [(kv if len(temps) == 1 else f"{kv}@t={t:g}", kv, t)
-            for kv in layouts for t in temps]
-    names = [name for name, _, _ in runs]
+    preds = [int(p) for p in args.predictor.split(",")]
+    if any(p not in (0, 1) for p in preds):
+        raise SystemExit("profile_decode: --predictor takes 0 and 1")
+    runs = [(kv + ("" if len(temps) == 1 else f"@t={t:g}")
+             + ("" if len(preds) == 1 else f"@predictor={p}"), kv, t, p)
+            for kv in layouts for t in temps for p in preds]
+    names = [name for name, _, _, _ in runs]
     if "ep-int8" in layouts and args.layers > 4:
         raise SystemExit("profile_decode: ep-int8 holds 12.9 GB of slot "
                          "banks a layer; use --layers 4 or fewer")
@@ -147,14 +163,16 @@ def main(argv=None) -> int:
     # host seconds spent in the model call (enqueueing its kernels) and
     # in the control plane (its one device->host sync included)
     engines, hosts = {}, {}
-    for name, kv, temp in runs:
+    for name, kv, temp, with_pred in runs:
         runtime = kv == "ep-int8"
         c = cfg.with_(moe=dataclasses.replace(cfg.moe, slot_dtype="int8")) \
             if runtime else cfg
         # with the runtime on, the controller is the session's: its plans
         # are executed by the runtime's apply, timed on its own
         ctrl = MoElessController(c, num_devices=8,
-                                 slots_per_device=8 if runtime else 0)
+                                 slots_per_device=8 if runtime else 0,
+                                 predictor=from_gates(c, params, 1)
+                                 if with_pred else None)
         engine = ServingEngine(c, params, max_len=512 + 48 + 1,
                                controller=None if runtime else ctrl,
                                serving=specs[kv],
@@ -240,6 +258,8 @@ def main(argv=None) -> int:
     for engine in engines.values():
         engine.run()
     sampler = trace_sampler(cfg.padded_vocab) if max(temps) > 0 else None
+    predictor = [(n, trace_predictor(from_gates(cfg, params, 1), cfg, n))
+                 for n in (8, 512)] if max(preds) else []
     prefill_rows = _time_prefills(engines[names[0]], cfg, args, profile,
                                   ProfilerActivity)
     for engine in engines.values():
@@ -302,6 +322,14 @@ def main(argv=None) -> int:
               f"{busy:.4f} ms a call")
         for name, ms in kern[:6]:
             print(f"  {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    for n_tok, (launches, kern) in predictor:
+        busy = sum(ms for _, ms in kern)
+        print(f"== predict_loads_all alone, distance 1, {cfg.num_layers} "
+              f"layers x {n_tok} tokens x d_model {cfg.d_model} (bf16 gate "
+              f"inputs): {launches:.1f} kernel launches a call, device busy "
+              f"{busy:.4f} ms a call")
+        for name, ms in kern[:6]:
+            print(f"  {ms:9.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
     for bucket, walls, kern in prefill_rows:
         wall = float(np.median(walls)) * 1e3
         busy = sum(ms for _, ms in kern)
@@ -337,6 +365,31 @@ def trace_sampler(vocab: int, rows: int = 8, calls: int = 5):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             sample_tokens(logits, *args)
+        torch.cuda.synchronize()
+    return _launches(prof, calls), _kernel_ms(prof, calls)
+
+
+def trace_predictor(pred, cfg, n_tok: int, calls: int = 5):
+    """(kernel launches a call, kernels as (name, device ms a call)) of
+    `pred`'s ``predict_loads_all`` over bf16 gate inputs of `n_tok`
+    tokens a MoE layer (every token counted) on the CUDA card, traced
+    with ``torch.profiler`` over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = pred.weights.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lm, e = pred.num_layers, cfg.moe.num_experts
+    gi = torch.randn((lm, n_tok, cfg.d_model), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    actual = torch.full((lm, e), n_tok * cfg.moe.top_k // e,
+                        dtype=torch.int32, device=dev)
+    mask = torch.ones(n_tok, dtype=torch.bool, device=dev)
+    k = cfg.moe.top_k
+    pred.predict_loads_all(gi, actual, k, token_mask=mask)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            pred.predict_loads_all(gi, actual, k, token_mask=mask)
         torch.cuda.synchronize()
     return _launches(prof, calls), _kernel_ms(prof, calls)
 

@@ -1,4 +1,5 @@
-"""Public model API of the port: parameters and parameter accounting."""
+"""Public model API of the port: parameters, parameter accounting and
+the serving step builders."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +21,26 @@ def init_params(cfg, seed: int = 0, device=None):
     """Random parameters of `cfg` from a seeded ``torch.Generator``, on
     the CUDA card unless `device` says otherwise."""
     return T.init_params(cfg, seed, resolve_device(device))
+
+
+def make_prefill_step(cfg, *, window: int = 0):
+    """prefill_step(params, batch) -> (last-position logits (B, 1, V),
+    metrics): ``forward`` with ``last_only``."""
+    def prefill_step(params, batch):
+        return T.forward(cfg, params, batch, window=window, last_only=True)
+
+    return prefill_step
+
+
+def make_serve_step(cfg, *, window: int = 0):
+    """serve_step(params, batch, cache, cache_len) -> (logits, cache):
+    one ``decode_step``, the cache written in place."""
+    def serve_step(params, batch, cache, cache_len):
+        logits, cache, _ = T.decode_step(cfg, params, batch, cache,
+                                         cache_len, window=window)
+        return logits, cache
+
+    return serve_step
 
 
 def count_params_analytic(cfg, active_only: bool = False) -> int:

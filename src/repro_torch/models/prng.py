@@ -5,7 +5,9 @@ on (the default of the jax the reference pins):
 
   key(seed)          jax.random.PRNGKey(seed)      -> (..., 2)
   fold_in(key, n)    jax.random.fold_in(key, n)    -> (..., 2)
+  split(key, num)    jax.random.split(key, num)    -> (..., num, 2)
   random_bits(key, n)  32-bit bits of shape (n,) per key -> (..., n)
+  randint(key, n, minval, maxval)  jax.random.randint, int32 -> (..., n)
   uniform(key, n, minval, maxval)  jax.random.uniform, float32
   gumbel(key, n)     jax.random.gumbel, mode "low": -log(-log(U(tiny, 1)))
   log(x)             the reference CPU backend's float32 log
@@ -69,6 +71,16 @@ def fold_in(k: torch.Tensor, n) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``split(key, num)``: the hashes of the count words (0, i) for
+    i < num under `k` (partitionable layout), so ``split(k)[..., i, :]``
+    equals ``fold_in(k, i)``."""
+    i = torch.arange(num, dtype=torch.int64, device=k.device)
+    y0, y1 = threefry2x32(k[..., 0, None], k[..., 1, None],
+                          torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
 def random_bits(k: torch.Tensor, n: int) -> torch.Tensor:
     """32-bit random bits of shape (n,) for each key (partitionable
     layout: the counts are the 64-bit iota 0..n-1, split into words, and
@@ -90,6 +102,28 @@ def uniform(k: torch.Tensor, n: int, minval: float = 0.0,
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)
     return (floats * span + float(lo)).clamp_min(float(lo))
+
+
+def _mul32(a, b):
+    """(a * b) mod 2^32 of 32-bit values held in int64, with no product
+    past 2^48 (b in 16-bit halves)."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & MASK
+
+
+def randint(k: torch.Tensor, n: int, minval: int, maxval: int) -> torch.Tensor:
+    """int32 integers in [minval, maxval) of shape (n,) per key, as
+    ``jax.random.randint``: two words a draw from ``split(k)``, combined
+    modulo the span through ``(2^16 mod span)^2 mod span`` in uint32
+    arithmetic, where the square wraps (a span of 0 or less returns
+    minval)."""
+    lo, hi = int(minval), int(maxval)
+    span = (hi - lo) & MASK if hi > lo else 1
+    ks = split(k)
+    higher = random_bits(ks[..., 0, :], n)
+    lower = random_bits(ks[..., 1, :], n)
+    mult = ((((1 << 16) % span) ** 2) & MASK) % span
+    off = (_mul32(higher % span, mult) + lower % span) & MASK
+    return ((off % span) + lo).to(torch.int32)
 
 
 def _fma(a, b, c):

@@ -8,6 +8,7 @@ reference's weights convert leaf for leaf (``repro_torch.params``).
 
 Entry points:
   init_params(cfg, seed, device)             -> params
+  forward(cfg, params, batch)                -> (logits, metrics)
   init_cache(cfg, params, batch, max_len)    -> cache
   init_paged_cache(cfg, params, num_blocks, block)
                                              -> paged cache
@@ -187,6 +188,9 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
             metrics["dropped"] = m["dropped"]
             if collect:   # predictor fine-tuning dataset (paper §5)
                 metrics["gate_input"] = h
+                if "router_logits" in m:
+                    metrics["router_logits"] = m["router_logits"].reshape(
+                        h.shape[0], h.shape[1], -1)
         else:
             fp = p["ffn"]
             y = torch.nn.functional.silu(h @ fp["w_gate"]) \
@@ -201,6 +205,80 @@ def _moe_groups(h):
     # default (one data shard)
     t = h.shape[0] * h.shape[1]
     return max(1, t // 2048)
+
+
+def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
+            remat: str = "none", last_only: bool = False, ep_ctx=None,
+            ep_state=None, token_mask=None):
+    """Prefill / training forward over whole sequences, writing no cache.
+    batch: {tokens (B, S), [positions (B, S)], [token_mask (B, S)]} ->
+    (logits, metrics).
+
+    `ep_ctx` + `ep_state` (``decode_step``'s layout) route every MoE
+    sublayer through the EP slot data plane. `token_mask` (B, S), or
+    batch['token_mask'], excludes tokens (padded prefill) from the
+    expert-load and dropped metrics. `last_only` keeps only the last
+    position (before the final norm). metrics: 'aux_loss' summed over
+    layers, 'expert_load' (Lm, E) and 'dropped' (Lm,); with `collect`
+    also 'gate_input' (Lm, B, S, D) and, off the EP plane,
+    'router_logits' (Lm, B, S, E), MoE layers in period-major order."""
+    if remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r} arrives with the training slice of the "
+            "PyTorch port")
+    if "vis_embeds" in batch or "enc_embeds" in batch:
+        raise NotImplementedError(
+            "vision and encoder inputs arrive with the model-family slice "
+            "of the PyTorch port")
+    pattern = layer_pattern(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()]
+    bsz, seq_len = tokens.shape
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(seq_len, dtype=torch.int32,
+                           device=tokens.device)[None].expand(bsz, seq_len)
+    if token_mask is None:
+        token_mask = batch.get("token_mask")
+    np_ = cfg.num_layers // len(pattern)
+    ms = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(np_):
+        for j, sub in enumerate(pattern):
+            x, m = _apply_sublayer(cfg, sub, _period(params["layers"][j], i),
+                                   x, pos, window=window, collect=collect,
+                                   token_mask=token_mask, ep_ctx=ep_ctx,
+                                   ep_state=None if ep_state is None
+                                   or ep_state[j] is None
+                                   else _period(ep_state[j], i))
+            if "aux_loss" in m:
+                aux = aux + m["aux_loss"]
+            ms.append(m)
+    if last_only:   # prefill: only the last position feeds sampling
+        x = x[:, -1:]
+    x = L.norm(x, params["final_norm"], cfg.norm)
+    metrics = {"aux_loss": aux, **_stack_metrics(ms, collect, x.device)}
+    rl = [m["router_logits"] for m in ms if "router_logits" in m]
+    if rl:   # the EP data plane does not emit router logits
+        metrics["router_logits"] = torch.stack(rl)
+    return _lm_head(cfg, params, x), metrics
+
+
+def _stack_metrics(ms, collect: bool, device):
+    """The MoE sublayers' 'expert_load' (Lm, E), 'dropped' (Lm,) and,
+    with `collect`, 'gate_input' (Lm, B, S, D), stacked in the order of
+    `ms` (period-major)."""
+    loads = [m["expert_load"] for m in ms if "expert_load" in m]
+    if not loads:
+        return {}
+    out = {"expert_load": torch.stack(loads),
+           "dropped": torch.stack(
+               [torch.as_tensor(m["dropped"], dtype=torch.float32,
+                                device=device) for m in ms if "dropped" in m])}
+    if collect:
+        out["gate_input"] = torch.stack(
+            [m["gate_input"] for m in ms if "gate_input" in m])
+    return out
 
 
 # ---------------------------------------------------------------- decode
@@ -285,17 +363,8 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
                                    else _period(ep_state[j], i))
             ms.append(m)
     x = L.norm(x, params["final_norm"], cfg.norm)
-    metrics = {}
-    loads = [m["expert_load"] for m in ms if "expert_load" in m]
-    if loads:
-        metrics["expert_load"] = torch.stack(loads)
-        metrics["dropped"] = torch.stack(
-            [torch.as_tensor(m["dropped"], dtype=torch.float32,
-                             device=x.device) for m in ms if "dropped" in m])
-    if collect and loads:
-        metrics["gate_input"] = torch.stack(
-            [m["gate_input"] for m in ms if "gate_input" in m])
-    return _lm_head(cfg, params, x), cache, metrics
+    return _lm_head(cfg, params, x), cache, \
+        _stack_metrics(ms, collect, x.device)
 
 
 # ---------------------------------------------------------------- sampling

@@ -500,7 +500,10 @@ class ServingEngine:
             nxt = sched.next_arrival()
             if nxt is not None:
                 sess.now = max(sess.now, nxt)
-        collect = self._collect
+        # gate inputs feed an engine controller or a session predictor
+        collect = self._collect or (
+            sess.control is not None and sess.control.predictor is not None
+            and self.cfg.is_moe)
         tel = self.telemetry
         if self.serving.prefill_chunk > 0:
             return self._step_chunked(sess, collect, events)

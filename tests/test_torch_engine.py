@@ -199,6 +199,7 @@ def test_port_imports_neither_jax_nor_reference_at_runtime():
             "repro_torch.serving.expert_runtime, repro_torch.distributed.ep, "
             "repro_torch.kernels.quant, repro_torch.serving.gateway, "
             "repro_torch.core.simulator, repro_torch.models.prng, "
+            "repro_torch.core.predictor, repro_torch.training.optimizer, "
             "sys; assert not any(m == 'jax' or m.startswith(('jax.', "
             "'repro.')) or m == 'repro' for m in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(SRC))
