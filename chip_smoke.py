@@ -21,7 +21,12 @@ Phases, each fatal on failure:
      kv_len holding 1e4, k/v off alignment among them), the main shapes
      must take "mma" and run one launch a call (torch.profiler), and
      beside the eager time each has ``device_ms``, 20 launches captured
-     in a CUDA graph and timed by replay, as has its library call;
+     in a CUDA graph and timed by replay, as has its library call; then
+     the same records at phase 8's new geometries: ``fused_gate_up`` and
+     ``gmm`` at llama4's decode (E 128, C 1) and prefill (C 5) and
+     grok-1's (F 32768), decode attention (both layouts) at (H, KV, hd)
+     = (32, 8, 160), (96, 8, 128) and (12, 2, 128), each on the path its
+     geometry takes;
   4. the slice at full width: mixtral-8x7b at its published widths (8 of
      32 layers, bf16, random seeded weights) serving 12 requests through
      ``ServingEngine`` with the MoEless controller attached, counting
@@ -90,7 +95,22 @@ Phases, each fatal on failure:
      predictor's launches and device time a call, decode wall and the
      modeled clock under predicted against actual loads.
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 5.
+  8. the decoder model families at their published widths, each built
+     on the card in turn (depth cut where the weights do not fit:
+     ``FAMILY_LAYERS``) and freed before the next: 8 requests through
+     ``ServingEngine`` on the contiguous cache, then on the paged pool
+     with chunked prefill and the prefix cache (half sampled), the MoE
+     families (llama4-maverick with its dense/MoE interleave, grok-1)
+     with a MoEless controller: every request ends with its budget, no
+     pool block leaks, each kernel's launches counted (every expert
+     kernel launch on "wgmma"), the median decode step and prefill
+     timed; every layer's sublayers through the kernels against the
+     plain path; qwen2-vl also with 64 patch embeddings and 3-axis
+     M-RoPE positions; phase 5 then holds each family's smoke config
+     (and llama4's at its interleave) to the plain path's tokens on
+     the contiguous and paged-chunked caches.
+
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 5.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -759,21 +779,35 @@ def check_decode_attention(gen, shape) -> dict:
                         dtype)
             log(f"  {'decode_attention':<16} {label:<22} {str(dtype):<15} "
                 f"{_path_label(q, k, v):<16} max_abs_err={err:.3e}")
+    return {"decode_attention": decode_attention_timed(
+        gen, shape, "decode", "mma", main=True)}
+
+
+def decode_attention_timed(gen, shape, label: str, want_path: str,
+                           main: bool = False) -> dict:
+    """``decode_attention`` at one bf16 serving shape (B, H, KV, hd, S,
+    kv_len): its path must be `want_path`; against its plain version,
+    at the `main` path's shape one launch a call (torch.profiler; at
+    phase 8's geometries its traces missed one record of four), and its
+    time eager and in a CUDA graph beside its bound, the plain version
+    and SDPA (float additive mask from the finite NEG_INF). Returns the
+    record."""
     b, h, kvh, hd, s, kl = shape
     dtype = torch.bfloat16
     q, k, v, pos, kv_len, q_pos = _attn_inputs(
         gen, b, h, kvh, hd, s, dtype, kl, [x - 1 for x in kl], False)
     path, info = DA.kernel_path(q, k, v)
-    if path != "mma":
-        raise AssertionError(f"decode_attention: the main shape took "
-                             f"{path!r}, not 'mma'")
+    if path != want_path:
+        raise AssertionError(f"decode_attention: the {label} shape took "
+                             f"{path!r}, not {want_path!r}")
     run = lambda: DA.decode_attention(q, k, v, pos, kv_len, q_pos)  # noqa
     plain = lambda: DA.decode_attention_ref(q, k, v, pos, kv_len,  # noqa
                                             q_pos)
     got, want = run(), plain()
     torch.cuda.synchronize()
-    err = check("decode_attention [decode]", got, want, dtype)
-    one_launch("decode_attention", run)
+    err = check(f"decode_attention [{label}]", got, want, dtype)
+    if main:
+        one_launch("decode_attention", run)
     g = h // kvh
     kr = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     vr = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
@@ -792,17 +826,17 @@ def check_decode_attention(gen, shape) -> dict:
         + 4 * (n_vis + 2 * b)
     flops = 4.0 * n_vis * h * hd
     b_ms, b_by = bound(nbytes, flops, dtype)
-    log(f"  {'decode_attention':<16} decode   B={b} H={h} KV={kvh} hd={hd} "
-        f"S={s} bf16 path={path} cluster={info['nsplit']} "
+    log(f"  {'decode_attention':<16} {label:<8} B={b} H={h} KV={kvh} "
+        f"hd={hd} S={s} bf16 path={path} cluster={info['nsplit']} "
         f"stages={info['stages']} smem={info['smem']} B "
         f"max_abs_err={err:.3e} ms={ms:.4f} device_ms={dev_ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms:.4f} library_device_ms={lib_dev_ms:.4f} "
         f"(SDPA; device times in a CUDA graph, in turns)")
-    return {"decode_attention": dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
-        library_device_ms=lib_dev_ms, path=path)}
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                library_device_ms=lib_dev_ms, path=path,
+                cluster=info["nsplit"])
 
 
 def _paged_inputs(gen, b, h, kvh, hd, blk, nbs, kv_len, dtype, share=0,
@@ -909,10 +943,7 @@ def check_decode_attention_paged(gen, shape) -> dict:
     cases.append(("k/v off alignment", 3, 8, 2, 64, 16, 3, [40, 0, 17], 0, 0,
                   None, 1e4, True))
     b, h, kvh, hd, blk, nbs = shape
-    full = nbs * blk
-    main_len = [full, full - blk, 0, full - 3 * blk - 5, 2 * full // 3,
-                full // 2 + 3, full // 4 + 1, 17][:b]
-    share = max(full // blk - 3, 0)
+    main_len, share = _paged_main_lens(b, nbs, blk)
     cases += [("main shape", b, h, kvh, hd, blk, nbs, main_len, share, 0,
                None, 1e4, False),
               ("main shape, window 64", b, h, kvh, hd, blk, nbs, main_len,
@@ -931,20 +962,46 @@ def check_decode_attention_paged(gen, shape) -> dict:
                 f"{str(dtype):<15} "
                 f"{_path_label(*args[:3], args[4]):<16} "
                 f"max_abs_err={err:.3e}")
+    return {"decode_attention_paged": decode_attention_paged_timed(
+        gen, shape, "decode", "mma", main=True)}
+
+
+def _paged_main_lens(b, nbs, blk):
+    """The serving shape's row lengths: a full row, a kv_len = 0 row and
+    partial rows; and how many blocks rows 0 and 1 share."""
+    full = nbs * blk
+    lens = [full, full - blk, 0, full - 3 * blk - 5, 2 * full // 3,
+            full // 2 + 3, full // 4 + 1, 17][:b]
+    return lens, max(full // blk - 3, 0)
+
+
+def decode_attention_paged_timed(gen, shape, label: str,
+                                 want_path: str, main: bool = False) -> dict:
+    """``decode_attention_paged`` at one bf16 serving shape (B, H, KV,
+    hd, block, blocks a row) with shuffled tables and two rows sharing
+    prefix blocks: its path must be `want_path`; against its plain
+    version, at the `main` path's shape one launch a call, and timed
+    eager and in a CUDA graph beside its bound, the plain version and
+    the nearest library composition (gather, then SDPA with a float
+    additive mask). Returns the record."""
+    b, h, kvh, hd, blk, nbs = shape
+    full = nbs * blk
+    main_len, share = _paged_main_lens(b, nbs, blk)
     dtype = torch.bfloat16
     args = _paged_inputs(gen, b, h, kvh, hd, blk, nbs, main_len, dtype,
                          share)
     q, k, v, kv_pos, tables, kv_len, q_pos = args
     path, info = DA.kernel_path(q, k, v, block_tables=tables)
-    if path != "mma":
-        raise AssertionError(f"decode_attention_paged: the main shape took "
-                             f"{path!r}, not 'mma'")
+    if path != want_path:
+        raise AssertionError(f"decode_attention_paged: the {label} shape "
+                             f"took {path!r}, not {want_path!r}")
     run = lambda: DA.decode_attention_paged(*args)  # noqa: E731
     plain = lambda: DA.decode_attention_paged_ref(*args)  # noqa: E731
     got, want = run(), plain()
     torch.cuda.synchronize()
-    err = check("decode_attention_paged [decode]", got, want, dtype)
-    one_launch("decode_attention_paged", run)
+    err = check(f"decode_attention_paged [{label}]", got, want, dtype)
+    if main:
+        one_launch("decode_attention_paged", run)
     g = h // kvh
     tab = tables.long()
     slot = torch.arange(full, device=q.device)
@@ -966,7 +1023,7 @@ def check_decode_attention_paged(gen, shape) -> dict:
     nbytes, flops = _paged_bytes_flops(q, k, tables, kv_len, 0, kv_pos,
                                        q_pos)
     b_ms, b_by = bound(nbytes, flops, dtype)
-    log(f"  {'decode_attention_paged':<22} decode B={b} H={h} KV={kvh} "
+    log(f"  {'decode_attention_paged':<22} {label} B={b} H={h} KV={kvh} "
         f"hd={hd} blk={blk} nbs={nbs} NB={k.shape[0]} bf16 path={path} "
         f"cluster={info['nsplit']} stages={info['stages']} "
         f"smem={info['smem']} B max_abs_err={err:.3e} ms={ms:.4f} "
@@ -975,10 +1032,10 @@ def check_decode_attention_paged(gen, shape) -> dict:
         f"library_ms={lib_ms:.4f} library_device_ms={lib_dev_ms:.4f} "
         f"(gather + SDPA, 2 calls; its max err on rows with a visible lane "
         f"{lib_err:.3e}; device times in a CUDA graph, in turns)")
-    return {"decode_attention_paged": dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
-        library_device_ms=lib_dev_ms, path=path)}
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                library_device_ms=lib_dev_ms, path=path,
+                cluster=info["nsplit"])
 
 
 def main_path_shapes(cfg, slots: int, bucket: int, max_len: int):
@@ -1018,6 +1075,93 @@ def main_path_shapes(cfg, slots: int, bucket: int, max_len: int):
                                    cfg.resolved_head_dim, PAGED_BLOCK,
                                    -(-max_len // PAGED_BLOCK)),
     }
+
+
+# the model families of phase 8 at their published widths, and the
+# depth each serves at: cut only where the weights (bf16) do not fit one
+# card beside the kernels' phase-3 inputs, or the run's time
+FAMILY_LAYERS = {
+    "llama4-maverick-400b-a17b": 2,   # one dense + one MoE period of 48
+    "grok-1-314b": 2,                 # of 64
+    "qwen3-32b": 8,                   # of 64
+    "qwen2-72b": 4,                   # of 80
+    "command-r-plus-104b": 2,         # of 64
+    "stablelm-12b": 40,               # all
+    "qwen2-vl-2b": 28,                # all
+}
+FAMILY_LENS, FAMILY_GENS = (128, 256, 384, 512), (16, 32)
+FAMILY_MAX_LEN = max(FAMILY_LENS) + max(FAMILY_GENS) + 1
+
+
+def family_config(arch: str):
+    from repro_torch.configs import get_config
+    return get_config(arch).with_(num_layers=FAMILY_LAYERS[arch])
+
+
+def attention_path(cfg) -> str:
+    """The decode-attention path a bf16 config's geometry takes
+    (``csrc/decode_attn.cu``'s plan: "mma" for hd a multiple of 16 up to
+    128 and G = H / KV <= 8, else "simt")."""
+    hd, g = cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads
+    return "mma" if hd % 16 == 0 and hd <= 128 and g <= 8 else "simt"
+
+
+def family_shapes(slots: int, bucket: int):
+    """Phase 8's new kernel geometries: ``fused_gate_up``/``gmm`` at
+    llama4's (E 128, top-1) and grok-1's (F 32768) decode and prefill
+    (group sizes from a seeded routing of `slots` and `bucket` tokens,
+    clipped at the capacity), and the decode-attention geometries that
+    no earlier phase runs: (H, KV, hd) = (32, 8, 160) stablelm,
+    (96, 8, 128) command-r+, (12, 2, 128) qwen2-vl."""
+    gmm = []
+    for arch, short in (("llama4-maverick-400b-a17b", "llama4"),
+                        ("grok-1-314b", "grok-1")):
+        cfg = family_config(arch)
+        e, k = cfg.moe.num_experts, cfg.moe.top_k
+        d, f = cfg.d_model, cfg.moe.d_ff
+        rng = np.random.default_rng(5)
+        for phase, n in (("decode", slots), ("prefill", bucket)):
+            cap = max(1, math.ceil(cfg.moe.capacity_factor * k * n / e))
+            gs = np.minimum(np.bincount(rng.integers(0, e, n * k),
+                                        minlength=e), cap).tolist()
+            gmm.append((f"{short} {phase}", (e, cap, d, f, gs),
+                        (e, cap, f, d, gs)))
+    attn = []
+    for arch in ("stablelm-12b", "command-r-plus-104b", "qwen2-vl-2b"):
+        cfg = family_config(arch)
+        attn.append((arch, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim, attention_path(cfg)))
+    return gmm, attn
+
+
+def check_family_shapes(gen, slots: int, max_len: int) -> dict:
+    """Phase 3's checks at phase 8's new geometries: each kernel against
+    its plain version, its path, and its time beside its bound, the
+    plain version and a library call. Returns {kernel: [record, ...]},
+    each record with its "shape"."""
+    gmm, attn = family_shapes(slots, 512)
+    out = {n: [] for n in ("fused_gate_up", "gmm", "decode_attention",
+                           "decode_attention_paged")}
+    for label, up, down in gmm:
+        for name, fused, shape in (("fused_gate_up", True, up),
+                                   ("gmm", False, down)):
+            e, c, d, f, _ = shape
+            r = gmm_shape_timed(gen, name, fused, label, shape)
+            out[name].append(dict(shape=f"{label} E{e} C{c} D{d} F{f}",
+                                  **r))
+    nbs = -(-max_len // PAGED_BLOCK)
+    kl = [max_len - 1 - 37 * i for i in range(slots)]
+    for arch, h, kvh, hd, path in attn:
+        label = f"H{h} KV{kvh} hd{hd}"
+        r = decode_attention_timed(gen, (slots, h, kvh, hd, max_len, kl),
+                                   label, path)
+        out["decode_attention"].append(dict(shape=f"{arch} {label}", **r))
+        r = decode_attention_paged_timed(
+            gen, (slots, h, kvh, hd, PAGED_BLOCK, nbs), label, path)
+        out["decode_attention_paged"].append(dict(shape=f"{arch} {label}",
+                                                  **r))
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ phase 4
@@ -1108,8 +1252,9 @@ def compare_logits(name, got, want, loads_got, loads_want) -> dict:
         "outside_elementwise_tol": float(
             (~torch.isclose(g, w, atol=tol, rtol=tol)).float().mean()),
         "argmax_equal": float((g.argmax(-1) == w.argmax(-1)).float().mean()),
-        "same_expert_loads": bool(torch.equal(loads_got, loads_want)),
     }
+    if loads_want is not None:
+        out["same_expert_loads"] = bool(torch.equal(loads_got, loads_want))
     log(f"  logits {name}: " + ", ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
         for k, v in out.items()))
@@ -1117,32 +1262,39 @@ def compare_logits(name, got, want, loads_got, loads_want) -> dict:
 
 
 def sublayer_check(name, cfg, params, tokens, cache, cache_len,
-                   token_mask, block_tables=None, ep=None) -> dict:
+                   token_mask, block_tables=None, ep=None,
+                   extra=None) -> dict:
     """Every layer's attention and MoE sublayer through the kernels and
     through the plain path, both from the same input (the plain path's
     hidden state), so both route identically: each output pair must
-    agree elementwise within the bf16 tolerance. With `block_tables` the
-    cache is the paged pool and every row writes one token. With `ep` =
-    (EPContext, ep_state) the MoE sublayers run through the EP slot
-    plane on the runtime's tables and banks. Returns the largest error
-    of each sublayer kind."""
+    agree elementwise within the bf16 tolerance. A dense sublayer's FFN
+    (plain torch on both paths) carries the state on. With
+    `block_tables` the cache is the paged pool and every row writes one
+    token. With `ep` = (EPContext, ep_state) the MoE sublayers run
+    through the EP slot plane on the runtime's tables and banks. `extra`
+    adds a VLM's vis_embeds/vis_mask and (B, S, 3) positions. Returns
+    the largest error of each sublayer kind."""
     from repro_torch.distributed.ep import moe_ep_ffn
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
     pattern = T.layer_pattern(cfg)
-    assert [sub.ffn for sub in pattern] == ["moe"], pattern
+    extra = extra or {}
     b, s = tokens.shape
     steps = torch.arange(s, dtype=torch.int32, device=tokens.device)
-    if isinstance(cache_len, int):
+    if "positions" in extra:
+        pos = extra["positions"]
+    elif isinstance(cache_len, int):
         pos = (cache_len + steps)[None].expand(b, s)
     else:
         pos = cache_len[:, None] + steps[None]
     errs = {"attention": 0.0, "moe": 0.0}
-    x = params["embed"][tokens.long()]
-    for i in range(cfg.num_layers):
-        p = T._period(params["layers"][0], i)
-        c = T._period(cache[0], i)["attn"]
+    x = T._embed(params, dict(extra, tokens=tokens))
+    layers = [(i, j, sub) for i in range(cfg.num_layers // len(pattern))
+              for j, sub in enumerate(pattern)]
+    for i, j, sub in layers:
+        p = T._period(params["layers"][j], i)
+        c = T._period(cache[j], i)["attn"]
         h = L.norm(x, p["norm1"], cfg.norm)
         outs = []
         for impl in ("auto", "ref"):
@@ -1151,14 +1303,18 @@ def sublayer_check(name, cfg, params, tokens, cache, cache_len,
                                           cache=own, cache_len=cache_len,
                                           impl=impl,
                                           block_tables=block_tables)[0])
+        layer = i * len(pattern) + j
         errs["attention"] = max(errs["attention"], check(
-            f"{name}, layer {i} attention", outs[0], outs[1],
+            f"{name}, layer {layer} attention", outs[0], outs[1],
             torch.bfloat16))
         x = x + outs[1]
         h = L.norm(x, p["norm2"], cfg.norm)
+        if sub.ffn == "dense":
+            x = x + T.dense_ffn(p["ffn"], h)
+            continue
         if ep is not None:
             ctx, state = ep
-            outs = [moe_ep_ffn(p["moe"], h, T._period(state[0], i), ctx,
+            outs = [moe_ep_ffn(p["moe"], h, T._period(state[j], i), ctx,
                                cfg.with_(impl=impl),
                                token_mask=token_mask)[0]
                     for impl in ("auto", "ref")]
@@ -1171,11 +1327,12 @@ def sublayer_check(name, cfg, params, tokens, cache, cache_len,
                 impl=impl)[0]
                 for impl in ("auto", "ref")]
         errs["moe"] = max(errs["moe"], check(
-            f"{name}, layer {i} MoE", outs[0], outs[1], torch.bfloat16))
+            f"{name}, layer {layer} MoE", outs[0], outs[1], torch.bfloat16))
         x = x + outs[1]
+    moe = f"{errs['moe']:.3e}" if cfg.is_moe else "(no MoE layer)"
     log(f"  {name}: every layer's sublayers, kernels vs plain from the "
         f"same input: attention max_abs_err={errs['attention']:.3e}, MoE "
-        f"max_abs_err={errs['moe']:.3e} (atol=rtol={TOL[torch.bfloat16]})")
+        f"max_abs_err={moe} (atol=rtol={TOL[torch.bfloat16]})")
     return errs
 
 
@@ -1198,7 +1355,7 @@ def logits_check(cfg, params, prompts, max_len: int, slots: int):
         for c in (cfg, ref_cfg):
             cache = T.init_cache(c, params, 1, max_len)
             lg, _, m = T.decode_step(c, params, {"tokens": toks}, cache, 0)
-            outs.append((lg[0, -1], m["expert_load"]))
+            outs.append((lg[0, -1], m.get("expert_load")))
         res["prefill logits"] = compare_logits(
             "prefill, last position", outs[0][0], outs[1][0], outs[0][1],
             outs[1][1])
@@ -1227,7 +1384,7 @@ def logits_check(cfg, params, prompts, max_len: int, slots: int):
             lg, _, m = T.decode_step(c, params, {"tokens": nxt,
                                                  "active": active},
                                      state, lengths)
-            outs.append((lg[:, -1], m["expert_load"]))
+            outs.append((lg[:, -1], m.get("expert_load")))
         res["decode logits"] = compare_logits(
             "batched decode step", outs[0][0], outs[1][0], outs[0][1],
             outs[1][1])
@@ -1269,6 +1426,26 @@ def serve_waves(engine, waves, slots: int):
     finally:
         del engine._step
     return launches, mixed_s, decode_s, wall
+
+
+def check_budgets(reqs, what: str) -> None:
+    """Every request ended by its token budget."""
+    for r in reqs:
+        if r.finish_reason != "length" or \
+                len(r.tokens) != r.max_new_tokens:
+            raise AssertionError(f"{what} {r.rid}: {len(r.tokens)} of "
+                                 f"{r.max_new_tokens} tokens "
+                                 f"({r.finish_reason!r})")
+
+
+def check_pool_clean(kv) -> None:
+    """After a run no request holds a pool block: every block in use is
+    held once, by the prefix cache."""
+    nodes = list(kv.prefix._walk()) if kv.prefix is not None else []
+    if kv.used_blocks != len(nodes) or kv.num_active or any(
+            kv.refcount[n.block] != 1 for n in nodes):
+        raise AssertionError(f"leaked blocks: {kv.used_blocks} in use, "
+                             f"{len(nodes)} cached")
 
 
 def shared_prefix_waves(cfg, system_len: int, suffixes, gens, seed=1):
@@ -1320,12 +1497,7 @@ def paged_phase(cfg, params, max_len: int, slots: int, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     kv = engine._session.kv
     reqs = [r for w in waves for r in w]
-    for r in reqs:
-        if r.finish_reason != "length" or \
-                len(r.tokens) != r.max_new_tokens:
-            raise AssertionError(f"paged request {r.rid}: {len(r.tokens)} of "
-                                 f"{r.max_new_tokens} tokens "
-                                 f"({r.finish_reason!r})")
+    check_budgets(reqs, "paged request")
     nodes = list(kv.prefix._walk())
     log(f"  served 2 waves x {slots} requests, "
         f"{sum(len(r.tokens) for r in reqs)} tokens in "
@@ -1339,10 +1511,7 @@ def paged_phase(cfg, params, max_len: int, slots: int, card: str) -> dict:
         raise AssertionError("the second wave did not hit the prefix cache")
     if kv.cow_blocks < 1:
         raise AssertionError("the exact repeat made no copy-on-write")
-    if kv.used_blocks != len(nodes) or kv.num_active or any(
-            kv.refcount[n.block] != 1 for n in nodes):
-        raise AssertionError(f"leaked blocks: {kv.used_blocks} in use, "
-                             f"{len(nodes)} cached")
+    check_pool_clean(kv)
     for k_name in ("decode_attention_paged", "fused_gate_up", "gmm"):
         if launches[k_name] <= 0:
             raise AssertionError(f"{k_name} was never launched on the paged "
@@ -1788,12 +1957,7 @@ def runtime_phase(full, max_len: int, slots: int, card: str) -> dict:
     res, launches, pre_s, dec_s, dec_tok, wall = serve_timed(
         engine, reqs, slots, control=ctrl)
     peak = torch.cuda.max_memory_allocated()
-    for r in reqs:
-        if r.finish_reason != "length" or \
-                len(r.tokens) != r.max_new_tokens:
-            raise AssertionError(f"runtime request {r.rid}: {len(r.tokens)} "
-                                 f"of {r.max_new_tokens} tokens "
-                                 f"({r.finish_reason!r})")
+    check_budgets(reqs, "runtime request")
     rt = res.runtime
     st = rt.stats
     log(f"  served {len(reqs)} requests, {res.generated_tokens} tokens in "
@@ -1957,29 +2121,44 @@ def forward_shape_kernels(gen, cfg, params, tokens: int) -> dict:
         w = experts["w_gate" if fused else "w_down"]
         xx = x if fused else torch.empty((e, cap, f), dtype=torch.bfloat16,
                                          device="cuda")
-        path, info = MG.kernel_path(xx, w, fused)
+        path = MG.kernel_path(xx, w, fused)[0]
         if path != "wgmma":
             raise AssertionError(f"{name}: forward's ({e}, {cap}, {cd}) "
                                  f"shape took {path}, not wgmma")
-        xi, wg, wu, g = _gmm_inputs(gen, e, cap, cd, cf_, torch.bfloat16,
-                                    gs, fused)
-        err = _gmm_check(name, fused, f"forward {e}x{cap}x{cd}x{cf_}", xi,
-                         wg, wu, g, torch.bfloat16)
-        plain, library = _gmm_plain_library(fused, xi, wg, wu, g)
-        ms = time_ms(lambda: _gmm_run(name, fused, xi, wg, wu, g))
-        plain_ms, lib_ms = time_ms(plain), time_ms(library)
-        nbytes, flops = _gmm_bytes_flops(xi, wg, wu, g)
-        b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
-        log(f"  {name:<16} forward  E={e} C={cap} D={cd} F={cf_} bf16 "
-            f"({path}, N={info['rows']}, {info['stages']} stages, "
-            f"{info['smem']} B shared a CTA) max_abs_err={err:.3e} "
-            f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
-        out[name] = dict(ms=ms, bound_ms=b_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, max_abs_err=err, path=path)
-        del xi, wg, wu
-    torch.cuda.empty_cache()
+        out[name] = gmm_shape_timed(gen, name, fused, "forward",
+                                    (e, cap, cd, cf_, gs))
     return out
+
+
+def gmm_shape_timed(gen, name, fused, label, shape) -> dict:
+    """``fused_gate_up`` or ``gmm`` at one bf16 serving shape (E, C, D,
+    F, group sizes) on seeded inputs: the path must be "wgmma"; against
+    its plain version (rows past the group size exactly 0), timed beside
+    its bound (the bytes of the experts with rows only), the plain
+    version and the library call. Returns the record."""
+    e, c, d, f, gs = shape
+    x, wg, wu, g = _gmm_inputs(gen, e, c, d, f, torch.bfloat16, gs, fused)
+    path, info = MG.kernel_path(x, wg, fused)
+    if path != "wgmma":
+        raise AssertionError(f"{name}: the {label} shape ({e}, {c}, {d}, "
+                             f"{f}) took {path}, not wgmma")
+    err = _gmm_check(name, fused, f"{label} {e}x{c}x{d}x{f}", x, wg, wu, g,
+                     torch.bfloat16)
+    plain, library = _gmm_plain_library(fused, x, wg, wu, g)
+    ms = time_ms(lambda: _gmm_run(name, fused, x, wg, wu, g))
+    plain_ms, lib_ms = time_ms(plain), time_ms(library)
+    nbytes, flops = _gmm_bytes_flops(x, wg, wu, g)
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    live = sum(1 for n in gs if n > 0)
+    log(f"  {name:<16} {label:<8} E={e} ({live} with rows) C={c} D={d} "
+        f"F={f} bf16 ({path}, N={info['rows']}, {info['stages']} stages, "
+        f"{info['smem']} B shared a CTA) max_abs_err={err:.3e} "
+        f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e9:.3f} GB) "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+    del x, wg, wu
+    torch.cuda.empty_cache()
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                library_ms=lib_ms, max_abs_err=err, path=path)
 
 
 def forward_logits_check(cfg, params, tokens, max_len: int) -> None:
@@ -2399,6 +2578,227 @@ def predictor_identity(small, sp) -> None:
         f"({sum(map(len, off.values()))} tokens)")
 
 
+# ------------------------------------------------------------ phase 8
+
+
+class GmmPaths:
+    """Within the block, counts the bf16 ``moe_gmm`` launches by the
+    path each took: the kernel's own plan (``MG.kernel_path``) asked
+    with each launch's operands. The wrapper's launch counts
+    (``K.launch_counts``) are untouched."""
+
+    def __enter__(self):
+        self.counts = {"fused_gate_up": {}, "gmm": {}}
+        self._launch = inner = MG._launch
+
+        def launch(name, fused, x, wg, wu, group_sizes, path=None):
+            taken = path or MG.kernel_path(x, wg, fused)[0]
+            out = inner(name, fused, x, wg, wu, group_sizes, path=path)
+            by = self.counts[name]
+            by[taken] = by.get(taken, 0) + 1
+            return out
+
+        MG._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        MG._launch = self._launch
+
+
+def _check_launches(cfg, what: str, launches, paths, attn: str) -> None:
+    """The run launched `attn` (decode attention, contiguous or paged)
+    and, for a MoE config, both bf16 ``moe_gmm`` kernels, each launch on
+    "wgmma"; a dense config launches no expert kernel."""
+    need = [attn] + (["fused_gate_up", "gmm"] if cfg.is_moe else [])
+    for k_name in need:
+        if launches[k_name] <= 0:
+            raise AssertionError(f"{what}: {k_name} was never launched")
+    for k_name, by in paths.counts.items():
+        if set(by) - {"wgmma"} or sum(by.values()) != launches[k_name]:
+            raise AssertionError(f"{what}: {k_name} launches by path {by} "
+                                 f"of {launches[k_name]}, not all wgmma")
+
+
+def vlm_check(cfg, params, max_len: int) -> dict:
+    """qwen2-vl: early fusion of 64 patch embeddings (a 8 x 8 grid at
+    temporal position 0, M-RoPE positions (0, row, column)) ahead of
+    text whose three axes agree: ``forward`` on the card (finite, kernels
+    == plain logits), then every layer's sublayers, kernels vs plain,
+    for the prefill into the cache and for one batched decode step at
+    3-axis positions."""
+    from repro_torch.models import transformer as T
+    ref_cfg = cfg.with_(impl="ref")
+    dev = params["embed"].device
+    b, s, n_vis = 2, 256, 64
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev)
+    vis = torch.randn((b, s, cfg.d_model), generator=gen, device=dev,
+                      dtype=torch.bfloat16) * 0.02
+    mask = (torch.arange(s, device=dev) < n_vis)[None].expand(b, s)
+    i = torch.arange(s, device=dev)
+    grid = torch.stack([torch.zeros_like(i), i // 8, i % 8], -1)
+    text = (i - n_vis + 8)[:, None].expand(s, 3)
+    pos3 = torch.where((i < n_vis)[:, None], grid, text).to(torch.int32)
+    pos3 = pos3[None].expand(b, s, 3).contiguous()
+    extra = {"vis_embeds": vis, "vis_mask": mask, "positions": pos3}
+    with torch.no_grad():
+        outs = [T.forward(c, params, dict(extra, tokens=toks),
+                          last_only=True)[0][:, -1]
+                for c in (cfg, ref_cfg)]
+        res = {"forward logits": compare_logits(
+            "vlm forward, last position", outs[0], outs[1], None, None)}
+        res["prefill sublayers"] = sublayer_check(
+            "vlm prefill of 64 patches + 192 tokens", cfg, params, toks,
+            T.init_cache(cfg, params, b, max_len), 0, None, extra=extra)
+        pool = T.init_cache(ref_cfg, params, b, max_len)
+        lg, _, _ = T.decode_step(ref_cfg, params, dict(extra, tokens=toks),
+                                 pool, 0)
+        nxt = lg[:, -1].argmax(-1)[:, None]
+        step_pos = (pos3[:, -1:] + 1).contiguous()      # (B, 1, 3)
+        res["decode sublayers"] = sublayer_check(
+            "vlm batched decode step at 3-axis positions", cfg, params,
+            nxt, pool, torch.full((b,), s, dtype=torch.int32, device=dev),
+            torch.ones((b, 1), dtype=torch.bool, device=dev),
+            extra={"positions": step_pos})
+    return res
+
+
+def family_phase(arch: str, card: str) -> dict:
+    """Phase 8 for one family at its published widths: built on the card
+    from a seed at bf16; 8 requests served through ``ServingEngine`` on
+    the contiguous cache, then on the paged pool with chunked prefill
+    and the prefix cache (half of those sampled), a MoE family with a
+    MoEless controller over 8 devices: every request ends with its
+    budget, no pool block leaks, each kernel's launches counted (the
+    expert kernels' all on "wgmma"), the median decode step and prefill
+    timed; then every layer's sublayers through the kernels against the
+    plain path (the bf16 tolerance). Returns the family's record."""
+    from repro_torch.configs import ServingSpec, get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    cfg = family_config(arch)
+    slots, max_len = 8, FAMILY_MAX_LEN
+    moe = (f", {cfg.moe.num_experts} experts x d_ff {cfg.moe.d_ff} top-"
+           f"{cfg.moe.top_k} every {cfg.moe.every_n_layers}"
+           if cfg.is_moe else "")
+    log(f"  {arch}: layers {cfg.num_layers} of "
+        f"{get_config(arch).num_layers}, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} kv, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}{moe}, vocab "
+        f"{cfg.vocab_size}, {cfg.norm}, rope {cfg.rope}"
+        f"{', qkv bias' if cfg.qkv_bias else ''}"
+        f"{', qk norm' if cfg.qk_norm else ''}"
+        f"{', tied embeddings' if cfg.tie_embeddings else ''}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    attn_path = attention_path(cfg)
+    log(f"  params {n_par / 1e9:.2f} B, {n_par * 2 / 1e9:.1f} GB, made in "
+        f"{time.perf_counter() - t0:.1f} s; decode attention path "
+        f"{attn_path!r}")
+    rec = {"layers": cfg.num_layers, "weights_gb": n_par * 2 / 1e9,
+           "attention_path": attn_path}
+    # contiguous KV, engine controller
+    ctrl = MoElessController(cfg, num_devices=8) if cfg.is_moe else None
+    engine = ServingEngine(cfg, params, max_len=max_len, controller=ctrl)
+    reqs = make_requests(cfg, FAMILY_LENS, FAMILY_GENS, slots, seed=8)
+    torch.cuda.reset_peak_memory_stats()
+    with GmmPaths() as paths:
+        res, launches, pre_s, dec_s, _, wall = serve_timed(engine, reqs,
+                                                           slots)
+    check_budgets(reqs, f"{arch} request")
+    _check_launches(cfg, f"{arch} contiguous", launches, paths,
+                    "decode_attention")
+    pre = {bk: float(np.median(v)) * 1e3 for bk, v in sorted(pre_s.items())}
+    rec["contiguous"] = dict(
+        launches=launches, gmm_paths=paths.counts,
+        decode_ms=float(np.median(dec_s)) * 1e3, prefill_ms=pre,
+        wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  contiguous: {res.generated_tokens} tokens in {res.iterations} "
+        f"steps + {res.prefills} prefills, launches {launches}, moe_gmm "
+        f"by path {paths.counts}; on {card}: decode step median "
+        f"{rec['contiguous']['decode_ms']:.2f} ms over {len(dec_s)}, "
+        f"prefill median ms by bucket "
+        f"{ {bk: round(v, 2) for bk, v in pre.items()} }, whole run "
+        f"{wall:.2f} s, max_memory_allocated "
+        f"{rec['contiguous']['peak_gb']:.2f} GB")
+    if ctrl is not None and len(ctrl.plans) != \
+            cfg.num_layers // cfg.moe.every_n_layers:
+        raise AssertionError(f"{arch}: {len(ctrl.plans)} layer plans")
+    del engine, ctrl
+    # paged KV, chunked prefill, prefix cache; half the requests sampled
+    spec = ServingSpec(kv="paged", kv_block=PAGED_BLOCK,
+                       prefill_chunk=PAGED_CHUNK, prefix_cache=True)
+    ctrl = MoElessController(cfg, num_devices=8) if cfg.is_moe else None
+    engine = ServingEngine(cfg, params, max_len=max_len, controller=ctrl,
+                           serving=spec)
+    reqs = make_requests(cfg, FAMILY_LENS, FAMILY_GENS, slots, seed=9,
+                         sampled=True)
+    with GmmPaths() as paths:
+        launches, mixed_s, dec_s, wall = serve_waves(engine, [reqs], slots)
+    check_budgets(reqs, f"{arch} paged request")
+    check_pool_clean(engine._session.kv)
+    engine.close()
+    _check_launches(cfg, f"{arch} paged", launches, paths,
+                    "decode_attention_paged")
+    rec["paged"] = dict(launches=launches, gmm_paths=paths.counts,
+                        mixed_ms=float(np.median(mixed_s)) * 1e3,
+                        decode_ms=float(np.median(dec_s)) * 1e3, wall_s=wall)
+    log(f"  paged (chunked {PAGED_CHUNK}, prefix cache, half sampled): "
+        f"{len(mixed_s)} mixed + {len(dec_s)} decode-only steps, launches "
+        f"{launches}, no leaked block; on {card}: mixed step median "
+        f"{rec['paged']['mixed_ms']:.2f} ms, decode-only step median "
+        f"{rec['paged']['decode_ms']:.2f} ms, whole run {wall:.2f} s")
+    del engine, ctrl
+    rec["logits"] = logits_check(cfg, params, [r.prompt for r in reqs],
+                                 max_len, slots)
+    if cfg.rope == "mrope":
+        rec["vlm"] = vlm_check(cfg, params, max_len)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_identity(arch: str, **over) -> None:
+    """A family's smoke config at float32 (`over` replaces its MoE
+    fields): greedy tokens through the kernels on the contiguous cache
+    and on the paged pool with chunked prefill equal the plain path's on
+    the contiguous cache, request by request, a MoE config at a
+    drop-free capacity factor with a MoEless controller."""
+    from repro_torch.configs import ServingSpec, get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    small = get_config(arch, smoke=True).with_(dtype="float32")
+    if small.is_moe:
+        over.setdefault("capacity_factor", float(small.moe.num_experts))
+        small = small.with_(moe=dataclasses.replace(small.moe, **over))
+        small = small.with_(num_layers=2 * small.moe.every_n_layers)
+    sp = init_params(small, seed=0, device="cuda")
+    got = {}
+    for label, impl, spec in (
+            ("contiguous", "ref", ServingSpec()),
+            ("contiguous", "auto", ServingSpec()),
+            ("paged chunked", "auto", ServingSpec(kv="paged", kv_block=5,
+                                                  prefill_chunk=7))):
+        ctrl = MoElessController(small) if small.is_moe else None
+        eng = ServingEngine(small, sp, max_len=64 + 24 + 1, impl=impl,
+                            controller=ctrl, serving=spec)
+        rs = make_requests(small, (64, 17, 40, 9, 33), (24, 7, 16), 10)
+        eng.serve(rs, num_slots=4)
+        got[(label, impl)] = {r.rid: list(r.tokens) for r in rs}
+        base = got[("contiguous", "ref")]
+        if got[(label, impl)] != base:
+            bad = [i for i in base if got[(label, impl)][i] != base[i]]
+            raise AssertionError(f"{arch} {over}: {label} impl={impl} "
+                                 f"tokens differ for requests {bad}")
+    log(f"  {arch}{' ' + str(over) if over else ''}: "
+        f"{sum(map(len, base.values()))} tokens: contiguous and paged "
+        f"chunked impl=auto == contiguous impl=ref")
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2439,6 +2839,11 @@ def main() -> int:
     rec.update(check_decode_attention_paged(
         gen, shapes["decode_attention_paged"]))
     rec.update(check_quant_kernels(gen, shapes))
+    log("  phase 8's new geometries (llama4, grok-1, stablelm, command-r+, "
+        "qwen2-vl)")
+    for k_name, rows in check_family_shapes(gen, slots,
+                                            FAMILY_MAX_LEN).items():
+        rec[k_name]["family_shapes"] = rows
 
     log("[4] mixtral-8x7b at full width through ServingEngine")
     cfg = full.with_(num_layers=8)
@@ -2460,12 +2865,7 @@ def main() -> int:
     res, launches, pre_s, dec_s, dec_tok, wall = serve_timed(
         engine, reqs, slots)
     peak = torch.cuda.max_memory_allocated()
-    for r in reqs:
-        if r.finish_reason != "length" or \
-                len(r.tokens) != r.max_new_tokens:
-            raise AssertionError(f"request {r.rid}: {len(r.tokens)} of "
-                                 f"{r.max_new_tokens} tokens "
-                                 f"({r.finish_reason!r})")
+    check_budgets(reqs, "request")
     log(f"  served {len(reqs)} requests, {res.generated_tokens} tokens in "
         f"{res.iterations} decode steps + {res.prefills} prefills "
         f"(mean occupancy {res.mean_batch_occupancy:.2f})")
@@ -2517,6 +2917,24 @@ def main() -> int:
         "slot banks")
     ep_launches = runtime_phase(full, max_len, slots, card)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[8] the decoder model families at their published widths")
+    t8 = time.perf_counter()
+    families = {}
+    for arch in FAMILY_LAYERS:
+        families[arch] = family_phase(arch, card)
+    log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
+    log("  phase 8 summary: " + json.dumps({
+        arch: {"layers": r["layers"], "weights_gb": round(r["weights_gb"], 2),
+               "attention_path": r["attention_path"],
+               "decode_ms": round(r["contiguous"]["decode_ms"], 3),
+               "prefill_ms": {bk: round(v, 3) for bk, v in
+                              r["contiguous"]["prefill_ms"].items()},
+               "paged_decode_ms": round(r["paged"]["decode_ms"], 3),
+               "paged_mixed_ms": round(r["paged"]["mixed_ms"], 3)}
+        for arch, r in families.items()}))
+
     log("[5] token identity at float32 (smoke config): kernels vs plain")
     small = get_config("mixtral-8x7b", smoke=True).with_(dtype="float32")
     sp = init_params(small, seed=0, device="cuda")
@@ -2530,6 +2948,12 @@ def main() -> int:
     runtime_identity(small, sp)
     log("  the load predictor on the session controller (distance 1)")
     predictor_identity(small, sp)
+    del sp
+    log("  the decoder families' smoke configs (llama4 also at its "
+        "dense/MoE interleave)")
+    for arch in FAMILY_LAYERS:
+        family_identity(arch)
+    family_identity("llama4-maverick-400b-a17b", every_n_layers=2)
 
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \
@@ -2540,6 +2964,12 @@ def main() -> int:
     for k_name, r in pred["kernels"].items():
         rec[k_name].update({f"forward_{k}": v for k, v in r.items()},
                            forward_launches=pred["launches"][k_name])
+    # phase 8: each family's launches of the four kernels it serves
+    for k_name in ("fused_gate_up", "gmm", "decode_attention",
+                   "decode_attention_paged"):
+        rec[k_name]["family_launches"] = {
+            arch: r["contiguous"]["launches"][k_name]
+            + r["paged"]["launches"][k_name] for arch, r in families.items()}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

@@ -37,6 +37,13 @@ def norm(x, p, kind: str):
     return layer_norm(x, p["scale"], p["bias"])
 
 
+def init_norm(d, kind: str, dtype, device):
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
 # ---------------------------------------------------------------- rotary
 
 
@@ -56,6 +63,34 @@ def apply_rotary(x, cos, sin):
     cos = cos[:, :, None, :].to(x.dtype)
     sin = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def mrope_cos_sin(positions3, head_dim: int, theta: float,
+                  sections=(1, 1, 2)):
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191).
+
+    positions3: (B, S, 3) = (temporal, height, width) position ids. The
+    rotary spectrum is split among the three axes in the ratio
+    `sections`; text tokens carry identical ids on all three axes, which
+    makes M-RoPE equal 1-D RoPE exactly.
+    """
+    half = head_dim // 2
+    dev = positions3.device
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=dev) / half))
+    total = sum(sections)
+    sec_of_freq = torch.zeros((half,), dtype=torch.long, device=dev)
+    prev = acc = 0
+    for i, sec in enumerate(sections):
+        acc += sec
+        bound = half * acc // total
+        sec_of_freq[prev:bound] = i
+        prev = bound
+    # the per-frequency position id: (B, S, half)
+    idx = sec_of_freq.expand(*positions3.shape[:2], half)
+    pos = torch.gather(positions3.float(), -1, idx)
+    ang = pos * freqs
+    return torch.cos(ang), torch.sin(ang)
 
 
 # ---------------------------------------------------------------- attention
@@ -175,10 +210,16 @@ def attention_block(p, cfg, x, positions, *, cache=None, cache_len=None,
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
+    elif cfg.rope == "mrope":
+        # positions may be (B, S) text-only: repeat to 3 identical axes
+        pos3 = positions if positions.ndim == 3 else \
+            positions[..., None].expand(*positions.shape, 3)
+        cos, sin = mrope_cos_sin(pos3, hd, cfg.rope_theta)
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
     elif cfg.rope != "none":
-        raise NotImplementedError(f"rope={cfg.rope!r} arrives with the "
-                                  "model-family slice of the port")
-    pos1 = positions
+        raise ValueError(f"unknown rope {cfg.rope!r}")
+    pos1 = positions[..., 0] if positions.ndim == 3 else positions
 
     if cache is None:
         out = attention(q, k, v, pos1, pos1, causal=True, window=window)
@@ -214,8 +255,11 @@ def attention_block(p, cfg, x, positions, *, cache=None, cache_len=None,
         # pull in the kernel wrappers
         from repro_torch.kernels import ops as KOPS
         if s == 1 and KOPS.use_kernel(impl, q):
+            # q_pos as its own (B,) tensor: a view of 3-axis or
+            # broadcast positions is strided, and the kernel takes
+            # contiguous inputs
             out = KOPS.decode_attention_impl(
-                q[:, 0], ck, cv, kv_pos, n_valid, pos1[:, 0],
+                q[:, 0], ck, cv, kv_pos, n_valid, pos1[:, 0].contiguous(),
                 window=window, impl=impl)[:, None]
         else:
             out = attention(q, ck, cv, pos1, kv_pos, causal=True,
@@ -258,8 +302,8 @@ def _paged_attention(q, k, v, pos1, cache, cache_len, block_tables,
     from repro_torch.kernels import ops as KOPS
     if s == 1 and KOPS.use_kernel(impl, q):
         return KOPS.decode_attention_paged_impl(
-            q[:, 0], ck, cv, kv_pos, block_tables, n_valid, pos1[:, 0],
-            window=window, impl=impl)[:, None]
+            q[:, 0], ck, cv, kv_pos, block_tables, n_valid,
+            pos1[:, 0].contiguous(), window=window, impl=impl)[:, None]
     # each row's dense view: block i of its table holds positions
     # [i*blk, (i+1)*blk), so the view is position-ordered and masks
     # exactly like the contiguous ring

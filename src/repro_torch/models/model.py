@@ -23,6 +23,57 @@ def init_params(cfg, seed: int = 0, device=None):
     return T.init_params(cfg, seed, resolve_device(device))
 
 
+def input_specs(cfg, shape, *, abstract: bool = True, generator=None,
+                device=None):
+    """Model inputs for one step of `shape` (``configs.InputShape``),
+    with the reference's keys, shapes and dtypes. With `abstract` the
+    tensors live on the ``meta`` device (shapes only, no allocation);
+    else they are drawn from `generator` (a seeded ``torch.Generator``
+    on `device`, resolved as ``resolve_device``) and differ from the
+    reference's draws.
+
+    train:   {tokens (B, S), labels (B, S), ...}
+    prefill: {tokens (B, S), ...}
+    decode:  {tokens (B, 1), ...}  (the cache is built separately)
+    A vlm adds vis_embeds (B, S, D) bf16, vis_mask (B, S) bool (a prefix
+    of min(64, max(1, S // 2)) patch positions) and, under mrope,
+    positions (B, S, 3) int32. Encoder inputs come with the enc-dec
+    slice."""
+    b = shape.global_batch
+    s = shape.seq_len if shape.kind != "decode" else 1
+    dev = torch.device("meta") if abstract else resolve_device(device)
+    if not abstract and generator is None:
+        raise ValueError("concrete input_specs need a seeded generator")
+
+    def mk(shp, dtype=torch.int32, maxval=None):
+        if abstract:
+            return torch.empty(shp, dtype=dtype, device=dev)
+        if dtype == torch.int32:
+            return torch.randint(0, maxval or cfg.vocab_size, shp,
+                                 generator=generator, dtype=dtype,
+                                 device=dev)
+        return torch.randn(shp, generator=generator, dtype=dtype,
+                           device=dev) * 0.02
+
+    batch = {"tokens": mk((b, s))}
+    if shape.kind == "train":
+        batch["labels"] = mk((b, s))
+    if cfg.family == "vlm":
+        # patch embeddings (stub vision frontend) occupy a prefix of the
+        # sequence
+        batch["vis_embeds"] = mk((b, s, cfg.d_model), torch.bfloat16)
+        if abstract:
+            batch["vis_mask"] = torch.empty((b, s), dtype=torch.bool,
+                                            device=dev)
+        else:
+            batch["vis_mask"] = (torch.arange(s, device=dev)[None]
+                                 < min(64, max(1, s // 2))).expand(b, s)
+        if cfg.rope == "mrope":
+            batch["positions"] = mk((b, s, 3), torch.int32,
+                                    maxval=shape.seq_len)
+    return batch
+
+
 def make_prefill_step(cfg, *, window: int = 0):
     """prefill_step(params, batch) -> (last-position logits (B, 1, V),
     metrics): ``forward`` with ``last_only``."""
@@ -51,18 +102,19 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
     d = cfg.d_model
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     n_mats = 3 if cfg.act == "swiglu" else 2
-    total = cfg.padded_vocab * d + d
+    nd = d if cfg.norm == "rmsnorm" else 2 * d    # scale (+ bias)
+    total = cfg.padded_vocab * d + nd
     if not cfg.tie_embeddings:
         total += d * cfg.padded_vocab
     expert = 0
     for sub in pattern:
-        n = d + 2 * d * h * hd + 2 * d * kvh * hd
+        n = nd + 2 * d * h * hd + 2 * d * kvh * hd
         if cfg.qkv_bias:
             n += h * hd + 2 * kvh * hd
         if cfg.qk_norm:
             n += 2 * hd
         if sub.ffn != "none":
-            n += d
+            n += nd
             if sub.ffn == "moe":
                 n += d * cfg.moe.num_experts
                 expert += periods * n_mats * cfg.moe.num_experts * d \

@@ -2,7 +2,8 @@
 layer *periods* (the reference scans them with ``lax.scan``).
 
 A "period" is the smallest repeating pattern of sublayers (1 for the
-uniform MoE decoders ported so far). Parameters of sublayer j are
+uniform decoders, 2 for llama4's dense/MoE interleave at
+``every_n_layers=2``). Parameters of sublayer j are
 stacked over num_periods, exactly as the reference stores them, so the
 reference's weights convert leaf for leaf (``repro_torch.params``).
 
@@ -31,7 +32,7 @@ from repro_torch.models import prng
 
 @dataclass(frozen=True)
 class SubLayer:
-    mixer: str          # attn (mamba | mlstm | slstm: later slices)
+    mixer: str          # attn (mamba | mlstm | slstm: the SSM slice)
     ffn: str            # dense | moe | none
 
 
@@ -41,7 +42,7 @@ def layer_pattern(cfg) -> list[SubLayer]:
             or cfg.encdec is not None:
         raise NotImplementedError(
             f"{cfg.name}: recurrent, hybrid and encoder-decoder stacks "
-            "arrive with the model-family slice of the PyTorch port")
+            "arrive with the port's enc-dec/SSM slice")
     if cfg.is_moe and cfg.moe.every_n_layers > 1:
         pm = cfg.moe.every_n_layers
         return [SubLayer("attn", "moe" if (i % pm == pm - 1) else "dense")
@@ -58,13 +59,17 @@ def _normal(gen, shape, dtype, device, scale):
     return t.mul_(scale)
 
 
+def _stacked_norm(cfg, periods: int, dtype, device):
+    return {k: v.expand(periods, -1).contiguous() for k, v in
+            L.init_norm(cfg.d_model, cfg.norm, dtype, device).items()}
+
+
 def _init_sublayer(gen, cfg, sub: SubLayer, periods: int, dtype, device):
     """One pattern position's parameters, stacked over `periods`, with
     the reference's distributions and scales (transformer.py,
     layers.py, moe.py init functions)."""
     d = cfg.d_model
-    p = {"norm1": {"scale": torch.ones((periods, d), dtype=dtype,
-                                       device=device)}}
+    p = {"norm1": _stacked_norm(cfg, periods, dtype, device)}
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     sd = 1.0 / math.sqrt(d)
     p["attn"] = {
@@ -83,8 +88,7 @@ def _init_sublayer(gen, cfg, sub: SubLayer, periods: int, dtype, device):
             p["attn"][n] = torch.ones((periods, hd), dtype=dtype,
                                       device=device)
     if sub.ffn != "none":
-        p["norm2"] = {"scale": torch.ones((periods, d), dtype=dtype,
-                                          device=device)}
+        p["norm2"] = _stacked_norm(cfg, periods, dtype, device)
         if sub.ffn == "moe":
             e, f = cfg.moe.num_experts, cfg.moe.d_ff
             sf = 1.0 / math.sqrt(f)
@@ -116,10 +120,10 @@ def init_params(cfg, seed: int, device):
     periods). The numbers differ from the reference's JAX keys; to feed
     both packages the same weights, convert the reference's with
     ``repro_torch.params.from_jax``."""
-    if cfg.norm != "rmsnorm" or cfg.act != "swiglu":
+    if cfg.act != "swiglu":
         raise NotImplementedError(
-            f"{cfg.name}: norm={cfg.norm} act={cfg.act} arrive with the "
-            "model-family slice")
+            f"{cfg.name}: act={cfg.act} arrives with the port's "
+            "enc-dec/SSM slice (whisper-base)")
     dtype = getattr(torch, cfg.dtype)
     pattern = layer_pattern(cfg)
     assert cfg.num_layers % len(pattern) == 0, \
@@ -132,8 +136,7 @@ def init_params(cfg, seed: int, device):
         "embed": _normal(gen, (cfg.padded_vocab, d), dtype, device, 0.02),
         "layers": [_init_sublayer(gen, cfg, sub, np_, dtype, device)
                    for sub in pattern],
-        "final_norm": {"scale": torch.ones((d,), dtype=dtype,
-                                           device=device)},
+        "final_norm": L.init_norm(d, cfg.norm, dtype, device),
     }
     if not cfg.tie_embeddings:
         params["head"] = _normal(gen, (d, cfg.padded_vocab), dtype, device,
@@ -192,11 +195,16 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     metrics["router_logits"] = m["router_logits"].reshape(
                         h.shape[0], h.shape[1], -1)
         else:
-            fp = p["ffn"]
-            y = torch.nn.functional.silu(h @ fp["w_gate"]) \
-                * (h @ fp["w_up"]) @ fp["w_down"]
+            y = dense_ffn(p["ffn"], h)
         x = x + y
     return x, metrics
+
+
+def dense_ffn(fp, h):
+    """A dense sublayer's SwiGLU FFN (plain torch: the reference's is
+    plain jnp, no kernel)."""
+    return torch.nn.functional.silu(h @ fp["w_gate"]) \
+        * (h @ fp["w_up"]) @ fp["w_down"]
 
 
 def _moe_groups(h):
@@ -226,18 +234,16 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
         raise NotImplementedError(
             f"remat={remat!r} arrives with the training slice of the "
             "PyTorch port")
-    if "vis_embeds" in batch or "enc_embeds" in batch:
+    if "enc_embeds" in batch:
         raise NotImplementedError(
-            "vision and encoder inputs arrive with the model-family slice "
-            "of the PyTorch port")
+            "encoder inputs arrive with the port's enc-dec/SSM slice")
     pattern = layer_pattern(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
-    bsz, seq_len = tokens.shape
-    pos = batch.get("positions")
+    x = _embed(params, batch)
+    bsz, seq_len = batch["tokens"].shape
+    pos = batch.get("positions")    # (B, S), or (B, S, 3) under mrope
     if pos is None:
         pos = torch.arange(seq_len, dtype=torch.int32,
-                           device=tokens.device)[None].expand(bsz, seq_len)
+                           device=x.device)[None].expand(bsz, seq_len)
     if token_mask is None:
         token_mask = batch.get("token_mask")
     np_ = cfg.num_layers // len(pattern)
@@ -262,6 +268,17 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     if rl:   # the EP data plane does not emit router logits
         metrics["router_logits"] = torch.stack(rl)
     return _lm_head(cfg, params, x), metrics
+
+
+def _embed(params, batch):
+    """Token embeddings; a VLM's `vis_embeds` (B, S, D) replace them
+    where `vis_mask` (B, S) is set (early fusion of the stub vision
+    frontend's patch embeddings)."""
+    x = params["embed"][batch["tokens"].long()]
+    if "vis_embeds" in batch:
+        x = torch.where(batch["vis_mask"][..., None],
+                        batch["vis_embeds"].to(x.dtype), x)
+    return x
 
 
 def _stack_metrics(ms, collect: bool, device):
@@ -329,14 +346,17 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     place and returned. Returns (logits (B,S_new,V), cache, metrics)."""
     pattern = layer_pattern(cfg)
     tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
+    x = _embed(params, batch)
     bsz, s_new = tokens.shape
     steps = torch.arange(s_new, dtype=torch.int32, device=tokens.device)
-    if isinstance(cache_len, int):
-        pos = (cache_len + steps)[None].expand(bsz, s_new)
-    else:
+    if not isinstance(cache_len, int):
         cache_len = cache_len.to(torch.int32)
-        pos = cache_len[:, None] + steps[None]
+    pos = batch.get("positions")    # (B, S_new), or (B, S_new, 3)
+    if pos is None:
+        if isinstance(cache_len, int):
+            pos = (cache_len + steps)[None].expand(bsz, s_new)
+        else:
+            pos = cache_len[:, None] + steps[None]
     # continuous batching: mask of tokens whose routing counts toward the
     # control plane's expert-load metric — per-token (B, S_new) via
     # 'token_mask' (padded prefill) or per-slot (B,) via 'active'

@@ -153,5 +153,5 @@ def test_forward_rejects_what_is_not_ported():
     tb = {"tokens": torch.from_numpy(_tokens(cfg))}
     with pytest.raises(NotImplementedError, match="training slice"):
         T.forward(cfg, tp, tb, remat="full")
-    with pytest.raises(NotImplementedError, match="model-family"):
-        T.forward(cfg, tp, dict(tb, vis_embeds=torch.zeros(1)))
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        T.forward(cfg, tp, dict(tb, enc_embeds=torch.zeros(1)))

@@ -735,3 +735,39 @@ def test_sampler_on_card_matches_cpu_without_host_sync(cuda):
     uncut = (p >= 1.0).numpy()
     np.testing.assert_array_equal(got.cpu().numpy()[uncut],
                                   want.numpy()[uncut])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "qwen3-32b"])
+def test_decode_step_strided_positions_reach_the_kernel(cuda, arch):
+    """A decode step whose query positions are a strided view (qwen2-vl's
+    explicit (B, 1, 3) M-RoPE positions; a scalar cache length over a
+    batch, broadcast to every row) launches the decode-attention kernel
+    and matches the plain path within the float32 tolerance."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    cfg = get_config(arch, smoke=True).with_(dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+    b, plen = 3, 6
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
+                         device=cuda)
+    nxt = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                        device=cuda)
+    batch = {"tokens": nxt}
+    if cfg.rope == "mrope":
+        batch["positions"] = torch.tensor(
+            [[[plen, 2, 3]], [[plen, 0, 1]], [[plen + 4, 1, 1]]],
+            dtype=torch.int32, device=cuda)
+    outs = []
+    for c in (cfg, cfg.with_(impl="ref")):
+        cache = T.init_cache(c, params, b, 16)
+        T.decode_step(c, params, {"tokens": toks}, cache, 0)
+        K.reset_launch_counts()
+        lg, _, _ = T.decode_step(c, params, batch, cache, plen)
+        outs.append((lg, K.launch_counts()["decode_attention"]))
+    assert outs[0][1] == cfg.num_layers and outs[1][1] == 0
+    torch.testing.assert_close(outs[0][0], outs[1][0], atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
