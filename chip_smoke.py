@@ -23,8 +23,9 @@ Phases, each fatal on failure:
      beside the eager time each has ``device_ms``, 20 launches captured
      in a CUDA graph and timed by replay, as has its library call; then
      the same records at phase 8's new geometries: ``fused_gate_up`` and
-     ``gmm`` at llama4's decode (E 128, C 1) and prefill (C 5) and
-     grok-1's (F 32768), decode attention (both layouts) at (H, KV, hd)
+     ``gmm`` at llama4's decode (E 128, C 1) and prefill (C 5),
+     grok-1's (F 32768) and jamba's (E 16, C 2 and 80), decode
+     attention (both layouts) at (H, KV, hd)
      = (32, 8, 160), (96, 8, 128) and (12, 2, 128), each on the path its
      geometry takes;
   4. the slice at full width: mixtral-8x7b at its published widths (8 of
@@ -106,9 +107,19 @@ Phases, each fatal on failure:
      kernel launch on "wgmma"), the median decode step and prefill
      timed; every layer's sublayers through the kernels against the
      plain path; qwen2-vl also with 64 patch embeddings and 3-axis
-     M-RoPE positions; phase 5 then holds each family's smoke config
+     M-RoPE positions. The recurrent stacks, jamba-v0.1-52b (one
+     8-layer period: 1 attention, 7 mamba, 4 MoE layers of 16 experts)
+     with a MoEless controller and xlstm-125m (all 12 layers, no kernel
+     on its path), serve the same 8 requests on the contiguous cache
+     only (paged KV must raise ``ValueError``), prompts prefilled at
+     exact length: every request to its budget, jamba's expert launches
+     all on "wgmma" and its sublayers kernels vs plain, each mixer's
+     ``*_seq`` and ``*_step`` held to each other at float32, and a
+     prefill into a fresh cache held to ``forward``'s logits (the
+     reference's prefill into a cache runs its mixers over the first
+     prompt token only). Phase 5 then holds each family's smoke config
      (and llama4's at its interleave) to the plain path's tokens on
-     the contiguous and paged-chunked caches.
+     the contiguous and (attention-only stacks) paged-chunked caches.
 
 Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 5.
 
@@ -1088,7 +1099,13 @@ FAMILY_LAYERS = {
     "command-r-plus-104b": 2,         # of 64
     "stablelm-12b": 40,               # all
     "qwen2-vl-2b": 28,                # all
+    "jamba-v0.1-52b": 8,              # one period of 32: 1 attention,
+    #                                   7 mamba, 4 MoE (E16) + 4 dense
+    "xlstm-125m": 12,                 # all
 }
+# the recurrent stacks: contiguous KV only (a paged pool has no place
+# for per-slot recurrent state), prompts prefilled at exact length
+RECURRENT = ("jamba-v0.1-52b", "xlstm-125m")
 FAMILY_LENS, FAMILY_GENS = (128, 256, 384, 512), (16, 32)
 FAMILY_MAX_LEN = max(FAMILY_LENS) + max(FAMILY_GENS) + 1
 
@@ -1108,14 +1125,16 @@ def attention_path(cfg) -> str:
 
 def family_shapes(slots: int, bucket: int):
     """Phase 8's new kernel geometries: ``fused_gate_up``/``gmm`` at
-    llama4's (E 128, top-1) and grok-1's (F 32768) decode and prefill
-    (group sizes from a seeded routing of `slots` and `bucket` tokens,
-    clipped at the capacity), and the decode-attention geometries that
-    no earlier phase runs: (H, KV, hd) = (32, 8, 160) stablelm,
-    (96, 8, 128) command-r+, (12, 2, 128) qwen2-vl."""
+    llama4's (E 128, top-1), grok-1's (F 32768) and jamba's (E 16,
+    top-2) decode and prefill (group sizes from a seeded routing of
+    `slots` and `bucket` tokens, clipped at the capacity), and the
+    decode-attention geometries that no earlier phase runs: (H, KV, hd)
+    = (32, 8, 160) stablelm, (96, 8, 128) command-r+, (12, 2, 128)
+    qwen2-vl."""
     gmm = []
     for arch, short in (("llama4-maverick-400b-a17b", "llama4"),
-                        ("grok-1-314b", "grok-1")):
+                        ("grok-1-314b", "grok-1"),
+                        ("jamba-v0.1-52b", "jamba")):
         cfg = family_config(arch)
         e, k = cfg.moe.num_experts, cfg.moe.top_k
         d, f = cfg.d_model, cfg.moe.d_ff
@@ -1261,16 +1280,41 @@ def compare_logits(name, got, want, loads_got, loads_want) -> dict:
     return out
 
 
+def clone_tree(tree):
+    """A copy of a cache tree (dicts, lists and tuples of tensors)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def _attention_pair(name, layer, cfg, p, c, h, pos, cache_len, block_tables,
+                    errs):
+    """One attention sublayer through the kernel and the plain path,
+    each on its own copy of the layer's cache: checked within the bf16
+    tolerance, the plain output returned."""
+    from repro_torch.models import layers as L
+    outs = [L.attention_block(p["attn"], cfg, h, pos, cache=clone_tree(c),
+                              cache_len=cache_len, impl=impl,
+                              block_tables=block_tables)[0]
+            for impl in ("auto", "ref")]
+    errs["attention"] = max(errs["attention"], check(
+        f"{name}, layer {layer} attention", outs[0], outs[1],
+        torch.bfloat16))
+    return outs[1]
+
+
 def sublayer_check(name, cfg, params, tokens, cache, cache_len,
                    token_mask, block_tables=None, ep=None,
                    extra=None) -> dict:
     """Every layer's attention and MoE sublayer through the kernels and
     through the plain path, both from the same input (the plain path's
     hidden state), so both route identically: each output pair must
-    agree elementwise within the bf16 tolerance. A dense sublayer's FFN
-    (plain torch on both paths) carries the state on. With
-    `block_tables` the cache is the paged pool and every row writes one
-    token. With `ep` = (EPContext, ep_state) the MoE sublayers run
+    agree elementwise within the bf16 tolerance. A recurrent mixer and a
+    dense sublayer's FFN (plain torch on both paths) carry the state on.
+    With `block_tables` the cache is the paged pool and every row writes
+    one token. With `ep` = (EPContext, ep_state) the MoE sublayers run
     through the EP slot plane on the runtime's tables and banks. `extra`
     adds a VLM's vis_embeds/vis_mask and (B, S, 3) positions. Returns
     the largest error of each sublayer kind."""
@@ -1294,20 +1338,16 @@ def sublayer_check(name, cfg, params, tokens, cache, cache_len,
               for j, sub in enumerate(pattern)]
     for i, j, sub in layers:
         p = T._period(params["layers"][j], i)
-        c = T._period(cache[j], i)["attn"]
+        c = T._period(cache[j], i)
         h = L.norm(x, p["norm1"], cfg.norm)
-        outs = []
-        for impl in ("auto", "ref"):
-            own = {k: v.clone() for k, v in c.items()}
-            outs.append(L.attention_block(p["attn"], cfg, h, pos,
-                                          cache=own, cache_len=cache_len,
-                                          impl=impl,
-                                          block_tables=block_tables)[0])
         layer = i * len(pattern) + j
-        errs["attention"] = max(errs["attention"], check(
-            f"{name}, layer {layer} attention", outs[0], outs[1],
-            torch.bfloat16))
-        x = x + outs[1]
+        if sub.mixer != "attn":
+            x = x + T._apply_mixer(cfg, sub, p, h, clone_tree(c))
+        else:
+            x = x + _attention_pair(name, layer, cfg, p, c["attn"], h, pos,
+                                    cache_len, block_tables, errs)
+        if sub.ffn == "none":
+            continue
         h = L.norm(x, p["norm2"], cfg.norm)
         if sub.ffn == "dense":
             x = x + T.dense_ffn(p["ffn"], h)
@@ -1379,8 +1419,7 @@ def logits_check(cfg, params, prompts, max_len: int, slots: int):
             active[:, None])
         outs = []
         for c in (cfg, ref_cfg):
-            state = [{"attn": {k: v.clone() for k, v in d["attn"].items()}}
-                     for d in pool]
+            state = clone_tree(pool)
             lg, _, m = T.decode_step(c, params, {"tokens": nxt,
                                                  "active": active},
                                      state, lengths)
@@ -2762,12 +2801,185 @@ def family_phase(arch: str, card: str) -> dict:
     return rec
 
 
+def mixer_identity(kind: str, cfg, s: int = 64, b: int = 2) -> dict:
+    """One recurrent mixer at `cfg`'s full width, float32 (TF32 off),
+    weights and inputs from a seed on the card: ``*_seq`` from the zero
+    state against ``*_step`` token by token, and ``*_seq`` over the
+    second half from the state after the first half against the tail of
+    ``*_seq`` over all `s` tokens (what a prompt prefilled into a cache
+    computes): outputs and final states within the float32 tolerance.
+    Returns the largest error of each comparison."""
+    from repro_torch.models import ssm as S
+    f32, dev = torch.float32, "cuda"
+    gen = torch.Generator(device=dev).manual_seed(7)
+    d, h = cfg.d_model, cfg.num_heads
+    if kind == "mamba":
+        p, arg = S.init_mamba(gen, d, cfg.ssm, f32, dev), cfg.ssm
+        zero = S.init_mamba_state(p, cfg.ssm, b)
+    elif kind == "mlstm":
+        p, arg = S.init_mlstm(gen, d, h, cfg.ssm.expand, f32, dev), h
+        zero = S.init_mlstm_state(cfg, b, cfg.ssm.expand, dev)
+    else:
+        p, arg = S.init_slstm(gen, d, h, f32, dev), h
+        zero = S.init_slstm_state(d, h, b, dev)
+    seq, step = getattr(S, f"{kind}_seq"), getattr(S, f"{kind}_step")
+    x = torch.randn((b, s, d), generator=gen, device=dev)
+
+    def leaves(st):
+        return [st[k] for k in sorted(st)] if isinstance(st, dict) \
+            else list(st)
+
+    def held(what, y, st, y_ref, st_ref):
+        return max([check(f"{kind} {what}, y", y, y_ref, f32)]
+                   + [check(f"{kind} {what}, state", a, r, f32)
+                      for a, r in zip(leaves(st), leaves(st_ref))])
+
+    with torch.no_grad():
+        y, st = seq(p, x, arg)
+        ys, sts = [], zero
+        for t in range(s):
+            yt, sts = step(p, x[:, t:t + 1], sts, arg)
+            ys.append(yt)
+        err_step = held("step by step vs seq", torch.cat(ys, 1), sts, y, st)
+        _, mid = seq(p, x[:, :s // 2], arg)
+        y2, st2 = seq(p, x[:, s // 2:], arg, mid)
+        err_cont = held("seq from a state vs seq", y2, st2, y[:, s // 2:],
+                        st)
+    log(f"  {kind} at d_model {d}, float32, {b} x {s} tokens: *_step token "
+        f"by token vs *_seq max_abs_err={err_step:.3e}; *_seq from the "
+        f"state after {s // 2} vs the tail of *_seq max_abs_err="
+        f"{err_cont:.3e} (atol=rtol={TOL[f32]})")
+    return {"step_vs_seq": err_step, "seq_from_state_vs_seq": err_cont}
+
+
+def prefill_forward_check(cfg, params, prompt, max_len: int) -> dict:
+    """The fault's guard on the card: a prompt prefilled into a fresh
+    cache (``decode_step``, every recurrent mixer over every prompt
+    token) gives ``forward``'s logits at every position, through the
+    kernels. Fatal: elementwise within the bf16 tolerance where every
+    MoE layer routed the same loads (a near-tied route may flip on a
+    last-bit difference of the attention paths), else argmax agreement
+    at 99% of the positions or more."""
+    from repro_torch.models import transformer as T
+    dev = params["embed"].device
+    toks = torch.from_numpy(prompt[None].astype(np.int64)).to(dev)
+    with torch.no_grad():
+        fl, fm = T.forward(cfg, params, {"tokens": toks})
+        cache = T.init_cache(cfg, params, 1, max_len)
+        dl, _, dm = T.decode_step(cfg, params, {"tokens": toks}, cache, 0)
+        del cache
+    res = compare_logits(f"prefill of {toks.shape[1]} tokens into a fresh "
+                         "cache vs forward, every position", dl[0], fl[0],
+                         dm.get("expert_load"), fm.get("expert_load"))
+    if res.get("same_expert_loads", True):
+        check("prefill into a cache vs forward", dl, fl, torch.bfloat16)
+    elif res["argmax_equal"] < 0.99:
+        raise AssertionError(f"prefill into a cache vs forward: argmax "
+                             f"agrees at {res['argmax_equal']:.3f}")
+    return res
+
+
+def recurrent_phase(arch: str, card: str) -> dict:
+    """Phase 8 for a recurrent stack at its published widths: built on
+    the card from a seed at bf16; 8 requests served through
+    ``ServingEngine`` on the contiguous cache (jamba with a MoEless
+    controller over 8 devices), prompts prefilled at exact length:
+    every request ends with its budget, the paged layout raises
+    ``ValueError``, each kernel's launches counted (the expert kernels'
+    all on "wgmma"; xlstm launches none), the median decode step and the
+    prefill by prompt length timed; then jamba's sublayers through the
+    kernels against the plain path, each mixer's ``*_seq`` and
+    ``*_step`` held to each other at float32, and a prefill into a
+    fresh cache held to ``forward``. Returns the family's record."""
+    from repro_torch.configs import ServingSpec, get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.transformer import layer_pattern
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+    cfg = family_config(arch)
+    slots, max_len = 8, FAMILY_MAX_LEN
+    subs = layer_pattern(cfg)
+    pattern = [f"{sub.mixer}+{sub.ffn}" for sub in subs]
+    moe = (f", {cfg.moe.num_experts} experts x d_ff {cfg.moe.d_ff} top-"
+           f"{cfg.moe.top_k} every {cfg.moe.every_n_layers}"
+           if cfg.is_moe else "")
+    log(f"  {arch}: layers {cfg.num_layers} of "
+        f"{get_config(arch).num_layers} (period {pattern}), d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} kv, "
+        f"d_ff {cfg.d_ff}{moe}, {cfg.ssm}, vocab {cfg.vocab_size}, "
+        f"{cfg.norm}, rope {cfg.rope}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    kernels = (["fused_gate_up", "gmm"] if cfg.is_moe else []) + \
+        (["decode_attention"] if any(sub.mixer == "attn" for sub in subs)
+         else [])
+    log(f"  params {n_par / 1e9:.2f} B, {n_bytes / 1e9:.1f} GB, made in "
+        f"{time.perf_counter() - t0:.1f} s; kernels on its path: "
+        + (", ".join(kernels) if kernels else
+           "none (its mixers are plain torch, as the reference's are "
+           "plain jnp, and it has no attention or MoE layer)"))
+    rec = {"layers": cfg.num_layers, "weights_gb": n_bytes / 1e9,
+           "kernels": kernels}
+    try:
+        ServingEngine(cfg, params, max_len=max_len,
+                      serving=ServingSpec(kv="paged", kv_block=PAGED_BLOCK))
+    except ValueError as e:
+        log(f"  paged KV refused: {e}")
+    else:
+        raise AssertionError(f"{arch}: paged KV did not raise")
+    ctrl = MoElessController(cfg, num_devices=8) if cfg.is_moe else None
+    engine = ServingEngine(cfg, params, max_len=max_len, controller=ctrl)
+    reqs = make_requests(cfg, FAMILY_LENS, FAMILY_GENS, slots, seed=8)
+    torch.cuda.reset_peak_memory_stats()
+    with GmmPaths() as paths:
+        res, launches, pre_s, dec_s, _, wall = serve_timed(engine, reqs,
+                                                           slots)
+    check_budgets(reqs, f"{arch} request")
+    if kernels:
+        _check_launches(cfg, f"{arch} contiguous", launches, paths,
+                        "decode_attention")
+    elif any(launches.values()):
+        raise AssertionError(f"{arch}: kernels launched {launches}")
+    pre = {n: float(np.median(v)) * 1e3 for n, v in sorted(pre_s.items())}
+    rec["contiguous"] = dict(
+        launches=launches, gmm_paths=paths.counts,
+        decode_ms=float(np.median(dec_s)) * 1e3, prefill_ms=pre,
+        wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  contiguous: {res.generated_tokens} tokens in {res.iterations} "
+        f"steps + {res.prefills} prefills at exact length, launches "
+        f"{launches}, moe_gmm by path {paths.counts}; on {card}: decode "
+        f"step median {rec['contiguous']['decode_ms']:.2f} ms over "
+        f"{len(dec_s)}, prefill median ms by prompt length "
+        f"{ {n: round(v, 2) for n, v in pre.items()} }, whole run "
+        f"{wall:.2f} s, max_memory_allocated "
+        f"{rec['contiguous']['peak_gb']:.2f} GB")
+    if ctrl is not None and len(ctrl.plans) != \
+            cfg.num_layers // cfg.moe.every_n_layers:
+        raise AssertionError(f"{arch}: {len(ctrl.plans)} layer plans")
+    del engine, ctrl
+    prompts = [r.prompt for r in reqs]
+    if kernels:
+        rec["logits"] = logits_check(cfg, params, prompts, max_len, slots)
+    rec["prefill_vs_forward"] = prefill_forward_check(
+        cfg, params, max(prompts, key=len), max_len)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["mixers"] = {kind: mixer_identity(kind, cfg) for kind in
+                     sorted({sub.mixer for sub in subs} - {"attn"})}
+    torch.cuda.empty_cache()
+    return rec
+
+
 def family_identity(arch: str, **over) -> None:
     """A family's smoke config at float32 (`over` replaces its MoE
     fields): greedy tokens through the kernels on the contiguous cache
-    and on the paged pool with chunked prefill equal the plain path's on
-    the contiguous cache, request by request, a MoE config at a
-    drop-free capacity factor with a MoEless controller."""
+    and (an attention-only stack) on the paged pool with chunked prefill
+    equal the plain path's on the contiguous cache, request by request,
+    a MoE config at a drop-free capacity factor with a MoEless
+    controller."""
     from repro_torch.configs import ServingSpec, get_config
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import MoElessController, ServingEngine
@@ -2778,11 +2990,11 @@ def family_identity(arch: str, **over) -> None:
         small = small.with_(num_layers=2 * small.moe.every_n_layers)
     sp = init_params(small, seed=0, device="cuda")
     got = {}
-    for label, impl, spec in (
-            ("contiguous", "ref", ServingSpec()),
+    runs = [("contiguous", "ref", ServingSpec()),
             ("contiguous", "auto", ServingSpec()),
             ("paged chunked", "auto", ServingSpec(kv="paged", kv_block=5,
-                                                  prefill_chunk=7))):
+                                                  prefill_chunk=7))]
+    for label, impl, spec in runs[:2] if arch in RECURRENT else runs:
         ctrl = MoElessController(small) if small.is_moe else None
         eng = ServingEngine(small, sp, max_len=64 + 24 + 1, impl=impl,
                             controller=ctrl, serving=spec)
@@ -2794,9 +3006,11 @@ def family_identity(arch: str, **over) -> None:
             bad = [i for i in base if got[(label, impl)][i] != base[i]]
             raise AssertionError(f"{arch} {over}: {label} impl={impl} "
                                  f"tokens differ for requests {bad}")
+    layouts = "contiguous" if arch in RECURRENT else \
+        "contiguous and paged chunked"
     log(f"  {arch}{' ' + str(over) if over else ''}: "
-        f"{sum(map(len, base.values()))} tokens: contiguous and paged "
-        f"chunked impl=auto == contiguous impl=ref")
+        f"{sum(map(len, base.values()))} tokens: {layouts} impl=auto == "
+        f"contiguous impl=ref")
 
 
 # ------------------------------------------------------------ main
@@ -2839,8 +3053,8 @@ def main() -> int:
     rec.update(check_decode_attention_paged(
         gen, shapes["decode_attention_paged"]))
     rec.update(check_quant_kernels(gen, shapes))
-    log("  phase 8's new geometries (llama4, grok-1, stablelm, command-r+, "
-        "qwen2-vl)")
+    log("  phase 8's new geometries (llama4, grok-1, jamba, stablelm, "
+        "command-r+, qwen2-vl)")
     for k_name, rows in check_family_shapes(gen, slots,
                                             FAMILY_MAX_LEN).items():
         rec[k_name]["family_shapes"] = rows
@@ -2919,20 +3133,23 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    log("[8] the decoder model families at their published widths")
+    log("[8] the model families at their published widths")
     t8 = time.perf_counter()
     families = {}
     for arch in FAMILY_LAYERS:
-        families[arch] = family_phase(arch, card)
+        phase = recurrent_phase if arch in RECURRENT else family_phase
+        families[arch] = phase(arch, card)
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
     log("  phase 8 summary: " + json.dumps({
         arch: {"layers": r["layers"], "weights_gb": round(r["weights_gb"], 2),
-               "attention_path": r["attention_path"],
+               "attention_path": r.get("attention_path"),
                "decode_ms": round(r["contiguous"]["decode_ms"], 3),
                "prefill_ms": {bk: round(v, 3) for bk, v in
                               r["contiguous"]["prefill_ms"].items()},
-               "paged_decode_ms": round(r["paged"]["decode_ms"], 3),
-               "paged_mixed_ms": round(r["paged"]["mixed_ms"], 3)}
+               "peak_gb": round(r["contiguous"]["peak_gb"], 2),
+               **({"paged_decode_ms": round(r["paged"]["decode_ms"], 3),
+                   "paged_mixed_ms": round(r["paged"]["mixed_ms"], 3)}
+                  if "paged" in r else {})}
         for arch, r in families.items()}))
 
     log("[5] token identity at float32 (smoke config): kernels vs plain")
@@ -2949,8 +3166,8 @@ def main() -> int:
     log("  the load predictor on the session controller (distance 1)")
     predictor_identity(small, sp)
     del sp
-    log("  the decoder families' smoke configs (llama4 also at its "
-        "dense/MoE interleave)")
+    log("  the model families' smoke configs (llama4 also at its "
+        "dense/MoE interleave; jamba and xlstm on the contiguous cache)")
     for arch in FAMILY_LAYERS:
         family_identity(arch)
     family_identity("llama4-maverick-400b-a17b", every_n_layers=2)
@@ -2968,8 +3185,9 @@ def main() -> int:
     for k_name in ("fused_gate_up", "gmm", "decode_attention",
                    "decode_attention_paged"):
         rec[k_name]["family_launches"] = {
-            arch: r["contiguous"]["launches"][k_name]
-            + r["paged"]["launches"][k_name] for arch, r in families.items()}
+            arch: sum(r[kv]["launches"][k_name]
+                      for kv in ("contiguous", "paged") if kv in r)
+            for arch, r in families.items()}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

@@ -9,10 +9,13 @@
         --kv paged --temperature 0,0.8
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         --predictor 0,1
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        --arch jamba-v0.1-52b --layers 8 --prefill 3
 
 Serves the same traffic as ``chip_smoke.py``'s full-width phase
-(mixtral-8x7b at its published widths, depth cut to ``--layers``, bf16,
-random seeded weights, ``MoElessController`` attached, 8 slots, 12
+(``--arch``, mixtral-8x7b by default, at its published widths, depth cut
+to ``--layers``, bf16, random seeded weights, a MoE arch with
+``MoElessController`` attached, 8 slots, 12
 requests with prompts of 128/256/384/512 tokens and 16/32/48 new
 tokens, all arriving at t=0) through one engine per KV layout named in
 ``--kv``: ``contiguous`` (the slot cache, solo prefill) and ``paged``
@@ -99,6 +102,7 @@ def _launches(prof, steps: int) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -146,8 +150,11 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
-    full = get_config("mixtral-8x7b")
+    full = get_config(args.arch)
     cfg = full.with_(num_layers=args.layers)
+    if not cfg.is_moe and ("ep-int8" in layouts or max(preds)):
+        raise SystemExit(f"profile_decode: {cfg.name} has no MoE layer for "
+                         "the expert runtime or the load predictor")
     params = init_params(cfg, seed=args.seed, device="cuda")
     lens, gens = (128, 256, 384, 512), (16, 32, 48)
 
@@ -172,7 +179,8 @@ def main(argv=None) -> int:
         ctrl = MoElessController(c, num_devices=8,
                                  slots_per_device=8 if runtime else 0,
                                  predictor=from_gates(c, params, 1)
-                                 if with_pred else None)
+                                 if with_pred else None) \
+            if c.is_moe else None
         engine = ServingEngine(c, params, max_len=512 + 48 + 1,
                                controller=None if runtime else ctrl,
                                serving=specs[kv],
@@ -181,7 +189,8 @@ def main(argv=None) -> int:
         host = hosts[name] = {"model_call": 0.0, "control_plane": 0.0,
                             "runtime": 0.0}
         engine._step = timed(host, "model_call", engine._step)
-        ctrl.step = timed(host, "control_plane", ctrl.step)
+        if ctrl is not None:
+            ctrl.step = timed(host, "control_plane", ctrl.step)
         rng = np.random.default_rng(args.seed)
         engine.start(num_slots=8, control=ctrl if runtime else None)
         rt = engine._session.runtime
@@ -266,7 +275,7 @@ def main(argv=None) -> int:
         engine.close()
 
     print(f"card: {card}")
-    print(f"mixtral-8x7b, {cfg.num_layers} of {full.num_layers} layers, "
+    print(f"{cfg.name}, {cfg.num_layers} of {full.num_layers} layers, "
           f"{cfg.dtype}, 8 slots all decoding; layouts {', '.join(names)} in "
           f"one process, taking turns step by step; {len(rows[names[0]])}"
           f" rounds counted, {args.steps} steps traced per layout")

@@ -100,7 +100,6 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
     pattern = T.layer_pattern(cfg)
     periods = cfg.num_layers // len(pattern)
     d = cfg.d_model
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     n_mats = 3 if cfg.act == "swiglu" else 2
     nd = d if cfg.norm == "rmsnorm" else 2 * d    # scale (+ bias)
     total = cfg.padded_vocab * d + nd
@@ -108,11 +107,7 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
         total += d * cfg.padded_vocab
     expert = 0
     for sub in pattern:
-        n = nd + 2 * d * h * hd + 2 * d * kvh * hd
-        if cfg.qkv_bias:
-            n += h * hd + 2 * kvh * hd
-        if cfg.qk_norm:
-            n += 2 * hd
+        n = nd + _mixer_params(cfg, sub.mixer)
         if sub.ffn != "none":
             n += nd
             if sub.ffn == "moe":
@@ -127,3 +122,27 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
         total -= expert
         total += expert * cfg.moe.top_k // cfg.moe.num_experts
     return total
+
+
+def _mixer_params(cfg, mixer: str) -> int:
+    """Parameters of one sublayer's mixer (``models.ssm`` init shapes
+    for the recurrent ones)."""
+    d, nh = cfg.d_model, cfg.num_heads
+    if mixer == "mamba":
+        di, n = cfg.ssm.expand * d, cfg.ssm.d_state
+        r = max(1, -(-d // 16))                     # dt_rank
+        return d * 2 * di + cfg.ssm.d_conv * di + di + di * (r + 2 * n) \
+            + r * di + di + di * n + di + di * d
+    if mixer == "mlstm":
+        di = cfg.ssm.expand * d
+        return d * 2 * di + 3 * di * di + di * 2 * nh + 2 * nh + di * d
+    if mixer == "slstm":
+        hd = d // nh
+        return d * 4 * d + nh * hd * 4 * hd + 4 * d + d * 2 * d + d * d
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    n = 2 * d * nh * hd + 2 * d * kvh * hd
+    if cfg.qkv_bias:
+        n += nh * hd + 2 * kvh * hd
+    if cfg.qk_norm:
+        n += 2 * hd
+    return n

@@ -52,7 +52,7 @@ def experts_ffn(p, x, act: str, *, group_sizes=None, impl: str = "ref"):
     if act != "swiglu":
         raise NotImplementedError(
             "only SwiGLU experts are ported so far (gelu comes with the "
-            "enc-dec/SSM model-family slice of the PyTorch port)")
+            "enc-dec model-family slice of the PyTorch port)")
     if group_sizes is None:
         group_sizes = torch.full((x.shape[0],), x.shape[1],
                                  dtype=torch.int32, device=x.device)

@@ -3,9 +3,17 @@ layer *periods* (the reference scans them with ``lax.scan``).
 
 A "period" is the smallest repeating pattern of sublayers (1 for the
 uniform decoders, 2 for llama4's dense/MoE interleave at
-``every_n_layers=2``). Parameters of sublayer j are
-stacked over num_periods, exactly as the reference stores them, so the
-reference's weights convert leaf for leaf (``repro_torch.params``).
+``every_n_layers=2`` and for xLSTM's mLSTM/sLSTM alternation, 8 for
+Jamba's 1:7 attention:mamba interleave with MoE every 2). Parameters of
+sublayer j are stacked over num_periods, exactly as the reference
+stores them, so the reference's weights convert leaf for leaf
+(``repro_torch.params``).
+
+A prompt prefilled into a cache (``decode_step`` with S_new > 1) runs a
+recurrent mixer over every prompt token from the cached state. The
+reference runs its one-token ``*_step`` there, which reads the first
+token only, so its prefill-into-cache of a recurrent model differs from
+its own ``forward``; the port's equals ``forward``.
 
 Entry points:
   init_params(cfg, seed, device)             -> params
@@ -28,21 +36,34 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import prng
+from repro_torch.models import ssm as S
 
 
 @dataclass(frozen=True)
 class SubLayer:
-    mixer: str          # attn (mamba | mlstm | slstm: the SSM slice)
+    mixer: str          # attn | mamba | mlstm | slstm
     ffn: str            # dense | moe | none
 
 
 def layer_pattern(cfg) -> list[SubLayer]:
     """The repeating sublayer pattern (one period) for a config."""
-    if cfg.family in ("ssm", "hybrid") or cfg.ssm is not None \
-            or cfg.encdec is not None:
+    if cfg.encdec is not None:
         raise NotImplementedError(
-            f"{cfg.name}: recurrent, hybrid and encoder-decoder stacks "
-            "arrive with the port's enc-dec/SSM slice")
+            f"{cfg.name}: encoder-decoder stacks arrive with the port's "
+            "enc-dec slice")
+    if cfg.family == "ssm":                      # xLSTM: mLSTM/sLSTM blocks
+        period = cfg.ssm.slstm_every
+        return [SubLayer("slstm" if (i % period == period - 1) else "mlstm",
+                         "none") for i in range(period)]
+    if cfg.family == "hybrid":                   # Jamba
+        pa = cfg.attn_every_n
+        pm = cfg.moe.every_n_layers if cfg.moe else 1
+        period = max(pa, pm)
+        while period % pa or period % pm:
+            period += 1
+        return [SubLayer("attn" if (i % pa == pa // 2) else "mamba",
+                         "moe" if (i % pm == pm - 1) else "dense")
+                for i in range(period)]
     if cfg.is_moe and cfg.moe.every_n_layers > 1:
         pm = cfg.moe.every_n_layers
         return [SubLayer("attn", "moe" if (i % pm == pm - 1) else "dense")
@@ -72,21 +93,30 @@ def _init_sublayer(gen, cfg, sub: SubLayer, periods: int, dtype, device):
     p = {"norm1": _stacked_norm(cfg, periods, dtype, device)}
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     sd = 1.0 / math.sqrt(d)
-    p["attn"] = {
-        "wq": _normal(gen, (periods, d, h * hd), dtype, device, sd),
-        "wk": _normal(gen, (periods, d, kvh * hd), dtype, device, sd),
-        "wv": _normal(gen, (periods, d, kvh * hd), dtype, device, sd),
-        "wo": _normal(gen, (periods, h * hd, d), dtype, device,
-                      1.0 / math.sqrt(h * hd)),
-    }
-    if cfg.qkv_bias:
-        for n, w in (("bq", h * hd), ("bk", kvh * hd), ("bv", kvh * hd)):
-            p["attn"][n] = torch.zeros((periods, w), dtype=dtype,
-                                       device=device)
-    if cfg.qk_norm:
-        for n in ("q_norm", "k_norm"):
-            p["attn"][n] = torch.ones((periods, hd), dtype=dtype,
-                                      device=device)
+    if sub.mixer == "mamba":
+        p["mamba"] = S.init_mamba(gen, d, cfg.ssm, dtype, device, periods)
+    elif sub.mixer == "mlstm":
+        p["mlstm"] = S.init_mlstm(gen, d, h, cfg.ssm.expand, dtype, device,
+                                  periods)
+    elif sub.mixer == "slstm":
+        p["slstm"] = S.init_slstm(gen, d, h, dtype, device, periods)
+    else:
+        p["attn"] = {
+            "wq": _normal(gen, (periods, d, h * hd), dtype, device, sd),
+            "wk": _normal(gen, (periods, d, kvh * hd), dtype, device, sd),
+            "wv": _normal(gen, (periods, d, kvh * hd), dtype, device, sd),
+            "wo": _normal(gen, (periods, h * hd, d), dtype, device,
+                          1.0 / math.sqrt(h * hd)),
+        }
+        if cfg.qkv_bias:
+            for n, w in (("bq", h * hd), ("bk", kvh * hd),
+                         ("bv", kvh * hd)):
+                p["attn"][n] = torch.zeros((periods, w), dtype=dtype,
+                                           device=device)
+        if cfg.qk_norm:
+            for n in ("q_norm", "k_norm"):
+                p["attn"][n] = torch.ones((periods, hd), dtype=dtype,
+                                          device=device)
     if sub.ffn != "none":
         p["norm2"] = _stacked_norm(cfg, periods, dtype, device)
         if sub.ffn == "moe":
@@ -123,7 +153,7 @@ def init_params(cfg, seed: int, device):
     if cfg.act != "swiglu":
         raise NotImplementedError(
             f"{cfg.name}: act={cfg.act} arrives with the port's "
-            "enc-dec/SSM slice (whisper-base)")
+            "enc-dec slice (whisper-base)")
     dtype = getattr(torch, cfg.dtype)
     pattern = layer_pattern(cfg)
     assert cfg.num_layers % len(pattern) == 0, \
@@ -148,7 +178,42 @@ def _period(tree, i: int):
     """Period `i`'s slice of a stacked tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _period(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_period(v, i) for v in tree)
     return tree[i]
+
+
+def _write_state(view, new) -> None:
+    """Copy a mixer's new recurrent state into its cache slice."""
+    if isinstance(view, dict):
+        for k in view:
+            view[k].copy_(new[k])
+    else:
+        for v, n in zip(view, new):
+            v.copy_(n)
+
+
+_SEQ = {"mamba": S.mamba_seq, "mlstm": S.mlstm_seq, "slstm": S.slstm_seq}
+_STEP = {"mamba": S.mamba_step, "mlstm": S.mlstm_step,
+         "slstm": S.slstm_step}
+
+
+def _apply_mixer(cfg, sub: SubLayer, p, h, cache):
+    """A recurrent mixer over h (B, S, D). With no cache, ``*_seq`` from
+    the zero state; with a cache, ``*_step`` for one new token and
+    ``*_seq`` from the cached state for several (a prompt prefilled into
+    the cache), the new state written into the cache slice in place."""
+    arg = cfg.ssm if sub.mixer == "mamba" else cfg.num_heads
+    mp = p[sub.mixer]
+    if cache is None:
+        return _SEQ[sub.mixer](mp, h, arg)[0]
+    state = cache[sub.mixer]
+    if h.shape[1] == 1:
+        y, new = _STEP[sub.mixer](mp, h, state, arg)
+    else:
+        y, new = _SEQ[sub.mixer](mp, h, arg, state)
+    _write_state(state, new)
+    return y
 
 
 # ---------------------------------------------------------------- forward
@@ -158,17 +223,20 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     cache_len=None, window=0, collect: bool = False,
                     token_mask=None, block_tables=None, new_counts=None,
                     ep_ctx=None, ep_state=None):
-    """One sublayer (attention + ffn) with residuals. The layer's cache
+    """One sublayer (mixer + ffn) with residuals. The layer's cache
     slice is written in place. With `ep_ctx` and this sublayer's
     `ep_state` the MoE runs through the EP slot data plane. Returns
     (x, metrics)."""
     metrics = {}
     h = L.norm(x, p["norm1"], cfg.norm)
-    y, _ = L.attention_block(p["attn"], cfg, h, positions,
-                             cache=None if cache is None else cache["attn"],
-                             cache_len=cache_len, window=window,
-                             impl=cfg.impl, block_tables=block_tables,
-                             new_counts=new_counts)
+    if sub.mixer == "attn":
+        y, _ = L.attention_block(
+            p["attn"], cfg, h, positions,
+            cache=None if cache is None else cache["attn"],
+            cache_len=cache_len, window=window, impl=cfg.impl,
+            block_tables=block_tables, new_counts=new_counts)
+    else:
+        y = _apply_mixer(cfg, sub, p, h, cache)
     x = x + y
     if sub.ffn != "none":
         h = L.norm(x, p["norm2"], cfg.norm)
@@ -236,7 +304,7 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
             "PyTorch port")
     if "enc_embeds" in batch:
         raise NotImplementedError(
-            "encoder inputs arrive with the port's enc-dec/SSM slice")
+            "encoder inputs arrive with the port's enc-dec slice")
     pattern = layer_pattern(cfg)
     x = _embed(params, batch)
     bsz, seq_len = batch["tokens"].shape
@@ -302,23 +370,41 @@ def _stack_metrics(ms, collect: bool, device):
 
 
 def init_cache(cfg, params, batch: int, max_len: int):
-    """Cache tree mirroring params['layers']: one {attn: {k, v, pos}}
-    per pattern position, leaves stacked over periods, on the
-    parameters' device."""
+    """Cache tree mirroring params['layers']: per pattern position
+    {attn: {k, v, pos}}, {mamba: {conv, ssm}}, {mlstm: (C, n, m)} or
+    {slstm: (c, n, m, h)}, leaves stacked over periods, on the
+    parameters' device. Recurrent states are float32 (the conv window
+    in the model dtype)."""
     pattern = layer_pattern(cfg)
     np_ = cfg.num_layers // len(pattern)
-    return [{"attn": L.init_attn_cache(cfg, (np_, batch), max_len,
-                                       getattr(torch, cfg.dtype),
-                                       params["embed"].device)}
-            for _ in pattern]
+    dtype, dev = getattr(torch, cfg.dtype), params["embed"].device
+    lead = (np_, batch)
+
+    def one(sub: SubLayer, p):
+        if sub.mixer == "attn":
+            return {"attn": L.init_attn_cache(cfg, lead, max_len, dtype,
+                                              dev)}
+        if sub.mixer == "mamba":
+            return {"mamba": S.init_mamba_state(p["mamba"], cfg.ssm, lead)}
+        if sub.mixer == "mlstm":
+            return {"mlstm": S.init_mlstm_state(cfg, lead, cfg.ssm.expand,
+                                                dev)}
+        return {"slstm": S.init_slstm_state(cfg.d_model, cfg.num_heads,
+                                            lead, dev)}
+
+    return [one(sub, p) for sub, p in zip(pattern, params["layers"])]
 
 
 def init_paged_cache(cfg, params, num_blocks: int, block: int):
     """Paged-pool cache tree: the same per-period stacking as
     ``init_cache``, but each attention sublayer holds ONE global block
     pool (periods, num_blocks, block, KV, hd) addressed by per-row block
-    tables instead of per-slot rows."""
+    tables instead of per-slot rows. Attention-only decoders only:
+    recurrent state is per slot, which block tables cannot express."""
     pattern = layer_pattern(cfg)
+    if any(sub.mixer != "attn" for sub in pattern):
+        raise ValueError(f"{cfg.name}: paged KV requires an attention-only "
+                         "decoder")
     np_ = cfg.num_layers // len(pattern)
     return [{"attn": L.init_paged_attn_cache(cfg, np_, num_blocks, block,
                                              getattr(torch, cfg.dtype),

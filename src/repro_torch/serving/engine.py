@@ -255,6 +255,9 @@ class ServingEngine:
             raise ValueError("serving.kv='paged' needs an attention-only "
                              "decoder (no SSM state, no enc-dec)")
         self.serving = spec
+        # only attention-only decoders prefill right-padded: a pad token
+        # would advance a recurrent state
+        self._pad_prefill = all(sub.mixer == "attn" for sub in pattern)
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         self.max_len = max_len
@@ -345,10 +348,11 @@ class ServingEngine:
     def prefill_request(self, prompt, collect: bool | None = None,
                         sampling: SamplingParams | None = None,
                         rid: int = 0):
-        """Prefill ONE request (B=1) into a fresh cache, right-padded to
-        a power-of-two bucket (pad tokens sit after the prompt so causal
-        attention never sees them and the masked metrics ignore them;
-        pad rows DO occupy MoE capacity, as in the reference). With a
+        """Prefill ONE request (B=1) into a fresh cache. An attention-
+        only decoder is right-padded to a power-of-two bucket (pad tokens
+        sit after the prompt so causal attention never sees them and the
+        masked metrics ignore them; pad rows DO occupy MoE capacity, as
+        in the reference); a recurrent model runs at exact length. With a
         session expert runtime the MoE sublayers run through the EP slot
         data plane, as the batched step does. The first output token is
         sampled under `sampling` (the argmax when None or temperature
@@ -361,7 +365,7 @@ class ServingEngine:
                              f"(0, {self.max_len}]")
         toks = prompt
         bucket = min(self.max_len, max(8, 1 << (plen - 1).bit_length()))
-        if bucket > plen:
+        if self._pad_prefill and bucket > plen:
             toks = np.pad(prompt, (0, bucket - plen))
         mask = np.arange(toks.shape[0]) < plen
         collect = self._collect if collect is None else collect

@@ -42,10 +42,12 @@ def _splice(pool_leaf, row_leaf, slot: int) -> None:
 
 
 def _splice_tree(pool, row, slot: int) -> None:
+    # every leaf of the row, recurrent (SSM) state included: a slot's
+    # previous occupant leaves nothing behind
     if isinstance(pool, dict):
         for k in pool:
             _splice_tree(pool[k], row[k], slot)
-    elif isinstance(pool, list):
+    elif isinstance(pool, (list, tuple)):
         for p, r in zip(pool, row):
             _splice_tree(p, r, slot)
     else:

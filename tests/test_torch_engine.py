@@ -200,7 +200,8 @@ def test_port_imports_neither_jax_nor_reference_at_runtime():
             "repro_torch.kernels.quant, repro_torch.serving.gateway, "
             "repro_torch.core.simulator, repro_torch.models.prng, "
             "repro_torch.core.predictor, repro_torch.training.optimizer, "
-            "repro_torch.configs, repro_torch.models.model, sys; "
+            "repro_torch.configs, repro_torch.models.model, "
+            "repro_torch.models.ssm, sys; "
             "repro_torch.configs.list_archs(); "
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'repro.')) or m == 'repro' for m in sys.modules)")

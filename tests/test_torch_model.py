@@ -31,11 +31,14 @@ from repro_torch.params import from_jax
 torch.set_num_threads(1)
 
 TOL = 1e-4
-ARCHS = ["mixtral-8x7b", "phi-3.5-moe", "grok-1-314b",
-         "llama4-maverick-400b-a17b", "qwen2-72b", "qwen3-32b",
-         "stablelm-12b", "command-r-plus-104b", "qwen2-vl-2b"]
-# the reference's archs whose stacks come with the enc-dec/SSM slice
-DEFERRED = ["whisper-base", "jamba-v0.1-52b", "xlstm-125m"]
+# the attention-only decoders; the recurrent stacks (whose prefill into
+# a cache the reference gets wrong) are held in tests/test_torch_hybrid.py
+ATTN_ARCHS = ["mixtral-8x7b", "phi-3.5-moe", "grok-1-314b",
+              "llama4-maverick-400b-a17b", "qwen2-72b", "qwen3-32b",
+              "stablelm-12b", "command-r-plus-104b", "qwen2-vl-2b"]
+ARCHS = ATTN_ARCHS + ["jamba-v0.1-52b", "xlstm-125m"]
+# the reference's archs whose stacks come with the enc-dec slice
+DEFERRED = ["whisper-base"]
 _jinit = jax.jit(JM.init_params, static_argnums=0)
 
 
@@ -62,7 +65,7 @@ def test_configs_equal_reference_field_by_field(arch, smoke):
 @pytest.mark.parametrize("arch", DEFERRED)
 def test_deferred_archs_raise_naming_their_slice(arch):
     jget_config(arch)                     # the reference serves it
-    with pytest.raises(KeyError, match="enc-dec/SSM slice"):
+    with pytest.raises(KeyError, match="enc-dec slice"):
         get_config(arch)
     assert sorted(list_archs() + DEFERRED) == jlist_archs()
 
@@ -139,7 +142,7 @@ def test_attention_block_matches_reference(s, window, per_row):
     assert tc["k"] is tcache["k"]                  # written in place
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_decode_step_prefill_then_batched_decode(arch):
     """Prefill two prompts into the cache (scalar length), then decode
     greedily with per-row lengths, one row inactive for a step: logits
