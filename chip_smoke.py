@@ -120,8 +120,30 @@ Phases, each fatal on failure:
      prompt token only). Phase 5 then holds each family's smoke config
      (and llama4's at its interleave) to the plain path's tokens on
      the contiguous and (attention-only stacks) paged-chunked caches.
+  9. training at full width (``train_loop.train``, impl "ref": no
+     kernel has a backward): mixtral-8x7b at its published widths, 1 of
+     32 layers (two do not fit the card: ``train_reckoning``), bf16, 8
+     steps of ``TokenStream`` batches of 8 x 256 tokens: every loss
+     finite and the last three below the first three, every step's
+     expert loads summing to B*S*top_k a layer, the peak memory beside
+     the reckoning, one step profiled (forward and backward against the
+     optimizer update, the top device operations); the trained weights
+     serve 4 requests through the kernels (``fused_gate_up``, ``gmm``
+     on "wgmma", ``decode_attention``); from the initial weights every
+     leaf's gradient is finite and nonzero, one step changes every leaf
+     (but norm scales at 1.0, which a step under half a bf16 ulp cannot
+     move); at a drop-free capacity factor two microbatches give the
+     one-microbatch step's loss within 1e-4 and its gradients within 5%
+     of each leaf's norm, remat "none" both bit for bit (with their
+     peaks); and the
+     step at impl "auto" raises ``NotImplementedError`` naming
+     ``fused_gate_up`` with no launch; xlstm-125m trains at all 12
+     layers for 3 steps (the recurrent cells' token loop under
+     backward); a run resumed from a checkpoint on the card (the
+     mixtral smoke config, float32) equals the uninterrupted run bit
+     for bit in parameters, moments and step.
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 5.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 5.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -3013,6 +3035,395 @@ def family_identity(arch: str, **over) -> None:
         f"contiguous impl=ref")
 
 
+# ------------------------------------------------------------ phase 9
+
+# phase 9: mixtral-8x7b trained at its published widths, TRAIN_LAYERS of
+# 32 (train_reckoning: two layers do not fit the card), 8 steps of
+# TokenStream batches of 8 x 256 tokens at impl="ref" (no kernel has a
+# backward); then xlstm-125m at all 12 layers for 3 steps at 8 x 128
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 1, 8, 256, 8
+TRAIN_LR = 3e-4     # the reference's default; 1e-3 and above diverge here
+XLSTM_STEPS, XLSTM_SEQ, XLSTM_BATCH = 3, 128, 8
+RESUME_STEPS, RESUME_AT = 6, 3
+# phase 9 holds a step in two microbatches to the step in one, at a
+# drop-free capacity factor: the loss within MB_LOSS_TOL (the two
+# halves' float32 mean against the whole batch's), each leaf's gradient
+# within GRAD_REL_TOL of its norm (bf16 gradients against float32 sums
+# of two bf16 halves); the step without remat is held to the one with
+# remat full bit for bit, in its loss and gradients
+MB_LOSS_TOL, GRAD_REL_TOL = 1e-4, 5e-2
+
+
+def train_reckoning(cfg) -> dict:
+    """Device memory of one train step in GB, from the parameter count n
+    and the largest leaf L (an expert weight stacked over periods): bf16
+    weights and gradients (2n + 2n), float32 moments (8n); the
+    functional AdamW update holds besides the clipped float32 gradients
+    (4n), the new weights (2n) and moments (8n), and about four float32
+    temporaries of the leaf it is on (16L): 26n + 16L bytes."""
+    n = cfg.num_params()
+    big = (cfg.num_layers // cfg.moe.every_n_layers) * cfg.moe.num_experts \
+        * cfg.d_model * cfg.moe.d_ff
+    return {"params_b": n / 1e9, "weights_gb": 2 * n / 1e9,
+            "grads_gb": 2 * n / 1e9, "moments_gb": 8 * n / 1e9,
+            "step_gb": (26 * n + 16 * big) / 1e9}
+
+
+def _device_total_us(evt) -> float:
+    """Device microseconds of a profiler row, its children included."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_train_step(fn) -> dict:
+    """One call of `fn` (a train step) under torch.profiler: device busy
+    ms, the device ms of the kernels launched inside ``make_train_step``'s
+    two named ranges, and the top device operations by own device time.
+    The ranges hold what the calling thread launches: the forward in
+    "train_step/grads" (autograd runs the backward, remat's recompute
+    included, on a device thread of its own, outside the range) and the
+    optimizer update; the backward is the rest of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_decode import _device_events, _device_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ranges = {}
+    for e in prof.key_averages():     # the range's CPU row, or its
+        if e.key.startswith("train_step/"):    # device annotation
+            ranges[e.key] = max(ranges.get(e.key, 0.0),
+                                _device_total_us(e) / 1e3)
+    kernels = sorted(((e.key, _device_us(e) / 1e3, e.count)
+                      for e in _device_events(prof)
+                      if not e.key.startswith("train_step/")),
+                     key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    fwd = ranges.get("train_step/grads", 0.0)
+    upd = ranges.get("train_step/update", 0.0)
+    return {"busy_ms": busy, "forward_ms": fwd, "update_ms": upd,
+            "backward_ms": busy - fwd - upd,
+            "launches": sum(k[2] for k in kernels
+                            if not k[0].startswith(("Memcpy", "Memset"))),
+            "top": kernels[:8]}
+
+
+def _train_batch(stream, step: int):
+    b = stream.batch(step)
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def _step_peak(step_fn, params, state, batch):
+    """(new params, first moments, metrics, peak GB) of one step from a
+    reset peak; the new second moments are dropped. From zero moments
+    the first moments are 0.1 x the step's gradients, in float32."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, metrics = step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    return params, state["mu"], metrics, \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def _rel_diffs(a, b) -> dict:
+    """||a - b|| / ||b|| of each leaf of two trees of moments."""
+    from repro_torch.training.checkpoint import leaf_paths
+    return {k: float(torch.linalg.vector_norm(x - y)
+                     / torch.linalg.vector_norm(y))
+            for (k, x), (_, y) in zip(leaf_paths(a), leaf_paths(b))}
+
+
+def training_phase(card: str) -> dict:
+    """Phase 9: mixtral-8x7b trained at its published widths (1 of 32
+    layers, bf16, seed 0, impl="ref") through ``train_loop.train``: the
+    loss falls over 8 steps, every step routes B*S*top_k tokens a layer;
+    one step profiled (forward and backward against the update); from
+    the same initial weights every leaf gets a finite nonzero gradient
+    and one step changes every leaf but norm scales that bf16 cannot
+    move at this lr; at a drop-free capacity two microbatches give the
+    step's loss and gradients (``MB_LOSS_TOL``, ``GRAD_REL_TOL``) and
+    remat "none" gives them bit for bit; and
+    the step at impl="auto" refuses (``fused_gate_up``
+    has no backward); the trained weights serve 4 requests through the
+    kernels; xlstm-125m trains at all 12 layers; a resumed run on the
+    card equals the uninterrupted one bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.checkpoint import leaf_paths
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.train_loop import train
+    full = get_config("mixtral-8x7b")
+    cfg = full.with_(num_layers=TRAIN_LAYERS, impl="ref")
+    need = train_reckoning(cfg)
+    log(f"  mixtral-8x7b: layers {cfg.num_layers} of {full.num_layers}, "
+        f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"kv, {cfg.moe.num_experts} experts x d_ff {cfg.moe.d_ff} top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab_size}, {cfg.dtype}, impl ref, "
+        f"remat full; {need['params_b']:.3f} B parameters: weights "
+        f"{need['weights_gb']:.2f} GB, grads {need['grads_gb']:.2f}, "
+        f"moments {need['moments_gb']:.2f}, a step ~{need['step_gb']:.1f} "
+        f"GB by the reckoning (two layers ~"
+        f"{train_reckoning(cfg.with_(num_layers=2))['step_gb']:.1f})")
+    rec = {"reckoning_gb": need["step_gb"]}
+
+    # (a) train_loop.train
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, trained = train(cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, lr=TRAIN_LR, seed=0,
+                         verbose=False, device="cuda")
+    rec["train_s"] = time.perf_counter() - t0
+    rec["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    losses = res.losses
+    rec["losses"] = losses
+    rec["step_ms"] = float(np.median(res.step_s)) * 1e3
+    log(f"  train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, lr {TRAIN_LR} (cosine, warmup 1): losses "
+        f"{[round(v, 4) for v in losses]}")
+    log(f"  on {card}: step wall median {rec['step_ms']:.1f} ms (first "
+        f"{res.step_s[0] * 1e3:.1f} ms), {res.steps_per_s:.3f} steps/s, "
+        f"max_memory_allocated {rec['train_peak_gb']:.2f} GB (reckoned "
+        f"{need['step_gb']:.1f})")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    want = TRAIN_BATCH * TRAIN_SEQ * cfg.moe.top_k
+    for i, load in enumerate(res.expert_loads):
+        if load.shape != (cfg.num_layers, cfg.moe.num_experts) or \
+                (load.sum(-1) != want).any():
+            raise AssertionError(f"step {i}: expert loads {load} do not "
+                                 f"sum to {want} a layer")
+    log(f"  every step's expert_load sums to {want} a layer; last step "
+        f"{res.expert_loads[-1].tolist()}")
+
+    # (b) one step profiled, from the trained weights
+    stream = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                    seed=0))
+    opt = O.adamw(O.cosine_schedule(TRAIN_LR, warmup=1, total=TRAIN_STEPS),
+                  weight_decay=0.01)
+    step_fn = M.make_train_step(cfg, opt)
+    state = opt.init(trained)
+    batch = _train_batch(stream, TRAIN_STEPS)
+    prof = profile_train_step(lambda: step_fn(trained, state, batch))
+    del state
+    rec["profile"] = prof
+    log(f"  one step under torch.profiler on {card}: device busy "
+        f"{prof['busy_ms']:.2f} ms in {prof['launches']} launches: forward "
+        f"{prof['forward_ms']:.2f} ms (train_step/grads), backward with "
+        f"remat's recompute {prof['backward_ms']:.2f} (the rest), optimizer "
+        f"update {prof['update_ms']:.2f} (train_step/update)")
+    for key, ms, n in prof["top"]:
+        log(f"    {ms:9.3f} ms {n:5d}x  {key[:90]}")
+
+    # (c) the trained weights serve through the kernels
+    reqs = make_requests(cfg, (128, 256), (16, 32), 4, seed=9)
+    engine = ServingEngine(cfg, trained, max_len=256 + 32 + 1, impl="auto")
+    with GmmPaths() as paths:
+        sres, launches, _, dec_s, _, wall = serve_timed(engine, reqs, 4)
+    check_budgets(reqs, "phase 9 request")
+    _check_launches(cfg, "phase 9 serving", launches, paths,
+                    "decode_attention")
+    rec["serve_launches"] = {k: launches[k] for k in
+                             ("fused_gate_up", "gmm", "decode_attention")}
+    log(f"  the trained weights served 4 requests ({sres.generated_tokens} "
+        f"tokens) at impl auto: launches {rec['serve_launches']}, moe_gmm "
+        f"by path {paths.counts}, decode step median "
+        f"{float(np.median(dec_s)) * 1e3:.2f} ms")
+    del engine, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) from the initial weights: step 1, microbatches, remat, refusal
+    p0 = M.init_params(cfg, 0, "cuda")
+    st0 = opt.init(p0)
+    b0 = _train_batch(stream, 0)
+    p1, mu1, m1, peak_full = _step_peak(step_fn, p0, st0, b0)
+    del mu1
+    # AdamW's first step moves an element by lr * (1 + weight decay) at
+    # most: below half a bf16 ulp under 1.0 (2^-9), a norm scale at its
+    # initial 1.0 cannot move, so only such leaves may stay
+    stayed = [k for (k, a), (_, b) in zip(leaf_paths(p0), leaf_paths(p1))
+              if torch.equal(a, b)]
+    held = TRAIN_LR * 1.01 < 2 ** -9
+    frozen = [k for k in stayed if not held
+              or not torch.all(dict(leaf_paths(p0))[k] == 1)]
+    if frozen:
+        raise AssertionError(f"parameter leaves {frozen} did not change in "
+                             "step 1")
+    del p1
+    loss1 = float(m1["loss"])
+    log(f"  step 1 from the initial weights: loss {loss1:.4f}, "
+        f"{len(list(_leaves(p0))) - len(stayed)} of "
+        f"{len(list(_leaves(p0)))} leaves changed; unchanged: {stayed} "
+        f"(norm scales at 1.0, where lr {TRAIN_LR} x 1.01 is under half a "
+        f"bf16 ulp), peak {peak_full:.2f} GB")
+    # the same step at a drop-free capacity (factor E / top_k: with
+    # drops, a microbatch's capacity halves with its tokens and two
+    # microbatches are another function), in one microbatch with remat
+    # full, in two, and without remat: the loss (bit for bit without
+    # remat, within MB_LOSS_TOL in two halves) and each leaf's gradient,
+    # read from the first moments (bit for bit without remat, within
+    # GRAD_REL_TOL of its norm in two halves). A step over half
+    # the batch, or one that drops a microbatch's gradient, is off by
+    # tens of percent in every leaf's gradient
+    free = cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    pf, mu1, mf, peak_free = _step_peak(M.make_train_step(free, opt), p0,
+                                        st0, b0)
+    del pf
+    loss_free = float(mf["loss"])
+    if float(mf["dropped"].sum()) != 0:
+        raise AssertionError(f"capacity factor "
+                             f"{free.moe.capacity_factor} dropped "
+                             f"{mf['dropped']}")
+    log(f"  at the drop-free capacity factor {free.moe.capacity_factor}: "
+        f"loss {loss_free:.6f}, peak {peak_free:.2f} GB")
+    checks = {}
+    held_gb = sum(t.numel() * t.element_size() for t in _leaves(mu1)) / 1e9
+    for label, kw, loss_tol, grad_tol in (
+            ("microbatches=2", dict(microbatches=2), MB_LOSS_TOL,
+             GRAD_REL_TOL),
+            ('remat="none"', dict(remat="none"), 0.0, 0.0)):
+        fn = M.make_train_step(free, opt, **kw)
+        pk, muk, mk, peak = _step_peak(fn, p0, st0, b0)
+        del pk
+        rel = _rel_diffs(muk, mu1)
+        del muk
+        lk = float(mk["loss"])
+        worst = max(rel, key=rel.get)
+        checks[label] = {"loss": lk, "peak_gb": peak, "grad_rel": rel}
+        log(f"  {label}: loss {lk:.6f} (|diff| {abs(lk - loss_free):.3e}, "
+            f"held to {loss_tol:.0e}), gradients off by at most "
+            f"{rel[worst]:.3e} of their norm ({worst}; held to "
+            f"{grad_tol:.0e}), peak {peak:.2f} GB with the first moments' "
+            f"{held_gb:.2f} held, against {peak_free:.2f}")
+        if abs(lk - loss_free) > loss_tol:
+            raise AssertionError(f"{label}: loss {lk} against {loss_free}")
+        if rel[worst] > grad_tol:
+            raise AssertionError(f"{label}: gradients against one "
+                                 f"microbatch with remat full: {rel}")
+    del mu1
+    rec["checks"] = checks
+    for label, remat in (("remat none", "none"), ("remat full", "full")):
+        live = O._map(lambda t: t.detach().requires_grad_(), p0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        total, _ = M.loss_fn(cfg, live, b0, remat=remat)
+        grads = torch.autograd.grad(total, list(_leaves(live)))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        dead = [k for (k, _), g in zip(leaf_paths(live), grads)
+                if not (torch.isfinite(g).all() and g.any())]
+        if dead:   # the graph must reach every leaf (the experts too)
+            raise AssertionError(f"{label}: zero or non-finite gradients "
+                                 f"of {dead}")
+        del live, total, grads
+        rec[f"grads_peak_gb_{remat}"] = peak
+        log(f"  forward+backward alone, {label}: peak {peak:.2f} GB, "
+            f"every leaf's gradient finite and nonzero")
+    K.reset_launch_counts()
+    try:
+        M.make_train_step(cfg.with_(impl="auto"), opt)(p0, st0, b0)
+    except NotImplementedError as e:
+        if "fused_gate_up" not in str(e):
+            raise
+        log(f"  impl auto under autograd refused: {e}")
+    else:
+        raise AssertionError("a train step at impl auto did not refuse the "
+                             "kernels")
+    if any(K.launch_counts().values()):
+        raise AssertionError(f"the refused step launched "
+                             f"{K.launch_counts()}")
+    del p0, st0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) xlstm-125m at all 12 layers
+    xfull = get_config("xlstm-125m")
+    xcfg = xfull.with_(impl="ref")
+    t0 = time.perf_counter()
+    xres, xp = train(xcfg, steps=XLSTM_STEPS, seq_len=XLSTM_SEQ,
+                     global_batch=XLSTM_BATCH, lr=TRAIN_LR, seed=0,
+                     verbose=False, device="cuda")
+    del xp
+    if not all(math.isfinite(v) for v in xres.losses):
+        raise AssertionError(f"xlstm: non-finite loss {xres.losses}")
+    rec["xlstm"] = {"losses": xres.losses,
+                    "step_ms": [s * 1e3 for s in xres.step_s]}
+    log(f"  xlstm-125m, {xcfg.num_layers} layers, d_model {xcfg.d_model}, "
+        f"vocab {xcfg.vocab_size}: {XLSTM_STEPS} steps of {XLSTM_BATCH} x "
+        f"{XLSTM_SEQ} in {time.perf_counter() - t0:.1f} s, losses "
+        f"{[round(v, 4) for v in xres.losses]}; step walls on {card}: "
+        f"{[round(s * 1e3, 1) for s in xres.step_s]} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["resume"] = resume_check()
+    return rec
+
+
+def resume_check() -> dict:
+    """The mixtral-8x7b smoke config at float32 on the card: 6 steps
+    uninterrupted against 3 steps, a checkpoint, a stop and a resume to 6:
+    parameters, moments and step equal bit for bit."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import train_loop as TL
+    cfg = get_config("mixtral-8x7b", smoke=True).with_(dtype="float32",
+                                                        impl="ref")
+    kw = dict(steps=RESUME_STEPS, seq_len=64, global_batch=4, lr=1e-2,
+              seed=0, verbose=False, device="cuda")
+
+    class Stop(Exception):
+        pass
+
+    class Stream(TL.TokenStream):
+        def batch(self, step):
+            if step == RESUME_AT:
+                raise Stop
+            return super().batch(step)
+
+    plain = TL.TokenStream
+    with tempfile.TemporaryDirectory() as tmp:
+        TL.train(cfg, checkpoint_path=f"{tmp}/full", **kw)
+        TL.TokenStream = Stream
+        try:
+            TL.train(cfg, checkpoint_path=f"{tmp}/cut",
+                     checkpoint_every=RESUME_AT, **kw)
+        except Stop:
+            pass
+        finally:
+            TL.TokenStream = plain
+        if CK.latest_step(f"{tmp}/cut.npz") != RESUME_AT:
+            raise AssertionError("no checkpoint at the stop")
+        res, _ = TL.train(cfg, checkpoint_path=f"{tmp}/cut", **kw)
+        n, differ = 0, []
+        for suffix in (".npz", ".opt.npz"):
+            with np.load(f"{tmp}/full{suffix}") as a, \
+                    np.load(f"{tmp}/cut{suffix}") as b:
+                if sorted(a.files) != sorted(b.files):
+                    raise AssertionError(f"resume: {suffix} keys differ")
+                n += len(a.files)
+                differ += [k for k in a.files
+                           if not np.array_equal(a[k], b[k])]
+    if len(res.losses) != RESUME_STEPS - RESUME_AT or differ:
+        raise AssertionError(f"resume: {len(differ)} of {n} leaves differ "
+                             f"from the uninterrupted run: {differ[:6]}")
+    log(f"  resume on the card (smoke config, float32): {RESUME_AT} steps, "
+        f"a checkpoint, a stop and {len(res.losses)} resumed steps equal "
+        f"{RESUME_STEPS} uninterrupted ones bit for bit in all {n} leaves "
+        f"(parameters, moments, step)")
+    return {"leaves": n}
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3151,6 +3562,15 @@ def main() -> int:
                    "paged_mixed_ms": round(r["paged"]["mixed_ms"], 3)}
                   if "paged" in r else {})}
         for arch, r in families.items()}))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log("[9] training at full width: mixtral-8x7b (1 of 32 layers) and "
+        "xlstm-125m through train_loop.train, impl ref")
+    t9 = time.perf_counter()
+    training_phase(card)
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
 
     log("[5] token identity at float32 (smoke config): kernels vs plain")
     small = get_config("mixtral-8x7b", smoke=True).with_(dtype="float32")

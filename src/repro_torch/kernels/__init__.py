@@ -9,8 +9,14 @@ name the backends; resolution and dispatch live in
             tensors
     cuda -> the CUDA kernel; CPU tensors raise
     ref  -> the plain PyTorch version on any device
+
+No kernel has a backward, in this package or in the reference, whose
+Pallas kernels have no VJP: a launch refuses inputs that require grad
+(``refuse_autograd``), and training runs ``impl="ref"``.
 """
 import threading
+
+import torch
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -26,6 +32,18 @@ class LaunchCounts(dict):
     def bump(self, name: str) -> None:
         with self._lock:
             self[name] += 1
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` where kernel `name` would be
+    launched under grad mode on an input that requires grad: its output
+    is written through a raw pointer and carries no ``grad_fn``, so the
+    product would silently drop out of the graph."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward (neither has the "
+            "reference's Pallas kernel); train with impl='ref'")
 
 
 def launch_counts() -> dict[str, int]:

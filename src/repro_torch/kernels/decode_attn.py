@@ -13,7 +13,8 @@ window > 0, positions <= q_pos - window are masked with the finite
 and kv_pos (NB, blk) plus block_tables (B, nbs) int32: logical slot s
 of row b lives at pool block ``block_tables[b, s // blk]``, offset
 ``s % blk``. A wrapper given CPU tensors computes the plain version;
-given CUDA tensors it launches its kernel or raises.
+given CUDA tensors it launches its kernel or raises (as it does for an
+input that requires grad under grad mode: no kernel has a backward).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import LaunchCounts
+from repro_torch.kernels import LaunchCounts, refuse_autograd
 from repro_torch.kernels.build import load
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -150,6 +151,7 @@ def decode_attention(q, k, v, kv_pos, kv_len, q_pos, *, window: int = 0):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_pos, kv_len, q_pos,
                                     window=window)
+    refuse_autograd("decode_attention", q, k, v)
     _check(q, k, v, kv_pos, kv_len, q_pos)
     b, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -213,6 +215,7 @@ def decode_attention_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos, *,
     if q.device.type == "cpu":
         return decode_attention_paged_ref(q, k, v, kv_pos, block_tables,
                                           kv_len, q_pos, window=window)
+    refuse_autograd("decode_attention_paged", q, k, v)
     _check_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos)
     b, h, hd = q.shape
     blk, kvh = k.shape[1], k.shape[2]

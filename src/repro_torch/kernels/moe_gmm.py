@@ -13,7 +13,9 @@ versions.
 
 Rows ``c >= group_sizes[e]`` are written as 0 and whole row tiles past
 the group size are skipped. A wrapper given CPU tensors computes the
-plain version; given CUDA tensors it launches its kernel or raises.
+plain version; given CUDA tensors it launches its kernel or raises (as
+it does for an input that requires grad under grad mode: no kernel has
+a backward).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import LaunchCounts, ref
+from repro_torch.kernels import LaunchCounts, ref, refuse_autograd
 from repro_torch.kernels.build import load, num_sms
 
 # launches per wrapper (bumped only where the kernel is launched)
@@ -118,6 +120,7 @@ def _launch(name, fused, x, wg, wu, group_sizes, path=None):
     """Launch the kernel; `path` (a key of PATHS) forces a path, else the
     kernel's plan picks it."""
     ws = (wg, wu) if fused else (wg,)
+    refuse_autograd(name, x, *ws)
     _check(name, x, ws, group_sizes)
     e, c, d = x.shape
     f = wg.shape[2]
@@ -264,6 +267,7 @@ def quant_plan(x, wq, max_active: int = 0, scale=None) -> tuple[str, dict]:
 def _launch_quant(name, fused, x, qs, group_sizes, max_active, path=None):
     """Launch the int8 kernel; `path` (a key of PATHS) forces a path,
     else the kernel's plan picks it."""
+    refuse_autograd(name, x, *[t for pair in qs for t in pair])
     _check_quant(name, x, qs, group_sizes)
     e, c, d = x.shape
     f = qs[0][0].shape[2]

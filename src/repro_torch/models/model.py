@@ -1,10 +1,38 @@
-"""Public model API of the port: parameters, parameter accounting and
-the serving step builders."""
+"""Public model API of the port: parameters, parameter accounting, the
+window helpers, the loss and the step builders.
+
+  train_step(params, opt_state, batch)        -> (params, opt_state, metrics)
+  prefill_step(params, batch)                 -> (logits, metrics)
+  serve_step(params, batch, cache, cache_len) -> (logits, cache)
+"""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.training.optimizer import _leaves, _map
+
+# window of the sliding-window variant that makes long_500k runnable on
+# the quadratic-attention archs (the reference's DESIGN.md section 4)
+LONG_CONTEXT_WINDOW = 8192
+
+
+def needs_window(cfg, shape) -> bool:
+    """Quadratic-attention archs use the sliding-window variant at 500k."""
+    has_full_attn = cfg.family not in ("ssm",)
+    return (has_full_attn and shape.seq_len > 65536
+            and cfg.sliding_window == 0)
+
+
+def effective_window(cfg, shape) -> int:
+    if cfg.sliding_window:
+        return cfg.sliding_window
+    return LONG_CONTEXT_WINDOW if needs_window(cfg, shape) else 0
+
+
+def kv_cache_len(cfg, shape) -> int:
+    w = effective_window(cfg, shape)
+    return min(shape.seq_len, w) if w else shape.seq_len
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,6 +100,86 @@ def input_specs(cfg, shape, *, abstract: bool = True, generator=None,
             batch["positions"] = mk((b, s, 3), torch.int32,
                                     maxval=shape.seq_len)
     return batch
+
+
+def loss_fn(cfg, params, batch, *, window: int = 0, aux_weight: float = 0.01,
+            remat: str = "full"):
+    """(total, metrics): the mean next-token cross entropy of
+    batch['labels'] (B, S) under float32 logits, in logsumexp form (the
+    padded vocab's -1e9 entries stay inside the logsumexp), plus
+    `aux_weight` times the summed router aux loss; metrics gain
+    'loss'."""
+    logits, metrics = T.forward(cfg, params, batch, window=window,
+                                remat=remat)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          batch["labels"].long()[..., None])[..., 0]
+    loss = (lse - picked).mean()
+    total = loss + aux_weight * metrics.get("aux_loss", 0.0)
+    return total, dict(metrics, loss=loss)
+
+
+def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
+                    microbatches: int = 1, grad_shardings=None):
+    """train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), functional as the reference's: gradients of ``loss_fn``
+    through ``torch.autograd.grad`` on detached leaves (the caller's
+    tensors never require grad), then one ``optimizer.update``
+    (``training.optimizer.Optimizer``).
+
+    microbatches > 1 splits the batch along dim 0 and accumulates
+    float32 gradients from zeros, bounding activation memory at
+    B / microbatches a pass; gradients and metrics are divided by
+    `microbatches` (an int32 metric such as 'expert_load' comes out
+    float32, as JAX's true division gives it). With one microbatch the
+    gradients keep the parameters' dtype."""
+    if grad_shardings is not None:
+        raise NotImplementedError(
+            "grad_shardings (a sharded gradient accumulator) arrives with "
+            "the port's multi-rank slice")
+
+    def grads(params, batch):
+        """(metrics, gradients) of ``loss_fn`` at `params` on `batch`."""
+        live = _map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            total, metrics = loss_fn(cfg, live, batch, window=window,
+                                     remat=remat)
+            leaves = _leaves(live)
+            gs = torch.autograd.grad(total, leaves, allow_unused=True)
+        it = iter([torch.zeros_like(p) if g is None else g
+                   for p, g in zip(leaves, gs)])
+        return ({k: v.detach() for k, v in metrics.items()},
+                _map(lambda _: next(it), params))
+
+    def accumulated_grads(params, batch):
+        if microbatches == 1:
+            return grads(params, batch)
+        mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                           + tuple(v.shape[1:])) for k, v in batch.items()}
+        acc = _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), params)
+        metrics = None
+        for i in range(microbatches):
+            m, g = grads(params, {k: v[i] for k, v in mb.items()})
+            _map(lambda a, b: a.add_(b), acc, g)
+            metrics = m if metrics is None else \
+                {k: metrics[k] + m[k] for k in m}
+            del g
+        return ({k: v / microbatches for k, v in metrics.items()},
+                _map(lambda a: a.div_(microbatches), acc))
+
+    def train_step(params, opt_state, batch):
+        # named ranges for a profile of the step; autograd runs the
+        # backward on a thread of its own, outside the first one
+        with torch.profiler.record_function("train_step/grads"):
+            metrics, g = accumulated_grads(params, batch)
+        with torch.no_grad(), \
+                torch.profiler.record_function("train_step/update"):
+            params, opt_state = optimizer.update(params, g, opt_state)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg, *, window: int = 0):

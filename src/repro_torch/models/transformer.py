@@ -17,7 +17,7 @@ its own ``forward``; the port's equals ``forward``.
 
 Entry points:
   init_params(cfg, seed, device)             -> params
-  forward(cfg, params, batch)                -> (logits, metrics)
+  forward(cfg, params, batch, remat=...)     -> (logits, metrics)
   init_cache(cfg, params, batch, max_len)    -> cache
   init_paged_cache(cfg, params, num_blocks, block)
                                              -> paged cache
@@ -28,10 +28,12 @@ Entry points:
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
+from torch.utils import checkpoint as C
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -283,6 +285,34 @@ def _moe_groups(h):
     return max(1, t // 2048)
 
 
+# the reference's `remat` values (its ``jax.checkpoint`` of one period)
+REMATS = ("none", "full", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the products with no batch
+    dimension (``aten.mm``/``aten.addmm``, which ``x @ w`` dispatches to)
+    and recompute everything else, ``bmm`` included: what the
+    reference's ``dots_with_no_batch_dims_saveable`` keeps."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return C.CheckpointPolicy.MUST_SAVE
+    return C.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, remat: str):
+    """`body` of one period under `remat`: as it is, or checkpointed
+    (non-reentrant) so that backward recomputes it — all of it
+    (``"full"``) or all but the unbatched products (``"dots"``)."""
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; expected one of "
+                         f"{REMATS}")
+    if remat == "none":
+        return body
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        C.create_selective_checkpoint_contexts, _dots_policy)}
+    return functools.partial(C.checkpoint, body, use_reentrant=False, **kw)
+
+
 def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
             remat: str = "none", last_only: bool = False, ep_ctx=None,
             ep_state=None, token_mask=None):
@@ -290,18 +320,17 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     batch: {tokens (B, S), [positions (B, S)], [token_mask (B, S)]} ->
     (logits, metrics).
 
-    `ep_ctx` + `ep_state` (``decode_step``'s layout) route every MoE
-    sublayer through the EP slot data plane. `token_mask` (B, S), or
-    batch['token_mask'], excludes tokens (padded prefill) from the
-    expert-load and dropped metrics. `last_only` keeps only the last
-    position (before the final norm). metrics: 'aux_loss' summed over
-    layers, 'expert_load' (Lm, E) and 'dropped' (Lm,); with `collect`
-    also 'gate_input' (Lm, B, S, D) and, off the EP plane,
+    `remat` (``REMATS``) checkpoints each period's sublayers as the
+    reference's ``jax.checkpoint`` of its scan body does: ``"full"``
+    recomputes the period in backward, ``"dots"`` keeps its unbatched
+    products' outputs. `ep_ctx` + `ep_state` (``decode_step``'s layout)
+    route every MoE sublayer through the EP slot data plane.
+    `token_mask` (B, S), or batch['token_mask'], excludes tokens (padded
+    prefill) from the expert-load and dropped metrics. `last_only` keeps
+    only the last position (before the final norm). metrics: 'aux_loss'
+    summed over layers, 'expert_load' (Lm, E) and 'dropped' (Lm,); with
+    `collect` also 'gate_input' (Lm, B, S, D) and, off the EP plane,
     'router_logits' (Lm, B, S, E), MoE layers in period-major order."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} arrives with the training slice of the "
-            "PyTorch port")
     if "enc_embeds" in batch:
         raise NotImplementedError(
             "encoder inputs arrive with the port's enc-dec slice")
@@ -314,20 +343,30 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
                            device=x.device)[None].expand(bsz, seq_len)
     if token_mask is None:
         token_mask = batch.get("token_mask")
+
+    def body(x, layer_params, layer_ep):
+        ms = []
+        for j, sub in enumerate(pattern):
+            x, m = _apply_sublayer(cfg, sub, layer_params[j], x, pos,
+                                   window=window, collect=collect,
+                                   token_mask=token_mask, ep_ctx=ep_ctx,
+                                   ep_state=layer_ep[j])
+            ms.append(m)
+        return x, ms
+
+    body = _remat(body, remat)
     np_ = cfg.num_layers // len(pattern)
     ms = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(np_):
-        for j, sub in enumerate(pattern):
-            x, m = _apply_sublayer(cfg, sub, _period(params["layers"][j], i),
-                                   x, pos, window=window, collect=collect,
-                                   token_mask=token_mask, ep_ctx=ep_ctx,
-                                   ep_state=None if ep_state is None
-                                   or ep_state[j] is None
-                                   else _period(ep_state[j], i))
+        x, m_i = body(x, [_period(lp, i) for lp in params["layers"]],
+                      [None if ep_state is None or ep_state[j] is None
+                       else _period(ep_state[j], i)
+                       for j in range(len(pattern))])
+        for m in m_i:
             if "aux_loss" in m:
                 aux = aux + m["aux_loss"]
-            ms.append(m)
+        ms.extend(m_i)
     if last_only:   # prefill: only the last position feeds sampling
         x = x[:, -1:]
     x = L.norm(x, params["final_norm"], cfg.norm)

@@ -201,7 +201,9 @@ def test_port_imports_neither_jax_nor_reference_at_runtime():
             "repro_torch.core.simulator, repro_torch.models.prng, "
             "repro_torch.core.predictor, repro_torch.training.optimizer, "
             "repro_torch.configs, repro_torch.models.model, "
-            "repro_torch.models.ssm, sys; "
+            "repro_torch.models.ssm, repro_torch.training.train_loop, "
+            "repro_torch.training.checkpoint, repro_torch.launch.train, "
+            "sys; "
             "repro_torch.configs.list_archs(); "
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'repro.')) or m == 'repro' for m in sys.modules)")

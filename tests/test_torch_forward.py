@@ -151,7 +151,12 @@ def test_forward_ep_plane_equals_capacity_dispatch_drop_free():
 def test_forward_rejects_what_is_not_ported():
     cfg, _, _, tp = _setup("mixtral-8x7b")
     tb = {"tokens": torch.from_numpy(_tokens(cfg))}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        T.forward(cfg, tp, tb, remat="full")
+    # remat arrived with the training slice: its values run (the same
+    # logits as without), an unknown one raises
+    for remat in ("full", "dots"):
+        assert torch.equal(T.forward(cfg, tp, tb, remat=remat)[0],
+                           T.forward(cfg, tp, tb)[0])
+    with pytest.raises(ValueError, match="remat"):
+        T.forward(cfg, tp, tb, remat="offload")
     with pytest.raises(NotImplementedError, match="enc-dec"):
         T.forward(cfg, tp, dict(tb, enc_embeds=torch.zeros(1)))

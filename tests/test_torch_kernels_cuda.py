@@ -771,3 +771,53 @@ def test_decode_step_strided_positions_reach_the_kernel(cuda, arch):
     assert outs[0][1] == cfg.num_layers and outs[1][1] == 0
     torch.testing.assert_close(outs[0][0], outs[1][0], atol=TOL[torch.float32],
                                rtol=TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_autograd_on_card(cuda):
+    """No kernel has a backward: under grad mode each wrapper (the bf16
+    and int8 expert kernels, both decode attentions) refuses an input
+    that requires grad (NotImplementedError naming it, no launch),
+    and under ``torch.no_grad()`` launches its kernel on the same
+    tensors and holds the plain version."""
+    from repro_torch.kernels import launch_counts
+    dt, tol = torch.bfloat16, TOL[torch.bfloat16]
+    x, wg, wu = _to_card(cuda, dt, *_gmm_case(2, 24, 64, 72))
+    g = torch.tensor([24, 9], dtype=torch.int32, device=cuda)
+    q, k, v, pos, kv_len, q_pos = _to_card(cuda, dt, *_attn_case(
+        *ATTN_CASES[2][:8]))
+    pq, pk, pv, ppos, tab, pkv_len, pq_pos = _to_card(cuda, dt, *_paged_case(
+        2, 8, 2, 32, 16, 3, [40, 17]))
+    qx, qg, sg, qu, su = _quant_case(2, 24, 64, 80, cuda, dt)
+    calls = {
+        "fused_gate_up": (lambda: MG.fused_gate_up(x, wg, wu, g),
+                          lambda: MG.fused_gate_up_ref(x, wg, wu, g), wg),
+        "gmm": (lambda: MG.gmm(x, wg, g), lambda: MG.gmm_ref(x, wg, g), x),
+        "decode_attention": (
+            lambda: DA.decode_attention(q, k, v, pos, kv_len, q_pos),
+            lambda: DA.decode_attention_ref(q, k, v, pos, kv_len, q_pos,
+                                            window=0), k),
+        "decode_attention_paged": (
+            lambda: DA.decode_attention_paged(pq, pk, pv, ppos, tab,
+                                              pkv_len, pq_pos),
+            lambda: DA.decode_attention_paged_ref(pq, pk, pv, ppos, tab,
+                                                  pkv_len, pq_pos,
+                                                  window=0), pq),
+        "fused_gate_up_quant": (
+            lambda: MG.fused_gate_up_quant(qx, qg, sg, qu, su, g),
+            lambda: MG.fused_gate_up_quant_ref(qx, qg, sg, qu, su, g), su),
+        "gmm_quant": (lambda: MG.gmm_quant(qx, qg, sg, g),
+                      lambda: MG.gmm_quant_ref(qx, qg, sg, g), qx),
+    }
+    for name, (kernel, plain, needs_grad) in calls.items():
+        needs_grad.requires_grad_(True)
+        before = launch_counts()[name]
+        with pytest.raises(NotImplementedError, match=name):
+            kernel()
+        assert launch_counts()[name] == before
+        with torch.no_grad():
+            got, want = kernel(), plain()
+        assert launch_counts()[name] == before + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        needs_grad.requires_grad_(False)
