@@ -143,7 +143,32 @@ Phases, each fatal on failure:
      mixtral smoke config, float32) equals the uninterrupted run bit
      for bit in parameters, moments and step.
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 5.
+  10. whisper-base at its published widths (6 encoder and 6 decoder
+     layers, d_model 512, 1500 frames, vocab 51865; no depth cut),
+     seeded weights and frame embeddings, through the fixed-batch API
+     (``ServingEngine.prefill``/``decode``), the only way the reference
+     serves an encoder-decoder: ``start()`` and paged KV must refuse it;
+     two batches of 8 prompts (4 and 128 tokens) each decode 64 steps,
+     launching ``decode_attention`` once a decoder layer a step, all on
+     "mma", and no other kernel; the encoder, the prefill and a decode
+     step timed (wall, device busy, launches, idle share) with the share
+     of a step that cross-attention and its key/value products over the
+     frames take; gated at bf16: every decoder layer's self-attention
+     sublayer through the kernel against the plain path from the same
+     input and cache, a stand-in kernel blind to the newest eighth of
+     the keys must fail that gate, and the whole-model logits are
+     reported, not gated; then
+     at float32: each batch's greedy tokens through the kernels equal the
+     plain path's, a prefill into a fresh cache and the 8 decode steps
+     after it give ``forward``'s logits within 1e-4, and a zeroed encoder
+     output moves the prefill's logits by more than 0.1 (the reference's
+     ``decode_step`` applies no cross-attention and gives every prompt
+     token one position). Phase 3 first times decode attention at its
+     geometry (B 8, H 8, KV 8, hd 64, "mma"); phase 5 adds whisper's
+     smoke config through the fixed-batch API and mixtral-8x7b's at act
+     gelu (``gmm`` launched, ``fused_gate_up`` never).
+
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -152,6 +177,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1329,7 +1355,7 @@ def _attention_pair(name, layer, cfg, p, c, h, pos, cache_len, block_tables,
 
 def sublayer_check(name, cfg, params, tokens, cache, cache_len,
                    token_mask, block_tables=None, ep=None,
-                   extra=None) -> dict:
+                   extra=None, enc_out=None) -> dict:
     """Every layer's attention and MoE sublayer through the kernels and
     through the plain path, both from the same input (the plain path's
     hidden state), so both route identically: each output pair must
@@ -1338,8 +1364,10 @@ def sublayer_check(name, cfg, params, tokens, cache, cache_len,
     With `block_tables` the cache is the paged pool and every row writes
     one token. With `ep` = (EPContext, ep_state) the MoE sublayers run
     through the EP slot plane on the runtime's tables and banks. `extra`
-    adds a VLM's vis_embeds/vis_mask and (B, S, 3) positions. Returns
-    the largest error of each sublayer kind."""
+    adds a VLM's vis_embeds/vis_mask and (B, S, 3) positions. An
+    encoder-decoder's decoder adds its sinusoids and carries the state
+    on through each layer's cross-attention over `enc_out` (plain torch
+    on both paths). Returns the largest error of each sublayer kind."""
     from repro_torch.distributed.ep import moe_ep_ffn
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
@@ -1356,6 +1384,8 @@ def sublayer_check(name, cfg, params, tokens, cache, cache_len,
         pos = cache_len[:, None] + steps[None]
     errs = {"attention": 0.0, "moe": 0.0}
     x = T._embed(params, dict(extra, tokens=tokens))
+    if cfg.encdec is not None:
+        x = x + T._sinusoidal_at(pos[0], cfg.d_model).to(x.dtype)[None]
     layers = [(i, j, sub) for i in range(cfg.num_layers // len(pattern))
               for j, sub in enumerate(pattern)]
     for i, j, sub in layers:
@@ -1368,11 +1398,14 @@ def sublayer_check(name, cfg, params, tokens, cache, cache_len,
         else:
             x = x + _attention_pair(name, layer, cfg, p, c["attn"], h, pos,
                                     cache_len, block_tables, errs)
+        if sub.cross_attn:
+            x = x + T._cross_attention(
+                cfg, p["xattn"], L.norm(x, p["norm_x"], cfg.norm), enc_out)
         if sub.ffn == "none":
             continue
         h = L.norm(x, p["norm2"], cfg.norm)
         if sub.ffn == "dense":
-            x = x + T.dense_ffn(p["ffn"], h)
+            x = x + L.ffn(p["ffn"], h, cfg.act)
             continue
         if ep is not None:
             ctx, state = ep
@@ -2995,23 +3028,28 @@ def recurrent_phase(arch: str, card: str) -> dict:
     return rec
 
 
-def family_identity(arch: str, **over) -> None:
-    """A family's smoke config at float32 (`over` replaces its MoE
-    fields): greedy tokens through the kernels on the contiguous cache
-    and (an attention-only stack) on the paged pool with chunked prefill
-    equal the plain path's on the contiguous cache, request by request,
-    a MoE config at a drop-free capacity factor with a MoEless
-    controller."""
+def family_identity(arch: str, act: str | None = None, **over) -> None:
+    """A family's smoke config at float32 (`act` replaces its FFN
+    activation, `over` its MoE fields): greedy tokens through the
+    kernels on the contiguous cache and (an attention-only stack) on the
+    paged pool with chunked prefill equal the plain path's on the
+    contiguous cache, request by request, a MoE config at a drop-free
+    capacity factor with a MoEless controller. Gelu experts must launch
+    ``gmm`` and never ``fused_gate_up``."""
+    from repro_torch import kernels as K
     from repro_torch.configs import ServingSpec, get_config
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import MoElessController, ServingEngine
     small = get_config(arch, smoke=True).with_(dtype="float32")
+    if act is not None:
+        small = small.with_(act=act)
     if small.is_moe:
         over.setdefault("capacity_factor", float(small.moe.num_experts))
         small = small.with_(moe=dataclasses.replace(small.moe, **over))
         small = small.with_(num_layers=2 * small.moe.every_n_layers)
     sp = init_params(small, seed=0, device="cuda")
     got = {}
+    K.reset_launch_counts()
     runs = [("contiguous", "ref", ServingSpec()),
             ("contiguous", "auto", ServingSpec()),
             ("paged chunked", "auto", ServingSpec(kv="paged", kv_block=5,
@@ -3028,11 +3066,61 @@ def family_identity(arch: str, **over) -> None:
             bad = [i for i in base if got[(label, impl)][i] != base[i]]
             raise AssertionError(f"{arch} {over}: {label} impl={impl} "
                                  f"tokens differ for requests {bad}")
+    launches = K.launch_counts()
+    if act == "gelu" and (launches["gmm"] <= 0
+                          or launches["fused_gate_up"] != 0):
+        raise AssertionError(f"{arch} at act gelu: launches {launches}, "
+                             "expected gmm and no fused_gate_up")
     layouts = "contiguous" if arch in RECURRENT else \
         "contiguous and paged chunked"
-    log(f"  {arch}{' ' + str(over) if over else ''}: "
+    what = dict(over, act=act) if act else over
+    gelu = (f" (gmm launches {launches['gmm']}, fused_gate_up "
+            f"{launches['fused_gate_up']})" if act == "gelu" else "")
+    log(f"  {arch}{' ' + str(what) if what else ''}: "
         f"{sum(map(len, base.values()))} tokens: {layouts} impl=auto == "
-        f"contiguous impl=ref")
+        f"contiguous impl=ref{gelu}")
+
+
+def encdec_identity() -> None:
+    """whisper-base's smoke config at float32 through the fixed-batch
+    API (the frame embeddings given to the prefill, which runs the
+    encoder, the encoder output to every decode step): greedy tokens
+    through the kernels equal the plain path's, with one
+    decode-attention launch a decoder layer a step."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    small = get_config("whisper-base", smoke=True).with_(dtype="float32")
+    sp = init_params(small, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, plen, steps = 4, 9, 24
+    toks = torch.randint(0, small.vocab_size, (b, plen), generator=gen,
+                         device="cuda")
+    emb = torch.randn((b, small.encdec.encoder_seq_len, small.d_model),
+                      generator=gen, device="cuda")
+    got, n = {}, {}
+    with torch.no_grad():
+        enc_out = T.run_encoder(small, sp, emb)
+        for impl in ("auto", "ref"):
+            eng = ServingEngine(small, sp, max_len=plen + steps + 1,
+                                impl=impl)
+            K.reset_launch_counts()
+            first, cache, clen = eng.prefill({"tokens": toks,
+                                              "enc_embeds": emb})
+            tk, _, _ = eng.decode(first, cache, clen, steps,
+                                  extra={"enc_out": enc_out})
+            got[impl] = torch.cat([first[:, None], tk], 1)
+            n[impl] = K.launch_counts()["decode_attention"]
+    if not torch.equal(got["auto"], got["ref"]):
+        raise AssertionError("whisper-base smoke: kernel tokens differ from "
+                             "the plain path's")
+    if n != {"auto": small.num_layers * steps, "ref": 0}:
+        raise AssertionError(f"whisper-base smoke: decode attention "
+                             f"launches {n}")
+    log(f"  whisper-base (fixed-batch API): {got['ref'].numel()} tokens: "
+        f"impl=auto ({n['auto']} decode-attention launches) == impl=ref")
 
 
 # ------------------------------------------------------------ phase 9
@@ -3424,6 +3512,364 @@ def resume_check() -> dict:
     return {"leaves": n}
 
 
+# ------------------------------------------------------------ phase 10
+
+# phase 10: whisper-base at its published widths, all 6 encoder and 6
+# decoder layers, through the fixed-batch API: a batch of WHISPER_BATCH
+# prompts of each length in WHISPER_LENS, each decoding WHISPER_STEPS
+# tokens. At float32 the prefill into a fresh cache and the first
+# WHISPER_HELD decode steps after it are held to ``forward`` within
+# WHISPER_FWD_TOL (max abs), and a zeroed encoder output must move the
+# prefill's logits by more than WHISPER_LIVE
+WHISPER_BATCH, WHISPER_LENS, WHISPER_STEPS = 8, (4, 128), 64
+WHISPER_HELD, WHISPER_FWD_TOL, WHISPER_LIVE = 8, 1e-4, 0.1
+
+
+class AttnPaths:
+    """Within the block, counts ``decode_attention`` launches by the
+    path each took: the kernel's own plan (``DA.kernel_path``) asked
+    with each launch's operands. The wrapper's launch counts are
+    untouched."""
+
+    def __enter__(self):
+        self.counts = {}
+        self._fn = inner = DA.decode_attention
+
+        def run(q, k, v, *args, **kw):
+            path = DA.kernel_path(q, k, v)[0]
+            self.counts[path] = self.counts.get(path, 0) + 1
+            return inner(q, k, v, *args, **kw)
+
+        DA.decode_attention = run
+        return self
+
+    def __exit__(self, *exc):
+        DA.decode_attention = self._fn
+
+
+class BlindNewest:
+    """Within the block, every ``decode_attention`` launch gets each
+    row's kv_len an eighth short (at least one key): a kernel that never
+    sees the newest keys (the token's own among them, in a cache that
+    has not wrapped), the control that a gate must reject. An eighth and
+    not one key, so that the fault does not shrink as the cache grows."""
+
+    def __enter__(self):
+        self._fn = inner = DA.decode_attention
+
+        def run(q, k, v, kv_pos, kv_len, q_pos, **kw):
+            return inner(q, k, v, kv_pos,
+                         kv_len - torch.clamp(kv_len // 8, min=1), q_pos,
+                         **kw)
+
+        DA.decode_attention = run
+        return self
+
+    def __exit__(self, *exc):
+        DA.decode_attention = self._fn
+
+
+def device_busy(fn, n: int = 3, warm: bool = True):
+    """(device busy ms, its three largest device operations as (name,
+    ms), device launches, the last call's result) a call of `fn`, from a
+    torch.profiler trace of `n` calls after one untraced call (none
+    when not `warm`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_decode import (_device_events,
+                                                   _device_us, _kernel_ms,
+                                                   _launches)
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            out = fn()
+        torch.cuda.synchronize()
+    busy = sum(_device_us(e) for e in _device_events(prof)) / n / 1e3
+    top = [(k[:48], round(ms, 4)) for k, ms in _kernel_ms(prof, n)[:3]]
+    return busy, top, _launches(prof, n), out
+
+
+def wall_ms(fn):
+    """(result, wall ms) of one call of `fn`, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def whisper_inputs(cfg, plen: int, dtype, seed: int):
+    """Seeded prompts (B, plen) and frame embeddings (B, T, D) of unit
+    scale, drawn in float32 and cast to `dtype` (the float32 and bf16
+    runs see the same frames, up to rounding)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (WHISPER_BATCH, plen),
+                         generator=gen, device="cuda")
+    emb = torch.randn((WHISPER_BATCH, cfg.encdec.encoder_seq_len,
+                       cfg.d_model), generator=gen, device="cuda")
+    return toks, emb.to(dtype)
+
+
+def cross_attention_ms(cfg, params, enc_out) -> tuple[float, float, list]:
+    """Device ms of one decode step's cross-attention (every decoder
+    layer, one query row a prompt) with its three largest device
+    operations, and the device ms of its key/value products over the
+    encoder's frames alone, which the reference recomputes at every
+    step."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h = torch.randn((enc_out.shape[0], 1, cfg.d_model), generator=gen,
+                    device="cuda").to(enc_out.dtype)
+    xps = [T._period(params["layers"][0], i)["xattn"]
+           for i in range(cfg.num_layers)]
+
+    def xattn():
+        for pa in xps:
+            T._cross_attention(cfg, pa, h, enc_out)
+
+    def kv():
+        for pa in xps:
+            enc_out @ pa["wk"]
+            enc_out @ pa["wv"]
+    with torch.no_grad():
+        xa_ms, top = device_busy(xattn)[:2]
+        return xa_ms, device_busy(kv)[0], top
+
+
+def whisper_batch(cfg, params, plen: int, card: str) -> dict:
+    """One batch of phase 10 at bf16: the encoder over the frames (wall
+    and device busy), the prefill and WHISPER_STEPS decode steps through
+    ``ServingEngine.prefill``/``decode`` (one decode step traced: device
+    busy, launches, idle share) with every launch counted, then from the
+    state after the prefill every decoder layer's self-attention
+    sublayer through the kernel against the plain path (gated at the
+    bf16 tolerance) and the decode step's logits compared (reported)."""
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    toks, emb = whisper_inputs(cfg, plen, torch.bfloat16, seed=plen)
+    engine = ServingEngine(cfg, params, max_len=plen + WHISPER_STEPS + 1)
+    rec = {}
+    with torch.no_grad():
+        T.run_encoder(cfg, params, emb)             # warm-up
+        enc_out, rec["encoder_wall_ms"] = wall_ms(
+            lambda: T.run_encoder(cfg, params, emb))
+        rec["encoder_device_ms"] = device_busy(
+            lambda: T.run_encoder(cfg, params, emb), n=1)[0]
+    batch = {"tokens": toks, "enc_out": enc_out}
+    extra = {"enc_out": enc_out}
+    engine.prefill(batch)                           # warm-up
+    rec["prefill_device_ms"] = device_busy(lambda: engine.prefill(batch),
+                                           n=1)[0]
+    K.reset_launch_counts()
+    walls, out = [], []
+    with AttnPaths() as paths:
+        (first, cache, clen), rec["prefill_wall_ms"] = wall_ms(
+            lambda: engine.prefill(batch))
+        snap = clone_tree(cache)
+        cur = first
+        for i in range(WHISPER_STEPS):
+            step = functools.partial(engine.decode, cur, cache, clen, 1,
+                                     extra=extra)
+            if i == WHISPER_STEPS // 2:   # one step traced
+                rec["decode_device_ms"], _, rec["decode_launches"], \
+                    (tk, cache, clen) = device_busy(step, n=1, warm=False)
+            else:
+                (tk, cache, clen), ms = wall_ms(step)
+                walls.append(ms)
+            cur = tk[:, 0]
+            out.append(cur)
+    launches = K.launch_counts()
+    want = cfg.num_layers * WHISPER_STEPS
+    others = {k: v for k, v in launches.items() if k != "decode_attention"}
+    if launches["decode_attention"] != want or any(others.values()):
+        raise AssertionError(f"whisper {plen}-token prompts: launches "
+                             f"{launches}, expected decode_attention "
+                             f"{want} and nothing else")
+    if paths.counts != {"mma": want}:
+        raise AssertionError(f"whisper decode attention by path "
+                             f"{paths.counts}, not all {want} on 'mma'")
+    rec["launches"] = launches
+    rec["decode_wall_ms"] = float(np.median(walls))
+    rec["decode_idle_share"] = 1.0 - rec["decode_device_ms"] \
+        / rec["decode_wall_ms"]
+    xa_ms, kv_ms, top = cross_attention_ms(cfg, params, enc_out)
+    rec.update(cross_attention_device_ms=xa_ms, kv_products_device_ms=kv_ms,
+               cross_attention_share=xa_ms / rec["decode_device_ms"],
+               kv_products_share=kv_ms / rec["decode_device_ms"])
+    log(f"  {plen}-token prompts: {WHISPER_BATCH} x {WHISPER_STEPS} tokens, "
+        f"launches {launches}, decode attention by path {paths.counts}")
+    log(f"  {plen}-token prompts on {card}: encoder wall "
+        f"{rec['encoder_wall_ms']:.3f} ms, device {rec['encoder_device_ms']:.3f}"
+        f" ms; prefill wall {rec['prefill_wall_ms']:.3f} ms, device "
+        f"{rec['prefill_device_ms']:.3f} ms; decode step wall "
+        f"{rec['decode_wall_ms']:.3f} ms (median of {len(walls)}), device "
+        f"busy {rec['decode_device_ms']:.3f} ms in "
+        f"{rec['decode_launches']:.0f} launches, idle share "
+        f"{rec['decode_idle_share']:.3f}; cross-attention {xa_ms:.3f} "
+        f"device ms a step ({rec['cross_attention_share']:.3f} of the "
+        f"step), its key/value products over "
+        f"{cfg.encdec.encoder_seq_len} frames {kv_ms:.3f} ms "
+        f"({rec['kv_products_share']:.3f} of the step); cross-attention's "
+        f"largest device operations (ms a step) {top}")
+    name = f"whisper decode step after {plen}-token prompts"
+    with torch.no_grad():
+        nxt = first[:, None]
+        rec["sublayers"] = sublayer_check(name, cfg, params, nxt, snap, plen,
+                                          None, enc_out=enc_out)
+        with BlindNewest():
+            try:
+                sublayer_check(f"{name}, control: a kernel blind to the "
+                               "newest eighth of the keys", cfg, params,
+                               nxt, snap, plen,
+                               None, enc_out=enc_out)
+            except AssertionError as e:
+                log(f"  the gate rejects the control: {e}")
+            else:
+                raise AssertionError("the bf16 sublayer gate let a kernel "
+                                     "blind to the newest eighth of the "
+                                     "keys through")
+        # the real vocabulary only: the padded entries hold -1e9
+        v = cfg.vocab_size
+        outs = [T.decode_step(c, params, {"tokens": nxt, **extra},
+                              clone_tree(snap), plen)[0][:, -1, :v]
+                for c in (cfg, cfg.with_(impl="ref"))]
+        rec["logits"] = compare_logits(f"{name} (reported, not gated)",
+                                       outs[0], outs[1], None, None)
+    rec["tokens"] = torch.stack(out, 1)
+    return rec
+
+
+def whisper_float32(card: str) -> dict:
+    """Phase 10 at float32 (TF32 off): each batch's greedy tokens through
+    the kernels (decode attention on "simt" at float32) equal the plain
+    path's; a prefill into a fresh cache and the first WHISPER_HELD
+    decode steps after it give ``forward``'s logits on the same sequence
+    (with the frame embeddings) within WHISPER_FWD_TOL; a zeroed encoder
+    output moves the prefill's logits by more than WHISPER_LIVE."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("whisper-base").with_(dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    rec = {}
+    for plen in WHISPER_LENS:
+        toks, emb = whisper_inputs(cfg, plen, torch.float32, seed=plen)
+        got, paths = {}, {}
+        with torch.no_grad():
+            enc_out = T.run_encoder(cfg, params, emb)
+            for impl in ("auto", "ref"):
+                eng = ServingEngine(cfg, params, impl=impl,
+                                    max_len=plen + WHISPER_STEPS + 1)
+                K.reset_launch_counts()
+                with AttnPaths() as ap:
+                    first, cache, clen = eng.prefill(
+                        {"tokens": toks, "enc_out": enc_out})
+                    tk, _, _ = eng.decode(first, cache, clen, WHISPER_STEPS,
+                                          extra={"enc_out": enc_out})
+                got[impl] = torch.cat([first[:, None], tk], 1)
+                paths[impl] = ap.counts
+        want = cfg.num_layers * WHISPER_STEPS
+        if paths != {"auto": {"simt": want}, "ref": {}}:
+            raise AssertionError(f"whisper float32 decode attention by "
+                                 f"path {paths}")
+        if not torch.equal(got["auto"], got["ref"]):
+            bad = (got["auto"] != got["ref"]).any(1).nonzero().flatten()
+            raise AssertionError(f"whisper float32 {plen}-token prompts: "
+                                 f"tokens differ in rows {bad.tolist()}")
+        seq = torch.cat([toks, got["ref"][:, :WHISPER_HELD]], 1)
+        errs = []
+        with torch.no_grad():
+            fwd, _ = T.forward(cfg, params, {"tokens": seq,
+                                             "enc_embeds": emb})
+            cache = T.init_cache(cfg, params, WHISPER_BATCH,
+                                 plen + WHISPER_HELD)
+            lg, cache, _ = T.decode_step(
+                cfg, params, {"tokens": toks, "enc_out": enc_out}, cache, 0)
+            errs.append(float((lg - fwd[:, :plen]).abs().max()))
+            for i in range(WHISPER_HELD):
+                p = plen + i
+                lgi, cache, _ = T.decode_step(
+                    cfg, params, {"tokens": seq[:, p:p + 1],
+                                  "enc_out": enc_out}, cache, p)
+                errs.append(float((lgi[:, 0] - fwd[:, p]).abs().max()))
+            blind, _, _ = T.decode_step(
+                cfg, params, {"tokens": toks,
+                              "enc_out": torch.zeros_like(enc_out)},
+                T.init_cache(cfg, params, WHISPER_BATCH, plen), 0)
+            live = float((blind - lg).abs().max())
+        if max(errs) > WHISPER_FWD_TOL:
+            raise AssertionError(f"whisper float32 {plen}-token prompts: "
+                                 f"decode vs forward max |diff| {errs} "
+                                 f"beyond {WHISPER_FWD_TOL}")
+        if live <= WHISPER_LIVE:
+            raise AssertionError(f"whisper float32: a zeroed enc_out moved "
+                                 f"the logits by {live:.3e} only")
+        rec[plen] = {"forward_errs": errs, "zeroed_enc_out_moves": live}
+        log(f"  float32, {plen}-token prompts: {WHISPER_BATCH} x "
+            f"{WHISPER_STEPS + 1} greedy tokens through the kernels "
+            f"({want} decode-attention launches on 'simt') == plain; "
+            f"prefill into a fresh cache vs forward max |diff| "
+            f"{errs[0]:.3e}, the next {WHISPER_HELD} decode steps "
+            f"{max(errs[1:]):.3e} (limit {WHISPER_FWD_TOL}); a zeroed "
+            f"enc_out moves the prefill logits by {live:.3e} (limit "
+            f"> {WHISPER_LIVE})")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def whisper_phase(card: str) -> dict:
+    """Phase 10: whisper-base at its published widths (6 encoder and 6
+    decoder layers, no depth cut) from a seed at bf16: the refusals of
+    continuous batching and paged KV, then each batch of
+    ``whisper_batch``; then ``whisper_float32``. Returns the phase's
+    record."""
+    from repro_torch.configs import ServingSpec, get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("whisper-base")
+    log(f"  whisper-base: {cfg.encdec.num_encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers (all), d_model {cfg.d_model}, "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} kv, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, {cfg.act}, {cfg.norm}, "
+        f"rope {cfg.rope}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {cfg.encdec.encoder_seq_len} frames, "
+        f"{cfg.dtype}")
+    params = init_params(cfg, seed=0, device="cuda")
+    n_par = sum(t.numel() for t in _leaves(params))
+    log(f"  params {n_par / 1e6:.2f} M (the reference's layout: the head "
+        f"is not tied to the embedding), {n_par * 2 / 1e6:.1f} MB")
+    engine = ServingEngine(cfg, params, max_len=64)
+    try:
+        engine.start()
+        raise AssertionError("start() opened a session for an enc-dec model")
+    except NotImplementedError as e:
+        log(f"  start() refused: {e}")
+    try:
+        ServingEngine(cfg, params, max_len=64,
+                      serving=ServingSpec(kv="paged"))
+        raise AssertionError("paged KV accepted an enc-dec model")
+    except ValueError as e:
+        log(f"  paged KV refused: {e}")
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"params": n_par}
+    for plen in WHISPER_LENS:
+        rec[plen] = whisper_batch(cfg, params, plen, card)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  max_memory_allocated {rec['peak_gb']:.3f} GB")
+    del params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["float32"] = whisper_float32(card)
+    return rec
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3469,6 +3915,17 @@ def main() -> int:
     for k_name, rows in check_family_shapes(gen, slots,
                                             FAMILY_MAX_LEN).items():
         rec[k_name]["family_shapes"] = rows
+    log("  phase 10's new geometry (whisper-base's decode attention)")
+    w = get_config("whisper-base")
+    label = f"whisper H{w.num_heads} KV{w.num_kv_heads} " \
+        f"hd{w.resolved_head_dim}"
+    s_w = max(WHISPER_LENS) + WHISPER_STEPS + 1
+    rec["decode_attention"]["whisper_shape"] = dict(
+        shape=f"{label} B{WHISPER_BATCH} S{s_w}", **decode_attention_timed(
+            gen, (WHISPER_BATCH, w.num_heads, w.num_kv_heads,
+                  w.resolved_head_dim, s_w,
+                  [s_w - WHISPER_STEPS // 2] * WHISPER_BATCH), label,
+            "mma"))
 
     log("[4] mixtral-8x7b at full width through ServingEngine")
     cfg = full.with_(num_layers=8)
@@ -3572,6 +4029,30 @@ def main() -> int:
     training_phase(card)
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[10] whisper-base at its published widths through the fixed-batch "
+        "API (encoder-decoder)")
+    t10 = time.perf_counter()
+    whisper = whisper_phase(card)
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+    keys = ("encoder_wall_ms", "encoder_device_ms", "prefill_wall_ms",
+            "prefill_device_ms", "decode_wall_ms", "decode_device_ms",
+            "decode_launches", "decode_idle_share",
+            "cross_attention_device_ms", "cross_attention_share",
+            "kv_products_device_ms", "kv_products_share")
+    log("  phase 10 summary: " + json.dumps({
+        **{f"bf16 {plen}": {k: round(whisper[plen][k], 4) for k in keys}
+           for plen in WHISPER_LENS},
+        **{f"float32 {plen}": {
+            "prefill_vs_forward": whisper["float32"][plen]["forward_errs"][0],
+            "decode_vs_forward": max(
+                whisper["float32"][plen]["forward_errs"][1:]),
+            "zeroed_enc_out_moves":
+                whisper["float32"][plen]["zeroed_enc_out_moves"]}
+           for plen in WHISPER_LENS},
+        "peak_gb": round(whisper["peak_gb"], 3)}))
+
     log("[5] token identity at float32 (smoke config): kernels vs plain")
     small = get_config("mixtral-8x7b", smoke=True).with_(dtype="float32")
     sp = init_params(small, seed=0, device="cuda")
@@ -3591,6 +4072,11 @@ def main() -> int:
     for arch in FAMILY_LAYERS:
         family_identity(arch)
     family_identity("llama4-maverick-400b-a17b", every_n_layers=2)
+    log("  the encoder-decoder and gelu experts (gmm up, gelu, gmm down): "
+        "whisper-base's smoke config through the fixed-batch API, "
+        "mixtral-8x7b's at act gelu")
+    encdec_identity()
+    family_identity("mixtral-8x7b", act="gelu")
 
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \
@@ -3608,6 +4094,10 @@ def main() -> int:
             arch: sum(r[kv]["launches"][k_name]
                       for kv in ("contiguous", "paged") if kv in r)
             for arch, r in families.items()}
+    # phase 10: whisper-base's decode attention, both bf16 batches
+    rec["decode_attention"]["family_launches"]["whisper-base"] = sum(
+        whisper[plen]["launches"]["decode_attention"]
+        for plen in WHISPER_LENS)
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

@@ -160,14 +160,10 @@ INPUT_SHAPES = {
 _ARCH_MODULES = [
     "qwen3_32b", "grok_1_314b", "jamba_v01_52b", "qwen2_vl_2b",
     "stablelm_12b", "qwen2_72b", "command_r_plus_104b", "xlstm_125m",
-    "llama4_maverick_400b_a17b",
+    "whisper_base", "llama4_maverick_400b_a17b",
     # the paper's own evaluation models
     "mixtral_8x7b", "phi35_moe",
 ]
-
-# archs of the reference whose stacks the port does not run yet: the
-# encoder-decoder stack comes with the enc-dec slice
-DEFERRED_ARCHS = ("whisper-base",)
 
 _REGISTRY: dict[str, "tuple"] = {}
 
@@ -189,9 +185,7 @@ def list_archs() -> list[str]:
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     _load_all()
     if arch_id not in _REGISTRY:
-        later = (" (it comes with the port's enc-dec slice)"
-                 if arch_id in DEFERRED_ARCHS else "")
-        raise KeyError(f"unknown arch {arch_id!r}{later}; "
+        raise KeyError(f"unknown arch {arch_id!r}; "
                        f"known: {sorted(_REGISTRY)}")
     full, smoke_cfg = _REGISTRY[arch_id]
     return smoke_cfg() if smoke else full()

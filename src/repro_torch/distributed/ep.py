@@ -199,8 +199,11 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
     ``expert_load`` (E,), ``dropped`` and ``aux_loss`` (0)."""
     from repro_torch.kernels import ops as KOPS
     if act != "swiglu":
+        # the reference's slot plane takes `act` and never reads it
         raise NotImplementedError(
-            f"act={act!r}: the slot banks hold SwiGLU experts")
+            f"act={act!r}: the slot banks hold SwiGLU experts — the "
+            "reference has the same limit "
+            "(src/repro/serving/expert_runtime.py:169)")
     n_data, ep, _ = check_degrees(degrees)
     n_shards = n_data * ep
     sd_ = slots_per_device

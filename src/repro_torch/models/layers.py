@@ -1,6 +1,6 @@
 """Core layers: norms, rotary embeddings, grouped-query attention
 (chunked online softmax, and decode against a contiguous ring cache or
-a paged block pool).
+a paged block pool), and the dense FFN.
 
 Parameters are plain dicts of tensors. Shape conventions:
 x: (B, S, D)   q/k/v: (B, S, H, hd)   cache: (B, Smax, KV, hd)
@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 # ---------------------------------------------------------------- norms
 
@@ -348,3 +349,35 @@ def init_paged_attn_cache(cfg, lead, num_blocks: int, block: int, dtype,
         "pos": torch.full((*lead, num_blocks, block), -(10 ** 9),
                           dtype=torch.int32, device=device),
     }
+
+
+# ---------------------------------------------------------------- ffn
+
+
+def init_ffn(gen, d: int, f: int, act: str, dtype, device, lead):
+    """An FFN's weights with the leading shape `lead` (an int or a
+    tuple: the layer periods, and the experts of an MoE bank), with the
+    reference's scales: SwiGLU has w_gate, w_up and w_down; gelu has
+    w_up and w_down only."""
+    lead = (lead,) if isinstance(lead, int) else tuple(lead)
+
+    def normal(shape, scale):
+        return torch.randn((*lead, *shape), generator=gen, dtype=dtype,
+                           device=device).mul_(scale)
+
+    sd, sf = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"w_gate": normal((d, f), sd)} if act == "swiglu" else {}
+    p["w_up"] = normal((d, f), sd)
+    p["w_down"] = normal((f, d), sf)
+    return p
+
+
+def ffn(p, x, act: str):
+    """Dense FFN (plain torch: the reference's is plain jnp, no kernel):
+    SwiGLU, or gelu in the tanh approximation that ``jax.nn.gelu``
+    computes by default."""
+    if act == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    return h @ p["w_down"]

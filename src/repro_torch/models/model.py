@@ -65,8 +65,10 @@ def input_specs(cfg, shape, *, abstract: bool = True, generator=None,
     decode:  {tokens (B, 1), ...}  (the cache is built separately)
     A vlm adds vis_embeds (B, S, D) bf16, vis_mask (B, S) bool (a prefix
     of min(64, max(1, S // 2)) patch positions) and, under mrope,
-    positions (B, S, 3) int32. Encoder inputs come with the enc-dec
-    slice."""
+    positions (B, S, 3) int32. The audio family (an encoder-decoder)
+    adds the encoder's input, bf16 (B, T, D) with T its encoder_seq_len:
+    enc_out for a decode step, which consumes the frozen encoder output,
+    else enc_embeds (the stub frontend's frame embeddings)."""
     b = shape.global_batch
     s = shape.seq_len if shape.kind != "decode" else 1
     dev = torch.device("meta") if abstract else resolve_device(device)
@@ -99,6 +101,10 @@ def input_specs(cfg, shape, *, abstract: bool = True, generator=None,
         if cfg.rope == "mrope":
             batch["positions"] = mk((b, s, 3), torch.int32,
                                     maxval=shape.seq_len)
+    if cfg.family == "audio":
+        key = "enc_out" if shape.kind == "decode" else "enc_embeds"
+        batch[key] = mk((b, cfg.encdec.encoder_seq_len, cfg.d_model),
+                        torch.bfloat16)
     return batch
 
 
@@ -213,9 +219,14 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
     total = cfg.padded_vocab * d + nd
     if not cfg.tie_embeddings:
         total += d * cfg.padded_vocab
+    if cfg.encdec is not None:    # encoder layers and their final norm
+        total += cfg.encdec.num_encoder_layers * (
+            2 * nd + _mixer_params(cfg, "attn") + n_mats * d * cfg.d_ff) + nd
     expert = 0
     for sub in pattern:
         n = nd + _mixer_params(cfg, sub.mixer)
+        if sub.cross_attn:
+            n += nd + _mixer_params(cfg, "attn")
         if sub.ffn != "none":
             n += nd
             if sub.ffn == "moe":

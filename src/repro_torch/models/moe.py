@@ -1,10 +1,10 @@
 """Mixture-of-Experts layer: GShard-style grouped capacity dispatch.
 
 ``dispatch_moe`` routes tokens to experts with a per-expert capacity,
-runs the grouped SwiGLU expert FFN over the capacity layout through the
-``impl`` kernel backend (``kernels.ops``), and combines. The router also
-emits the per-expert token-load histogram that feeds the MoEless control
-plane (paper §4).
+runs the grouped expert FFN (SwiGLU or gelu) over the capacity layout
+through the ``impl`` kernel backend (``kernels.ops``), and combines. The
+router also emits the per-expert token-load histogram that feeds the
+MoEless control plane (paper §4).
 """
 from __future__ import annotations
 
@@ -44,26 +44,39 @@ def load_balance_loss(probs, top_i, num_experts: int):
 
 
 def experts_ffn(p, x, act: str, *, group_sizes=None, impl: str = "ref"):
-    """x: (E, N, D) -> (E, N, D), grouped per-expert SwiGLU FFN through
-    the kernels.ops backend selector. `group_sizes` (E,) int32 marks rows
+    """x: (E, N, D) -> (E, N, D), grouped per-expert FFN through the
+    kernels.ops backend selector: SwiGLU (the fused gate/up kernel, then
+    the down-projection ``gmm``) or gelu (``gmm`` up, gelu in the tanh
+    approximation, ``gmm`` down). `group_sizes` (E,) int32 marks rows
     beyond it as padding (outputs zeroed; the kernels also skip whole row
-    tiles there). None => all rows active."""
+    tiles there). None => all rows active. `p` is a bank in the model's
+    dtype, or an int8 bank with per-row float32 ``*_scale`` companions
+    (``kernels.quant`` layout), which runs the dequantizing kernels."""
     from repro_torch.kernels import ops as OPS
-    if act != "swiglu":
-        raise NotImplementedError(
-            "only SwiGLU experts are ported so far (gelu comes with the "
-            "enc-dec model-family slice of the PyTorch port)")
     if group_sizes is None:
         group_sizes = torch.full((x.shape[0],), x.shape[1],
                                  dtype=torch.int32, device=x.device)
     if "w_up_scale" in p:
-        # int8 bank + per-row fp32 scales (kernels.quant layout): the
-        # dequantizing kernels (the plain version returns float32)
-        return OPS.expert_ffn_quant_impl(
-            x, p["w_gate"], p["w_gate_scale"], p["w_up"], p["w_up_scale"],
-            p["w_down"], p["w_down_scale"], group_sizes, impl).to(x.dtype)
-    return OPS.expert_ffn_impl(x, p["w_gate"], p["w_up"], p["w_down"],
-                               group_sizes, impl)
+        # the dequantizing kernels return x's dtype, their plain
+        # versions float32 (as the reference's oracle)
+        if act == "swiglu":
+            y = OPS.expert_ffn_quant_impl(
+                x, p["w_gate"], p["w_gate_scale"], p["w_up"],
+                p["w_up_scale"], p["w_down"], p["w_down_scale"],
+                group_sizes, impl)
+        else:
+            h = F.gelu(OPS.gmm_quant_impl(x, p["w_up"], p["w_up_scale"],
+                                          group_sizes, impl),
+                       approximate="tanh")
+            y = OPS.gmm_quant_impl(h, p["w_down"], p["w_down_scale"],
+                                   group_sizes, impl)
+        return y.to(x.dtype)
+    if act == "swiglu":
+        return OPS.expert_ffn_impl(x, p["w_gate"], p["w_up"], p["w_down"],
+                                   group_sizes, impl)
+    h = F.gelu(OPS.gmm_impl(x, p["w_up"], group_sizes, impl),
+               approximate="tanh")
+    return OPS.gmm_impl(h, p["w_down"], group_sizes, impl)
 
 
 def dispatch_moe(p, x, *, top_k: int, num_experts: int,

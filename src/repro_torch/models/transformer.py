@@ -15,9 +15,19 @@ reference runs its one-token ``*_step`` there, which reads the first
 token only, so its prefill-into-cache of a recurrent model differs from
 its own ``forward``; the port's equals ``forward``.
 
+An encoder-decoder config (whisper-base) runs a bidirectional encoder
+over precomputed frame embeddings (``run_encoder``) and gives every
+decoder sublayer a cross-attention over its output, in ``forward`` and
+in ``decode_step`` alike, with each token's own sinusoidal position.
+The reference's ``decode_step`` reads the encoder output but applies no
+cross-attention, and gives every token of a multi-token step the
+position ``cache_len``; so its prefill into a cache and its decode
+differ from its own ``forward``. The port's equal ``forward``.
+
 Entry points:
   init_params(cfg, seed, device)             -> params
   forward(cfg, params, batch, remat=...)     -> (logits, metrics)
+  run_encoder(cfg, params, enc_embeds)       -> encoder output (B, T, D)
   init_cache(cfg, params, batch, max_len)    -> cache
   init_paged_cache(cfg, params, num_blocks, block)
                                              -> paged cache
@@ -45,14 +55,17 @@ from repro_torch.models import ssm as S
 class SubLayer:
     mixer: str          # attn | mamba | mlstm | slstm
     ffn: str            # dense | moe | none
+    cross_attn: bool = False
 
 
 def layer_pattern(cfg) -> list[SubLayer]:
-    """The repeating sublayer pattern (one period) for a config."""
+    """The repeating sublayer pattern (one period) of the decoder stack.
+    An encoder-decoder's sublayers carry cross-attention; the
+    reference's ``layer_pattern`` leaves it out and only its ``forward``
+    and ``init_params`` put it back, so its ``decode_step`` runs
+    without it."""
     if cfg.encdec is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder stacks arrive with the port's "
-            "enc-dec slice")
+        return [SubLayer("attn", "dense", cross_attn=True)]
     if cfg.family == "ssm":                      # xLSTM: mLSTM/sLSTM blocks
         period = cfg.ssm.slstm_every
         return [SubLayer("slstm" if (i % period == period - 1) else "mlstm",
@@ -74,6 +87,19 @@ def layer_pattern(cfg) -> list[SubLayer]:
     return [SubLayer("attn", ffn)]
 
 
+def _sinusoidal_at(pos, d: int):
+    """Sinusoidal embeddings (..., d) of integer positions `pos` (a
+    tensor of any shape): sines then cosines, in float32."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float()[..., None] / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _sinusoidal(seq_len: int, d: int, device):
+    """Positions 0 .. seq_len-1: (seq_len, d) float32."""
+    return _sinusoidal_at(torch.arange(seq_len, device=device), d)
+
+
 # ---------------------------------------------------------------- init
 
 
@@ -87,13 +113,33 @@ def _stacked_norm(cfg, periods: int, dtype, device):
             L.init_norm(cfg.d_model, cfg.norm, dtype, device).items()}
 
 
+def _init_attention(gen, cfg, periods: int, dtype, device):
+    d = cfg.d_model
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    sd = 1.0 / math.sqrt(d)
+    p = {
+        "wq": _normal(gen, (periods, d, h * hd), dtype, device, sd),
+        "wk": _normal(gen, (periods, d, kvh * hd), dtype, device, sd),
+        "wv": _normal(gen, (periods, d, kvh * hd), dtype, device, sd),
+        "wo": _normal(gen, (periods, h * hd, d), dtype, device,
+                      1.0 / math.sqrt(h * hd)),
+    }
+    if cfg.qkv_bias:
+        for n, w in (("bq", h * hd), ("bk", kvh * hd), ("bv", kvh * hd)):
+            p[n] = torch.zeros((periods, w), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        for n in ("q_norm", "k_norm"):
+            p[n] = torch.ones((periods, hd), dtype=dtype, device=device)
+    return p
+
+
 def _init_sublayer(gen, cfg, sub: SubLayer, periods: int, dtype, device):
     """One pattern position's parameters, stacked over `periods`, with
     the reference's distributions and scales (transformer.py,
     layers.py, moe.py init functions)."""
     d = cfg.d_model
     p = {"norm1": _stacked_norm(cfg, periods, dtype, device)}
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    h = cfg.num_heads
     sd = 1.0 / math.sqrt(d)
     if sub.mixer == "mamba":
         p["mamba"] = S.init_mamba(gen, d, cfg.ssm, dtype, device, periods)
@@ -103,46 +149,24 @@ def _init_sublayer(gen, cfg, sub: SubLayer, periods: int, dtype, device):
     elif sub.mixer == "slstm":
         p["slstm"] = S.init_slstm(gen, d, h, dtype, device, periods)
     else:
-        p["attn"] = {
-            "wq": _normal(gen, (periods, d, h * hd), dtype, device, sd),
-            "wk": _normal(gen, (periods, d, kvh * hd), dtype, device, sd),
-            "wv": _normal(gen, (periods, d, kvh * hd), dtype, device, sd),
-            "wo": _normal(gen, (periods, h * hd, d), dtype, device,
-                          1.0 / math.sqrt(h * hd)),
-        }
-        if cfg.qkv_bias:
-            for n, w in (("bq", h * hd), ("bk", kvh * hd),
-                         ("bv", kvh * hd)):
-                p["attn"][n] = torch.zeros((periods, w), dtype=dtype,
-                                           device=device)
-        if cfg.qk_norm:
-            for n in ("q_norm", "k_norm"):
-                p["attn"][n] = torch.ones((periods, hd), dtype=dtype,
-                                          device=device)
+        p["attn"] = _init_attention(gen, cfg, periods, dtype, device)
+    if sub.cross_attn:
+        p["norm_x"] = _stacked_norm(cfg, periods, dtype, device)
+        p["xattn"] = _init_attention(gen, cfg, periods, dtype, device)
     if sub.ffn != "none":
         p["norm2"] = _stacked_norm(cfg, periods, dtype, device)
         if sub.ffn == "moe":
             e, f = cfg.moe.num_experts, cfg.moe.d_ff
-            sf = 1.0 / math.sqrt(f)
             p["moe"] = {
                 "router": {"w_gate": _normal(gen, (periods, d, e), dtype,
                                              device, sd)},
-                "experts": {
-                    "w_gate": _normal(gen, (periods, e, d, f), dtype,
-                                      device, sd),
-                    "w_up": _normal(gen, (periods, e, d, f), dtype,
-                                    device, sd),
-                    "w_down": _normal(gen, (periods, e, f, d), dtype,
-                                      device, sf),
-                },
+                # the experts as one dense FFN with (E, D, F) leaves
+                "experts": L.init_ffn(gen, d, f, cfg.act, dtype, device,
+                                      (periods, e)),
             }
         else:
-            f, sf = cfg.d_ff, 1.0 / math.sqrt(cfg.d_ff)
-            p["ffn"] = {
-                "w_gate": _normal(gen, (periods, d, f), dtype, device, sd),
-                "w_up": _normal(gen, (periods, d, f), dtype, device, sd),
-                "w_down": _normal(gen, (periods, f, d), dtype, device, sf),
-            }
+            p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.act, dtype, device,
+                                  periods)
     return p
 
 
@@ -152,10 +176,6 @@ def init_params(cfg, seed: int, device):
     periods). The numbers differ from the reference's JAX keys; to feed
     both packages the same weights, convert the reference's with
     ``repro_torch.params.from_jax``."""
-    if cfg.act != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: act={cfg.act} arrives with the port's "
-            "enc-dec slice (whisper-base)")
     dtype = getattr(torch, cfg.dtype)
     pattern = layer_pattern(cfg)
     assert cfg.num_layers % len(pattern) == 0, \
@@ -173,6 +193,13 @@ def init_params(cfg, seed: int, device):
     if not cfg.tie_embeddings:
         params["head"] = _normal(gen, (d, cfg.padded_vocab), dtype, device,
                                  1.0 / math.sqrt(d))
+    if cfg.encdec is not None:
+        params["encoder"] = {
+            "layers": [_init_sublayer(gen, cfg, SubLayer("attn", "dense"),
+                                      cfg.encdec.num_encoder_layers, dtype,
+                                      device)],
+            "final_norm": L.init_norm(d, cfg.norm, dtype, device),
+        }
     return params
 
 
@@ -222,13 +249,14 @@ def _apply_mixer(cfg, sub: SubLayer, p, h, cache):
 
 
 def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
-                    cache_len=None, window=0, collect: bool = False,
-                    token_mask=None, block_tables=None, new_counts=None,
-                    ep_ctx=None, ep_state=None):
-    """One sublayer (mixer + ffn) with residuals. The layer's cache
-    slice is written in place. With `ep_ctx` and this sublayer's
-    `ep_state` the MoE runs through the EP slot data plane. Returns
-    (x, metrics)."""
+                    cache_len=None, enc_out=None, window=0,
+                    collect: bool = False, token_mask=None,
+                    block_tables=None, new_counts=None, ep_ctx=None,
+                    ep_state=None):
+    """One sublayer (mixer + optional cross-attention over `enc_out` +
+    ffn) with residuals. The layer's cache slice is written in place.
+    With `ep_ctx` and this sublayer's `ep_state` the MoE runs through
+    the EP slot data plane. Returns (x, metrics)."""
     metrics = {}
     h = L.norm(x, p["norm1"], cfg.norm)
     if sub.mixer == "attn":
@@ -240,6 +268,9 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
     else:
         y = _apply_mixer(cfg, sub, p, h, cache)
     x = x + y
+    if sub.cross_attn:
+        x = x + _cross_attention(cfg, p["xattn"],
+                                 L.norm(x, p["norm_x"], cfg.norm), enc_out)
     if sub.ffn != "none":
         h = L.norm(x, p["norm2"], cfg.norm)
         if sub.ffn == "moe":
@@ -265,16 +296,55 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     metrics["router_logits"] = m["router_logits"].reshape(
                         h.shape[0], h.shape[1], -1)
         else:
-            y = dense_ffn(p["ffn"], h)
+            y = L.ffn(p["ffn"], h, cfg.act)
         x = x + y
     return x, metrics
 
 
-def dense_ffn(fp, h):
-    """A dense sublayer's SwiGLU FFN (plain torch: the reference's is
-    plain jnp, no kernel)."""
-    return torch.nn.functional.silu(h @ fp["w_gate"]) \
-        * (h @ fp["w_up"]) @ fp["w_down"]
+def _attend(pa, q, kv_in):
+    """Attention of q (B, Sq, H, hd) over keys and values projected from
+    `kv_in` (B, T, D), every one of the T visible to every query (no
+    causal mask), then the output projection: (B, Sq, D) in float32
+    (the attention output promotes the projection, as in the
+    reference)."""
+    b, t, _ = kv_in.shape
+    sq, hd = q.shape[1], q.shape[-1]
+    k = (kv_in @ pa["wk"]).reshape(b, t, -1, hd)
+    v = (kv_in @ pa["wv"]).reshape(b, t, -1, hd)
+    kv_pos = torch.arange(t, dtype=torch.int32, device=q.device)[None] \
+        .expand(b, t)
+    q_pos = torch.zeros((b, sq), dtype=torch.int32, device=q.device)
+    y = L.attention(q, k, v, q_pos, kv_pos, causal=False)
+    return y.reshape(b, sq, -1) @ pa["wo"].float()
+
+
+def _cross_attention(cfg, pa, h, enc_out):
+    """Cross-attention of h (B, S, D) over the encoder output (B, T, D):
+    keys and values projected from it at every call, as the reference
+    does (plain torch: the reference's is plain jnp, no kernel)."""
+    b, s, _ = h.shape
+    q = (h @ pa["wq"]).reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    return _attend(pa, q, enc_out).to(h.dtype)
+
+
+def run_encoder(cfg, params, enc_embeds):
+    """The reference's ``_run_encoder``: sinusoidal positions added to
+    the frame embeddings (B, T, D) of the stub frontend, taken in the
+    model's dtype, then bidirectional attention and the dense FFN in
+    each encoder layer, and the final norm. Plain torch: the reference's
+    is plain jnp, no kernel. Returns (B, T, D)."""
+    enc = params["encoder"]
+    x = enc_embeds.to(params["embed"].dtype)
+    b, t, d = x.shape
+    x = x + _sinusoidal(t, d, x.device).to(x.dtype)[None]
+    hd, nh = cfg.resolved_head_dim, cfg.num_heads
+    for i in range(cfg.encdec.num_encoder_layers):
+        lp = _period(enc["layers"][0], i)
+        hn = L.norm(x, lp["norm1"], cfg.norm)
+        q = (hn @ lp["attn"]["wq"]).reshape(b, t, nh, hd)
+        x = x + _attend(lp["attn"], q, hn).to(x.dtype)
+        x = x + L.ffn(lp["ffn"], L.norm(x, lp["norm2"], cfg.norm), cfg.act)
+    return L.norm(x, enc["final_norm"], cfg.norm)
 
 
 def _moe_groups(h):
@@ -317,8 +387,11 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
             remat: str = "none", last_only: bool = False, ep_ctx=None,
             ep_state=None, token_mask=None):
     """Prefill / training forward over whole sequences, writing no cache.
-    batch: {tokens (B, S), [positions (B, S)], [token_mask (B, S)]} ->
-    (logits, metrics).
+    batch: {tokens (B, S), [positions (B, S)], [token_mask (B, S)],
+    [enc_embeds (B, T, D)]} -> (logits, metrics). An encoder-decoder
+    config needs 'enc_embeds': the encoder runs over them, the decoder
+    input gains sinusoidal positions and every decoder sublayer attends
+    to the encoder output.
 
     `remat` (``REMATS``) checkpoints each period's sublayers as the
     reference's ``jax.checkpoint`` of its scan body does: ``"full"``
@@ -331,9 +404,6 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     summed over layers, 'expert_load' (Lm, E) and 'dropped' (Lm,); with
     `collect` also 'gate_input' (Lm, B, S, D) and, off the EP plane,
     'router_logits' (Lm, B, S, E), MoE layers in period-major order."""
-    if "enc_embeds" in batch:
-        raise NotImplementedError(
-            "encoder inputs arrive with the port's enc-dec slice")
     pattern = layer_pattern(cfg)
     x = _embed(params, batch)
     bsz, seq_len = batch["tokens"].shape
@@ -343,12 +413,20 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
                            device=x.device)[None].expand(bsz, seq_len)
     if token_mask is None:
         token_mask = batch.get("token_mask")
+    enc_out = None
+    if cfg.encdec is not None:
+        if "enc_embeds" not in batch:
+            raise ValueError(f"{cfg.name}: forward needs batch"
+                             "['enc_embeds'] (an encoder-decoder config)")
+        enc_out = run_encoder(cfg, params, batch["enc_embeds"])
+        x = x + _sinusoidal(seq_len, cfg.d_model, x.device).to(x.dtype)[None]
 
     def body(x, layer_params, layer_ep):
         ms = []
         for j, sub in enumerate(pattern):
             x, m = _apply_sublayer(cfg, sub, layer_params[j], x, pos,
-                                   window=window, collect=collect,
+                                   enc_out=enc_out, window=window,
+                                   collect=collect,
                                    token_mask=token_mask, ep_ctx=ep_ctx,
                                    ep_state=layer_ep[j])
             ms.append(m)
@@ -434,16 +512,26 @@ def init_cache(cfg, params, batch: int, max_len: int):
     return [one(sub, p) for sub, p in zip(pattern, params["layers"])]
 
 
+def require_paged_kv(cfg) -> list[SubLayer]:
+    """`cfg`'s layer pattern, or ValueError if its decode stack cannot
+    live in a paged block pool: only attention-only decoders can, since
+    recurrent state is per slot, which block tables cannot express, and
+    an encoder-decoder's decode takes one scalar length."""
+    pattern = layer_pattern(cfg)
+    if cfg.encdec is not None or any(sub.mixer != "attn"
+                                     for sub in pattern):
+        raise ValueError(f"{cfg.name}: paged KV needs an attention-only "
+                         "decoder (no SSM state, no enc-dec)")
+    return pattern
+
+
 def init_paged_cache(cfg, params, num_blocks: int, block: int):
     """Paged-pool cache tree: the same per-period stacking as
     ``init_cache``, but each attention sublayer holds ONE global block
     pool (periods, num_blocks, block, KV, hd) addressed by per-row block
-    tables instead of per-slot rows. Attention-only decoders only:
-    recurrent state is per slot, which block tables cannot express."""
-    pattern = layer_pattern(cfg)
-    if any(sub.mixer != "attn" for sub in pattern):
-        raise ValueError(f"{cfg.name}: paged KV requires an attention-only "
-                         "decoder")
+    tables instead of per-slot rows. Attention-only decoders only
+    (``require_paged_kv``)."""
+    pattern = require_paged_kv(cfg)
     np_ = cfg.num_layers // len(pattern)
     return [{"attn": L.init_paged_attn_cache(cfg, np_, num_blocks, block,
                                              getattr(torch, cfg.dtype),
@@ -468,12 +556,37 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     slot tables/weights stacked over periods, from
     ``serving.expert_runtime.ExpertRuntime.ep_state``) route every MoE
     sublayer through the EP slot data plane. The cache is updated in
-    place and returned. Returns (logits (B,S_new,V), cache, metrics)."""
+    place and returned.
+
+    An encoder-decoder config takes the encoder output as
+    batch['enc_out'] (B, T, D), or batch['enc_embeds'] to run the encoder
+    first, and an int `cache_len`: every decoder sublayer attends to the
+    encoder output, and each new token gains its own position's
+    sinusoid, so a prefill into a fresh cache and the decode steps after
+    it give ``forward``'s logits (the reference's ``decode_step`` does
+    neither). Returns (logits (B,S_new,V), cache, metrics)."""
     pattern = layer_pattern(cfg)
     tokens = batch["tokens"]
     x = _embed(params, batch)
     bsz, s_new = tokens.shape
     steps = torch.arange(s_new, dtype=torch.int32, device=tokens.device)
+    enc_out = None
+    if cfg.encdec is not None:
+        if isinstance(cache_len, torch.Tensor) and cache_len.ndim == 0:
+            cache_len = int(cache_len)
+        if not isinstance(cache_len, int):
+            raise ValueError(f"{cfg.name}: an encoder-decoder decode step "
+                             "takes an int cache_len (one position for the "
+                             "whole batch), not per-row lengths")
+        if "enc_out" in batch:
+            enc_out = batch["enc_out"].to(x.dtype)
+        elif "enc_embeds" in batch:
+            enc_out = run_encoder(cfg, params, batch["enc_embeds"])
+        else:
+            raise ValueError(f"{cfg.name}: an encoder-decoder decode step "
+                             "needs batch['enc_out'] or batch['enc_embeds']")
+        x = x + _sinusoidal_at(cache_len + steps, cfg.d_model) \
+            .to(x.dtype)[None]
     if not isinstance(cache_len, int):
         cache_len = cache_len.to(torch.int32)
     pos = batch.get("positions")    # (B, S_new), or (B, S_new, 3)
@@ -499,7 +612,8 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
         for j, sub in enumerate(pattern):
             x, m = _apply_sublayer(cfg, sub, _period(params["layers"][j], i),
                                    x, pos, cache=_period(cache[j], i),
-                                   cache_len=cache_len, window=window,
+                                   cache_len=cache_len, enc_out=enc_out,
+                                   window=window,
                                    collect=collect, token_mask=token_mask,
                                    block_tables=block_tables,
                                    new_counts=new_counts, ep_ctx=ep_ctx,

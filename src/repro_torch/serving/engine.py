@@ -249,11 +249,8 @@ class ServingEngine:
                 "prefix_cache requires prefill_chunk > 0 — the solo "
                 "splice path always recomputes the whole prompt, so a "
                 "prefix hit could never skip work")
-        pattern = T.layer_pattern(cfg)  # rejects stacks not ported yet
-        if spec.kv == "paged" and any(sub.mixer != "attn"
-                                      for sub in pattern):
-            raise ValueError("serving.kv='paged' needs an attention-only "
-                             "decoder (no SSM state, no enc-dec)")
+        pattern = (T.require_paged_kv(cfg) if spec.kv == "paged"
+                   else T.layer_pattern(cfg))
         self.serving = spec
         # only attention-only decoders prefill right-padded: a pad token
         # would advance a recurrent state
@@ -308,7 +305,9 @@ class ServingEngine:
 
     def prefill(self, batch):
         """batch['tokens']: (B, S_prompt), every row a whole prompt (no
-        padding). Returns (greedy next tokens (B,), cache, S_prompt)."""
+        padding); an encoder-decoder model's batch also carries
+        'enc_out' (B, T, D), or 'enc_embeds' to run the encoder in this
+        call. Returns (greedy next tokens (B,), cache, S_prompt)."""
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         cache = self.new_cache(batch["tokens"].shape[0])
@@ -319,8 +318,10 @@ class ServingEngine:
 
     def decode(self, tokens, cache, cache_len: int, steps: int,
                extra=None):
-        """Greedy decode `steps` tokens after `tokens` (B,). Returns
-        (tokens (B, steps), cache, cache_len)."""
+        """Greedy decode `steps` tokens after `tokens` (B,); `extra`
+        joins every step's batch (an encoder-decoder model's
+        {'enc_out': (B, T, D)}). Returns (tokens (B, steps), cache,
+        cache_len)."""
         out = []
         cur = torch.as_tensor(tokens, device=self.device)
         for _ in range(steps):
@@ -400,7 +401,15 @@ class ServingEngine:
         latency when a `control` plane is attached, else by measured wall
         time; `time_scale` multiplies the advance. With
         ``expert_runtime="on"`` the session's runtime is built for
-        `control` and bootstrapped here."""
+        `control` and bootstrapped here. An encoder-decoder config is
+        refused, as the reference refuses it: serve it through the
+        fixed-batch ``prefill``/``decode``."""
+        if self.cfg.encdec is not None:
+            raise NotImplementedError(
+                "continuous batching needs per-slot cache lengths, which "
+                "encoder-decoder decode does not support (scalar-only "
+                "positional offsets) — use the fixed-batch prefill/decode "
+                "API for enc-dec models")
         runtime = None
         if self.expert_runtime == "on":
             if control is None:

@@ -162,7 +162,9 @@ class ExpertRuntime:
         if cfg.act != "swiglu":
             raise NotImplementedError(
                 "EP slot banks hold swiglu experts (w_gate/w_up/w_down); "
-                f"act={cfg.act!r} is not wired into the slot data plane")
+                f"act={cfg.act!r} is not wired into the slot data plane — "
+                "the reference has the same limit "
+                "(src/repro/serving/expert_runtime.py:169)")
         self.cfg = cfg
         self.keep_alive = keep_alive
         self.hw = hw

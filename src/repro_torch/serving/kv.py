@@ -383,10 +383,7 @@ class PagedKVCache:
                  chunked: bool = False):
         if block < 1:
             raise ValueError(f"kv_block={block} must be >= 1")
-        if any(sub.mixer != "attn" for sub in T.layer_pattern(cfg)):
-            raise ValueError(
-                "paged KV needs an attention-only decode stack — "
-                "recurrent (SSM) state has no block/table analogue")
+        T.require_paged_kv(cfg)
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len

@@ -176,7 +176,8 @@ def test_quant_plain_versions_match_reference_kernels(case):
 
 def test_experts_ffn_selects_int8_bank_by_scale_keys():
     """``models.moe.experts_ffn`` dispatches on ``w_up_scale`` as the
-    reference does; gelu experts still raise, naming their slice."""
+    reference does, for SwiGLU and for gelu experts (``gmm_quant`` up,
+    gelu, ``gmm_quant`` down, as the reference's ``experts_ffn``)."""
     e, c, d, f, gs = QUANT_CASES[0]
     x, qs = _quant_case(e, c, d, f)
     bank = {}
@@ -188,8 +189,15 @@ def test_experts_ffn_selects_int8_bank_by_scale_keys():
         "w_gate", "w_gate_scale", "w_up", "w_up_scale", "w_down",
         "w_down_scale")), g)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
-    with pytest.raises(NotImplementedError, match="model-family"):
-        MOE.experts_ffn(bank, _t(x), "gelu", group_sizes=g)
+    gelu = {k: v for k, v in bank.items() if not k.startswith("w_gate")}
+    got = MOE.experts_ffn(gelu, _t(x), "gelu", group_sizes=g)
+    jb = {k: jnp.asarray(v.numpy()) for k, v in gelu.items()}
+    jg = jnp.asarray(gs, jnp.int32)
+    h = jax.nn.gelu(JREF.gmm_ref_quant(jnp.asarray(x), jb["w_up"],
+                                       jb["w_up_scale"], jg))
+    want = JREF.gmm_ref_quant(h, jb["w_down"], jb["w_down_scale"], jg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
 
 
 # ------------------------------------------------------------ tables

@@ -821,3 +821,68 @@ def test_kernel_wrappers_refuse_autograd_on_card(cuda):
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
         needs_grad.requires_grad_(False)
+
+
+@pytest.mark.cuda
+def test_whisper_decode_and_gelu_experts_match_plain_on_card(cuda):
+    """whisper-base's decode geometry (B 8, H 8, KV 8, hd 64) through
+    ``decode_attention`` in bf16, on "mma", against the plain version; a
+    whisper decode step at its widths (2 decoder layers, a 64-frame
+    encoder, float32) through the kernels against the plain path, one
+    launch a layer; and gelu experts (``gmm`` up, gelu, ``gmm`` down,
+    bf16 and int8 banks) against their plain versions."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import EncDecSpec, get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    dt, tol = torch.bfloat16, TOL[torch.bfloat16]
+    q, k, v, pos, kv_len, q_pos = _to_card(cuda, dt, *_attn_case(
+        8, 8, 8, 64, 160, [132] * 4 + [5, 60, 160, 1],
+        [131] * 4 + [4, 59, 159, 0], False))
+    assert DA.kernel_path(q, k, v)[0] == "mma"
+    torch.testing.assert_close(
+        DA.decode_attention(q, k, v, pos, kv_len, q_pos).float(),
+        DA.decode_attention_ref(q, k, v, pos, kv_len, q_pos,
+                                window=0).float(), atol=tol, rtol=tol)
+
+    cfg = get_config("whisper-base").with_(
+        num_layers=2, dtype="float32",
+        encdec=EncDecSpec(num_encoder_layers=1, encoder_seq_len=64))
+    params = init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (8, 6), generator=gen,
+                         device=cuda)
+    emb = torch.randn((8, 64, cfg.d_model), generator=gen,
+                      device=cuda) * 0.02
+    enc_out = T.run_encoder(cfg, params, emb)
+    outs = []
+    for c in (cfg, cfg.with_(impl="ref")):
+        cache = T.init_cache(c, params, 8, 16)
+        T.decode_step(c, params, {"tokens": toks[:, :5], "enc_out": enc_out},
+                      cache, 0)
+        K.reset_launch_counts()
+        lg, _, _ = T.decode_step(c, params, {"tokens": toks[:, 5:],
+                                             "enc_out": enc_out}, cache, 5)
+        outs.append((lg, K.launch_counts()["decode_attention"]))
+    assert outs[0][1] == cfg.num_layers and outs[1][1] == 0
+    torch.testing.assert_close(outs[0][0], outs[1][0],
+                               atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+    x, wu, _ = _gmm_case(3, 24, 64, 80)
+    wd = np.random.default_rng(3).standard_normal((3, 80, 64)) \
+        .astype(np.float32) / np.sqrt(80)
+    g = torch.tensor([24, 9, 0], dtype=torch.int32, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        xc, wuc, wdc = _to_card(cuda, dtype, x, wu, wd)
+        bank = {"w_up": wuc, "w_down": wdc}
+        for p in (bank, QT.quantize_expert_bank(bank)):
+            K.reset_launch_counts()
+            got = MOE.experts_ffn(p, xc, "gelu", group_sizes=g, impl="cuda")
+            n = K.launch_counts()
+            name = "gmm_quant" if "w_up_scale" in p else "gmm"
+            assert n[name] == 2 and n["fused_gate_up"] == 0, n
+            want = MOE.experts_ffn(p, xc, "gelu", group_sizes=g, impl="ref")
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])

@@ -36,9 +36,9 @@ TOL = 1e-4
 ATTN_ARCHS = ["mixtral-8x7b", "phi-3.5-moe", "grok-1-314b",
               "llama4-maverick-400b-a17b", "qwen2-72b", "qwen3-32b",
               "stablelm-12b", "command-r-plus-104b", "qwen2-vl-2b"]
-ARCHS = ATTN_ARCHS + ["jamba-v0.1-52b", "xlstm-125m"]
-# the reference's archs whose stacks come with the enc-dec slice
-DEFERRED = ["whisper-base"]
+# the recurrent stacks and the encoder-decoder (its decode is held in
+# tests/test_torch_encdec.py)
+ARCHS = ATTN_ARCHS + ["jamba-v0.1-52b", "xlstm-125m", "whisper-base"]
 _jinit = jax.jit(JM.init_params, static_argnums=0)
 
 
@@ -59,15 +59,7 @@ def test_configs_equal_reference_field_by_field(arch, smoke):
     ref = dataclasses.asdict(jget_config(arch, smoke=smoke))
     mine.pop("impl"), ref.pop("impl")
     assert mine == ref
-    assert list_archs() == sorted(ARCHS)
-
-
-@pytest.mark.parametrize("arch", DEFERRED)
-def test_deferred_archs_raise_naming_their_slice(arch):
-    jget_config(arch)                     # the reference serves it
-    with pytest.raises(KeyError, match="enc-dec slice"):
-        get_config(arch)
-    assert sorted(list_archs() + DEFERRED) == jlist_archs()
+    assert list_archs() == sorted(ARCHS) == jlist_archs()
 
 
 def test_from_jax_keeps_structure_and_bf16_bits():
