@@ -168,7 +168,26 @@ Phases, each fatal on failure:
      smoke config through the fixed-batch API and mixtral-8x7b's at act
      gelu (``gmm`` launched, ``fused_gate_up`` never).
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5.
+  11. multi-rank EP: ``ServingEngine(mesh=...)`` over local ranks that
+     share cuda:0 through gloo (``launch.mesh.spawn_local``; NCCL
+     refuses two ranks on one device), mixtral-8x7b at its published
+     widths (``MR_WORLDS``): W1 (1,4,1) bf16 and W2 (1,4,1) float32 at 1
+     of 32 layers, W3 (1,2,2) with int8 slot banks at 2; each rank holds
+     the replicated non-expert layers and its slice of the slot banks.
+     The parent runs each world's (1,1,1) session in its own turn, then
+     the world. Gated: each world's layer-0 MoE output on one fixed
+     input against one rank's (at its dtype's tolerance), with a
+     control (rank 1 keeping its gather all-to-all's input) that must
+     fail it; W2's float32 tokens, loads, drops, runtime meters, summed
+     rank_bytes and modeled latencies equal the (1,1,1) session's, and
+     the control's burst must change its tokens or loads; every rank
+     launches the expert kernels and ``decode_attention``; each rank's
+     bytes written x tp equal its rank_bytes share. Printed: per-rank
+     launches, peak memory beside its reckoning, expert FFN device ms,
+     each collective's host ms, decode step wall, and W1/W3 against
+     (1,1,1).
+
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -197,6 +216,7 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import build as KB  # noqa: E402
 from repro_torch.kernels import decode_attn as DA  # noqa: E402
 from repro_torch.kernels import moe_gmm as MG  # noqa: E402
+from repro_torch.launch.mesh import ServingMesh  # noqa: E402
 
 # H100 SXM data sheet: HBM rate and dense peak rates by input type
 HBM_BYTES_S = 3.35e12
@@ -3873,6 +3893,443 @@ def whisper_phase(card: str) -> dict:
 # ------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------ phase 11
+
+# the worlds of phase 11: local ranks on cuda:0 over gloo (NCCL refuses
+# two ranks on one device), each holding the replicated non-expert layers
+# and its own slice of the expert slot banks. mixtral-8x7b at its
+# published widths, 1 layer of 32 (2 in W3): each rank holds the layer's
+# experts, their padded source bank and its slot banks, and four ranks
+# share the one card. 8 requests at t=0, 128-token prompts, 32 new
+# tokens, greedy. The session controller is MoElessController(
+# num_devices=2, slots_per_device=8): 16 slots, 4 a rank at ep=4. With
+# 8 slots a logical device = E no allocation can fail, which 2 slots on
+# each of 8 devices cannot promise (the runtime runs out of slots within
+# this burst: the modeled clock spans far less than the 60 s keep-alive).
+MR_PROMPT, MR_GEN, MR_REQS, MR_SLOTS = 128, 32, 8, 8
+MR_DEVICES, MR_SLOTS_PER_DEVICE = 2, 8
+MR_GATE_ROWS, MR_GATE_LEN = 8, 16      # the layer gates' fixed input
+MR_WORLDS = {
+    # name: (data, ep, tp), dtype, layers, slot dtype, double buffer,
+    # impl, decode steps (None: every request to its budget)
+    "W1": dict(degrees=(1, 4, 1), dtype="bfloat16", layers=1,
+               slot_dtype="fp32", double_buffer=True, impl="auto",
+               gen=MR_GEN, control=True, transport=True),
+    # float32: four ranks of experts + padded bank + one 4-slot bank is
+    # ~16.6 GB a rank; a second bank would not leave the card room
+    "W2": dict(degrees=(1, 4, 1), dtype="float32", layers=1,
+               slot_dtype="fp32", double_buffer=False, impl="cuda",
+               gen=MR_GEN, control=True),
+    "W3": dict(degrees=(1, 2, 2), dtype="bfloat16", layers=2,
+               slot_dtype="int8", double_buffer=True, impl="auto",
+               gen=8, control=False),
+}
+
+
+def mr_config(w: dict):
+    from repro_torch.configs import get_config
+    full = get_config("mixtral-8x7b")
+    return full.with_(num_layers=w["layers"], dtype=w["dtype"],
+                      impl=w["impl"], moe=dataclasses.replace(
+                          full.moe, slot_dtype=w["slot_dtype"]))
+
+
+def mr_reckoning_gb(cfg, w: dict) -> float:
+    """Device bytes a rank should hold: the layers' own experts, their
+    padded source bank (E + 1 experts, this rank's tp slice), its slot
+    banks (one or two), attention, embeddings and head."""
+    d, f, e = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts
+    data, ep, tp = w["degrees"]
+    el = 4 if cfg.dtype == "float32" else 2
+    expert = 3 * d * f * el
+    slot = 3 * d * f + 2 * d * 4 + f * 4 if w["slot_dtype"] == "int8" \
+        else expert
+    per_rank_slots = MR_DEVICES * MR_SLOTS_PER_DEVICE // ep
+    banks = 2 if w["double_buffer"] else 1
+    hd = cfg.resolved_head_dim
+    attn = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) * el
+    layer = e * expert + (e + 1) * slot / tp \
+        + banks * per_rank_slots * slot / tp + attn
+    return (cfg.num_layers * layer + 2 * cfg.vocab_size * d * el) / 1e9
+
+
+def mr_tables(cfg, ep: int):
+    """A replicated plan over the 16 slots (the layer gates' routing):
+    loads drawn from a seed, scaled to 16 replicas and placed on 8
+    logical devices, projected onto `ep` ranks."""
+    from repro_torch.core.placer import place_layer
+    from repro_torch.core.scaler import scale_layer
+    from repro_torch.distributed import ep as EP
+    e = cfg.moe.num_experts
+    loads = np.random.default_rng(11).integers(1, 100, e).astype(float)
+    plan = place_layer(loads, scale_layer(loads, max_total_replicas=16), 8)
+    return EP.plan_to_tables(plan, ep=ep, slots_per_device=16 // ep,
+                             num_devices=8)
+
+
+def mr_layer(cfg, params, mesh):
+    """Layer 0's MoE through the EP slot plane on one fixed input (8 rows
+    x 16 tokens, seeded on the card): (output on the host, loads,
+    dropped). `mesh` None is the one-rank plane."""
+    from repro_torch.distributed import ep as EP
+    from repro_torch.kernels import quant as QT
+    ep = 1 if mesh is None else mesh.shape["ep"]
+    moe = params["layers"][0]["moe"]
+    w = {k: v[0] for k, v in moe["experts"].items()}
+    if cfg.moe.slot_dtype == "int8":
+        w = QT.quantize_expert_bank(w)
+    tables = mr_tables(cfg, ep)
+    slot_w = EP.materialise_slots(w, tables["slot_expert"], mesh=mesh)
+    del w
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((MR_GATE_ROWS, MR_GATE_LEN, cfg.d_model),
+                    generator=gen, device="cuda").to(getattr(torch,
+                                                             cfg.dtype))
+    y, m = EP.moe_ep_layer(
+        x, moe["router"]["w_gate"][0], slot_w, tables,
+        num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+        slots_per_device=16 // ep, capacity_factor=cfg.moe.capacity_factor,
+        impl=cfg.impl, mesh=mesh)
+    torch.cuda.synchronize()
+    return (y.float().cpu(), m["expert_load"].cpu().tolist(),
+            float(m["dropped"]))
+
+
+class FfnTimer:
+    """Within the block, CUDA events around every expert FFN call of the
+    EP slot plane (``ops.expert_ffn_impl`` and its int8 form): device
+    ms a call, read after the block."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops as KOPS
+        self.ops, self.events, self.on = KOPS, [], False
+        self._fns = (KOPS.expert_ffn_impl, KOPS.expert_ffn_quant_impl)
+
+        def wrap(inner):
+            def run(*a, **kw):
+                if not self.on:
+                    return inner(*a, **kw)
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = inner(*a, **kw)
+                e.record()
+                self.events.append((s, e))
+                return out
+            return run
+
+        KOPS.expert_ffn_impl, KOPS.expert_ffn_quant_impl = map(wrap,
+                                                              self._fns)
+        return self
+
+    def ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+    def __exit__(self, *exc):
+        self.ops.expert_ffn_impl, self.ops.expert_ffn_quant_impl = self._fns
+
+
+def mr_serve(cfg, params, mesh, w: dict, gen: int):
+    """The burst through ``ServingEngine(mesh=...)`` with the expert
+    runtime on: tokens, each iteration's expert loads and drops, the
+    runtime's meters, the modeled latencies, this rank's kernel launches,
+    its bytes written, its decode step wall, its expert FFN device ms and
+    each collective's host ms a decode step a layer."""
+    from repro_torch.serving.engine import MoElessController, ServingEngine
+
+    class Recording(MoElessController):
+        """Keeps every iteration's loads and drops as the engine hands
+        them over."""
+
+        def step(self, t, gate_inputs, actual_loads, token_mask=None,
+                 **kw):
+            d = kw.get("dropped")
+            self.seen.append((actual_loads.cpu().tolist(),
+                              None if d is None else d.cpu().tolist()))
+            return super().step(t, gate_inputs, actual_loads, token_mask,
+                                **kw)
+
+    reqs = make_requests(cfg, (MR_PROMPT,), (gen,), MR_REQS, seed=5)
+    ctrl = Recording(cfg, num_devices=MR_DEVICES,
+                     slots_per_device=MR_SLOTS_PER_DEVICE)
+    ctrl.seen = []
+    eng = ServingEngine(cfg, params, max_len=MR_PROMPT + MR_GEN + 1,
+                        expert_runtime="on", mesh=mesh,
+                        runtime_double_buffer=w["double_buffer"])
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.start(num_slots=MR_SLOTS, control=ctrl, requests=reqs)
+    eng.step()                       # the 8 prefills and one decode step
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if mesh is not None:
+        mesh.host_ms.clear()
+    steps = []
+    with FfnTimer() as ffn:
+        ffn.on = True
+        while eng.has_work:
+            _, ms = wall_ms(eng.step)
+            steps.append(ms)
+        ffn_ms = ffn.ms()
+    res = eng.result()
+    st = dataclasses.asdict(res.runtime.finalize(res.clock_s))
+    n_layers = cfg.num_layers
+    return {
+        "tokens": [list(map(int, r.tokens)) for r in reqs],
+        "loads": [s[0] for s in ctrl.seen],
+        "dropped": [s[1] for s in ctrl.seen],
+        "stats": st, "clock": res.clock_s, "iterations": res.iterations,
+        "records": sorted(map(dataclasses.astuple, res.records)),
+        "launches": K.launch_counts(),
+        "local_bytes": res.runtime.local_bytes,
+        "first_step_s": first_s,
+        "decode_ms": float(np.median(steps)) if steps else 0.0,
+        "decode_steps": len(steps),
+        "ffn_ms": float(np.median(ffn_ms)) if ffn_ms else 0.0,
+        "collective_ms": {k: v / max(1, len(steps)) / n_layers for k, v in
+                          (mesh.host_ms.items() if mesh else ())},
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def mr_transport(cfg, mesh, n: int = 10) -> dict:
+    """Host ms of one scatter all-to-all at a 128-token prefill's send
+    buffer (ep x slots_per_rank*cap rows x D), gloo on the card's
+    tensors against the same buffer staged through host memory, in
+    turns (native, staged, staged, native), `n` calls each."""
+    ep = mesh.shape["ep"]
+    cap = math.ceil(cfg.moe.capacity_factor * cfg.moe.top_k * MR_PROMPT
+                    / cfg.moe.num_experts)
+    spr = MR_DEVICES * MR_SLOTS_PER_DEVICE // ep
+    x = torch.randn((ep, spr * cap, cfg.d_model), device="cuda").to(
+        getattr(torch, cfg.dtype))
+
+    def native():
+        return mesh.all_to_all(x, "ep")
+
+    def staged():
+        return mesh.all_to_all(x.cpu(), "ep").to(x.device)
+
+    if not torch.equal(native(), staged()):
+        raise AssertionError("staged all-to-all differs from gloo's own")
+    times = {"native": [], "staged": []}
+    for name in ("native", "staged", "staged", "native"):
+        fn = native if name == "native" else staged
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3 / n)
+    return {"mb": x.numel() * x.element_size() / 1e6,
+            **{k: float(np.mean(v)) for k, v in times.items()}}
+
+
+@dataclasses.dataclass
+class BlindGather(ServingMesh):
+    """The control of phase 11's gates: rank 1 takes part in every
+    collective but keeps its own input in place of the gather
+    all-to-all's output (every second floating all-to-all of a layer),
+    so its tokens are combined from the wrong ranks' expert outputs."""
+    n: int = 0
+
+    @classmethod
+    def of(cls, mesh: ServingMesh) -> "BlindGather":
+        return cls(**{f.name: getattr(mesh, f.name)
+                      for f in dataclasses.fields(mesh)})
+
+    def all_to_all(self, x, group: str):
+        out = super().all_to_all(x, group)
+        if not x.is_floating_point():
+            return out
+        self.n += 1
+        return x if self.n % 2 == 0 and self.rank == 1 else out
+
+
+def mr_world(rank: int, name: str) -> dict:
+    """One rank of world `name` (``MR_WORLDS``), its process group up:
+    the layer gate (and its control), then the burst (and the control's
+    burst). Everything returned lives on the host."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    w = MR_WORLDS[name]
+    data, ep, tp = w["degrees"]
+    mesh = make_serving_mesh(ep=ep, tp=tp, data=data, device="cuda:0")
+    cfg = mr_config(w)
+    params = init_params(cfg, seed=0, device="cuda")
+    out = {"rank": rank, "coords": list(mesh.coords),
+           "layer": mr_layer(cfg, params, mesh)}
+    if w["control"]:
+        out["control_layer"] = mr_layer(cfg, params, BlindGather.of(mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = mr_serve(cfg, params, mesh, w, w["gen"])
+    if w.get("transport"):
+        out["transport"] = mr_transport(cfg, mesh)
+    if w["control"] and cfg.dtype == "float32":
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["control_serve"] = mr_serve(cfg, params, BlindGather.of(mesh),
+                                        w, w["gen"] // 4)
+    return out
+
+
+def mr_single(name: str) -> dict:
+    """The one-rank (1, 1, 1) counterparts of world `name`, in this
+    process: the layer gate's output and the burst."""
+    from repro_torch.models.model import init_params
+    w = MR_WORLDS[name]
+    cfg = mr_config(w)
+    params = init_params(cfg, seed=0, device="cuda")
+    out = {"layer": mr_layer(cfg, params, None)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = mr_serve(cfg, params, None, w, w["gen"])
+    if w["control"] and cfg.dtype == "float32":
+        out["short_serve"] = mr_serve(cfg, params, None, w, w["gen"] // 4)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stats_core(st: dict) -> dict:
+    """The runtime's meters but ``rank_bytes`` (keyed by the mesh's
+    ranks)."""
+    return {k: v for k, v in st.items() if k != "rank_bytes"}
+
+
+def ep_phase(card: str) -> dict:
+    """Phase 11: multi-rank EP on the card (``MR_WORLDS``). Returns each
+    world's per-rank launch counts."""
+    from repro_torch.launch.mesh import spawn_local
+    t11 = time.perf_counter()
+    out = {}
+    for name, w in MR_WORLDS.items():
+        data, ep, tp = w["degrees"]
+        cfg = mr_config(w)
+        # bf16 worlds (int8 banks too) at the bf16 tolerance
+        tol = TOL[getattr(torch, cfg.dtype)]
+        log(f"  {name}: (data, ep, tp) = {w['degrees']}, {cfg.dtype}, "
+            f"slot banks {w['slot_dtype']}, {cfg.num_layers} of 32 layers, "
+            f"{'double' if w['double_buffer'] else 'single'}-buffered, "
+            f"impl {w['impl']}; {MR_REQS} requests x {MR_PROMPT}-token "
+            f"prompts, {w['gen']} new tokens")
+        t0 = time.perf_counter()
+        one = mr_single(name)
+        t1 = time.perf_counter()
+        n = data * ep * tp
+        ranks = spawn_local(mr_world, n, backend="gloo", args=(name,),
+                            wall_s=600.0)
+        t2 = time.perf_counter()
+        log(f"    (1,1,1) in this process {t1 - t0:.1f} s; {n} ranks over "
+            f"gloo on cuda:0 (collectives on the card's tensors) "
+            f"{t2 - t1:.1f} s")
+        # the layer gate: every rank returns the whole batch, all equal
+        y1, l1, d1 = one["layer"]
+        for r in ranks:
+            if not torch.equal(r["layer"][0], ranks[0]["layer"][0]):
+                raise AssertionError(f"{name}: rank {r['rank']}'s layer "
+                                     "output differs from rank 0's")
+        err = check(f"{name} layer, {n} ranks vs 1", ranks[0]["layer"][0],
+                    y1, getattr(torch, cfg.dtype))
+        same = ranks[0]["layer"][1] == l1 and ranks[0]["layer"][2] == d1
+        log(f"    layer gate: max |{n} ranks - 1 rank| = {err:.3e} "
+            f"(atol=rtol={tol}); loads and drops "
+            f"{'equal' if same else 'DIFFER'}: {ranks[0]['layer'][1]} "
+            f"dropped {ranks[0]['layer'][2]}")
+        if w["control"]:
+            yc = ranks[0]["control_layer"][0]
+            cerr = float((yc - y1).abs().max())
+            if torch.allclose(yc, y1, atol=tol, rtol=tol):
+                raise AssertionError(f"{name}: the blind-gather control "
+                                     f"passed the layer gate ({cerr:.3e})")
+            log(f"    control (rank 1 keeps its gather input): max err "
+                f"{cerr:.3e}, fails the gate as it must")
+        s1 = one["serve"]
+        per_rank = []
+        for r in ranks:
+            s = r["serve"]
+            e_idx = r["coords"][1]
+            share = s["stats"]["rank_bytes"][f"rank{e_idx}"]
+            if s["local_bytes"] * tp != share and w["slot_dtype"] == "fp32":
+                raise AssertionError(
+                    f"{name} rank {r['rank']}: wrote {s['local_bytes']} "
+                    f"bytes x tp {tp} != its rank_bytes share {share}")
+            for k_name in ("fused_gate_up", "gmm") if w["slot_dtype"] == \
+                    "fp32" else ("fused_gate_up_quant", "gmm_quant"):
+                if s["launches"][k_name] <= 0:
+                    raise AssertionError(f"{name} rank {r['rank']}: "
+                                         f"{k_name} never launched")
+            if s["launches"]["decode_attention"] <= 0:
+                raise AssertionError(f"{name} rank {r['rank']}: "
+                                     "decode_attention never launched")
+            for k in ("tokens", "loads", "dropped", "stats", "records",
+                      "clock"):
+                if s[k] != ranks[0]["serve"][k]:
+                    raise AssertionError(f"{name}: rank {r['rank']}'s {k} "
+                                         "differ from rank 0's")
+            per_rank.append(s)
+        s0 = ranks[0]["serve"]
+        agree = {
+            "tokens": s0["tokens"] == s1["tokens"],
+            "loads": s0["loads"] == s1["loads"],
+            "dropped": s0["dropped"] == s1["dropped"],
+            "counters": _stats_core(s0["stats"]) == _stats_core(s1["stats"]),
+            "rank_bytes_sum": math.isclose(
+                sum(s0["stats"]["rank_bytes"].values()),
+                s1["stats"]["rank_bytes"]["rank0"]),
+            "modeled_latencies": s0["records"] == s1["records"],
+        }
+        same_tok = sum(a == b for a, b in zip(s0["tokens"], s1["tokens"]))
+        log(f"    against (1,1,1): {agree}; {same_tok} of {MR_REQS} "
+            "requests' tokens equal")
+        if cfg.dtype == "float32":
+            bad = [k for k, v in agree.items() if not v]
+            if bad:
+                raise AssertionError(f"{name}: float32 {bad} differ from "
+                                     "the (1,1,1) session")
+            c = ranks[0]["control_serve"]
+            short = one["short_serve"]
+            if c["tokens"] == short["tokens"] and c["loads"] == \
+                    short["loads"]:
+                raise AssertionError(f"{name}: the blind-gather control "
+                                     "served the same tokens and loads")
+            diff = sum(a != b for a, b in zip(c["tokens"], short["tokens"]))
+            log(f"    control: {diff} of {MR_REQS} requests' tokens differ "
+                "from (1,1,1)'s")
+        log(f"    runtime: transfers {s0['stats']['transfers']}, "
+            f"bytes {s0['stats']['bytes_moved']:.0f}, rank_bytes "
+            f"{s0['stats']['rank_bytes']}; each rank wrote "
+            f"{[s['local_bytes'] for s in per_rank]} (x tp {tp})")
+        for r, s in zip(ranks, per_rank):
+            log(f"    rank {r['rank']} {r['coords']}: launches "
+                f"{ {k: v for k, v in s['launches'].items() if v} }; peak "
+                f"{s['peak_gb']:.2f} GB (reckoned "
+                f"{mr_reckoning_gb(cfg, w):.2f}); decode step "
+                f"{s['decode_ms']:.2f} ms wall over {s['decode_steps']}; "
+                f"expert FFN {s['ffn_ms']:.4f} ms device a step; "
+                f"collectives host ms a step a layer "
+                f"{ {k: round(v, 3) for k, v in s['collective_ms'].items()} }")
+        if w.get("transport"):
+            tr = [r["transport"] for r in ranks]
+            log(f"    one scatter all-to-all of {tr[0]['mb']:.2f} MB a rank, "
+                f"host ms, in turns: gloo on the card's tensors "
+                f"{[round(t['native'], 3) for t in tr]}, staged through "
+                f"host memory {[round(t['staged'], 3) for t in tr]}")
+        log(f"    (1,1,1): decode step {s1['decode_ms']:.2f} ms wall, expert "
+            f"FFN {s1['ffn_ms']:.4f} ms device, peak {s1['peak_gb']:.2f} GB; "
+            f"on {card}")
+        out[name] = {"launches": [s["launches"] for s in per_rank],
+                     "seconds": t2 - t0}
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -4078,6 +4535,13 @@ def main() -> int:
     encdec_identity()
     family_identity("mixtral-8x7b", act="gelu")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[11] multi-rank EP on the card: local ranks on cuda:0 over gloo, "
+        "mixtral-8x7b at its published widths through "
+        "ServingEngine(mesh=...)")
+    worlds = ep_phase(card)
+
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \
         paged["launches"]["decode_attention_paged"]
@@ -4098,6 +4562,11 @@ def main() -> int:
     rec["decode_attention"]["family_launches"]["whisper-base"] = sum(
         whisper[plen]["launches"]["decode_attention"]
         for plen in WHISPER_LENS)
+    # phase 11: each rank's launches of each kernel, by world
+    for k_name in SOURCES:
+        rec[k_name]["ep_world_launches"] = {
+            wn: [r[k_name] for r in wr["launches"]]
+            for wn, wr in worlds.items()}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

@@ -5,13 +5,15 @@ slot tables re-programmed between iterations, tokens are routed to slots
 round-robin over an expert's replicas (paper step 4), processed by the
 grouped FFN kernels in the capacity layout, and combined.
 
-This package runs the plane in ONE process at (data, ep, tp) =
-(1, 1, 1): the reference's all-gathers, all-to-alls and psums are
-identities there. The global-rank arithmetic of the reference's
-shard_map body (``prek``, ``before``, ``prelk``, the trash row,
-``recv_cnt`` -> group sizes) is kept as it is, so the multi-rank slice
-only inserts ``torch.distributed`` calls where the reference has its
-collectives. Any other degree raises ``NotImplementedError``.
+The plane runs on a (data, ep, tp) ``launch.mesh.ServingMesh``: one
+process a rank, ``torch.distributed`` collectives where the reference's
+shard_map body has its all-gathers, all-to-alls and psums, and the same
+global-rank arithmetic (``prek``, ``before``, ``prelk``, the trash row,
+``recv_cnt`` -> group sizes), so keep/drop does not depend on the mesh.
+The layer receives the batch replicated on every rank (the non-expert
+layers run replicated), computes its own shard's rows and returns the
+whole batch. Without a mesh (or on a (1, 1, 1) one) every collective is
+an identity and no process group is needed.
 
 The table helpers (``ep_factorisation``, ``device_rank``,
 ``plan_to_tables``, ``uniform_tables``) are numpy, valid for any ``ep``.
@@ -25,20 +27,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-SINGLE = (1, 1, 1)     # (data, ep, tp) degrees this package runs
+from repro_torch.launch.mesh import check_degrees, check_mesh  # noqa: F401
+
 _WKEYS = ("w_gate", "w_gate_scale", "w_up", "w_up_scale", "w_down",
           "w_down_scale")
-
-
-def check_degrees(degrees) -> tuple[int, int, int]:
-    """The (data, ep, tp) degrees, which must be (1, 1, 1) here."""
-    degrees = tuple(int(v) for v in degrees)
-    if degrees != SINGLE:
-        raise NotImplementedError(
-            f"(data, ep, tp) = {degrees}: the EP slot plane runs at "
-            "(1, 1, 1) in this package; more ranks arrive with the "
-            "multi-rank EP slice of the PyTorch port")
-    return degrees
 
 
 def ep_factorisation(num_experts: int, model_degree: int) -> tuple[int, int]:
@@ -129,20 +121,44 @@ def pad_expert_bank(expert_weights):
             for k, w in expert_weights.items()}
 
 
+def tp_slice(k: str, w, mesh, lead: int = 1):
+    """This rank's share of slot-bank leaf `k` under tp: the F axis of
+    ``w_gate``/``w_up`` (last), ``w_down`` (after the `lead` bank axes)
+    and ``w_down_scale`` (last) is split over 'tp'; the D-length scales
+    of ``w_gate``/``w_up`` stay whole, as the reference shards them
+    (``src/repro/distributed/ep.py:156 _slot_spec``)."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    if tp == 1 or k in ("w_gate_scale", "w_up_scale"):
+        return w
+    axis = lead if k == "w_down" else w.dim() - 1
+    n = w.shape[axis]
+    if n % tp:
+        raise ValueError(f"{k}: width {n} does not split over tp={tp}")
+    i = mesh.coords[2]
+    return w.narrow(axis, i * (n // tp), n // tp).contiguous()
+
+
 def materialise_slots(expert_weights, slot_expert, *, padded=None,
-                      prev=None, prev_slot_expert=None):
-    """Fill the slot weight banks from the expert bank: dict of
-    (S_total, ...) tensors, slot s holding expert ``slot_expert[s]`` (E =>
-    the zero row). `padded` is an optional bank from ``pad_expert_bank``.
-    When `prev` (the previous banks) and `prev_slot_expert` are given,
-    only slots whose resident expert CHANGED are written, in place —
-    warm slots are never re-copied, so an unchanged plan moves zero
-    bytes."""
+                      prev=None, prev_slot_expert=None, mesh=None):
+    """Fill this rank's slot weight banks from the expert bank: dict of
+    (S_total / ep, ...) tensors, local slot m holding expert
+    ``slot_expert[r * S_total / ep + m]`` of its rank r's block (E =>
+    the zero row), only this rank's F slice under tp (``tp_slice``).
+    `padded` is an optional bank from ``pad_expert_bank``. When `prev`
+    (the previous banks) and `prev_slot_expert` are given, only slots
+    whose resident expert CHANGED are written, in place — warm slots are
+    never re-copied, so an unchanged plan moves zero bytes."""
     if padded is None:
         padded = pad_expert_bank(expert_weights)
+    padded = {k: tp_slice(k, w, mesh) for k, w in padded.items()}
     slot_expert = np.asarray(slot_expert)
+    ep = 1 if mesh is None else mesh.shape["ep"]
+    spr = slot_expert.shape[0] // ep
+    lo = 0 if mesh is None else mesh.coords[1] * spr
+    slot_expert = slot_expert[lo:lo + spr]
     if prev is not None and prev_slot_expert is not None:
-        changed = np.flatnonzero(slot_expert != np.asarray(prev_slot_expert))
+        prev_local = np.asarray(prev_slot_expert)[lo:lo + spr]
+        changed = np.flatnonzero(slot_expert != prev_local)
         if changed.size == 0:
             return prev
         for k, w in padded.items():
@@ -156,6 +172,18 @@ def materialise_slots(expert_weights, slot_expert, *, padded=None,
 
 
 # ------------------------------------------------------------ the layer
+
+
+def _gather(mesh, x, group):
+    return x[None] if mesh is None else mesh.all_gather(x, group)
+
+
+def _a2a(mesh, x):
+    return x if mesh is None else mesh.all_to_all(x, "ep")
+
+
+def _reduce(mesh, x, group):
+    return x if mesh is None else mesh.all_reduce(x, group)
 
 
 def _topk(logits, k):
@@ -177,9 +205,12 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
                  top_k: int, slots_per_device: int,
                  capacity_factor: float, act: str = "swiglu",
                  impl: str = "auto", token_mask=None, pad_rows: int = 0,
-                 degrees=SINGLE):
-    """x: (B, S, D); slot_w: the slot banks (``w_gate``/``w_up`` (S, D, F),
-    ``w_down`` (S, F, D), or int8 with ``*_scale`` companions, which
+                 mesh=None):
+    """x: (B, S, D), the whole batch on every rank of `mesh` (a
+    ``launch.mesh.ServingMesh``; None: one process); B must be a multiple
+    of data*ep, and this rank's shard owns rows [me*b, (me+1)*b), b =
+    B / (data*ep). slot_w: this rank's slot banks (``w_gate``/``w_up``
+    (S, D, F), ``w_down`` (S, F, D), or int8 with ``*_scale`` companions, which
     select the dequantizing kernels); tables: ``expert_slots`` (E, R) and
     ``nrep`` (E,). `token_mask` (B, S) excludes tokens (inactive
     continuous-batching slots) from the expert-load and dropped metrics;
@@ -195,8 +226,10 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
     order, then k=1, ...). Overflow is counted, not silently zeroed.
     `capacity_factor` has no default on purpose.
 
-    Returns (y, metrics) with metrics in the ``dispatch_moe`` shape:
-    ``expert_load`` (E,), ``dropped`` and ``aux_loss`` (0)."""
+    Returns (y, metrics): y the whole (B, S, D) batch on every rank (the
+    shards' rows all-gathered), metrics in the ``dispatch_moe`` shape:
+    ``expert_load`` (E,) and ``dropped`` summed over the shards, and
+    ``aux_loss`` (0)."""
     from repro_torch.kernels import ops as KOPS
     if act != "swiglu":
         # the reference's slot plane takes `act` and never reads it
@@ -204,7 +237,7 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
             f"act={act!r}: the slot banks hold SwiGLU experts — the "
             "reference has the same limit "
             "(src/repro/serving/expert_runtime.py:169)")
-    n_data, ep, _ = check_degrees(degrees)
+    n_data, ep, _ = check_mesh(mesh)
     n_shards = n_data * ep
     sd_ = slots_per_device
     n_slots = ep * sd_
@@ -223,20 +256,26 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
     quantized = "w_up_scale" in bank
     expert_slots = torch.as_tensor(tables["expert_slots"], device=dev).long()
     nrep = torch.as_tensor(tables["nrep"], device=dev).long()
-    me = 0     # this shard's index in the ('data', 'ep') order
-
-    b, s, d = x.shape
+    me = 0 if mesh is None else mesh.shard   # index in ('data', 'ep') order
+    shape, b = x.shape, x.shape[0] // n_shards
+    s, d = shape[1], shape[2]
+    x = x[me * b:(me + 1) * b]
+    token_mask = token_mask[me * b:(me + 1) * b]
     t = b * s
     xf = x.reshape(t, d)
     top_w, top_i = _topk((xf @ router_w).float(), top_k)
 
-    # replica choice: round robin over the expert's replicas (step 4); a
-    # zero-replica expert routes to slot 0, masked out below and counted
-    # as dropped
+    # replica choice: round robin over the expert's replicas (step 4) by
+    # the GLOBAL token index (me*t + i), so a token takes the same replica
+    # on every mesh (the reference counts tokens within the shard, so
+    # with several replicas of an expert its keep/drop depends on the
+    # mesh under capacity pressure); a zero-replica expert routes to
+    # slot 0, masked out below and counted as dropped
     ar_t = torch.arange(t, device=dev)
     ar_k = torch.arange(top_k, device=dev)
     nrep_t = nrep[top_i]                                    # (t, k)
-    r_idx = torch.remainder(ar_t[:, None] + ar_k, nrep_t.clamp(min=1))
+    r_idx = torch.remainder(me * t + ar_t[:, None] + ar_k,
+                            nrep_t.clamp(min=1))
     slot = expert_slots[top_i, r_idx]                       # (t, k)
     routable = (nrep_t > 0) & (slot >= 0)
     if pad_rows:
@@ -267,12 +306,12 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
 
     # global GShard rank: prior-k totals everywhere + same-k counts of
     # earlier shards + local position within (k, slot); the per-(k, slot)
-    # count tables are all-gathered over ('data', 'ep') — one shard here
+    # count tables are all-gathered over ('data', 'ep'), in shard order
     cnt_km = torch.stack([
         _bincount(torch.where(rt, sl, torch.full_like(sl, n_slots)),
                   n_slots + 1)[:n_slots]
         for sl, rt in zip(slot.T, routable.T)])             # (k, S)
-    allc = cnt_km[None]                                     # (sh, k, S)
+    allc = _gather(mesh, cnt_km, "shard")                   # (sh, k, S)
     tot = allc.sum(0)
     prek = torch.cumsum(tot, 0) - tot
     before = (allc * (torch.arange(n_shards, device=dev)[:, None, None]
@@ -291,7 +330,7 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
     send = torch.zeros((ep, sd_ * cap + 1, d), dtype=x.dtype, device=dev)
     send[dst, lpos] = torch.where(keep[:, None], xf[stok],
                                   torch.zeros((), dtype=x.dtype, device=dev))
-    recv = send[:, :sd_ * cap]                 # the scatter all-to-all
+    recv = _a2a(mesh, send[:, :sd_ * cap])     # the scatter all-to-all
 
     # local grouped FFN over this rank's slots; the kept per-slot counts
     # (all-to-all'd) mark each slot's occupied extent for the kernels
@@ -299,7 +338,7 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
         .reshape(sd_, ep * cap, d)
     kc = _bincount(torch.where(keep, ssl, torch.full_like(ssl, n_slots)),
                    n_slots + 1)[:n_slots].reshape(ep, sd_)
-    recv_cnt = kc                              # (src, sd_) all-to-all
+    recv_cnt = _a2a(mesh, kc)                  # (src, sd_)
     src = torch.arange(ep, device=dev)[:, None]
     gs = torch.where(recv_cnt > 0, src * cap + recv_cnt,
                      torch.zeros_like(recv_cnt)).amax(dim=0).to(torch.int32)
@@ -312,10 +351,11 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
     else:
         out = KOPS.expert_ffn_impl(buf, bank["w_gate"], bank["w_up"],
                                    bank["w_down"], gs, impl)
-    out = out.float()                          # psum over 'tp'
+    # F is split over 'tp': sum the partial products in float32
+    out = _reduce(mesh, out.float(), "tp")
     y = out.reshape(sd_, ep, cap, d).transpose(0, 1) \
         .reshape(ep, sd_ * cap, d)
-    back = y.to(x.dtype)                       # the gather all-to-all
+    back = _a2a(mesh, y.to(x.dtype))           # the gather all-to-all
 
     # weighted combine at the source
     contrib = back[dst, lpos.clamp(0, sd_ * cap - 1)].float()
@@ -330,7 +370,10 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
     # dropped = routed assignments of ACTIVE tokens that were not kept
     active = mask_flat[stok]
     dropped = (top_k * mask_flat.sum() - (keep * active).sum()).float()
-    return comb.reshape(b, s, d).to(x.dtype), {
+    loads = _reduce(mesh, loads, "shard")
+    dropped = _reduce(mesh, dropped, "shard")
+    y = _gather(mesh, comb.reshape(b, s, d).to(x.dtype), "shard")
+    return y.reshape(shape), {
         "expert_load": loads, "dropped": dropped,
         "aux_loss": torch.zeros((), dtype=torch.float32, device=dev)}
 
@@ -342,16 +385,17 @@ def moe_ep_layer(x, router_w, slot_w, tables, *, num_experts: int,
 class EPContext:
     """Static context for running MoE sublayers through the EP slot data
     plane in the decode step: only the slot tables/weights in the
-    per-layer ``ep_state`` change between iterations. `degrees` are the
-    (data, ep, tp) degrees of the plane ((1, 1, 1) here); `pad_rows` are
-    trailing batch rows that are padding artifacts (capacity-neutral)."""
+    per-layer ``ep_state`` change between iterations. `mesh` is the
+    plane's ``launch.mesh.ServingMesh`` (None: one process); `pad_rows`
+    are trailing batch rows that are padding artifacts (the engine pads
+    batches to a multiple of data*ep; they are capacity-neutral)."""
     slots_per_device: int          # PHYSICAL slots per EP rank
     capacity_factor: float
     pad_rows: int = 0
-    degrees: tuple = SINGLE
+    mesh: object = None
 
     def __post_init__(self):
-        check_degrees(self.degrees)
+        check_mesh(self.mesh)
 
 
 def moe_ep_ffn(moe_params, h, state, ctx: EPContext, cfg,
@@ -368,5 +412,4 @@ def moe_ep_ffn(moe_params, h, state, ctx: EPContext, cfg,
         num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
         slots_per_device=ctx.slots_per_device,
         capacity_factor=ctx.capacity_factor, act=cfg.act, impl=cfg.impl,
-        token_mask=token_mask, pad_rows=ctx.pad_rows,
-        degrees=ctx.degrees)
+        token_mask=token_mask, pad_rows=ctx.pad_rows, mesh=ctx.mesh)

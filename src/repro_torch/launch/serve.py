@@ -13,6 +13,19 @@ control plane attached, on the CUDA card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --expert-runtime on --slot-dtype int8
 
+  # the EP slot plane over 4 local ranks (gloo; --device cuda shares
+  # the one card between them)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --expert-runtime on --ep 4 --host-devices 4
+
+  # one rank a card under torchrun (the backend is the caller's choice)
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --expert-runtime on --ep 4 --dist-backend nccl
+
+On a mesh every rank serves the same requests (SPMD): the expert banks
+are sharded over the ranks, the other layers run replicated, and rank 0
+prints.
+
 ``--gateway`` boots the OpenAI-compatible HTTP front door instead: an
 asyncio server exposing /v1/completions + /v1/chat/completions (token-id
 prompts, SSE streaming), /healthz and /metrics over a router of engine
@@ -29,6 +42,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
+import os
 
 import numpy as np
 
@@ -152,6 +167,18 @@ def main(argv=None):
                          "default)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--ep", type=int, default=0,
+                    help="EP mesh degree for the slot data plane "
+                         "(0 = one rank)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree inside each expert")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="spawn N local ranks on --device over gloo (CPU "
+                         "multi-rank serving, or ranks sharing one card)")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=("nccl", "gloo"),
+                    help="process-group backend under torchrun (nccl: one "
+                         "card a rank)")
     ap.add_argument("--gateway", action="store_true",
                     help="serve the OpenAI-compatible HTTP gateway "
                          "instead of running a one-shot batch")
@@ -175,7 +202,57 @@ def main(argv=None):
                     help="write a Chrome trace-event JSON of the run "
                          "(load in Perfetto / chrome://tracing)")
     args = ap.parse_args(argv)
+    if args.gateway and (args.ep or args.tp > 1 or args.host_devices > 1):
+        raise SystemExit("--ep/--tp/--host-devices serve a one-shot batch; "
+                         "the gateway runs on one rank")
+    if (args.ep or args.tp > 1) and args.expert_runtime != "on":
+        raise SystemExit("--ep/--tp shard the EP slot plane: they need "
+                         "--expert-runtime on")
+    if args.host_devices > 1:
+        if args.host_devices != max(args.ep, 1) * args.tp:
+            raise SystemExit(f"--host-devices {args.host_devices} must "
+                             f"equal ep x tp = {max(args.ep, 1) * args.tp}")
+        if args.device.startswith("cuda"):
+            from repro_torch.kernels import build as KB
+            KB.build()     # once here, not once a rank
+        from repro_torch.launch.mesh import spawn_local
+        spawn_local(_host_rank, args.host_devices, backend="gloo",
+                    args=(args,), wall_s=3600.0)
+        return
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        _init_torchrun(args)
+    _serve(args)
 
+
+def _host_rank(rank: int, args) -> None:
+    """One local rank of ``--host-devices``: the process group is up. On
+    the CPU the ranks split the cores between them."""
+    if args.device == "cpu":
+        import torch
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // args.host_devices))
+    _serve(args)
+
+
+def _init_torchrun(args) -> None:
+    """Join the process group torchrun describes in the environment, on
+    the caller's backend (``--dist-backend``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import INIT_TIMEOUT_S
+    if args.dist_backend is None:
+        raise SystemExit("under torchrun, name the process-group backend: "
+                         "--dist-backend nccl (one card a rank) or gloo")
+    if args.dist_backend == "nccl" and args.device.startswith("cuda"):
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        torch.cuda.set_device(args.device)
+    dist.init_process_group(
+        args.dist_backend,
+        timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S))
+
+
+def _serve(args) -> None:
     from repro_torch.models import model as M
     from repro_torch.serving.engine import MoElessController, ServingEngine
     from repro_torch.serving.scheduler import GenRequest, SamplingParams
@@ -219,6 +296,19 @@ def main(argv=None):
     if args.expert_runtime == "on" and ctrl is None:
         raise SystemExit("--expert-runtime on needs an MoE arch with the "
                          "MoEless control plane (drop --no-moeless)")
+    mesh = None
+    if args.ep or args.tp > 1:
+        from repro_torch.launch.mesh import make_serving_mesh
+        ep = args.ep or None
+        mesh = make_serving_mesh(
+            None if ep is None else ep * args.tp, ep=ep, tp=args.tp,
+            device=params["embed"].device)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a: None)
+    if mesh is not None:
+        say(f"serving mesh: data={mesh.shape['data']} "
+            f"ep={mesh.shape['ep']} tp={mesh.shape['tp']} over "
+            f"{mesh.size} devices (backend {_backend()})")
     # the runtime executes the SESSION control plane's plans: attach the
     # controller there instead of as the per-iteration engine controller
     # (attached to both, it would step twice per iteration)
@@ -228,57 +318,62 @@ def main(argv=None):
                            controller=None if session_ctrl else ctrl,
                            impl=args.impl,
                            expert_runtime=args.expert_runtime,
-                           telemetry=tel)
+                           mesh=mesh, telemetry=tel)
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     rng = np.random.default_rng(args.seed)
-    engine.start(num_slots=args.slots, control=session_ctrl)
-    handles = [engine.submit(GenRequest(
+    reqs = [GenRequest(
         rid=i, arrival=0.0,
         prompt=rng.integers(0, cfg.vocab_size, size=args.prompt_len,
                             dtype=np.int32),
-        max_new_tokens=args.gen, sampling=sampling))
+        max_new_tokens=args.gen, sampling=sampling)
         for i in range(args.requests)]
+    engine.start(num_slots=args.slots, control=session_ctrl, requests=reqs)
     res = engine.run()
     s = res.summary()
-    print(f"served {args.requests} requests x {args.gen} tokens "
-          f"with {cfg.name} on {params['embed'].device} "
-          f"(occupancy {res.mean_batch_occupancy:.1f}, "
-          f"temperature={args.temperature}, kv={cfg.serving.kv})")
+    say(f"served {args.requests} requests x {args.gen} tokens "
+        f"with {cfg.name} on {params['embed'].device} "
+        f"(occupancy {res.mean_batch_occupancy:.1f}, "
+        f"temperature={args.temperature}, kv={cfg.serving.kv})")
     kv = engine._session.kv
     if getattr(kv, "prefix", None) is not None:
-        print(f"  prefix cache: hits={kv.prefix.hits} "
-              f"tokens_saved={kv.prefix.tokens_saved} "
-              f"cow_blocks={kv.cow_blocks}")
-    print(f"  TTFT p50={s['ttft']['p50']*1e3:.2f} ms  "
-          f"TPOT p50={s['tpot']['p50']*1e3:.3f} ms  "
-          f"E2E p50={s['e2e']['p50']*1e3:.1f} ms (wall clock)")
+        say(f"  prefix cache: hits={kv.prefix.hits} "
+            f"tokens_saved={kv.prefix.tokens_saved} "
+            f"cow_blocks={kv.cow_blocks}")
+    say(f"  TTFT p50={s['ttft']['p50']*1e3:.2f} ms  "
+        f"TPOT p50={s['tpot']['p50']*1e3:.3f} ms  "
+        f"E2E p50={s['e2e']['p50']*1e3:.1f} ms (wall clock)")
     if ctrl is not None:
         reps = [p.total_replicas for p in ctrl.plans]
         stats = [ctrl.pool(l).stats for l in range(len(ctrl.plans))]
-        print(f"  replica slots/layer: mean={np.mean(reps):.1f} "
-              f"max={max(reps)}")
-        print(f"  warm starts={sum(s.warm_starts for s in stats)} "
-              f"cold={sum(s.cold_starts for s in stats)} "
-              f"prewarmed={sum(s.prewarmed for s in stats)}")
+        say(f"  replica slots/layer: mean={np.mean(reps):.1f} "
+            f"max={max(reps)}")
+        say(f"  warm starts={sum(s.warm_starts for s in stats)} "
+            f"cold={sum(s.cold_starts for s in stats)} "
+            f"prewarmed={sum(s.prewarmed for s in stats)}")
     if res.runtime is not None:
         st = res.runtime.finalize(res.clock_s)
-        print(f"  expert runtime [slot_dtype={args.slot_dtype}]: "
-              f"c/w/p {st.cold_starts}/{st.warm_starts}/{st.prewarmed}, "
-              f"{st.transfers} transfers, "
-              f"{st.bytes_moved / 1e6:.1f}MB moved, "
-              f"{st.instance_seconds_gb:.3g} GB-s resident")
-        print(f"  overlap: {st.overlap_eligible_copies} eligible / "
-              f"{st.exposed_copies} exposed copies, "
-              f"{st.overlap_hidden_s:.3g}s hidden; per-rank MB "
-              + str({r: round(b / 1e6, 2)
-                     for r, b in sorted(st.rank_bytes.items())}))
-    print("sample continuations:",
-          np.asarray([h.tokens[:8] for h in handles[:2]]))
-    if tracer is not None:
+        say(f"  expert runtime [slot_dtype={args.slot_dtype}]: "
+            f"c/w/p {st.cold_starts}/{st.warm_starts}/{st.prewarmed}, "
+            f"{st.transfers} transfers, "
+            f"{st.bytes_moved / 1e6:.1f}MB moved, "
+            f"{st.instance_seconds_gb:.3g} GB-s resident")
+        say(f"  overlap: {st.overlap_eligible_copies} eligible / "
+            f"{st.exposed_copies} exposed copies, "
+            f"{st.overlap_hidden_s:.3g}s hidden; per-rank MB "
+            + str({r: round(b / 1e6, 2)
+                   for r, b in sorted(st.rank_bytes.items())}))
+    say("sample continuations:",
+      np.asarray([r.tokens[:8] for r in reqs[:2]]))
+    if tracer is not None and lead:
         n = tracer.write(args.trace_out)
-        print(f"wrote {n} trace events to {args.trace_out} "
-              "(load in https://ui.perfetto.dev)")
+        say(f"wrote {n} trace events to {args.trace_out} "
+            "(load in https://ui.perfetto.dev)")
+
+
+def _backend() -> str:
+    import torch.distributed as dist
+    return dist.get_backend() if dist.is_initialized() else "none"
 
 
 if __name__ == "__main__":

@@ -142,8 +142,9 @@ def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
     gradients keep the parameters' dtype."""
     if grad_shardings is not None:
         raise NotImplementedError(
-            "grad_shardings (a sharded gradient accumulator) arrives with "
-            "the port's multi-rank slice")
+            "grad_shardings (a sharded gradient accumulator, ZeRO-2) "
+            "arrives with the port's multi-rank sharding slice "
+            "(distributed/sharding.py)")
 
     def grads(params, batch):
         """(metrics, gradients) of ``loss_fn`` at `params` on `batch`."""

@@ -37,10 +37,14 @@ plans are EXECUTED as slot diffs on device-resident expert weight banks
 (int8 under ``cfg.moe.slot_dtype="int8"``), and both phases' MoE layers
 (each prefill and the batched step) run through the EP slot data plane
 (``distributed.ep.moe_ep_layer``) with the runtime's live tables and
-banks, at (data, ep, tp) = (1, 1, 1).
-
-Not yet in this package: a device mesh (``NotImplementedError``; the
-multi-rank slice).
+banks. With ``mesh=`` (a ``launch.mesh.ServingMesh``) that plane runs
+over data*ep*tp ranks, one process each, all running this same engine
+loop (SPMD): the expert banks are sharded over the ranks, while the
+embeddings, attention, the KV cache, norms and the LM head run
+replicated on every rank, as in the reference. Batches are padded to a
+multiple of data*ep with capacity-neutral rows. Every host decision
+(admission, the modeled clock, plans, sampling seeds) is then made alike
+on every rank; ``start`` checks that the ranks open the same session.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ import torch
 from repro_torch.core.control import (ControlPlane,  # noqa: F401 (re-export)
                                       IterationOutcome, MoElessController)
 from repro_torch.kernels.ops import resolve_impl
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.models import prng
 from repro_torch.models import transformer as T
 from repro_torch.obs.telemetry import NOOP
@@ -142,15 +147,18 @@ class _Session:
 
     def __init__(self, cfg, params, num_slots: int, max_len: int,
                  eos_id, control, time_scale: float, serving,
-                 runtime=None):
+                 runtime=None, batch_mult: int = 1):
+        # the pool's rows are padded to the EP plane's data*ep multiple
         if serving.kv == "paged":
             self.kv = PagedKVCache(cfg, params, num_slots, max_len,
                                    block=serving.kv_block,
                                    num_blocks=serving.kv_blocks,
+                                   batch_multiple=batch_mult,
                                    prefix_cache=serving.prefix_cache,
                                    chunked=serving.prefill_chunk > 0)
         else:
-            self.kv = SlotKVCache(cfg, params, num_slots, max_len)
+            self.kv = SlotKVCache(cfg, params, num_slots, max_len,
+                                  batch_multiple=batch_mult)
         self.sched = ContinuousBatchingScheduler(self.kv, eos_id=eos_id)
         self.control = control
         self.runtime = runtime
@@ -224,6 +232,8 @@ class ServingEngine:
                  expert_runtime: str = "off", mesh=None,
                  telemetry=None, name: str = "engine", serving=None,
                  runtime_double_buffer: bool = True):
+        # `mesh`: the (data, ep, tp) ServingMesh the EP slot plane runs
+        # on (launch.mesh.make_serving_mesh); None keeps one process
         if impl is not None:   # override the config's kernel backend
             cfg = cfg.with_(impl=impl)
         resolve_impl(cfg.impl)   # validate eagerly, not at first step
@@ -232,10 +242,8 @@ class ServingEngine:
                              "(expected 'off' or 'on')")
         if expert_runtime == "on" and not cfg.is_moe:
             raise ValueError("expert_runtime='on' needs an MoE model")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a serving mesh arrives with the multi-rank EP slice of the "
-                "PyTorch port")
+        check_mesh(mesh)
+        self.mesh = mesh
         spec = serving if serving is not None else cfg.serving
         if spec.kv not in ("contiguous", "paged"):
             raise ValueError(f"serving.kv={spec.kv!r} "
@@ -297,6 +305,12 @@ class ServingEngine:
         if rt is None:
             return None
         return dataclasses.replace(rt.ctx, pad_rows=pad_rows), rt.ep_state()
+
+    def _batch_mult(self) -> int:
+        """Rows a batch on the EP plane is padded to a multiple of."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.shape["data"] * self.mesh.shape["ep"]
 
     def new_cache(self, batch_size: int):
         return T.init_cache(self.cfg, self.params, batch_size, self.max_len)
@@ -370,10 +384,20 @@ class ServingEngine:
             toks = np.pad(prompt, (0, bucket - plen))
         mask = np.arange(toks.shape[0]) < plen
         collect = self._collect if collect is None else collect
-        cache = self.new_cache(1)
-        batch = {"tokens": torch.from_numpy(toks[None].astype(np.int64))
-                 .to(self.device),
-                 "token_mask": torch.from_numpy(mask[None]).to(self.device)}
+        # the EP plane shards the batch over data*ep ranks: the request is
+        # row 0 of that many rows, the rest all-masked zero rows that are
+        # capacity-neutral (pad_rows), so loads, drops and the request's
+        # logits are those of the one-row prefill
+        on_ep = self._session is not None and \
+            self._session.runtime is not None
+        bmult = self._batch_mult() if on_ep else 1
+        toks_b = np.zeros((bmult, toks.shape[0]), np.int64)
+        toks_b[0] = toks
+        mask_b = np.zeros((bmult, mask.shape[0]), bool)
+        mask_b[0] = mask
+        cache = self.new_cache(bmult)
+        batch = {"tokens": torch.from_numpy(toks_b).to(self.device),
+                 "token_mask": torch.from_numpy(mask_b).to(self.device)}
         s = sampling or SamplingParams()
         dev = self.device
         samp = None if s.temperature <= 0 else (
@@ -382,8 +406,8 @@ class ServingEngine:
             torch.tensor([s.top_p], dtype=torch.float32, device=dev),
             torch.tensor([s.effective_seed(rid) & prng.MASK], device=dev),
             torch.zeros(1, dtype=torch.int32, device=dev))
-        logits, cache, metrics = self._step(batch, cache, 0, collect,
-                                            ep=self._ep(self._session))
+        logits, cache, metrics = self._step(
+            batch, cache, 0, collect, ep=self._ep(self._session, bmult - 1))
         if samp is None:        # greedy: the argmax path
             first_tok = int(torch.argmax(logits[0, plen - 1]))
         else:
@@ -395,7 +419,7 @@ class ServingEngine:
 
     def start(self, *, num_slots: int = 8, eos_id=None,
               control: ControlPlane | None = None,
-              time_scale: float = 1.0) -> None:
+              time_scale: float = 1.0, requests=()) -> None:
         """Open a serving session (slot pool + scheduler + clock). The
         serving clock starts at t=0 and advances by the modeled iteration
         latency when a `control` plane is attached, else by measured wall
@@ -403,14 +427,27 @@ class ServingEngine:
         ``expert_runtime="on"`` the session's runtime is built for
         `control` and bootstrapped here. An encoder-decoder config is
         refused, as the reference refuses it: serve it through the
-        fixed-batch ``prefill``/``decode``."""
+        fixed-batch ``prefill``/``decode``. `requests` are submitted in
+        arrival order once the session is open. On a multi-rank mesh the
+        ranks first compare a digest of (config, num_slots, max_len,
+        eos_id, time_scale, requests) and all raise ``RuntimeError`` if
+        one differs: each rank must then submit the same requests in the
+        same order."""
         if self.cfg.encdec is not None:
             raise NotImplementedError(
                 "continuous batching needs per-slot cache lengths, which "
                 "encoder-decoder decode does not support (scalar-only "
                 "positional offsets) — use the fixed-batch prefill/decode "
                 "API for enc-dec models")
+        requests = sorted(requests, key=lambda r: r.arrival)
+        if self.mesh is not None:
+            self.mesh.check_same("session", repr((
+                self.cfg, num_slots, self.max_len, eos_id, time_scale,
+                [(r.rid, r.arrival, np.asarray(r.prompt).tolist(),
+                  r.max_new_tokens, r.sampling) for r in requests]))
+                .encode())
         runtime = None
+        batch_mult = 1
         if self.expert_runtime == "on":
             if control is None:
                 raise ValueError(
@@ -418,15 +455,18 @@ class ServingEngine:
                     "the runtime executes ITS replica plans")
             from repro_torch.serving.expert_runtime import ExpertRuntime
             runtime = ExpertRuntime.for_control(
-                self.cfg, self.params, control, telemetry=self.telemetry,
-                track=f"{self.name}/runtime",
+                self.cfg, self.params, control, mesh=self.mesh,
+                telemetry=self.telemetry, track=f"{self.name}/runtime",
                 double_buffer=self.runtime_double_buffer)
             runtime.bootstrap(control)
+            batch_mult = self._batch_mult()
         with self._lock:
             self._session = _Session(self.cfg, self.params, num_slots,
                                      self.max_len, eos_id, control,
                                      time_scale, self.serving,
-                                     runtime=runtime)
+                                     runtime=runtime, batch_mult=batch_mult)
+        for r in requests:
+            self.submit(r)
 
     def close(self) -> None:
         with self._lock:
@@ -587,8 +627,8 @@ class ServingEngine:
             lengths, active = kv.step_lengths()
             batch = {"tokens": tokens, "active": active}
         samp = sess.sampling_args(self.device) if sess.sampling() else None
-        # with the runtime on, the KV pool's pad rows (none at one rank)
-        # are capacity-neutral
+        # with the runtime on, the KV pool's pad rows (up to the data*ep
+        # multiple) are capacity-neutral
         logits, kv.cache, metrics = self._step(
             batch, kv.cache, lengths, collect,
             ep=self._ep(sess, kv.rows - kv.num_slots))
@@ -851,9 +891,7 @@ class ServingEngine:
         """Continuous-batching replay of `requests` (list[GenRequest]) —
         open a session, submit everything, run to completion."""
         self.start(num_slots=num_slots, eos_id=eos_id, control=control,
-                   time_scale=time_scale)
-        for r in sorted(requests, key=lambda r: r.arrival):
-            self.submit(r)
+                   time_scale=time_scale, requests=requests)
         res = self.run(verbose=verbose)
         self.close()
         return res

@@ -34,10 +34,22 @@ meter is host arithmetic, the same as the reference runtime's.
 Slot geometry: the plan's `num_devices` logical devices each own
 `slots_per_device` logical slots, flattened to ``total_slots`` physical
 slots, padded up to a multiple of the EP degree (``phys_slots``; pad
-slots stay empty). A replica planned onto a full device spills to the
-ring-nearest logical device with a free slot, mirroring
-``plan_to_tables``. This package runs one EP rank, so every byte lands
-in ``rank_bytes["rank0"]``.
+slots stay empty). Physical slot s lives on EP rank
+``s // slots_per_rank``. A replica planned onto a full device spills to
+the ring-nearest logical device with a free slot, mirroring
+``plan_to_tables``.
+
+Multi-rank (a ``launch.mesh.ServingMesh``): every rank runs the same
+host-side state machine on the same plans, so the slot residency, the
+tables and every meter of ``RuntimeStats`` (``rank_bytes`` included) are
+identical on all ranks and equal the reference's. Each rank's banks hold
+only its own ``(periods, slots_per_rank, ...)`` block, and its padded
+source bank every expert but only its tp slice of F
+(``distributed.ep.tp_slice``); a flush writes only the slots this rank
+owns. ``local_bytes`` counts the bytes a rank actually wrote into its
+banks (each replica copy once): times tp it equals the rank's
+``rank_bytes`` share for float banks (int8 banks keep their D-length
+scales whole on every tp rank).
 
 Double buffering (default): each flush writes the new diff PLUS the
 diff the front bank received last flush (catch-up) into the BACK bank
@@ -59,7 +71,7 @@ from repro_torch.core import serverless as SL
 from repro_torch.core.control import (MOELESS_EXEC_TIME, PlanEvent,
                                       default_slots_per_device)
 from repro_torch.core.costmodel import V5E, Hardware, derive_coeffs
-from repro_torch.distributed.ep import SINGLE, EPContext, check_degrees
+from repro_torch.distributed.ep import EPContext, check_mesh, tp_slice
 from repro_torch.kernels import quant as QT
 from repro_torch.models import transformer as T
 
@@ -151,7 +163,7 @@ class ExpertRuntime:
     """
 
     def __init__(self, cfg, params, *, num_devices: int,
-                 slots_per_device: int = 0, degrees=SINGLE,
+                 slots_per_device: int = 0, mesh=None,
                  keep_alive: float = 60.0, hw: Hardware = V5E,
                  coeffs=None, double_buffer: bool = True,
                  telemetry=None, track: str = "runtime"):
@@ -187,8 +199,10 @@ class ExpertRuntime:
             or default_slots_per_device(e, num_devices)
         self.total_slots = num_devices * self.slots_per_device
 
-        self.degrees = check_degrees(degrees)
-        self.ep = self.degrees[1]
+        _, self.ep, self.tp = check_mesh(mesh)
+        # this rank's EP index: it owns physical slots [ep_rank *
+        # slots_per_rank, (ep_rank + 1) * slots_per_rank)
+        self.ep_rank = 0 if mesh is None else mesh.coords[1]
         self.phys_slots = -(-self.total_slots // self.ep) * self.ep
         self.pad_slots = self.phys_slots - self.total_slots
         if self.pad_slots:
@@ -201,7 +215,7 @@ class ExpertRuntime:
         self.slots_per_rank = self.phys_slots // self.ep
         self.ctx = EPContext(slots_per_device=self.slots_per_rank,
                              capacity_factor=cfg.moe.capacity_factor,
-                             degrees=self.degrees)
+                             mesh=mesh)
 
         slot_dtype = getattr(cfg.moe, "slot_dtype", "fp32")
         if slot_dtype not in ("fp32", "int8"):
@@ -213,13 +227,15 @@ class ExpertRuntime:
         self._slot_row_bytes = {}
         self.double_buffer = double_buffer
         for j in self.moe_positions:
-            padded = _padded_bank(params["layers"][j]["moe"]["experts"],
-                                  slot_dtype)
+            padded = {k: tp_slice(k, w, mesh, lead=2) for k, w in
+                      _padded_bank(params["layers"][j]["moe"]["experts"],
+                                   slot_dtype).items()}
             self.padded[j] = padded
 
             def _zero_bank():
                 return {k: torch.zeros(
-                    (self.periods, self.phys_slots) + tuple(w.shape[2:]),
+                    (self.periods, self.slots_per_rank)
+                    + tuple(w.shape[2:]),
                     dtype=w.dtype, device=w.device)
                     for k, w in padded.items()}
 
@@ -227,11 +243,12 @@ class ExpertRuntime:
             # back buffer: flushes write here, then the buffers swap
             self._back[j] = _zero_bank() if double_buffer else None
             self._pending[j] = ([], [], [])
-            # bytes of ONE slot row as stored — equal to
-            # costmodel.param_bytes(cfg) by construction
+            # bytes of ONE slot row as stored (all tp slices) — equal
+            # to costmodel.param_bytes(cfg) by construction
             self._slot_row_bytes[j] = float(sum(
                 int(np.prod(w.shape[2:])) * w.element_size()
-                for w in padded.values()))
+                * (1 if k.endswith(("gate_scale", "up_scale")) else self.tp)
+                for k, w in padded.items()))
 
         # host-side slot state machine, per MoE layer l = p*mpp + m
         lm, s = self.n_layers, self.total_slots
@@ -244,12 +261,13 @@ class ExpertRuntime:
         self._have_tables = False
         self.stats = RuntimeStats()
         self.stats.rank_bytes = {f"rank{r}": 0.0 for r in range(self.ep)}
+        self.local_bytes = 0.0    # written into THIS rank's banks
         self.iterations = 0
 
     # ------------------------------------------------------ construction
 
     @classmethod
-    def for_control(cls, cfg, params, control, *, degrees=SINGLE,
+    def for_control(cls, cfg, params, control, *, mesh=None,
                     keep_alive: float | None = None, telemetry=None,
                     track: str = "runtime", double_buffer: bool = True):
         """Runtime sized to a ``ControlPlane``: same modeled device
@@ -260,7 +278,7 @@ class ExpertRuntime:
         sd = getattr(control, "slots_per_device", 0) \
             or getattr(control.bal, "max_replicas_per_device", 0)
         return cls(cfg, params, num_devices=control.num_devices,
-                   slots_per_device=sd, degrees=degrees,
+                   slots_per_device=sd, mesh=mesh,
                    keep_alive=keep_alive, coeffs=control.coeffs,
                    double_buffer=double_buffer, telemetry=telemetry,
                    track=track)
@@ -480,16 +498,26 @@ class ExpertRuntime:
             for r, g in enumerate(placement):
                 slots[e, r] = inst[(e, int(g))].slot
 
+    def _local(self, ps, ss, es):
+        """The (period, local slot, expert) writes of a diff that land in
+        this rank's banks."""
+        lo, n = self.ep_rank * self.slots_per_rank, self.slots_per_rank
+        return [(p, s - lo, e) for p, s, e in zip(ps, ss, es)
+                if lo <= s < lo + n]
+
     def _scatter(self, bank, j, ps, ss, es):
-        """Write the changed slots' expert rows into `bank` in place: one
-        ``index_copy_`` per leaf over the flattened (period, slot) axis.
-        Where a (period, slot) appears twice (the catch-up diff and a
-        re-allocation since), the later write is the one kept."""
+        """Write this rank's changed slots' expert rows into `bank` in
+        place: one ``index_copy_`` per leaf over the flattened (period,
+        local slot) axis. Where a (period, slot) appears twice (the
+        catch-up diff and a re-allocation since), the later write is the
+        one kept."""
         last = {}
-        for p, s, e in zip(ps, ss, es):
+        for p, s, e in self._local(ps, ss, es):
             last[(p, s)] = e
+        if not last:
+            return bank
         dev = next(iter(bank.values())).device
-        dst = torch.tensor([p * self.phys_slots + s for p, s in last],
+        dst = torch.tensor([p * self.slots_per_rank + s for p, s in last],
                            dtype=torch.long, device=dev)
         src = torch.tensor([p * (self.num_experts + 1) + e
                             for (p, _), e in last.items()],
@@ -502,15 +530,18 @@ class ExpertRuntime:
         return bank
 
     def _flush(self, updates: dict) -> None:
-        """Write the changed slots' weights into the device banks.
+        """Write the changed slots' weights into this rank's banks.
 
         Double-buffered (default): the new diff PLUS the diff the front
         bank received last flush (catch-up, kept in ``_pending``) is
         written into the BACK bank, then the buffers swap, so the bank a
-        step is reading is never written. ``bytes_moved`` meters each
-        replica copy once; the catch-up write is pipeline bookkeeping,
-        not a second cold start."""
+        step is reading is never written. ``bytes_moved`` and
+        ``local_bytes`` meter each replica copy once; the catch-up write
+        is pipeline bookkeeping, not a second cold start."""
         for j, (ps, ss, es) in updates.items():
+            row = sum(b[0, 0].numel() * b.element_size()
+                      for b in self.banks[j].values())
+            self.local_bytes += row * len(self._local(ps, ss, es))
             if not self.double_buffer:
                 if len(ps):
                     self.banks[j] = self._scatter(

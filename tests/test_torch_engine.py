@@ -154,7 +154,7 @@ def test_engine_guards():
                 **dataclasses.asdict(bad)))
     assert ServingEngine(cfg, tp, serving=ServingSpec(kv="paged")) \
         .serving.kv == "paged"
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    with pytest.raises(ValueError, match="ServingMesh"):
         ServingEngine(cfg, tp, mesh=object())
     # sampled requests are admitted (tests/test_torch_sampling.py holds
     # their tokens to the reference's)

@@ -437,14 +437,19 @@ def test_materialise_slots_incremental_equals_full_and_degrees_guard():
     again = EP.materialise_slots(w, t1["slot_expert"], prev=full1,
                                  prev_slot_expert=t1["slot_expert"])
     assert again is full1
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    # degrees must factor the process group's ranks (one here), and a
+    # mesh must be a ServingMesh
+    with pytest.raises(ValueError, match="rank"):
+        EP.check_degrees((1, 4, 1))
+    assert EP.check_degrees([1, 1, 1]) == (1, 1, 1)
+    with pytest.raises(ValueError, match="ServingMesh"):
         EP.EPContext(slots_per_device=8, capacity_factor=1.0,
-                     degrees=(1, 4, 1))
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+                     mesh=(1, 4, 1))
+    with pytest.raises(ValueError, match="ServingMesh"):
         EP.moe_ep_layer(_t(_x((1, 4, D), 0)), _t(_layer_params(e)["router"]),
                         full1, t1, num_experts=e, top_k=2,
                         slots_per_device=8, capacity_factor=1.0,
-                        degrees=(1, 2, 2))
+                        mesh=(1, 2, 2))
     with pytest.raises(TypeError):
         EP.moe_ep_layer(_t(_x((1, 4, D), 0)), _t(_layer_params(e)["router"]),
                         full1, t1, num_experts=e, top_k=2,

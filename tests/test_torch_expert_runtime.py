@@ -39,6 +39,7 @@ from repro_torch.core.costmodel import derive_coeffs, param_bytes
 from repro_torch.core.placer import place_layer
 from repro_torch.core.plan import LayerPlan
 from repro_torch.core.scaler import scale_layer
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.params import from_jax
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.expert_runtime import ExpertRuntime
@@ -220,8 +221,13 @@ def test_runtime_int8_banks_and_guards():
         ExpertRuntime(cfg, tp, num_devices=4).ep_state()
     with pytest.raises(ValueError, match="plan events"):
         rt.apply(1.0, [])
-    with pytest.raises(NotImplementedError, match="multi-rank"):
-        ExpertRuntime(cfg, tp, num_devices=4, degrees=(1, 2, 1))
+    # a mesh must be a ServingMesh, and its degrees must use the ranks
+    # of the process group (one here)
+    with pytest.raises(ValueError, match="ServingMesh"):
+        ExpertRuntime(cfg, tp, num_devices=4, mesh=(1, 2, 1))
+    with pytest.raises(ValueError, match="rank"):
+        ExpertRuntime(cfg, tp, num_devices=4,
+                      mesh=make_serving_mesh(ep=2, device="cpu"))
     with pytest.raises(ValueError, match="slot_dtype"):
         ExpertRuntime(cfg.with_(moe=dataclasses.replace(
             cfg.moe, slot_dtype="fp8")), tp, num_devices=4)
@@ -328,7 +334,7 @@ def test_engine_int8_tokens_equal_fp32_and_runtime_guards():
     eng = ServingEngine(cfg, tp, max_len=16, expert_runtime="on")
     with pytest.raises(ValueError, match="control"):
         eng.start(num_slots=1)
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    with pytest.raises(ValueError, match="ServingMesh"):
         ServingEngine(cfg, tp, expert_runtime="on", mesh=object())
     dense = get_config("mixtral-8x7b", smoke=True).with_(moe=None)
     with pytest.raises(ValueError, match="MoE"):
