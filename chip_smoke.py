@@ -187,7 +187,34 @@ Phases, each fatal on failure:
      each collective's host ms, decode step wall, and W1/W3 against
      (1,1,1).
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11.
+  12. the dry-run and sharding: (a) ``launch.dryrun.run_one`` for all
+     12 archs x 4 input shapes on the 16x16 logical mesh, built and
+     counted on the meta device in 8 processes (``launch.dryrun.
+     sweep``); gated: every combination builds, the card's allocation
+     is unchanged and no worker initialised CUDA, flops and peak bytes a
+     rank positive, a train step at least 6 N T operations (N without an
+     untied embedding table, which only a lookup reads); (b) ZeRO-2
+     (``make_train_step(grad_shardings=)`` over a (2, 1)
+     ``launch.mesh.ProcessMesh``): mixtral-8x7b at published widths, 1
+     of 32 layers, bf16, 8 x 256 tokens in 2 microbatches, 2 steps, two
+     ranks on cuda:0 over gloo, after the one-process oracle at dispatch
+     groups 2 in this process (which then holds nothing on the card);
+     gated at phase 9's drop-free capacity: each step's loss within
+     ``MB_LOSS_TOL`` of the one-process step from the same weights, the
+     gathered step-1 accumulator within ``GRAD_REL_TOL`` of each leaf's
+     norm, the sharded AdamW within one bf16 ulp of the unsharded update
+     of the same gradients, both ranks' parameters equal after each
+     step, accumulator, mu and nu exactly half the one-process bytes,
+     resident parameters + optimizer + batch bytes equal to
+     ``launch.dryrun.build_step``'s shardings on the same mesh; printed:
+     peak a rank against ``zero2_reckoning``, step walls, each
+     collective's host ms, the bytes moved to the front and gathered;
+     (c) the Mamba levers at jamba-v0.1-52b's mixer widths over 512
+     tokens, forward and backward: float32 outputs and gradients of each
+     within ``MAMBA_TOL`` of the default path, bf16 reported, each
+     timed.
+
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11, 12.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -203,6 +230,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -4330,6 +4358,508 @@ def ep_phase(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 12
+
+# phase 12 (b): mixtral-8x7b at its published widths, phase 9's one of
+# 32 layers and TokenStream batches of 8 x 256, bf16, impl "ref",
+# trained by ZeRO-2 over two data ranks sharing cuda:0 through gloo, two
+# microbatches, two steps, against the one-process step at dispatch
+# groups 2, held to phase 9's MB_LOSS_TOL and GRAD_REL_TOL at its
+# drop-free capacity factor (E / top_k), as phase 9's microbatch rule
+# is: a rank's products run on half the rows, so bf16 rounds some
+# router scores otherwise, and a route that flips in and out of a
+# capacity moves the loss by ~1e-4 (1.2e-4 at step 2 at the default
+# 1.25 on an H100, PERF.md)
+Z2_RANKS, Z2_MB, Z2_STEPS = 2, 2, 2
+# phase 12 (c): a Mamba mixer at jamba-v0.1-52b's published widths over
+# MAMBA_SEQ tokens, forward and backward, each lever against the default
+# path; float32 held to MAMBA_TOL (atol = rtol; the levers only reorder
+# float32 sums), bf16 reported
+MAMBA_SEQ, MAMBA_TOL = 512, 1e-4
+
+
+def dryrun_sweep(card: str) -> dict:
+    """Phase 12 (a): ``launch.dryrun.run_one`` for every arch x input
+    shape on the 16x16 logical mesh, on the meta device, the meta runs
+    spread over the host's cores (``launch.dryrun.sweep``): every
+    combination builds, nothing is allocated on the card (this
+    process's allocation unchanged, no worker initialised CUDA), flops
+    and peak bytes a rank are positive, and a train step counts at
+    least 6 x active parameters x tokens operations over the mesh, the
+    parameters an untied embedding table holds left out (a lookup
+    reads them and does no operation)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config, list_archs
+    from repro_torch.launch import dryrun as D
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    jobs = min(8, os.cpu_count() or 1)
+    results, failures = D.sweep(
+        [(a, s) for a in list_archs() for s in INPUT_SHAPES], jobs=jobs,
+        save=False, verbose=False)
+    if failures:
+        raise AssertionError(f"{len(failures)} dry-run combinations "
+                             f"failed: {[f[:2] for f in failures]}")
+    rows = {}
+    for r in results:
+        arch, shape_name = r["arch"], r["shape"]
+        shape = INPUT_SHAPES[shape_name]
+        if r["count_touched_cuda"]:
+            raise AssertionError(f"{arch} x {shape_name}: a meta run's "
+                                 "process initialised CUDA")
+        ratio = None
+        if shape.kind == "train":
+            # 6 N T over the parameters a product reads: an untied
+            # embedding table is only looked up (no operation), which at
+            # xlstm-125m's size is 31% of the parameters
+            cfg = get_config(arch)
+            lookup = 0 if cfg.tie_embeddings else cfg.padded_vocab * \
+                cfg.d_model
+            tokens = shape.global_batch * shape.seq_len
+            floor = 6 * (r["active_params"] - lookup) * tokens
+            ratio = r["flops_global"] / floor
+            raw = r["flops_global"] / (6 * r["active_params"] * tokens)
+            if ratio < 1:
+                raise AssertionError(f"{arch} x {shape_name}: "
+                                     f"{r['flops_global']:.4e} operations "
+                                     f"< 6 N T = {floor:.4e}")
+        if not (r["flops"] > 0 and r["peak_bytes_per_device"] > 0):
+            raise AssertionError(f"{arch} x {shape_name}: {r}")
+        rows[f"{arch} {shape_name}"] = r
+        log(f"  {arch:<26} {shape_name:<11} flops/rank "
+            f"{r['flops']:.4e}" + (f" ({ratio:.3f} x 6NT without the "
+                                   f"lookup table, {raw:.3f} with it)"
+                                   if ratio else "") +
+            f", peak/rank {r['peak_bytes_per_device'] / 1e9:.3f} GB, "
+            f"bytes/rank {r['bytes_accessed']:.4e}, build "
+            f"{r['build_s']:.2f} s ({r['count_corners']} meta runs)")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    free1 = torch.cuda.mem_get_info()[0]
+    if after != before:
+        raise AssertionError(f"the dry-run sweep allocated "
+                             f"{after - before} bytes on the card")
+    sweep_s = time.perf_counter() - t0
+    log(f"  {len(rows)} combinations built and counted in {sweep_s:.1f} s "
+        f"on the meta device ({jobs} processes, "
+        f"{sum(r['build_s'] for r in results):.1f} s of meta runs); "
+        f"memory_allocated {before} -> {after} bytes, the card's free "
+        f"bytes {free0} -> {free1}; no process but this one initialised "
+        "CUDA")
+    return {"seconds": sweep_s, "rows": rows}
+
+
+def zero2_reckoning(cfg) -> dict:
+    """Device bytes of a ZeRO-2 rank at dp = Z2_RANKS, from the parameter
+    count n and the largest leaf L, as ``train_reckoning``: bf16 weights
+    (2n, replicated), float32 accumulator, first and second moments
+    sharded (4n/dp each); the update adds the clipped float32 shards
+    (4n/dp), the new moments (8n/dp), the new weight shards (2n/dp) and
+    about four float32 temporaries of the largest shard (16L/dp); the
+    resident state between steps is the weights and the moments."""
+    n, dp = cfg.num_params(), Z2_RANKS
+    big = (cfg.num_layers // cfg.moe.every_n_layers) * cfg.moe.num_experts \
+        * cfg.d_model * cfg.moe.d_ff
+    return {"resident_gb": (2 * n + 8 * n / dp) / 1e9,
+            "step_gb": (2 * n + 26 * n / dp + 16 * big / dp) / 1e9}
+
+
+def _ulp_bf16(t):
+    """One bf16 ulp at each element of `t` (2^(e - 8) for |t| in
+    [2^(e-1), 2^e))."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _z2_batches(cfg):
+    from repro_torch.training.data import DataConfig, TokenStream
+    stream = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                    seed=0))
+    return [{k: torch.from_numpy(v) for k, v in stream.batch(i).items()}
+            for i in range(Z2_STEPS)]
+
+
+def _z2_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.training import optimizer as O
+    cfg = get_config("mixtral-8x7b").with_(num_layers=TRAIN_LAYERS,
+                                           impl="ref")
+    cfg = cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    opt = O.adamw(TRAIN_LR, weight_decay=0.01)
+    return cfg, opt, _z2_batches(cfg)
+
+
+def _host(tree):
+    from repro_torch.training.optimizer import _map
+    return _map(lambda t: t.detach().to("cpu"), tree)
+
+
+def z2_oracle() -> dict:
+    """The one-process step at dispatch groups Z2_RANKS in this process:
+    step 1's float32 gradients, each step's loss and metrics, the
+    parameters after each step, all in host memory."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    cfg, opt, batches = _z2_setup()
+    T.set_moe_dispatch_groups(Z2_RANKS)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, device="cuda")
+        step = M.make_train_step(cfg, opt, microbatches=Z2_MB)
+        dev = [{k: v.cuda() for k, v in b.items()} for b in batches]
+        _, g = step.grads(params, dev[0])
+        out = {"grads": _host(g), "steps": []}
+        del g
+        state = opt.init(params)
+        for i, b in enumerate(dev):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            out["steps"].append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                                 "loss": float(m["loss"]),
+                                 "aux_loss": float(m["aux_loss"]),
+                                 "expert_load": m["expert_load"].tolist(),
+                                 "dropped": m["dropped"].tolist()})
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["n_f32_bytes"] = sum(4 * t.numel() for t in _leaves(params))
+        del params, state, step
+    finally:
+        T.set_moe_dispatch_groups(1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def z2_loss_at(params_host, i: int) -> float:
+    """The one-process step's loss (dispatch groups Z2_RANKS) at
+    `params_host` on batch `i`."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import _map
+    cfg, opt, batches = _z2_setup()
+    T.set_moe_dispatch_groups(Z2_RANKS)
+    try:
+        params = _map(lambda t: t.cuda(), params_host)
+        step = M.make_train_step(cfg, opt, microbatches=Z2_MB)
+        m, g = step.grads(params, {k: v.cuda()
+                                   for k, v in batches[i].items()})
+        loss = float(m["loss"])
+        del g, params, step
+    finally:
+        T.set_moe_dispatch_groups(1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _ranks_agree(params) -> bool:
+    """Every leaf of rank 0's `params` equals this rank's, one leaf at a
+    time through a broadcast over the world."""
+    import torch.distributed as dist
+    same = True
+    for t in _leaves(params):
+        ref = t.clone()
+        dist.broadcast(ref, src=0)
+        same &= bool(torch.equal(ref, t))
+        del ref
+    flag = torch.tensor([int(same)], device=params["embed"].device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def z2_rank(rank: int, tmp: str) -> dict:
+    """One ZeRO-2 rank of phase 12 (b), its process group up: step 1 as
+    its two halves (the accumulator kept), step 2 whole; the bytes it
+    holds against ``launch.dryrun.build_step``'s shardings on the same
+    mesh. Its step-1 accumulator shards (and rank 0's step-1 weights) go
+    to files in `tmp` (a pipe would take minutes for their 3.4 GB);
+    everything returned lives on the host."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    cfg, opt, batches = _z2_setup()
+    mesh = make_process_mesh(Z2_RANKS, 1, device="cuda:0")
+    T.set_moe_dispatch_groups(Z2_RANKS)
+    params = init_params(cfg, seed=0, device="cuda")
+    gs = SH.params_shardings(params, mesh, fsdp=True)
+    state = opt.init(SH.shard_tree(params, gs))
+    step = M.make_train_step(cfg, opt, microbatches=Z2_MB, grad_shardings=gs)
+    # the dry-run's reckoning of the same step on the same mesh
+    _, args, shardings = D.build_step(
+        cfg, InputShape("zero2", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        {"fsdp_params": False, "microbatches": Z2_MB}, mesh=mesh)
+    sh = shardings(mesh)
+    reckoned = {k: SH.shard_nbytes(a, s)
+                for k, a, s in zip(("params", "opt", "batch"), args, sh)}
+    out = {"rank": rank, "steps": [], "reckoned": reckoned}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(batches):
+        mesh.host_ms.clear()
+        t0 = time.perf_counter()
+        if i == 0:
+            m, acc = step.grads(params, b)
+            params, state = step.apply(params, acc, state)
+        else:
+            params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if i == 0:
+            out["acc"] = os.path.join(tmp, f"acc{rank}.pt")
+            torch.save(_host(acc), out["acc"])
+            out["acc_bytes"] = _nbytes(acc)
+            del acc
+            if rank == 0:
+                out["params1"] = os.path.join(tmp, "params1.pt")
+                torch.save(_host(params), out["params1"])
+        out["steps"].append({
+            "wall_ms": wall, "loss": float(m["loss"]),
+            "aux_loss": float(m["aux_loss"]),
+            "expert_load": m["expert_load"].tolist(),
+            "dropped": m["dropped"].tolist(),
+            "collective_ms": dict(mesh.host_ms),
+            "ranks_agree": _ranks_agree(params)})
+    out["resident"] = {"params": _nbytes(params), "opt": _nbytes(state),
+                       "batch": step.stats["batch_bytes"]}
+    out["mu_bytes"] = _nbytes(state["mu"])
+    out["nu_bytes"] = _nbytes(state["nu"])
+    out["stats"] = dict(step.stats)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["data_dims"] = [SH.data_dim(s) for s in _leaves(gs)]
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def zero2_phase(card: str) -> dict:
+    """Phase 12 (b): the oracle in this process, then two ZeRO-2 ranks
+    (``launch.mesh.spawn_local``, gloo on cuda:0); gated as the module
+    docstring says."""
+    from repro_torch.launch.mesh import spawn_local
+    from repro_torch.models.model import init_params
+    from repro_torch.training import optimizer as O
+    cfg, opt, _ = _z2_setup()
+    rec = zero2_reckoning(cfg)
+    log(f"  mixtral-8x7b, {cfg.num_layers} of 32 layers, {cfg.dtype}, impl "
+        f"ref, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {Z2_MB} "
+        f"microbatches, {Z2_STEPS} steps, lr {TRAIN_LR}; ZeRO-2 over "
+        f"{Z2_RANKS} data ranks: {rec['resident_gb']:.2f} GB resident and "
+        f"~{rec['step_gb']:.1f} GB at the update a rank by the reckoning")
+    # cuBLAS keeps a workspace a thread (autograd's backward runs on one
+    # of its own) in the caching allocator: drop them on both readings
+    torch._C._cuda_clearCublasWorkspaces()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    one = z2_oracle()
+    t1 = time.perf_counter()
+    torch._C._cuda_clearCublasWorkspaces()
+    if torch.cuda.memory_allocated() != held:
+        raise AssertionError(f"the oracle left "
+                             f"{torch.cuda.memory_allocated() - held} bytes "
+                             "on the card before the ranks start")
+    log(f"  this process holds {held / 1e6:.1f} MB on the card while the "
+        "ranks run")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_local(z2_rank, Z2_RANKS, backend="gloo", args=(tmp,),
+                            wall_s=600.0)
+        for r in ranks:
+            r["acc"] = torch.load(r["acc"], map_location="cpu")
+            if "params1" in r:
+                r["params1"] = torch.load(r["params1"], map_location="cpu")
+    t2 = time.perf_counter()
+    log(f"  the one-process oracle {t1 - t0:.1f} s (peak "
+        f"{one['peak_gb']:.2f} GB, step walls "
+        f"{[round(s['wall_ms'], 1) for s in one['steps']]} ms); "
+        f"{Z2_RANKS} ranks over gloo on cuda:0 {t2 - t1:.1f} s")
+    # each step's loss against the one-process step's from the same
+    # weights: step 1 the oracle's; step 2 the one-process loss at the
+    # ranks' own step-1 weights, which sit within a bf16 ulp of the
+    # oracle's (its own step 2 is reported beside it)
+    at_p1 = z2_loss_at(ranks[0]["params1"], 1)
+    for r in ranks:
+        for i, got in enumerate(r["steps"]):
+            want = one["steps"][0]["loss"] if i == 0 else at_p1
+            if abs(got["loss"] - want) > MB_LOSS_TOL:
+                raise AssertionError(f"rank {r['rank']} step {i + 1}: loss "
+                                     f"{got['loss']} against {want}")
+            if not got["ranks_agree"]:
+                raise AssertionError(f"step {i + 1}: the ranks' parameters "
+                                     "differ")
+        if r["acc_bytes"] * Z2_RANKS != one["n_f32_bytes"] or \
+                r["mu_bytes"] * Z2_RANKS != one["n_f32_bytes"] or \
+                r["nu_bytes"] * Z2_RANKS != one["n_f32_bytes"]:
+            raise AssertionError(f"rank {r['rank']}: accumulator / moments "
+                                 f"{r['acc_bytes']} / {r['mu_bytes']} / "
+                                 f"{r['nu_bytes']} bytes, one process "
+                                 f"{one['n_f32_bytes']}")
+        if r["resident"] != r["reckoned"]:
+            raise AssertionError(f"rank {r['rank']}: resident "
+                                 f"{r['resident']} != the dry-run's "
+                                 f"{r['reckoned']}")
+    for i, s in enumerate(ranks[0]["steps"]):
+        w = one["steps"][i]
+        want = w["loss"] if i == 0 else at_p1
+        log(f"  step {i + 1}: loss {s['loss']:.6f} against {want:.6f} "
+            f"(|diff| {abs(s['loss'] - want):.3e}, held to "
+            f"{MB_LOSS_TOL:.0e})"
+            + ("" if i == 0 else f"; the oracle's own step 2 "
+               f"{w['loss']:.6f} (|diff| {abs(s['loss'] - w['loss']):.3e})")
+            + f"; expert loads {s['expert_load']} "
+            f"{'equal' if s['expert_load'] == w['expert_load'] else 'vs ' + str(w['expert_load'])}"
+            f", dropped {s['dropped']} vs {w['dropped']}; both ranks' "
+            "parameters equal")
+    # the gathered accumulator against the oracle's gradients
+    from repro_torch.training.checkpoint import leaf_paths
+    dims = ranks[0]["data_dims"]
+    rel = {}
+    gathered = []
+    for (k, want), j, a0, a1 in zip(leaf_paths(one["grads"]), dims,
+                                    _leaves(ranks[0]["acc"]),
+                                    _leaves(ranks[1]["acc"])):
+        g = a0 if j is None else torch.cat([a0, a1], dim=j)
+        gathered.append(g)
+        rel[k] = float(torch.linalg.vector_norm(g - want)
+                       / torch.linalg.vector_norm(want))
+    worst = max(rel, key=rel.get)
+    log(f"  the gathered step-1 accumulator against the oracle's float32 "
+        f"gradients: at most {rel[worst]:.3e} of the norm ({worst}; held "
+        f"to {GRAD_REL_TOL:.0e})")
+    if rel[worst] > GRAD_REL_TOL:
+        raise AssertionError(f"gradients: {rel}")
+    del one["grads"]
+    # the sharded AdamW against the unsharded update of the same grads
+    p0 = init_params(cfg, seed=0, device="cuda")
+    it = iter(gathered)
+    g = O._map(lambda _: next(it).cuda(), p0)
+    del gathered
+    p1, _ = opt.update(p0, g, opt.init(p0))
+    del g, p0
+    ulps = []
+    for got, want in zip(_leaves(ranks[0]["params1"]), _leaves(p1)):
+        got = got.cuda()
+        ulps.append(float(((got.float() - want.float()).abs()
+                           / _ulp_bf16(want)).max()))
+    del p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  the sharded AdamW against the unsharded update of the gathered "
+        f"gradients: at most {max(ulps):.3f} bf16 ulp (held to 1)")
+    if max(ulps) > 1:
+        raise AssertionError(f"sharded update off by {ulps} bf16 ulps")
+    for r in ranks:
+        log(f"  rank {r['rank']}: resident {r['resident']} bytes == the "
+            f"dry-run's reckoning on the (2, 1) mesh; accumulator "
+            f"{r['acc_bytes']}, mu {r['mu_bytes']}, nu {r['nu_bytes']} "
+            f"bytes (half of {one['n_f32_bytes']}); peak "
+            f"{r['peak_gb']:.2f} GB (reckoned {rec['step_gb']:.1f}); step "
+            f"walls {[round(s['wall_ms'], 1) for s in r['steps']]} ms; "
+            f"collectives host ms a step "
+            f"{[{k: round(v, 2) for k, v in s['collective_ms'].items()} for s in r['steps']]}; "
+            f"data dims moved to the front: "
+            f"{r['stats']['transpose_bytes'] / 1e9:.3f} GB copied over the "
+            f"steps; parameters all-gathered: "
+            f"{r['stats']['gathered_bytes'] / 1e9:.3f} GB over the steps; "
+            f"{r['seconds']:.1f} s from its start to its return; on {card}")
+    return {"oracle": {k: v for k, v in one.items()},
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("acc", "params1")} for r in ranks],
+            "grad_rel": rel, "ulps": max(ulps), "seconds": t2 - t0}
+
+
+def mamba_levers(card: str) -> dict:
+    """Phase 12 (c): ``ssm.mamba_seq`` at jamba-v0.1-52b's mixer widths,
+    forward and backward, each lever against the default path: float32
+    outputs (y, final state) and gradients (x and every parameter) within
+    MAMBA_TOL; bf16 reported; the device ms of each, in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as S
+    cfg = get_config("jamba-v0.1-52b")
+    saved = dict(S.MAMBA_OPTS)
+    levers = [None, "fused_y", "chunk_remat", "inline_ab"]
+    out = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(12)
+            p = S.init_mamba(gen, cfg.d_model, cfg.ssm, dtype, "cuda")
+            x = torch.randn((1, MAMBA_SEQ, cfg.d_model), generator=gen,
+                            device="cuda", dtype=dtype)
+            w = torch.randn((1, MAMBA_SEQ, cfg.d_model), generator=gen,
+                            device="cuda", dtype=torch.float32)
+
+            def run(lever):
+                S.MAMBA_OPTS.update(dict(saved, **{k: False for k in saved}))
+                if lever:
+                    S.MAMBA_OPTS[lever] = True
+                live = {k: v.detach().requires_grad_() for k, v in p.items()}
+                xl = x.detach().requires_grad_()
+                y, st = S.mamba_seq(live, xl, cfg.ssm)
+                (torch.sum(y.float() * w) + torch.sum(st["ssm"])).backward()
+                return [y.detach(), st["ssm"].detach(), xl.grad] + \
+                    [live[k].grad for k in sorted(live)]
+
+            base = run(None)
+            name = "float32" if dtype == torch.float32 else "bf16"
+            for lever in levers[1:]:
+                got = run(lever)
+                errs = [float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got, base)]
+                ok = all(torch.allclose(a.float(), b.float(), atol=MAMBA_TOL,
+                                        rtol=MAMBA_TOL)
+                         for a, b in zip(got, base))
+                out[f"{name} {lever}"] = max(errs)
+                if dtype == torch.float32 and not ok:
+                    raise AssertionError(f"mamba lever {lever}: float32 "
+                                         f"outputs/gradients off the default "
+                                         f"path by {errs}")
+            del base, got
+            times = {str(lv): time_ms(functools.partial(run, lv), iters=3,
+                                      warmup=1, reps=3) for lv in levers}
+            out[f"{name} ms"] = times
+            log(f"  mamba_seq {name}, B 1, S {MAMBA_SEQ}, d_model "
+                f"{cfg.d_model}, d_inner {cfg.ssm.expand * cfg.d_model}, "
+                f"d_state {cfg.ssm.d_state}: max |lever - default| over "
+                f"outputs and gradients "
+                f"{ {lv: out[f'{name} {lv}'] for lv in levers[1:]} }"
+                + (f" (held to atol=rtol={MAMBA_TOL})"
+                   if dtype == torch.float32 else " (reported)")
+                + f"; forward+backward device ms on {card}: "
+                f"{ {k: round(v, 3) for k, v in times.items()} }")
+    finally:
+        S.MAMBA_OPTS.update(saved)
+    return out
+
+
+def sharding_phase(card: str) -> dict:
+    """Phase 12: the dry-run sweep, ZeRO-2 training on two ranks, the
+    Mamba levers."""
+    t12 = time.perf_counter()
+    log("  (a) the dry-run sweep: 12 archs x 4 input shapes on the 16x16 "
+        "logical mesh, meta device")
+    sweep = dryrun_sweep(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  (b) ZeRO-2: make_train_step(grad_shardings=) over a (2, 1) "
+        "process mesh")
+    z2 = zero2_phase(card)
+    log("  (c) the Mamba levers at jamba-v0.1-52b's widths")
+    levers = mamba_levers(card)
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+    return {"sweep_s": sweep["seconds"], "zero2": z2, "levers": levers}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -4541,6 +5071,12 @@ def main() -> int:
         "mixtral-8x7b at its published widths through "
         "ServingEngine(mesh=...)")
     worlds = ep_phase(card)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[12] the dry-run and sharding: the meta-device sweep, ZeRO-2 "
+        "training of mixtral-8x7b on two ranks, the Mamba levers")
+    sharding_phase(card)
 
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \

@@ -29,19 +29,31 @@ Only the EP data plane is multi-rank: embeddings, attention, the KV
 cache, norms and the LM head run replicated on every rank, as in the
 reference, where the mesh reaches only ``moe_ep_layer``.
 
-The reference's ``make_host_mesh``, ``make_production_mesh``, ``dp_axes``
-and ``mp_axis`` serve its dry-run and its sharded training step; they
-arrive with the port's dry-run slice (``distributed/sharding.py``).
+One class, ``ProcessMesh``, holds a rank's place in any such grid of
+ranks: its coordinates, its named groups (each the ranks that vary some
+axes with the others fixed) and their collectives, with each
+collective's host ms. ``ServingMesh`` is its (data, ep, tp) form with
+the three groups above; ``make_process_mesh`` and ``make_host_mesh``
+build its ("data", "model") form, with the data groups and the model
+groups of the ZeRO-2 step (``models.model.make_train_step(
+grad_shardings=)``). ``LogicalMesh`` (``make_production_mesh``) has
+axis sizes only, no devices and no process group: the dry-run reckons
+per-rank bytes on it.
+
+Every sharding function takes any object with ``.shape`` (axis name ->
+size, in mesh order) and ``.axis_names``.
 """
 from __future__ import annotations
 
 import datetime
 import hashlib
+import itertools
 import math
 import os
 import pickle
 import tempfile
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import torch
@@ -56,54 +68,57 @@ HOW_TO_START = ("start one rank per device (launch.serve --host-devices "
 
 
 @dataclass
-class ServingMesh:
-    """This rank's place in a (data, ep, tp) serving mesh, its device,
-    and the collectives of the EP slot plane over its three groups.
-    ``host_ms`` sums the host time of each collective by name (the
-    layer's transport meter)."""
-    shape: dict
+class ProcessMesh:
+    """This rank's place in a grid of ``torch.distributed`` ranks,
+    ordered row-major over ``shape`` (axis name -> size, in mesh order),
+    its device, and the collectives over its named groups. ``members``
+    gives each group's member ranks (this rank's group, in group-rank
+    order); a group of one rank has no process group and its collectives
+    are identities. ``host_ms`` sums the host time of each collective by
+    name (the transport meter)."""
+    shape: OrderedDict
     rank: int
     coords: tuple
     device: torch.device
-    groups: dict = field(default_factory=dict)   # 'ep' | 'tp' | 'shard'
+    members: dict = field(default_factory=dict)
+    groups: dict = field(default_factory=dict)
     host_ms: dict = field(default_factory=dict)
 
     @property
-    def degrees(self) -> tuple[int, int, int]:
-        return tuple(self.shape[a] for a in AXES)
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
+
+    @property
+    def degrees(self) -> tuple:
+        return tuple(self.shape.values())
 
     @property
     def size(self) -> int:
-        d, e, t = self.degrees
-        return d * e * t
+        return math.prod(self.shape.values())
 
-    @property
-    def shard(self) -> int:
-        """This rank's token shard: data index * ep + ep index."""
-        return self.coords[0] * self.shape["ep"] + self.coords[1]
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on `axis`."""
+        return self.coords[self.axis_names.index(axis)]
 
     def group_size(self, name: str) -> int:
-        d, e, t = self.degrees
-        return {"ep": e, "tp": t, "shard": d * e}[name]
+        return len(self.members.get(name, (self.rank,)))
 
     def _timed(self, name: str, t0: float) -> None:
         self.host_ms[name] = self.host_ms.get(name, 0.0) + \
             (time.perf_counter() - t0) * 1e3
 
     def all_gather(self, x, group: str):
-        """(n, *x.shape): every member's `x`, in group-rank order (the
-        mesh's rank order)."""
+        """(n, *x.shape): every member's `x`, in group-rank order."""
         n = self.group_size(group)
         if n == 1:
             return x[None]
         t0 = time.perf_counter()
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        # gloo has no all_gather_into_tensor: gather into a list
-        dist.all_gather(parts, x, group=self.groups[group])
-        out = torch.stack(parts)
+        # gloo takes only the concatenated (flat) form
+        out = x.new_empty((n * x.numel(),))
+        dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
+                                    group=self.groups[group])
         self._timed(f"all_gather/{group}", t0)
-        return out
+        return out.view((n,) + tuple(x.shape))
 
     def all_to_all(self, x, group: str):
         """Row block i of `x` (split evenly on dim 0) goes to member i;
@@ -127,6 +142,30 @@ class ServingMesh:
         self._timed(f"all_reduce/{group}", t0)
         return out
 
+    def all_reduce_autograd(self, x, group: str):
+        """The sum of `x` over the group, differentiable: its backward
+        sums the members' gradients the same way."""
+        if self.group_size(group) == 1:
+            return x
+        from torch.distributed.nn.functional import all_reduce
+        t0 = time.perf_counter()
+        out = all_reduce(x.contiguous(), group=self.groups[group])
+        self._timed(f"all_reduce_autograd/{group}", t0)
+        return out
+
+    def reduce_scatter(self, x, group: str):
+        """Member i receives block i of the sum over the group of `x`
+        (n blocks of equal size on dim 0)."""
+        n = self.group_size(group)
+        if n == 1:
+            return x
+        t0 = time.perf_counter()
+        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(),
+                                   group=self.groups[group])
+        self._timed(f"reduce_scatter/{group}", t0)
+        return out
+
     def check_same(self, what: str, payload: bytes) -> None:
         """Raise on every rank unless all ranks hold the same `payload`
         (a digest of it crosses the world): ranks that diverge fail here
@@ -142,8 +181,56 @@ class ServingMesh:
         if len(set(seen)) > 1:
             odd = [r for r, v in enumerate(seen) if v != seen[0]]
             raise RuntimeError(
-                f"serving mesh: ranks {odd} hold a different {what} than "
-                f"rank 0; every rank must run the same session")
+                f"mesh: ranks {odd} hold a different {what} than rank 0; "
+                f"every rank must run the same session")
+
+
+@dataclass
+class ServingMesh(ProcessMesh):
+    """A (data, ep, tp) ``ProcessMesh`` with the EP slot plane's three
+    groups (module docstring)."""
+
+    @property
+    def shard(self) -> int:
+        """This rank's token shard: data index * ep + ep index."""
+        return self.coords[0] * self.shape["ep"] + self.coords[1]
+
+
+def _build(cls, shape: OrderedDict, spans: dict, device):
+    """A `cls` mesh of `shape` over the ranks of the initialised default
+    process group (rank 0 of one without one). `spans` maps each group's
+    name to the axes it varies: a group holds the ranks that share this
+    rank's coordinates on the other axes, in row-major order. Every
+    rank creates every group of more than one rank, in one order
+    (``dist.new_group``'s rule)."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    names, sizes = list(shape), list(shape.values())
+    coords = tuple((rank // math.prod(sizes[i + 1:])) % sizes[i]
+                   for i in range(len(sizes)))
+
+    def rank_of(at: dict) -> int:
+        r = 0
+        for a, n in shape.items():
+            r = r * n + at[a]
+        return r
+
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = cls(shape=shape, rank=rank, coords=coords,
+               device=torch.device(device))
+    for name, span in spans.items():
+        fixed = [a for a in names if a not in span]
+        for f in itertools.product(*(range(shape[a]) for a in fixed)):
+            at = dict(zip(fixed, f))
+            ranks = [rank_of({**at, **dict(zip(span, v))})
+                     for v in itertools.product(*(range(shape[a])
+                                                  for a in span))]
+            if len(ranks) == 1:
+                break
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mesh.members[name], mesh.groups[name] = ranks, g
+    return mesh
 
 
 def _factor(n: int, ep, tp: int, data: int) -> tuple[int, int, int]:
@@ -182,34 +269,9 @@ def make_serving_mesh(devices: int | None = None, *, ep: int | None = None,
         degrees = _factor(n, ep, int(tp), int(data))
     except ValueError as e:
         raise ValueError(f"{e}: {HOW_TO_START}") from None
-    d_, e_, t_ = degrees
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    coords = (rank // (e_ * t_), (rank // t_) % e_, rank % t_)
-    if device is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    mesh = ServingMesh(shape=dict(zip(AXES, degrees)), rank=rank,
-                       coords=coords, device=torch.device(device))
-
-    def at(d, e, t):
-        return (d * e_ + e) * t_ + t
-
-    # every rank creates every group, in one order (dist.new_group's rule)
-    members = {
-        "ep": [[at(d, e, t) for e in range(e_)]
-               for d in range(d_) for t in range(t_)],
-        "tp": [[at(d, e, t) for t in range(t_)]
-               for d in range(d_) for e in range(e_)],
-        "shard": [[at(d, e, t) for d in range(d_) for e in range(e_)]
-                  for t in range(t_)],
-    }
-    for name, lists in members.items():
-        if len(lists[0]) == 1:
-            continue
-        for ranks in lists:
-            g = dist.new_group(ranks)
-            if rank in ranks:
-                mesh.groups[name] = g
-    return mesh
+    return _build(ServingMesh, OrderedDict(zip(AXES, degrees)),
+                  {"ep": ("ep",), "tp": ("tp",), "shard": ("data", "ep")},
+                  device)
 
 
 def check_degrees(degrees) -> tuple[int, int, int]:
@@ -234,6 +296,74 @@ def check_mesh(mesh) -> tuple[int, int, int]:
             f"mesh must be a launch.mesh.ServingMesh (make_serving_mesh), "
             f"got {type(mesh).__name__}")
     return check_degrees(mesh.degrees)
+
+
+# ------------------------------------------------------ (data, model) meshes
+
+MESH_AXES = ("data", "model")
+
+
+@dataclass(frozen=True)
+class LogicalMesh:
+    """A mesh shape with no devices and no process group: what the
+    dry-run shards over. ``shape`` maps each axis name to its size, in
+    mesh order."""
+    shape: OrderedDict
+    axis_names: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def make_production_mesh(*, multi_pod: bool = False, shape=None):
+    """The reference's production mesh as a ``LogicalMesh``: (16, 16)
+    over ("data", "model"), or (2, 16, 16) with a leading "pod" axis.
+    `shape` overrides the per-pod (data, model) factorisation, always of
+    256. The port's dry-run uses it as a logical shape only: it reckons
+    specs, bytes and FLOPs per rank of such a mesh and claims nothing
+    about any hardware."""
+    per_pod = tuple(shape) if shape else (16, 16)
+    if per_pod[0] * per_pod[1] != 256:
+        raise ValueError(f"a pod's (data, model) must use 256 ranks, got "
+                         f"{per_pod}")
+    sizes = ((2,) + per_pod) if multi_pod else per_pod
+    axes = (("pod",) + MESH_AXES) if multi_pod else MESH_AXES
+    return LogicalMesh(OrderedDict(zip(axes, sizes)), axes)
+
+
+def dp_axes(mesh) -> tuple:
+    """Logical data-parallel axes (pod is folded into DP)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def mp_axis(mesh) -> str:
+    return "model"
+
+
+def make_process_mesh(data: int, model: int = 1, *,
+                      device=None) -> ProcessMesh:
+    """A (data, model) ``ProcessMesh`` over the ranks of the initialised
+    default process group (without one, only the (1, 1) mesh exists);
+    data * model must equal its world size. `device` is where this
+    rank's tensors live (default: the current CUDA device). Every rank
+    must call this, in the same order as its other group creations."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    data, model = int(data), int(model)
+    if data < 1 or model < 1 or data * model != world:
+        raise ValueError(f"(data, model) = ({data}, {model}) does not "
+                         f"factor the {world} rank(s) of this process "
+                         f"group: {HOW_TO_START}")
+    return _build(ProcessMesh, OrderedDict(zip(MESH_AXES, (data, model))),
+                  {"data": ("data",), "model": ("model",)}, device)
+
+
+def make_host_mesh(*, device=None) -> ProcessMesh:
+    """The reference's single-process ("data", "model") mesh, (1, world)
+    over the default group's ranks (one rank without one). It is not
+    the EP serving mesh: ``moe_ep_layer`` needs ``make_serving_mesh``."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    return make_process_mesh(1, world, device=device)
 
 
 # ------------------------------------------------------------ local ranks

@@ -5,6 +5,15 @@ runs the grouped expert FFN (SwiGLU or gelu) over the capacity layout
 through the ``impl`` kernel backend (``kernels.ops``), and combines. The
 router also emits the per-expert token-load histogram that feeds the
 MoEless control plane (paper §4).
+
+Under a data-parallel training step (``dispatch_moe(data_mesh=)``), each
+rank dispatches its own dispatch groups of the microbatch, and the
+metrics are the whole microbatch's, as the reference's are over all its
+tokens:
+the expert loads, the drops and the aux loss's f (top-1 shares) are
+summed over the data group, and its p (mean router probabilities) by a
+differentiable sum, since E * sum(f * p) is not linear in a rank's
+tokens.
 """
 from __future__ import annotations
 
@@ -33,6 +42,23 @@ def expert_loads(top_i, num_experts: int, token_mask=None):
     if token_mask is not None:
         oh = oh * token_mask.reshape(-1, 1, 1).to(torch.int32)
     return oh.sum(dim=(0, 1), dtype=torch.int32)
+
+
+def _data_parallel_metrics(mesh, probs, top_i, load, dropped,
+                           num_experts: int):
+    """(expert_load, aux_loss, dropped) over the data group: one sum of
+    the top-1 counts, the loads and the drops, one differentiable sum of
+    the router probabilities."""
+    t = probs.shape[0] * mesh.shape["data"]
+    sel = F.one_hot(top_i[..., 0].long(), num_experts).float().sum(dim=0)
+    packed = mesh.all_reduce(torch.cat(
+        [sel, load.float(), torch.as_tensor(dropped, dtype=torch.float32,
+                                            device=sel.device).reshape(1)]),
+        "data")
+    p = mesh.all_reduce_autograd(probs.sum(dim=0), "data")
+    aux = num_experts * torch.sum((packed[:num_experts] / t) * (p / t))
+    return (packed[num_experts:2 * num_experts].to(torch.int32), aux,
+            packed[-1])
 
 
 def load_balance_loss(probs, top_i, num_experts: int):
@@ -81,7 +107,8 @@ def experts_ffn(p, x, act: str, *, group_sizes=None, impl: str = "ref"):
 
 def dispatch_moe(p, x, *, top_k: int, num_experts: int,
                  capacity_factor: float, act: str = "swiglu",
-                 groups: int = 1, token_mask=None, impl: str = "ref"):
+                 groups: int = 1, token_mask=None, impl: str = "ref",
+                 data_mesh=None):
     """Grouped capacity dispatch (GShard).
 
     x: (B, S, D). Tokens are flattened and split into `groups` dispatch
@@ -92,7 +119,10 @@ def dispatch_moe(p, x, *, top_k: int, num_experts: int,
     continuous-batching slots) — compute is unaffected: inactive slots
     still occupy capacity. Returns (y, metrics) with the expert-load
     histogram, the dropped-assignment count, the aux loss and the router
-    logits.
+    logits. With `data_mesh` (a ``launch.mesh.ProcessMesh``) `x` is this
+    rank's share of a data-parallel microbatch, and the expert loads,
+    the drops and the aux loss are the whole microbatch's (module
+    docstring).
     """
     b, s, d = x.shape
     t = b * s
@@ -148,12 +178,17 @@ def dispatch_moe(p, x, *, top_k: int, num_experts: int,
     else:
         am = token_mask.reshape(groups, tg).float()
         dropped = top_k * am.sum() - (kept_per_tok * am).sum()
+    load = expert_loads(top_i.reshape(t, top_k), num_experts,
+                        None if token_mask is None else token_mask.reshape(t))
+    if data_mesh is None or data_mesh.shape["data"] == 1:
+        aux = load_balance_loss(probs, top_i.reshape(t, top_k), num_experts)
+    else:
+        load, aux, dropped = _data_parallel_metrics(
+            data_mesh, probs, top_i.reshape(t, top_k), load, dropped,
+            num_experts)
     metrics = {
-        "expert_load": expert_loads(
-            top_i.reshape(t, top_k), num_experts,
-            None if token_mask is None else token_mask.reshape(t)),
-        "aux_loss": load_balance_loss(probs, top_i.reshape(t, top_k),
-                                      num_experts),
+        "expert_load": load,
+        "aux_loss": aux,
         "dropped": dropped,
         "router_logits": logits.reshape(t, num_experts),
     }

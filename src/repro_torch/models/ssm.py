@@ -14,16 +14,48 @@ otherwise, which is the reference's ``*_seq``. The recurrent states stay
 float32 in a bfloat16 model, as do ``a_log``, ``d_skip``, ``b_i``,
 ``b_f`` and the sLSTM ``bias``.
 
-The reference's Mamba perf levers (``MAMBA_OPTS``: ``fused_y``,
-``chunk_remat``, ``inline_ab``) are all off by default and change the
-float order; only the default path is here.
+The reference's Mamba levers (``MAMBA_OPTS``, ``set_mamba_opts``) are
+ported as they are: ``fused_y`` (the output contraction inside the chunk
+body, so the (B, T, di, N) states are never stored), ``chunk_remat``
+(the chunk body recomputed in backward, ``torch.utils.checkpoint``) and
+``inline_ab`` (``_inline_chunk_scan``: abar and bbar built inside the
+chunk body from the N-times smaller dt, b, c and xc). All are off by
+default, which is the path of the serving and training code; they
+change the float order, not the function.
+
+Every loop over time (the Mamba chunks, the x-LSTM tokens) runs through
+``_time_loop``, the port's ``lax.scan``: one place where a counter can
+cut the loops short (``launch.dryrun``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as C
+
+# the reference's levers (its ssm.py: MAMBA_OPTS), all off by default
+MAMBA_OPTS = {"fused_y": False, "chunk_remat": False, "inline_ab": False}
+
+
+def set_mamba_opts(**kw) -> None:
+    unknown = set(kw) - set(MAMBA_OPTS)
+    if unknown:
+        raise ValueError(f"unknown Mamba options {sorted(unknown)}; known: "
+                         f"{sorted(MAMBA_OPTS)}")
+    MAMBA_OPTS.update(kw)
+
+
+def _time_loop(step, n: int, carry):
+    """(carry, [y_0, ..., y_{n-1}]) of ``carry, y_i = step(i, carry)``
+    for i in range(n)."""
+    ys = []
+    for i in range(n):
+        carry, y = step(i, carry)
+        ys.append(y)
+    return carry, ys
 
 
 def _lead(batch) -> tuple:
@@ -115,22 +147,67 @@ def _associative_scan(a, b):
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
-def _scan_linear_recurrence(a, b, h0, chunk: int = 128):
-    """h_t = a_t * h_{t-1} + b_t over axis 1 (time). a/b: (B, T, di, N),
-    h0: (B, di, N). Chunked as the reference: the associative scan
-    within a chunk of min(chunk, T) shrunk to a divisor of T, a loop
-    across chunks. Returns (hs (B, T, di, N), h_T)."""
-    t = a.shape[1]
+def _chunk(t: int, chunk: int) -> int:
+    """min(chunk, t) shrunk to a divisor of t, as the reference's."""
     chunk = min(chunk, t)
     while t % chunk:
         chunk -= 1
-    hs, h = [], h0
-    for s in range(0, t, chunk):
-        aa, bb = _associative_scan(a[:, s:s + chunk], b[:, s:s + chunk])
+    return chunk
+
+
+def _scan_linear_recurrence(a, b, h0, chunk: int = 128, c_proj=None):
+    """h_t = a_t * h_{t-1} + b_t over axis 1 (time). a/b: (B, T, di, N),
+    h0: (B, di, N). Chunked as the reference: the associative scan
+    within a chunk of ``_chunk(T, chunk)``, a loop across chunks. Returns
+    (hs (B, T, di, N), h_T); with `c_proj` (B, T, N) and ``fused_y`` on,
+    (y = einsum(hs, c) (B, T, di), h_T), the states never stored. Under
+    ``chunk_remat`` the chunk body is recomputed in backward."""
+    t = a.shape[1]
+    chunk = _chunk(t, chunk)
+    fused = MAMBA_OPTS["fused_y"] and c_proj is not None
+
+    def outer(h, ac, bc, cc):
+        aa, bb = _associative_scan(ac, bc)
         hc = aa * h[:, None] + bb
-        h = hc[:, -1]
-        hs.append(hc)
-    return torch.cat(hs, dim=1), h
+        if fused:
+            return hc[:, -1], torch.einsum("bsdn,bsn->bsd", hc, cc)
+        return hc[:, -1], hc
+
+    if MAMBA_OPTS["chunk_remat"]:
+        outer = functools.partial(C.checkpoint, outer, use_reentrant=False)
+
+    def step(i, h):
+        s = i * chunk
+        return outer(h, a[:, s:s + chunk], b[:, s:s + chunk],
+                     c_proj[:, s:s + chunk] if fused else None)
+
+    h, ys = _time_loop(step, t // chunk, h0)
+    return torch.cat(ys, dim=1), h
+
+
+def _inline_chunk_scan(a, dt, b, c, xc, h0, chunk: int = 128):
+    """Selective scan with abar/bbar built INSIDE the chunk body (the
+    reference's lever ``inline_ab``): the loop's inputs are dt (B, T,
+    di), b/c (B, T, N) and xc (B, T, di), N times smaller than the
+    (B, T, di, N) tensors; the chunk body is recomputed in backward.
+    Returns (y (B, T, di), h_T)."""
+    t = dt.shape[1]
+    chunk = _chunk(t, chunk)
+
+    def outer(h, dtc, bc, cc, xcc):
+        abar = torch.exp(dtc[..., None] * a)            # (B, chunk, di, N)
+        bbar = dtc[..., None] * bc[..., None, :] * xcc[..., None]
+        aa, bb = _associative_scan(abar, bbar)
+        hc = aa * h[:, None] + bb
+        return hc[:, -1], torch.einsum("bsdn,bsn->bsd", hc, cc)
+
+    def step(i, h):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        return C.checkpoint(outer, h, dt[:, sl], b[:, sl], c[:, sl],
+                            xc[:, sl], use_reentrant=False)
+
+    h, ys = _time_loop(step, t // chunk, h0)
+    return torch.cat(ys, dim=1), h
 
 
 def mamba_seq(p, x, spec, state=None):
@@ -153,10 +230,17 @@ def mamba_seq(p, x, spec, state=None):
     dt, b, c = _mamba_ssm_params(p, xc, spec)
     a = -torch.exp(p["a_log"])                            # (di, N)
     xf = xc.float()
-    abar = torch.exp(dt[..., None] * a)
-    bbar = dt[..., None] * b[..., None, :] * xf[..., None]
-    hs, h_t = _scan_linear_recurrence(abar, bbar, state["ssm"])
-    y = torch.einsum("bsdn,bsn->bsd", hs, c)
+    if MAMBA_OPTS["inline_ab"]:
+        y, h_t = _inline_chunk_scan(a, dt, b, c, xf, state["ssm"])
+    else:
+        abar = torch.exp(dt[..., None] * a)
+        bbar = dt[..., None] * b[..., None, :] * xf[..., None]
+        if MAMBA_OPTS["fused_y"]:
+            y, h_t = _scan_linear_recurrence(abar, bbar, state["ssm"],
+                                             c_proj=c)
+        else:
+            hs, h_t = _scan_linear_recurrence(abar, bbar, state["ssm"])
+            y = torch.einsum("bsdn,bsn->bsd", hs, c)
     y = y + xf * p["d_skip"]
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     return y, {"conv": xpad[:, xpad.shape[1] - (dc - 1):].to(x.dtype),
@@ -262,11 +346,13 @@ def mlstm_seq(p, x, num_heads: int, state=None):
     log_i, log_f = _mlstm_gates(p, xi, num_heads)
     st = state if state is not None else \
         _mlstm_zero(bsz, num_heads, di // num_heads, x.device)
-    hs = []
-    for t in range(s):
+
+    def step(t, st):
         h, st = _mlstm_recurrence(q[:, t], k[:, t], v[:, t], log_i[:, t],
                                   log_f[:, t], st)
-        hs.append(h)
+        return st, h
+
+    st, hs = _time_loop(step, s, st)
     h = torch.stack(hs, dim=1).reshape(bsz, s, di).to(x.dtype)
     return (h * F.silu(z)) @ p["down_proj"], st
 
@@ -353,10 +439,12 @@ def slstm_seq(p, x, num_heads: int, state=None):
     bsz, s, d = x.shape
     st = state if state is not None else \
         init_slstm_state(d, num_heads, bsz, x.device)
-    hs = []
-    for t in range(s):
+
+    def step(t, st):
         h, st = _slstm_cell(p, x[:, t], st, num_heads)
-        hs.append(h)
+        return st, h
+
+    st, hs = _time_loop(step, s, st)
     return _slstm_ffn(p, torch.stack(hs, dim=1).to(x.dtype)), st
 
 

@@ -45,6 +45,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils import checkpoint as C
 
+from repro_torch.distributed.sharding import constrain_activations
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import prng
@@ -175,14 +176,18 @@ def init_params(cfg, seed: int, device):
     laid out as the reference's pytree (layer leaves stacked over
     periods). The numbers differ from the reference's JAX keys; to feed
     both packages the same weights, convert the reference's with
-    ``repro_torch.params.from_jax``."""
+    ``repro_torch.params.from_jax``. On the ``meta`` device (shapes and
+    dtypes only, ``models.model.abstract_params``) the generator is a
+    CPU one: a meta tensor draws nothing."""
     dtype = getattr(torch, cfg.dtype)
     pattern = layer_pattern(cfg)
     assert cfg.num_layers % len(pattern) == 0, \
         f"{cfg.name}: num_layers={cfg.num_layers} not divisible by " \
         f"period={len(pattern)}"
     np_ = cfg.num_layers // len(pattern)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    device = torch.device(device)
+    gen = torch.Generator(device="cpu" if device.type == "meta"
+                          else device).manual_seed(seed)
     d = cfg.d_model
     params = {
         "embed": _normal(gen, (cfg.padded_vocab, d), dtype, device, 0.02),
@@ -210,6 +215,20 @@ def _period(tree, i: int):
     if isinstance(tree, tuple):
         return tuple(_period(v, i) for v in tree)
     return tree[i]
+
+
+def _periods(tree, n: int) -> list:
+    """The `n` period slices of a stacked tree, one ``unbind`` a leaf
+    (views). Its backward stacks the periods' gradients once, where a
+    slice a period (``_period``) builds a zero-filled stacked gradient
+    for each period and sums them: bytes quadratic in the depth."""
+    if isinstance(tree, dict):
+        parts = {k: _periods(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, tuple):
+        parts = [_periods(v, n) for v in tree]
+        return [tuple(p[i] for p in parts) for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _write_state(view, new) -> None:
@@ -252,11 +271,12 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     cache_len=None, enc_out=None, window=0,
                     collect: bool = False, token_mask=None,
                     block_tables=None, new_counts=None, ep_ctx=None,
-                    ep_state=None):
+                    ep_state=None, data_mesh=None):
     """One sublayer (mixer + optional cross-attention over `enc_out` +
     ffn) with residuals. The layer's cache slice is written in place.
     With `ep_ctx` and this sublayer's `ep_state` the MoE runs through
-    the EP slot data plane. Returns (x, metrics)."""
+    the EP slot data plane; with `data_mesh` (``forward``) its metrics
+    and dispatch groups are the data group's. Returns (x, metrics)."""
     metrics = {}
     h = L.norm(x, p["norm1"], cfg.norm)
     if sub.mixer == "attn":
@@ -285,8 +305,9 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     p["moe"], h, top_k=cfg.moe.top_k,
                     num_experts=cfg.moe.num_experts,
                     capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
-                    groups=_moe_groups(h), token_mask=token_mask,
-                    impl=cfg.impl)
+                    groups=_moe_groups(h, data_mesh),
+                    token_mask=token_mask, impl=cfg.impl,
+                    data_mesh=data_mesh)
             metrics["expert_load"] = m["expert_load"]
             metrics["aux_loss"] = m["aux_loss"]
             metrics["dropped"] = m["dropped"]
@@ -347,12 +368,36 @@ def run_encoder(cfg, params, enc_embeds):
     return L.norm(x, enc["final_norm"], cfg.norm)
 
 
-def _moe_groups(h):
-    # dispatch-group size capped at ~2048 tokens (the one-hot dispatch
-    # tensor is O(t_g^2) per group), as the reference's single-mesh
-    # default (one data shard)
-    t = h.shape[0] * h.shape[1]
-    return max(1, t // 2048)
+_MOE_GROUPS = {"groups": 1}
+
+
+def set_moe_dispatch_groups(n: int) -> None:
+    """Global dispatch-group count (= number of data shards) of the
+    GShard path; launchers and the dry-run set it to the mesh's
+    data-parallel degree."""
+    _MOE_GROUPS["groups"] = n
+
+
+def _moe_groups(h, data_mesh=None):
+    """The dispatch groups of h (B, S, D): at least the set count, and
+    groups of at most ~2048 tokens (the one-hot dispatch tensor is
+    O(t_g^2) a group), as the reference's. Under a data-parallel step
+    (`data_mesh`) h is this rank's share of the microbatch: the count is
+    the whole microbatch's (as ``dispatch_moe`` would settle it), at
+    least one group a data rank, of which this rank holds an equal run
+    of whole groups; ValueError where it cannot."""
+    dp = 1 if data_mesh is None else data_mesh.shape["data"]
+    t = h.shape[0] * h.shape[1] * dp
+    if dp == 1:
+        return max(_MOE_GROUPS["groups"], t // 2048)
+    g = max(_MOE_GROUPS["groups"], dp, t // 2048)
+    g = max(1, min(g, t))
+    while t % g:
+        g -= 1
+    if g % dp:
+        raise ValueError(f"{g} dispatch groups of {t} tokens do not split "
+                         f"into whole groups over {dp} data ranks")
+    return g // dp
 
 
 # the reference's `remat` values (its ``jax.checkpoint`` of one period)
@@ -385,7 +430,7 @@ def _remat(body, remat: str):
 
 def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
             remat: str = "none", last_only: bool = False, ep_ctx=None,
-            ep_state=None, token_mask=None):
+            ep_state=None, token_mask=None, data_mesh=None):
     """Prefill / training forward over whole sequences, writing no cache.
     batch: {tokens (B, S), [positions (B, S)], [token_mask (B, S)],
     [enc_embeds (B, T, D)]} -> (logits, metrics). An encoder-decoder
@@ -399,7 +444,11 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     products' outputs. `ep_ctx` + `ep_state` (``decode_step``'s layout)
     route every MoE sublayer through the EP slot data plane.
     `token_mask` (B, S), or batch['token_mask'], excludes tokens (padded
-    prefill) from the expert-load and dropped metrics. `last_only` keeps
+    prefill) from the expert-load and dropped metrics. `data_mesh` (a
+    ``launch.mesh.ProcessMesh``; the ZeRO-2 train step) makes `batch`
+    this rank's share of a data-parallel microbatch: each MoE dispatches
+    this rank's dispatch groups and its metrics and aux loss are the
+    whole microbatch's (``moe.dispatch_moe``). `last_only` keeps
     only the last position (before the final norm). metrics: 'aux_loss'
     summed over layers, 'expert_load' (Lm, E) and 'dropped' (Lm,); with
     `collect` also 'gate_input' (Lm, B, S, D) and, off the EP plane,
@@ -422,13 +471,15 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
         x = x + _sinusoidal(seq_len, cfg.d_model, x.device).to(x.dtype)[None]
 
     def body(x, layer_params, layer_ep):
+        x = constrain_activations(x)
         ms = []
         for j, sub in enumerate(pattern):
             x, m = _apply_sublayer(cfg, sub, layer_params[j], x, pos,
                                    enc_out=enc_out, window=window,
                                    collect=collect,
                                    token_mask=token_mask, ep_ctx=ep_ctx,
-                                   ep_state=layer_ep[j])
+                                   ep_state=layer_ep[j],
+                                   data_mesh=data_mesh)
             ms.append(m)
         return x, ms
 
@@ -436,8 +487,9 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     np_ = cfg.num_layers // len(pattern)
     ms = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = [_periods(lp, np_) for lp in params["layers"]]
     for i in range(np_):
-        x, m_i = body(x, [_period(lp, i) for lp in params["layers"]],
+        x, m_i = body(x, [lp[i] for lp in layers],
                       [None if ep_state is None or ep_state[j] is None
                        else _period(ep_state[j], i)
                        for j in range(len(pattern))])
@@ -543,8 +595,10 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
                 collect: bool = False, ep_ctx=None, ep_state=None):
     """One decode iteration: batch['tokens'] is (B, S_new) — S_new=1 for
     token-by-token decode, S_new=prompt_len for prefill-into-cache
-    (cache_len=0). `cache_len` is an int (uniform batch) or a (B,) int32
-    tensor of per-row cache depths (the continuous-batching slot pool).
+    (cache_len=0). `cache_len` is an int (uniform batch), a 0-d tensor
+    (the same depth for every row, taken as per-row depths) or a (B,)
+    int32 tensor of per-row cache depths (the continuous-batching slot
+    pool).
     `batch` may carry 'token_mask' (B, S_new) or 'active' (B,) to exclude
     tokens from the expert-load metrics. With a paged cache, `batch`
     carries 'block_tables' (B, nbs) int32 and 'new_counts' (B,) — the
@@ -560,8 +614,9 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
 
     An encoder-decoder config takes the encoder output as
     batch['enc_out'] (B, T, D), or batch['enc_embeds'] to run the encoder
-    first, and an int `cache_len`: every decoder sublayer attends to the
-    encoder output, and each new token gains its own position's
+    first, and one `cache_len` (an int or a 0-d tensor): every decoder
+    sublayer attends to the encoder output, and each new token gains its
+    own position's
     sinusoid, so a prefill into a fresh cache and the decode steps after
     it give ``forward``'s logits (the reference's ``decode_step`` does
     neither). Returns (logits (B,S_new,V), cache, metrics)."""
@@ -572,12 +627,11 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     steps = torch.arange(s_new, dtype=torch.int32, device=tokens.device)
     enc_out = None
     if cfg.encdec is not None:
-        if isinstance(cache_len, torch.Tensor) and cache_len.ndim == 0:
-            cache_len = int(cache_len)
-        if not isinstance(cache_len, int):
+        if isinstance(cache_len, torch.Tensor) and cache_len.ndim > 0:
             raise ValueError(f"{cfg.name}: an encoder-decoder decode step "
-                             "takes an int cache_len (one position for the "
-                             "whole batch), not per-row lengths")
+                             "takes an int cache_len or a 0-d tensor (one "
+                             "position for the whole batch), not per-row "
+                             "lengths")
         if "enc_out" in batch:
             enc_out = batch["enc_out"].to(x.dtype)
         elif "enc_embeds" in batch:
@@ -588,7 +642,9 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
         x = x + _sinusoidal_at(cache_len + steps, cfg.d_model) \
             .to(x.dtype)[None]
     if not isinstance(cache_len, int):
-        cache_len = cache_len.to(torch.int32)
+        # a 0-d tensor is one depth for every row: read no value (the
+        # dry-run's step runs on the meta device), take the per-row path
+        cache_len = cache_len.to(torch.int32).expand(bsz)
     pos = batch.get("positions")    # (B, S_new), or (B, S_new, 3)
     if pos is None:
         if isinstance(cache_len, int):

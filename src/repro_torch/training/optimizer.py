@@ -32,13 +32,18 @@ def _leaves(tree):
     return [tree]
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.float()))
-                          for l in _leaves(tree)))
+def global_norm(tree, sum_squares=sum) -> torch.Tensor:
+    """The tree's L2 norm. `sum_squares` takes its leaves' squared norms
+    (0-d float32 tensors, in leaf order) to the tree's squared norm:
+    under ZeRO-2 the leaves are this rank's shards, summed over the data
+    group with a replicated leaf counted once (``models.model.
+    make_train_step(grad_shardings=)``)."""
+    return torch.sqrt(sum_squares([torch.sum(torch.square(l.float()))
+                                   for l in _leaves(tree)]))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    n = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, sum_squares=sum):
+    n = global_norm(tree, sum_squares)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
     # a bf16 leaf times the f32 scale is f32, as jnp promotes it (a 0-d
     # tensor would keep it bf16 in torch)
@@ -49,7 +54,10 @@ def clip_by_global_norm(tree, max_norm: float):
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable
-    update: Callable   # (params, grads, state) -> (params, state)
+    # (params, grads, state, sum_squares=sum) -> (params, state); the
+    # update is elementwise but for the clip's norm (``global_norm``), so
+    # it runs on shards as it is
+    update: Callable
 
 
 def _zeros(params):
@@ -67,10 +75,10 @@ def adamw(lr: float | Callable = 1e-3, *, b1: float = 0.9, b2: float = 0.95,
         return {"mu": _zeros(params), "nu": _zeros(params),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(params, grads, state):
+    def update(params, grads, state, sum_squares=sum):
         step = state["step"] + 1
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, sum_squares)
         lr_t = lr_fn(step)
         t = step.float()
         c1, c2 = 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
@@ -97,9 +105,9 @@ def sgd(lr: float = 1e-2, momentum: float = 0.9,
     def init(params):
         return {"m": _zeros(params)}
 
-    def update(params, grads, state):
+    def update(params, grads, state, sum_squares=sum):
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, sum_squares)
         m = _map(lambda mm, g: momentum * mm + g.float(), state["m"], grads)
         params = _map(lambda p, mm: (p.float() - lr * mm).to(p.dtype),
                       params, m)

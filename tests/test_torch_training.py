@@ -236,7 +236,7 @@ def test_unknown_remat_and_grad_shardings_raise():
     p = M.init_params(cfg, 0, "cpu")
     with pytest.raises(ValueError, match="remat"):
         M.loss_fn(cfg, p, _torch_batch(_batch(cfg)), remat="everything")
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    with pytest.raises(ValueError, match="NamedSharding"):
         M.make_train_step(cfg, _opt(O), grad_shardings={})
 
 
