@@ -214,7 +214,38 @@ Phases, each fatal on failure:
      within ``MAMBA_TOL`` of the default path, bf16 reported, each
      timed.
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11, 12.
+  13. tensor parallelism (model > 1): ``fused_gate_up`` and ``gmm`` at
+     the F-shard shapes of the (1, 2) prefill and at the one-process
+     prefill's, each against its plain version and timed; the
+     one-process oracles in this process (phase 12's training step at
+     dispatch groups 1 and 2, the prefill on the kernel path at float32
+     and bf16), which then holds nothing on the card; (a) phase 12's
+     training cell through ``make_train_step(grad_shardings=)`` on
+     (data, model) = (1, 2) for 2 steps and (2, 2) for 1 (``TP_TRAIN``),
+     ranks on cuda:0 over gloo, gated: each step's loss within
+     ``MB_LOSS_TOL`` of the one-process step from the same weights, the
+     step-1 accumulator assembled from every rank's shard within
+     ``GRAD_REL_TOL`` of each leaf's norm, the sharded AdamW within one
+     bf16 ulp of the unsharded update of those gradients, data replicas
+     and the model ranks' whole leaves equal, resident parameter +
+     optimizer + batch bytes equal to ``launch.dryrun.build_step``'s
+     shardings (``fsdp_params`` False) on the same mesh; printed: peak a
+     rank against ``tp_reckoning``, step walls, each collective's host
+     ms, the bytes gathered over the model group; (b) on the (1, 2)
+     ranks, ``make_prefill_step(param_shardings=)`` at impl "auto" over
+     8 x 512 tokens: float32 at 2 layers, logits within TOL[float32] of
+     the one-process prefill, greedy tokens, loads and drops equal;
+     bf16 at 8 layers, every MoE sublayer from the one-process path's
+     own input within TOL[bf16] and a control (rank 1 adding zeros for
+     its partial sum, ``SkipPartial``) leaving more than
+     ``TP_CONTROL_SHARE`` of each sublayer out of it; both kernels
+     launched once a layer a rank at (E, C, D, F) = (8, 1280, 4096,
+     7168) and (8, 1280, 7168, 4096), on "wgmma" at bf16; printed: the
+     prefill wall a rank against one process, the model group's host ms
+     and bytes.
+
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11, 12,
+13.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -4496,15 +4527,16 @@ def _host(tree):
     return _map(lambda t: t.detach().to("cpu"), tree)
 
 
-def z2_oracle() -> dict:
-    """The one-process step at dispatch groups Z2_RANKS in this process:
-    step 1's float32 gradients, each step's loss and metrics, the
-    parameters after each step, all in host memory."""
+def z2_oracle(groups: int = Z2_RANKS, steps: int = Z2_STEPS) -> dict:
+    """The one-process step at dispatch groups `groups` in this process:
+    step 1's float32 gradients, each of `steps` steps' loss and metrics,
+    all in host memory."""
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.models.model import init_params
     cfg, opt, batches = _z2_setup()
-    T.set_moe_dispatch_groups(Z2_RANKS)
+    batches = batches[:steps]
+    T.set_moe_dispatch_groups(groups)
     try:
         torch.cuda.reset_peak_memory_stats()
         params = init_params(cfg, seed=0, device="cuda")
@@ -4533,14 +4565,14 @@ def z2_oracle() -> dict:
     return out
 
 
-def z2_loss_at(params_host, i: int) -> float:
-    """The one-process step's loss (dispatch groups Z2_RANKS) at
+def z2_loss_at(params_host, i: int, groups: int = Z2_RANKS) -> float:
+    """The one-process step's loss (dispatch groups `groups`) at
     `params_host` on batch `i`."""
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.training.optimizer import _map
     cfg, opt, batches = _z2_setup()
-    T.set_moe_dispatch_groups(Z2_RANKS)
+    T.set_moe_dispatch_groups(groups)
     try:
         params = _map(lambda t: t.cuda(), params_host)
         step = M.make_train_step(cfg, opt, microbatches=Z2_MB)
@@ -4860,6 +4892,626 @@ def sharding_phase(card: str) -> dict:
     return {"sweep_s": sweep["seconds"], "zero2": z2, "levers": levers}
 
 
+# ------------------------------------------------------------ phase 13
+
+# phase 13 (a): tensor-parallel training, make_train_step(grad_shardings=)
+# over (data, model) process meshes with model 2: phase 12's mixtral-8x7b
+# at its published widths (1 of 32 layers, bf16, impl "ref", TokenStream
+# batches of 8 x 256 in 2 microbatches, the drop-free capacity factor 4),
+# each mesh (its steps in TP_TRAIN) on ranks sharing cuda:0 over gloo,
+# against the one-process step at dispatch groups = data, held to phase
+# 9's MB_LOSS_TOL and GRAD_REL_TOL as phase 12 is
+TP_TRAIN = {(1, 2): 2, (2, 2): 1}
+# phase 13 (b): the tensor-parallel prefill through the kernels on (1, 2),
+# mixtral-8x7b at its published widths, TP_PREFILL_B prompts at the
+# TP_PREFILL_S bucket, impl "auto": float32 at TP_F32_LAYERS layers held
+# to the one-process prefill on the kernel path (logits within
+# TOL[float32], greedy tokens and loads exact); bf16 at phase 4's
+# TP_BF16_LAYERS layers gated per MoE sublayer at TOL[bf16] from the
+# one-process path's own input, with a control (rank 1 adding zeros in
+# place of its partial sum) that must leave more than TP_CONTROL_SHARE of
+# a sublayer's elements out of that tolerance
+TP_PREFILL_B, TP_PREFILL_S = 8, 512
+TP_F32_LAYERS, TP_BF16_LAYERS = 2, 8
+TP_CONTROL_SHARE = 0.5
+
+
+def tp_reckoning(cfg, shape) -> dict:
+    """Device bytes of a rank of the tensor-parallel ZeRO-2 step on a
+    (data, model) = `shape` mesh, in the form of ``zero2_reckoning``:
+    bf16 weights 2n/m (the rank's model shard), float32 accumulator,
+    first and second moments 4n/(d m) each; the update adds the clipped
+    float32 shards (4n/(d m)), the new moments (8n/(d m)), the new weight
+    shards (2n/(d m)) and about four float32 temporaries of the largest
+    shard (16L/(d m)); the resident state between steps is the weights
+    and the moments."""
+    n, (d, m) = cfg.num_params(), shape
+    big = (cfg.num_layers // cfg.moe.every_n_layers) * cfg.moe.num_experts \
+        * cfg.d_model * cfg.moe.d_ff
+    return {"resident_gb": (2 * n / m + 8 * n / (d * m)) / 1e9,
+            "step_gb": (2 * n / m + 26 * n / (d * m) + 16 * big / (d * m))
+            / 1e9}
+
+
+def _logical(shape):
+    from collections import OrderedDict
+    from repro_torch.launch.mesh import LogicalMesh
+    return LogicalMesh(OrderedDict(zip(("data", "model"), shape)),
+                       ("data", "model"))
+
+
+def _group_agree(mesh, tensors, group: str) -> bool:
+    """Whether every member of `group` holds the same `tensors`, one at
+    a time through an all-gather over it; the answer is the world's."""
+    import torch.distributed as dist
+    same = True
+    if mesh.group_size(group) > 1:
+        for t in tensors:
+            parts = mesh.all_gather(t, group)
+            same &= all(torch.equal(parts[0], q) for q in parts[1:])
+            del parts
+    flag = torch.tensor([int(same)], device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+class SkipPartial:
+    """The control of phase 13's prefill gate: within the block, the
+    model group's sums take part as before, but rank 1 adds zeros in
+    place of its partial sum (its F-rows' share of every row-parallel
+    product is lost)."""
+
+    def __enter__(self):
+        from repro_torch.distributed import tensor_parallel as TP
+        self._tp, self._fn = TP, TP.reduce_from_model
+        inner = self._fn
+
+        def run(x, mesh):
+            mine = mesh is None or mesh.index("model") == 0
+            return inner(x if mine else torch.zeros_like(x), mesh)
+
+        TP.reduce_from_model = run
+        return self
+
+    def __exit__(self, *exc):
+        self._tp.reduce_from_model = self._fn
+
+
+def _tp_prefill_config(dtype: str):
+    from repro_torch.configs import get_config
+    layers = TP_F32_LAYERS if dtype == "float32" else TP_BF16_LAYERS
+    return get_config("mixtral-8x7b").with_(num_layers=layers, dtype=dtype,
+                                            impl="auto")
+
+
+def _tp_expert_rows(cfg) -> int:
+    """C of the expert kernels in phase 13's prefill: its dispatch
+    groups (``transformer._moe_groups``: at most 2048 tokens a group)
+    times a group's capacity."""
+    t = TP_PREFILL_B * TP_PREFILL_S
+    g = max(1, t // 2048)
+    return g * math.ceil(cfg.moe.capacity_factor * cfg.moe.top_k * (t // g)
+                         / cfg.moe.num_experts)
+
+
+def _tp_prefill_batch(cfg):
+    gen = torch.Generator().manual_seed(13)
+    return {"tokens": torch.randint(0, cfg.vocab_size,
+                                    (TP_PREFILL_B, TP_PREFILL_S),
+                                    generator=gen, dtype=torch.int32)}
+
+
+def tp_train_rank(mesh, shape, tmp: str) -> dict:
+    """Phase 13 (a) on this rank: TP_TRAIN[shape] steps, step 1 as its two
+    halves; its step-1 accumulator and weight shards to files in `tmp`;
+    the bytes it holds against ``launch.dryrun.build_step``'s shardings
+    on the same mesh; data replicas' parameters and the model ranks'
+    replicated leaves compared across ranks."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    cfg, opt, batches = _z2_setup()
+    T.set_moe_dispatch_groups(shape[0])
+    try:
+        full = init_params(cfg, seed=0, device="cuda")
+        gs = SH.params_shardings(full, mesh, fsdp=True)
+        state = opt.init(SH.shard_tree(full, gs))
+        step = M.make_train_step(cfg, opt, microbatches=Z2_MB,
+                                 grad_shardings=gs)
+        params = SH.shard_tree(full, step.param_shardings, copy=True)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the dry-run's reckoning of the same step on the same mesh
+        _, args, shardings = D.build_step(
+            cfg, InputShape("tp", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            {"fsdp_params": False, "microbatches": Z2_MB}, mesh=mesh)
+        reckoned = {k: SH.shard_nbytes(a, s) for k, a, s in
+                    zip(("params", "opt", "batch"), args, shardings(mesh))}
+        whole = [SH.model_dim(s) is None
+                 for s in _leaves(step.param_shardings)]
+        out = {"steps": [], "reckoned": reckoned}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, b in enumerate(batches[:TP_TRAIN[shape]]):
+            mesh.host_ms.clear()
+            mesh.nbytes.clear()
+            t0 = time.perf_counter()
+            if i == 0:
+                m, acc = step.grads(params, b)
+                params, state = step.apply(params, acc, state)
+            else:
+                params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                out["acc"] = os.path.join(tmp, f"acc{mesh.rank}.pt")
+                torch.save(_host(acc), out["acc"])
+                out["acc_bytes"] = _nbytes(acc)
+                del acc
+                out["params1"] = os.path.join(tmp, f"p1_{mesh.rank}.pt")
+                torch.save(_host(params), out["params1"])
+            out["steps"].append({
+                "wall_ms": wall, "loss": float(m["loss"]),
+                "aux_loss": float(m["aux_loss"]),
+                "expert_load": m["expert_load"].tolist(),
+                "dropped": m["dropped"].tolist(),
+                "collective_ms": dict(mesh.host_ms),
+                "collective_bytes": dict(mesh.nbytes),
+                "data_agree": _group_agree(mesh, _leaves(params), "data"),
+                "model_agree": _group_agree(
+                    mesh, [t for t, w in zip(_leaves(params), whole) if w],
+                    "model")})
+        out["resident"] = {"params": _nbytes(params), "opt": _nbytes(state),
+                           "batch": step.stats["batch_bytes"]}
+        out["stats"] = dict(step.stats)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["whole_leaves"] = sum(whole)
+    finally:
+        T.set_moe_dispatch_groups(1)
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_prefill_rank(mesh, tmp: str) -> dict:
+    """Phase 13 (b) on this rank of the (1, 2) mesh: each dtype's
+    parameters built whole on the card one rank at a time (two whole
+    bf16 copies beside the shards do not fit), cut to this rank's
+    contiguous shards; a warm call, then the counted and timed prefill
+    (``make_prefill_step(param_shardings=)``, impl "auto"); the kernels'
+    path at its shapes; at bf16 each MoE sublayer from the one-process
+    path's input (in `tmp`), gated and with the control."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _tp_prefill_config(dtype)
+        for r in range(mesh.size):
+            if mesh.rank == r:
+                full = init_params(cfg, seed=0, device="cuda")
+                ps = SH.params_shardings(full, mesh, fsdp=False)
+                shards = SH.shard_tree(full, ps, copy=True)
+                del full
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        step = M.make_prefill_step(cfg, param_shardings=ps)
+        batch = _tp_prefill_batch(cfg)
+        with torch.no_grad():
+            step(shards, batch)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            mesh.host_ms.clear()
+            mesh.nbytes.clear()
+            t0 = time.perf_counter()
+            logits, m = step(shards, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = dict(K.launch_counts())
+        experts = T._period(shards["layers"][0], 0)["moe"]["experts"]
+        e, d = cfg.moe.num_experts, cfg.d_model
+        f, c = experts["w_down"].shape[1], _tp_expert_rows(cfg)
+        dt = getattr(torch, dtype)
+        paths = {
+            "fused_gate_up": MG.kernel_path(torch.empty(
+                (e, c, d), dtype=dt, device="cuda"), experts["w_gate"],
+                True)[0],
+            "gmm": MG.kernel_path(torch.empty(
+                (e, c, f), dtype=dt, device="cuda"), experts["w_down"],
+                False)[0]}
+        rec = {"wall_ms": wall, "launches": launches, "paths": paths,
+               "shapes": {"fused_gate_up": (e, c, d, f),
+                          "gmm": (e, c, f, d)},
+               "collective_ms": dict(mesh.host_ms),
+               "collective_bytes": dict(mesh.nbytes),
+               "logits": logits.float().cpu(),
+               "expert_load": m["expert_load"].tolist(),
+               "dropped": m["dropped"].tolist(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if dtype == "bfloat16":
+            dims, _ = T._tensor_parallel(cfg, shards, mesh)
+            ldims = TP.unstack_dims(dims["layers"][0])
+            gate = []
+            for layer, (h, want) in enumerate(
+                    torch.load(os.path.join(tmp, "moe_io.pt"))):
+                p, ffn_mesh = T._gather_sublayer(
+                    T._period(shards["layers"][0], layer), ldims, mesh)
+                if ffn_mesh is None:
+                    raise AssertionError("the expert bank is not a "
+                                         "column/row pair on (1, 2)")
+                h, want = h.cuda(), want.cuda().float()
+
+                def moe():
+                    return MOE.dispatch_moe(
+                        p["moe"], h, top_k=cfg.moe.top_k,
+                        num_experts=e, capacity_factor=cfg.moe.
+                        capacity_factor, act=cfg.act,
+                        groups=T._moe_groups(h), impl=cfg.impl,
+                        model_mesh=ffn_mesh)[0].float()
+
+                tol = TOL[torch.bfloat16]
+                with torch.no_grad():
+                    got = moe()
+                    with SkipPartial():
+                        bad = moe()
+                limit = tol + tol * want.abs()
+                gate.append({
+                    "max_abs_err": float((got - want).abs().max()),
+                    "ok": bool(torch.allclose(got, want, atol=tol,
+                                              rtol=tol)),
+                    "finite": bool(torch.isfinite(got).all()),
+                    "control_max_abs_err": float((bad - want).abs().max()),
+                    "control_share": float(((bad - want).abs() > limit)
+                                           .float().mean())})
+                del p, h, want, got, bad
+            rec["sublayers"] = gate
+        out[dtype] = rec
+        del shards, step, logits, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, shape: tuple, tmp: str, prefill: bool) -> dict:
+    """One rank of phase 13 on a (data, model) = `shape` mesh, its
+    process group up: (a) training, then with `prefill` (b). Everything
+    returned lives on the host."""
+    from repro_torch.launch.mesh import make_process_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_process_mesh(*shape, device="cuda:0")
+    out = {"rank": rank, "coords": mesh.coords,
+           "train": tp_train_rank(mesh, shape, tmp)}
+    if prefill:
+        out["prefill"] = tp_prefill_rank(mesh, tmp)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_prefill_oracle(tmp: str) -> dict:
+    """The one-process prefill on the kernel path in this process, each
+    dtype's: last-position logits, loads, drops and wall on the host; at
+    bf16 each MoE sublayer's input and output (the main path's own,
+    recorded around ``moe.dispatch_moe``) to `tmp`."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import init_params
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _tp_prefill_config(dtype)
+        params = init_params(cfg, seed=0, device="cuda")
+        step = M.make_prefill_step(cfg)
+        batch = {k: v.cuda() for k, v in _tp_prefill_batch(cfg).items()}
+        seen, inner = [], MOE.dispatch_moe
+
+        def spy(p, x, **kw):
+            y, mm = inner(p, x, **kw)
+            seen.append((x.detach().cpu(), y.detach().cpu()))
+            return y, mm
+
+        with torch.no_grad():
+            step(params, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, m = step(params, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            if dtype == "bfloat16":
+                MOE.dispatch_moe = spy
+                try:
+                    step(params, batch)
+                finally:
+                    MOE.dispatch_moe = inner
+        out[dtype] = {"logits": logits.float().cpu(), "wall_ms": wall,
+                      "expert_load": m["expert_load"].tolist(),
+                      "dropped": m["dropped"].tolist()}
+        if dtype == "bfloat16":
+            torch.save(seen, os.path.join(tmp, "moe_io.pt"))
+        del params, step, logits, m, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_gates(shape, ranks, one, card, fails: list) -> dict:
+    """Phase 13 (a)'s gates on the ranks of one mesh (their step-1 files
+    read into host memory): losses, the assembled accumulator, the
+    sharded update, agreement across ranks, resident bytes; printed
+    beside the reckoning. A failed gate's message goes to `fails`."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model import abstract_params, init_params
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.checkpoint import leaf_paths
+    cfg, opt, _ = _z2_setup()
+    rec = tp_reckoning(cfg, shape)
+    d = shape[0]
+    mesh = _logical(shape)
+    aparams = abstract_params(cfg)
+    gspecs = _leaves(SH.params_shardings(aparams, mesh, fsdp=True))
+    pspecs = _leaves(SH.params_shardings(aparams, mesh, fsdp=False))
+    gathered = [SH.assemble(parts, s) for s, parts in
+                zip(gspecs, zip(*[_leaves(r["train"]["acc"])
+                                  for r in ranks]))]
+    p1 = [SH.assemble(parts, s) for s, parts in
+          zip(pspecs, zip(*[_leaves(r["train"]["params1"])
+                            for r in ranks]))]
+    for r in ranks:
+        del r["train"]["acc"], r["train"]["params1"]
+    it = iter(p1)
+    at_p1 = z2_loss_at(O._map(lambda _: next(it), aparams), 1, d) \
+        if TP_TRAIN[shape] > 1 else None
+    for r in ranks:
+        t = r["train"]
+        for i, got in enumerate(t["steps"]):
+            want = one["steps"][0]["loss"] if i == 0 else at_p1
+            if abs(got["loss"] - want) > MB_LOSS_TOL:
+                fails.append(f"{shape} rank {r['rank']} step {i + 1}: loss "
+                             f"{got['loss']} against {want}")
+            if not (got["data_agree"] and got["model_agree"]):
+                fails.append(f"{shape} step {i + 1}: data replicas' "
+                             "parameters or the model ranks' whole leaves "
+                             "differ")
+        if t["resident"] != t["reckoned"]:
+            fails.append(f"{shape} rank {r['rank']}: resident "
+                         f"{t['resident']} != the dry-run's {t['reckoned']}")
+    for i, s in enumerate(ranks[0]["train"]["steps"]):
+        w = one["steps"][i]
+        want = w["loss"] if i == 0 else at_p1
+        log(f"  {shape} step {i + 1}: loss {s['loss']:.6f} against "
+            f"{want:.6f} (|diff| {abs(s['loss'] - want):.3e}, held to "
+            f"{MB_LOSS_TOL:.0e})"
+            + ("" if i == 0 else f"; the oracle's own step 2 "
+               f"{w['loss']:.6f} (|diff| {abs(s['loss'] - w['loss']):.3e})")
+            + f"; expert loads {s['expert_load']} "
+            f"{'equal' if s['expert_load'] == w['expert_load'] else 'vs ' + str(w['expert_load'])}"
+            f", dropped {s['dropped']} vs {w['dropped']}; data replicas "
+            "equal, model ranks' whole leaves equal")
+    rel = {}
+    for (k, want), g in zip(leaf_paths(one["grads"]), gathered):
+        rel[k] = float(torch.linalg.vector_norm(g - want)
+                       / torch.linalg.vector_norm(want))
+    worst = max(rel, key=rel.get)
+    log(f"  {shape}: the step-1 accumulator assembled from "
+        f"{len(ranks)} ranks' shards against the oracle's float32 "
+        f"gradients: at most {rel[worst]:.3e} of the norm ({worst}; held "
+        f"to {GRAD_REL_TOL:.0e})")
+    if rel[worst] > GRAD_REL_TOL:
+        fails.append(f"{shape} gradients: {rel}")
+    del one["grads"]
+    p0 = init_params(cfg, seed=0, device="cuda")
+    it = iter(gathered)
+    g = O._map(lambda _: next(it).cuda(), p0)
+    del gathered
+    want, _ = opt.update(p0, g, opt.init(p0))
+    del g, p0
+    ulps = [float(((a.cuda().float() - b.float()).abs()
+                   / _ulp_bf16(b)).max()) for a, b in zip(p1, _leaves(want))]
+    del want, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {shape}: the sharded AdamW against the unsharded update of the "
+        f"assembled gradients: at most {max(ulps):.3f} bf16 ulp (held to "
+        "1)")
+    if max(ulps) > 1:
+        fails.append(f"{shape}: sharded update off by {ulps} ulps")
+    for r in ranks:
+        t = r["train"]
+        gat = [s["collective_bytes"].get("all_gather/model", 0)
+               for s in t["steps"]]
+        log(f"  {shape} rank {r['rank']} {tuple(r['coords'])}: resident "
+            f"{t['resident']} bytes == the dry-run's reckoning; peak "
+            f"{t['peak_gb']:.2f} GB (reckoned {rec['resident_gb']:.2f} "
+            f"resident, ~{rec['step_gb']:.1f} at the update); step walls "
+            f"{[round(s['wall_ms'], 1) for s in t['steps']]} ms; "
+            f"collectives host ms a step "
+            f"{[{k: round(v, 2) for k, v in s['collective_ms'].items()} for s in t['steps']]}; "
+            f"gathered over the model group a step (weights at use, the "
+            f"batch) {[round(b / 1e9, 4) for b in gat]} GB; "
+            f"{t['whole_leaves']} leaves whole on every model rank; "
+            f"{r['seconds']:.1f} s from its start to its return; on {card}")
+    return {"rec": rec, "grad_rel": rel[worst], "ulps": max(ulps),
+            "losses": [[s["loss"] for s in r["train"]["steps"]]
+                       for r in ranks],
+            "walls": [[s["wall_ms"] for s in r["train"]["steps"]]
+                      for r in ranks],
+            "peaks": [r["train"]["peak_gb"] for r in ranks]}
+
+
+def tp_prefill_gates(ranks, one, card, fails: list) -> dict:
+    """Phase 13 (b)'s gates: the float32 logits, greedy tokens and loads
+    against the one-process prefill; every bf16 MoE sublayer within its
+    tolerance and the control far outside it; the kernels launched once
+    a layer a rank on their path at the F-shard shapes. A failed gate's
+    message goes to `fails`."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _tp_prefill_config(dtype)
+        want = one[dtype]
+        for r in ranks:
+            got = r["prefill"][dtype]
+            name = f"(1, 2) prefill {dtype} rank {r['rank']}"
+            for k_name in ("fused_gate_up", "gmm"):
+                n = got["launches"][k_name]
+                path = got["paths"][k_name]
+                if n != cfg.num_layers:
+                    fails.append(f"{name}: {k_name} launched {n} times, not "
+                                 f"once a layer ({cfg.num_layers})")
+                if dtype == "bfloat16" and path != "wgmma":
+                    fails.append(f"{name}: {k_name} took {path}")
+            err = float((got["logits"] - want["logits"]).abs().max())
+            same_tok = torch.equal(got["logits"].argmax(-1),
+                                   want["logits"].argmax(-1))
+            same_load = got["expert_load"] == want["expert_load"] and \
+                got["dropped"] == want["dropped"]
+            if dtype == "float32":
+                tol = TOL[torch.float32]
+                if not torch.allclose(got["logits"], want["logits"],
+                                      atol=tol, rtol=tol):
+                    fails.append(f"{name}: logits {err:.3e} off, beyond "
+                                 f"atol=rtol={tol}")
+                if not (same_tok and same_load):
+                    fails.append(f"{name}: greedy tokens equal {same_tok}, "
+                                 f"loads and drops equal {same_load}")
+            else:
+                for layer, s in enumerate(got["sublayers"]):
+                    if not (s["ok"] and s["finite"]):
+                        fails.append(
+                            f"{name} layer {layer} MoE: max |TP - one "
+                            f"process| {s['max_abs_err']:.3e} beyond "
+                            f"atol=rtol={TOL[torch.bfloat16]}")
+                    if s["control_share"] <= TP_CONTROL_SHARE:
+                        fails.append(
+                            f"{name} layer {layer}: the control (rank 1's "
+                            f"partial sum skipped) left only "
+                            f"{s['control_share']:.3f} of the elements out "
+                            "of tolerance")
+                sub = got["sublayers"]
+                log(f"  {name}: every MoE sublayer from the one-process "
+                    f"input within atol=rtol={TOL[torch.bfloat16]} (max "
+                    f"|err| {max(s['max_abs_err'] for s in sub):.3e}); the "
+                    f"control (rank 1 adds zeros for its partial sum) "
+                    f"leaves {min(s['control_share'] for s in sub):.3f}-"
+                    f"{max(s['control_share'] for s in sub):.3f} of each "
+                    f"sublayer's elements out of it (held above "
+                    f"{TP_CONTROL_SHARE}), max |err| "
+                    f"{max(s['control_max_abs_err'] for s in sub):.3e}")
+            log(f"  {name}: {cfg.num_layers} layers, logits max |TP - one "
+                f"process| {err:.3e}"
+                + (f" (held to atol=rtol={TOL[torch.float32]})"
+                   if dtype == "float32" else " (reported, not gated)")
+                + f"; greedy tokens {'equal' if same_tok else 'DIFFER'}; "
+                f"loads and drops {'equal' if same_load else 'DIFFER'}; "
+                f"launches {got['launches']['fused_gate_up']} fused_gate_up "
+                f"at {got['shapes']['fused_gate_up']} and "
+                f"{got['launches']['gmm']} gmm at {got['shapes']['gmm']} "
+                f"(E, C, D, F), paths {got['paths']}; prefill wall "
+                f"{got['wall_ms']:.2f} ms (one process "
+                f"{want['wall_ms']:.2f}); model group host ms "
+                f"{ {k: round(v, 2) for k, v in got['collective_ms'].items()} }"
+                f", bytes {got['collective_bytes']}; peak "
+                f"{got['peak_gb']:.2f} GB; on {card}")
+        out[dtype] = {
+            "wall_ms": [r["prefill"][dtype]["wall_ms"] for r in ranks],
+            "one_process_wall_ms": want["wall_ms"],
+            "launches": [{k: r["prefill"][dtype]["launches"][k]
+                          for k in ("fused_gate_up", "gmm")}
+                         for r in ranks]}
+    return out
+
+
+def tp_kernel_shapes(gen) -> dict:
+    """``fused_gate_up`` and ``gmm`` at the shapes the (1, 2) prefill
+    gives them (F 7168 of 14336) and at the one-process prefill's, each
+    against its plain version and timed beside its bound."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mixtral-8x7b")
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff
+    c = _tp_expert_rows(cfg)
+    out = {}
+    for name, fused in (("fused_gate_up", True), ("gmm", False)):
+        out[name] = {}
+        for label, width in (("tp F/2", f // 2), ("1 proc", f)):
+            shape = (e, c, d, width) if fused else (e, c, width, d)
+            out[name][label] = dict(
+                shape=list(shape[:4]), **gmm_shape_timed(
+                    gen, name, fused, label, shape + ([c] * e,)))
+    return out
+
+
+def tp_phase(card: str) -> dict:
+    """Phase 13: the kernels at the F-shard shapes; the one-process
+    oracles in this process (which then holds nothing on the card); the
+    (1, 2) ranks (training, then the prefill) and the (2, 2) ranks
+    (training); gated as the module docstring says."""
+    from repro_torch.launch.mesh import spawn_local
+    t13 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    shapes = tp_kernel_shapes(gen)
+    cfg, _, _ = _z2_setup()
+    for shape in TP_TRAIN:
+        rec = tp_reckoning(cfg, shape)
+        log(f"  mixtral-8x7b, {cfg.num_layers} of 32 layers, bf16, impl "
+            f"ref, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {Z2_MB} "
+            f"microbatches, {TP_TRAIN[shape]} step(s) on (data, model) = "
+            f"{shape}: {rec['resident_gb']:.2f} GB resident and "
+            f"~{rec['step_gb']:.1f} GB at the update a rank by the "
+            "reckoning")
+    torch._C._cuda_clearCublasWorkspaces()
+    held = torch.cuda.memory_allocated()
+    res, fails = {"kernels": shapes}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        oracles = {d: z2_oracle(d, max(s for (dd, _), s in TP_TRAIN.items()
+                                       if dd == d))
+                   for d in sorted({dd for dd, _ in TP_TRAIN})}
+        prefill = tp_prefill_oracle(tmp)
+        torch._C._cuda_clearCublasWorkspaces()
+        if torch.cuda.memory_allocated() != held:
+            raise AssertionError(f"the oracles left "
+                                 f"{torch.cuda.memory_allocated() - held} "
+                                 "bytes on the card before the ranks start")
+        log(f"  the one-process oracles {time.perf_counter() - t0:.1f} s "
+            f"(training at dispatch groups {sorted(oracles)}, peaks "
+            f"{[round(o['peak_gb'], 2) for o in oracles.values()]} GB; the "
+            f"prefill at float32 ({TP_F32_LAYERS} layers) and bf16 "
+            f"({TP_BF16_LAYERS}), B {TP_PREFILL_B} x {TP_PREFILL_S}); this "
+            f"process holds {held / 1e6:.1f} MB on the card while the "
+            "ranks run")
+        ranks = {}
+        for shape in TP_TRAIN:
+            t1 = time.perf_counter()
+            got = spawn_local(tp_rank, shape[0] * shape[1], backend="gloo",
+                              args=(shape, tmp, shape == (1, 2)),
+                              wall_s=600.0)
+            for r in got:
+                for k in ("acc", "params1"):
+                    r["train"][k] = torch.load(r["train"][k],
+                                               map_location="cpu")
+            ranks[shape] = got
+            log(f"  {len(got)} ranks on {shape} over gloo on cuda:0 "
+                f"{time.perf_counter() - t1:.1f} s")
+            res[str(shape)] = tp_train_gates(shape, got, oracles[shape[0]],
+                                             card, fails)
+    res["prefill"] = tp_prefill_gates(ranks[(1, 2)], prefill, card, fails)
+    res["seconds"] = time.perf_counter() - t13
+    log(f"  phase 13 took {res['seconds']:.1f} s")
+    if fails:
+        raise AssertionError("phase 13: " + "; ".join(fails))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -5078,6 +5730,13 @@ def main() -> int:
         "training of mixtral-8x7b on two ranks, the Mamba levers")
     sharding_phase(card)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[13] tensor parallelism (model > 1): mixtral-8x7b trained on (1, 2) "
+        "and (2, 2) process meshes, the (1, 2) prefill through the kernels "
+        "on F-shards")
+    tp = tp_phase(card)
+
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \
         paged["launches"]["decode_attention_paged"]
@@ -5103,6 +5762,12 @@ def main() -> int:
         rec[k_name]["ep_world_launches"] = {
             wn: [r[k_name] for r in wr["launches"]]
             for wn, wr in worlds.items()}
+    # phase 13: the bf16 prefill's launches on each (1, 2) rank, and the
+    # kernels at its F-shard and one-process shapes
+    for k_name in ("fused_gate_up", "gmm"):
+        rec[k_name]["tp_shapes"] = tp["kernels"][k_name]
+        rec[k_name]["tp_prefill_launches"] = [
+            r[k_name] for r in tp["prefill"]["bfloat16"]["launches"]]
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

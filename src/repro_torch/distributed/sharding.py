@@ -30,6 +30,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.launch.mesh import dp_axes
 
 
@@ -40,6 +42,9 @@ class PartitionSpec(tuple):
 
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
+
+    def __getnewargs__(self):    # pickles as its entries, not one tuple
+        return tuple(self)
 
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple.__repr__(self)}"
@@ -266,40 +271,102 @@ def leaf_at(tree, path):
     return tree
 
 
-def data_dim(sharding: NamedSharding):
-    """The dim of `sharding`'s spec that the data axes shard, or None."""
-    dps = set(dp_axes(sharding.mesh))
+def _dim_of(sharding: NamedSharding, names: set):
     for i, e in enumerate(sharding.spec):
         axes = set(e) if isinstance(e, tuple) else {e}
-        if axes & dps:
+        if axes & names:
             return i
     return None
 
 
-def shard_tree(tree, shardings):
+def data_dim(sharding: NamedSharding):
+    """The dim of `sharding`'s spec that the data axes shard, or None."""
+    return _dim_of(sharding, set(dp_axes(sharding.mesh)))
+
+
+def model_dim(sharding: NamedSharding):
+    """The dim of `sharding`'s spec that "model" shards, or None."""
+    return _dim_of(sharding, {"model"})
+
+
+def without_axes(shardings, axes):
+    """`shardings` with the mesh `axes` dropped from every spec entry
+    (an entry left with no axis is None). The parameter layout of a
+    ZeRO-2 step is its accumulator's ``grad_shardings`` without the
+    data axes: ``params_shardings(fsdp=False)`` entry for entry, since
+    ``spec_for_param`` places "model" before the data axes."""
+    drop = set(axes)
+
+    def entry(e):
+        if e is None:
+            return None
+        kept = tuple(a for a in (e if isinstance(e, tuple) else (e,))
+                     if a not in drop)
+        if not kept:
+            return None
+        return kept if isinstance(e, tuple) and len(kept) > 1 else kept[0]
+    return tree_map(lambda s: NamedSharding(s.mesh, P(*map(entry, s.spec))),
+                    shardings)
+
+
+def _block(mesh, e, coords) -> tuple[int, int]:
+    """(block index, block count) of spec entry `e` at mesh `coords`
+    (axis name -> index): row-major over the entry's axes."""
+    block, n = 0, 1
+    for a in (e if isinstance(e, tuple) else (e,)):
+        block = block * mesh.shape[a] + coords[a]
+        n *= mesh.shape[a]
+    return block, n
+
+
+def shard_tree(tree, shardings, *, copy: bool = False):
     """This rank's shard of every leaf of `tree` under `shardings` (the
     counterpart of ``jax.device_put`` with shardings): each sharded dim
-    narrowed to this rank's block, as a view. The shardings' mesh must
-    be a ``launch.mesh.ProcessMesh`` (a rank to cut for)."""
+    narrowed to this rank's block, as a view, or with `copy` as a
+    contiguous tensor of its own (what a rank stores, and what the
+    kernels take; the views serve the byte reckoning). The shardings'
+    mesh must be a ``launch.mesh.ProcessMesh`` (a rank to cut for)."""
     def one(path, leaf):
         sh = leaf_at(shardings, path)
         mesh = sh.mesh
         if not hasattr(mesh, "index"):
             raise ValueError("shard_tree needs a ProcessMesh (a rank to "
                              f"cut for), got {type(mesh).__name__}")
+        coords = {a: mesh.index(a) for a in mesh.axis_names}
         out = leaf
         for i, e in enumerate(sh.spec):
             if e is None:
                 continue
-            axes = e if isinstance(e, tuple) else (e,)
-            block, n = 0, 1
-            for a in axes:       # row-major over the entry's axes
-                block = block * mesh.shape[a] + mesh.index(a)
-                n *= mesh.shape[a]
+            block, n = _block(mesh, e, coords)
             size = leaf.shape[i] // n
             out = out.narrow(i, block * size, size)
-        return out
+        return out.clone(memory_format=torch.contiguous_format) if copy \
+            else out
     return tree_map_with_path(one, tree)
+
+
+def assemble(parts, sharding: NamedSharding):
+    """The whole leaf from every rank's shard of it: `parts` in rank
+    order, the ranks row-major over ``sharding.mesh.shape``, each
+    written at its blocks (ranks that share a block write equal
+    copies)."""
+    mesh = sharding.mesh
+    names, sizes = list(mesh.shape), list(mesh.shape.values())
+    shape = list(parts[0].shape)
+    for i, e in enumerate(sharding.spec):
+        if e is not None:
+            shape[i] *= _block(mesh, e, dict.fromkeys(names, 0))[1]
+    out = parts[0].new_empty(shape)
+    for r, part in enumerate(parts):
+        coords = {a: (r // math.prod(sizes[k + 1:])) % sizes[k]
+                  for k, a in enumerate(names)}
+        at = out
+        for i, e in enumerate(sharding.spec):
+            if e is not None:
+                block, _ = _block(mesh, e, coords)
+                at = at.narrow(i, block * part.shape[i], part.shape[i])
+        at.copy_(part)
+    return out
 
 
 # ------------------------------------------------------------ activations

@@ -1,0 +1,196 @@
+"""Tensor parallelism over the "model" group of a ``launch.mesh.
+ProcessMesh``: the collectives that GSPMD inserts into the reference's
+model-sharded steps, written out for eager torch.
+
+The reference shards a parameter over "model" on its largest divisible
+dim (``distributed.sharding.spec_for_param``) and leaves the rest to the
+compiler. The port runs three kinds of leaf on such a mesh:
+
+  * a column/row pair (an FFN whose gate/up products are split on their
+    output F and whose down product on its input F, the expert banks'
+    and the dense FFNs' layout): the rank multiplies its F-columns and
+    its F-rows, and the partial (.., D) sums are summed over the group;
+  * the vocabulary (an embedding split on V, a head on V): a masked
+    lookup of the rows this rank holds, summed over the group, and the
+    rank's logit columns, which ``vocab_cross_entropy`` reduces without
+    ever gathering the (B, S, V) logits;
+  * any other leaf with a model dim (attention, router, norms, the
+    recurrent mixers, whisper's encoder): gathered whole at its use.
+
+Activations are replicated over "model". Every operator below is a
+``torch.autograd.Function`` whose backward keeps that true, and an
+identity on a group of one:
+
+  copy_to_model       identity;          backward: sum over the group
+  reduce_from_model   sum over the group; backward: identity
+  gather_from_model   all-gather on dim;  backward: this rank's slice
+
+``copy_to_model`` goes before a product whose input gradient is partial
+on each rank (a column-parallel product, a head over the rank's logit
+columns); ``reduce_from_model`` after a row-parallel product (in
+float32: ``reduce_partial``) and in the vocabulary sums;
+``gather_from_model``'s backward does not sum, since every model rank
+computes the same whole gradient of a gathered weight from the same
+activations. The collectives are the mesh's, metered by
+name in its ``host_ms`` and ``nbytes``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def model_size(mesh) -> int:
+    """The model degree of `mesh` (1 for None or a mesh without it)."""
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, "model"), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.index = mesh.index("model")
+        return mesh.all_gather(x, "model").movedim(0, dim).flatten(dim,
+                                                                  dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
+
+
+def copy_to_model(x, mesh):
+    """`x` as it is; its gradient summed over the model group."""
+    return x if model_size(mesh) == 1 else _Copy.apply(x, mesh)
+
+
+def reduce_from_model(x, mesh):
+    """The sum of `x` over the model group; its gradient as it is."""
+    return x if model_size(mesh) == 1 else _Reduce.apply(x, mesh)
+
+
+def reduce_partial(x, mesh, dtype):
+    """The sum over the model group of `x`, a row-parallel product's
+    partial sum, taken in float32 and rounded once to `dtype`, where the
+    one-process product rounds its whole sum."""
+    return reduce_from_model(x.float(), mesh).to(dtype)
+
+
+def gather_from_model(x, mesh, dim: int):
+    """The model group's shards of a leaf concatenated on `dim`, in
+    group-rank order; its gradient is this rank's slice of the whole
+    gradient, with no sum."""
+    return x if model_size(mesh) == 1 else _Gather.apply(x, mesh, dim)
+
+
+# ------------------------------------------------------------ layouts
+
+
+def model_dims(tree, full):
+    """Where each leaf of a rank's parameter `tree` is split over
+    "model": the one dim whose size differs from the same leaf of
+    `full` (the whole tree's shapes, e.g. on the meta device), or None
+    for a leaf held whole. Same structure as `tree`."""
+    if isinstance(tree, dict):
+        return {k: model_dims(v, full[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(model_dims(v, f) for v, f in zip(tree, full))
+    diff = [i for i, (a, b) in enumerate(zip(tree.shape, full.shape))
+            if a != b]
+    if len(diff) > 1 or tree.ndim != full.ndim:
+        raise ValueError(f"a shard of shape {tuple(tree.shape)} of a leaf "
+                         f"of shape {tuple(full.shape)} is split on more "
+                         "than one dim")
+    return diff[0] if diff else None
+
+
+def split_ffn(p, dims) -> bool:
+    """Whether an FFN's leaves `p` ((.., D, F) up, (.., F, D) down) with
+    model dims `dims` are a column/row pair: every up product split on
+    its last dim (F), the down product on its second to last (F)."""
+    down = p["w_down"].ndim - 2
+    return dims["w_down"] == down and all(
+        dims[k] == down + 1 for k in ("w_gate", "w_up") if k in p)
+
+
+def gather_tree(tree, dims, mesh, keep=(), path=()):
+    """`tree` with every leaf that has a model dim gathered at use
+    (``gather_from_model``), but the subtrees at the paths (tuples of
+    keys from the root) in `keep`."""
+    if path in keep:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, dims[k], mesh, keep, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_tree(v, d, mesh, keep, path + (i,))
+                          for i, (v, d) in enumerate(zip(tree, dims)))
+    return tree if dims is None else gather_from_model(tree, mesh, dims)
+
+
+def unstack_dims(dims):
+    """Model dims of one period's slice of stacked leaves (the period
+    axis, dim 0, is never split)."""
+    if isinstance(dims, dict):
+        return {k: unstack_dims(v) for k, v in dims.items()}
+    if isinstance(dims, (list, tuple)):
+        return type(dims)(unstack_dims(v) for v in dims)
+    return None if dims is None else dims - 1
+
+
+# ------------------------------------------------------------ vocabulary
+
+
+def vocab_offset(mesh, local: int) -> int:
+    """The first global vocabulary index of this rank's `local` rows."""
+    return mesh.index("model") * local
+
+
+def vocab_embed(table, tokens, mesh):
+    """Embeddings of `tokens` from this rank's rows of a table split on
+    V: the rows it holds looked up, zeros elsewhere, summed over the
+    group (one rank contributes each token's row, so the sum is exact)."""
+    v = table.shape[0]
+    idx = tokens.long() - vocab_offset(mesh, v)
+    hit = (idx >= 0) & (idx < v)
+    rows = table[idx.clamp(0, v - 1)]
+    return reduce_from_model(torch.where(hit[..., None], rows,
+                                         torch.zeros_like(rows)), mesh)
+
+
+def vocab_cross_entropy(logits, labels, mesh):
+    """Per-token ``logsumexp(logits) - logits[label]`` (B, S) of
+    float32 logits split on V (this rank's columns, (B, S, V/model)):
+    a detached local max reduced with MAX over the group, the local sum
+    of exponentials summed by ``reduce_from_model``, and the label's
+    logit taken on the rank that holds it (zero elsewhere) and summed
+    alike. The logits are never gathered."""
+    v = logits.shape[-1]
+    top = mesh.all_reduce(logits.detach().amax(-1), "model", op="max")
+    total = reduce_from_model(torch.exp(logits - top[..., None]).sum(-1),
+                              mesh)
+    idx = labels.long() - vocab_offset(mesh, v)
+    hit = (idx >= 0) & (idx < v)
+    mine = torch.gather(logits, -1, idx.clamp(0, v - 1)[..., None])[..., 0]
+    picked = reduce_from_model(torch.where(hit, mine,
+                                           torch.zeros_like(mine)), mesh)
+    return torch.log(total) + top - picked

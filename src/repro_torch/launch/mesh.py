@@ -25,20 +25,21 @@ one card (NCCL refuses two ranks on one device). ``spawn_local`` starts
 N local ranks over gloo; under ``torchrun`` the caller initialises the
 group itself.
 
-Only the EP data plane is multi-rank: embeddings, attention, the KV
-cache, norms and the LM head run replicated on every rank, as in the
-reference, where the mesh reaches only ``moe_ep_layer``.
+On a serving mesh only the EP data plane is multi-rank: embeddings,
+attention, the KV cache, norms and the LM head run replicated on every
+rank, as in the reference, where the mesh reaches only ``moe_ep_layer``.
 
 One class, ``ProcessMesh``, holds a rank's place in any such grid of
 ranks: its coordinates, its named groups (each the ranks that vary some
 axes with the others fixed) and their collectives, with each
-collective's host ms. ``ServingMesh`` is its (data, ep, tp) form with
-the three groups above; ``make_process_mesh`` and ``make_host_mesh``
-build its ("data", "model") form, with the data groups and the model
-groups of the ZeRO-2 step (``models.model.make_train_step(
-grad_shardings=)``). ``LogicalMesh`` (``make_production_mesh``) has
-axis sizes only, no devices and no process group: the dry-run reckons
-per-rank bytes on it.
+collective's host ms and bytes. ``ServingMesh`` is its (data, ep, tp)
+form with the three groups above; ``make_process_mesh`` and
+``make_host_mesh`` build its ("data", "model") form, with the data
+groups of the ZeRO-2 step and the model groups of its tensor
+parallelism (``models.model.make_train_step(grad_shardings=)``,
+``make_prefill_step(param_shardings=)``). ``LogicalMesh``
+(``make_production_mesh``) has axis sizes only, no devices and no
+process group: the dry-run reckons per-rank bytes on it.
 
 Every sharding function takes any object with ``.shape`` (axis name ->
 size, in mesh order) and ``.axis_names``.
@@ -60,6 +61,7 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "ep", "tp")
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # the most any collective or the process-group rendezvous may wait
 INIT_TIMEOUT_S = 60.0
 HOW_TO_START = ("start one rank per device (launch.serve --host-devices "
@@ -75,7 +77,7 @@ class ProcessMesh:
     gives each group's member ranks (this rank's group, in group-rank
     order); a group of one rank has no process group and its collectives
     are identities. ``host_ms`` sums the host time of each collective by
-    name (the transport meter)."""
+    name (the transport meter), ``nbytes`` the bytes of its results."""
     shape: OrderedDict
     rank: int
     coords: tuple
@@ -83,6 +85,7 @@ class ProcessMesh:
     members: dict = field(default_factory=dict)
     groups: dict = field(default_factory=dict)
     host_ms: dict = field(default_factory=dict)
+    nbytes: dict = field(default_factory=dict)
 
     @property
     def axis_names(self) -> tuple:
@@ -103,9 +106,11 @@ class ProcessMesh:
     def group_size(self, name: str) -> int:
         return len(self.members.get(name, (self.rank,)))
 
-    def _timed(self, name: str, t0: float) -> None:
+    def _timed(self, name: str, t0: float, out) -> None:
         self.host_ms[name] = self.host_ms.get(name, 0.0) + \
             (time.perf_counter() - t0) * 1e3
+        self.nbytes[name] = self.nbytes.get(name, 0) + \
+            out.numel() * out.element_size()
 
     def all_gather(self, x, group: str):
         """(n, *x.shape): every member's `x`, in group-rank order."""
@@ -117,7 +122,7 @@ class ProcessMesh:
         out = x.new_empty((n * x.numel(),))
         dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
                                     group=self.groups[group])
-        self._timed(f"all_gather/{group}", t0)
+        self._timed(f"all_gather/{group}", t0, out)
         return out.view((n,) + tuple(x.shape))
 
     def all_to_all(self, x, group: str):
@@ -129,17 +134,18 @@ class ProcessMesh:
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
         dist.all_to_all_single(out, x.contiguous(),
                                group=self.groups[group])
-        self._timed(f"all_to_all/{group}", t0)
+        self._timed(f"all_to_all/{group}", t0, out)
         return out
 
-    def all_reduce(self, x, group: str):
-        """The sum of `x` over the group (a new tensor)."""
+    def all_reduce(self, x, group: str, op: str = "sum"):
+        """The sum (or, with `op` "max", the maximum) of `x` over the
+        group (a new tensor)."""
         if self.group_size(group) == 1:
             return x
         t0 = time.perf_counter()
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=self.groups[group])
-        self._timed(f"all_reduce/{group}", t0)
+        dist.all_reduce(out, op=_OPS[op], group=self.groups[group])
+        self._timed(f"all_reduce/{group}", t0, out)
         return out
 
     def all_reduce_autograd(self, x, group: str):
@@ -150,7 +156,7 @@ class ProcessMesh:
         from torch.distributed.nn.functional import all_reduce
         t0 = time.perf_counter()
         out = all_reduce(x.contiguous(), group=self.groups[group])
-        self._timed(f"all_reduce_autograd/{group}", t0)
+        self._timed(f"all_reduce_autograd/{group}", t0, out)
         return out
 
     def reduce_scatter(self, x, group: str):
@@ -163,7 +169,7 @@ class ProcessMesh:
         out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
         dist.reduce_scatter_tensor(out, x.contiguous(),
                                    group=self.groups[group])
-        self._timed(f"reduce_scatter/{group}", t0)
+        self._timed(f"reduce_scatter/{group}", t0, out)
         return out
 
     def check_same(self, what: str, payload: bytes) -> None:

@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TP
+
 # ---------------------------------------------------------------- norms
 
 
@@ -372,12 +374,20 @@ def init_ffn(gen, d: int, f: int, act: str, dtype, device, lead):
     return p
 
 
-def ffn(p, x, act: str):
+def ffn(p, x, act: str, mesh=None):
     """Dense FFN (plain torch: the reference's is plain jnp, no kernel):
     SwiGLU, or gelu in the tanh approximation that ``jax.nn.gelu``
-    computes by default."""
+    computes by default. With `mesh` (model > 1) `p` is this rank's
+    F-columns of the up products and F-rows of the down product
+    (``distributed.tensor_parallel``): x's gradient is summed over the
+    model group, and so is the down product's partial, taken in float32
+    (exact products, float32 sums) and rounded once after the sum, as
+    the one-process product rounds its whole sum."""
+    x = TP.copy_to_model(x, mesh)
     if act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+    if mesh is None:
+        return h @ p["w_down"]
+    return TP.reduce_partial(h.float() @ p["w_down"].float(), mesh, h.dtype)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import transformer as T
 from repro_torch.training.optimizer import _leaves, _map
 
@@ -114,14 +115,21 @@ def loss_fn(cfg, params, batch, *, window: int = 0, aux_weight: float = 0.01,
     batch['labels'] (B, S) under float32 logits, in logsumexp form (the
     padded vocab's -1e9 entries stay inside the logsumexp), plus
     `aux_weight` times the summed router aux loss; metrics gain
-    'loss'. `data_mesh`: ``transformer.forward``'s (the ZeRO-2 step)."""
+    'loss'. `data_mesh`: ``transformer.forward``'s (the ZeRO-2 step);
+    where its logits are this rank's vocabulary columns (model > 1) the
+    cross entropy is reduced over the model group without gathering
+    them (``tensor_parallel.vocab_cross_entropy``)."""
     logits, metrics = T.forward(cfg, params, batch, window=window,
                                 remat=remat, data_mesh=data_mesh)
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1,
-                          batch["labels"].long()[..., None])[..., 0]
-    loss = (lse - picked).mean()
+    if logits.shape[-1] != cfg.padded_vocab:
+        loss = TP.vocab_cross_entropy(logits, batch["labels"],
+                                      data_mesh).mean()
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              batch["labels"].long()[..., None])[..., 0]
+        loss = (lse - picked).mean()
     total = loss + aux_weight * metrics.get("aux_loss", 0.0)
     return total, dict(metrics, loss=loss)
 
@@ -152,28 +160,23 @@ def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
     float32 accumulator's layout. On a ``launch.mesh.LogicalMesh`` it is
     a layout only, as the reference's pin is (sharding never changes its
     values): the step is the one-process step. On a ``ProcessMesh`` of
-    (data, 1) ranks the step is ZeRO-2 over the data ranks (see
-    ``_zero2_step``), and computes the one-process step at
-    ``transformer.set_moe_dispatch_groups(data)``: every rank receives
-    the global batch and returns replicated parameters; `opt_state` is
-    this rank's shard (``optimizer.init`` of ``sharding.shard_tree(
-    params, grad_shardings)``). model > 1 raises NotImplementedError.
+    (data, model) ranks the step is ZeRO-2 over the data ranks and
+    tensor-parallel over the model ranks (see ``_zero2_step``), and
+    computes the one-process step at ``transformer.
+    set_moe_dispatch_groups(data)``: every rank receives the global
+    batch; the parameters in and out are this rank's model shards,
+    replicated over data (``sharding.shard_tree(params, train_step.
+    param_shardings, copy=True)``: ``grad_shardings`` without the data
+    axes, whole at model 1); `opt_state` is this rank's shard
+    (``optimizer.init`` of ``sharding.shard_tree(params,
+    grad_shardings)``).
 
     The returned step carries its two halves: ``train_step.grads(params,
     batch) -> (metrics, gradients)`` (the accumulator: this rank's
     shards under ZeRO-2) and ``train_step.apply(params, gradients,
     opt_state) -> (params, opt_state)``; ``train_step.stats`` holds
     the ZeRO-2 step's meters."""
-    mesh = None
-    if grad_shardings is not None:
-        mesh = _sharding_mesh(grad_shardings)
-        if not hasattr(mesh, "groups"):
-            mesh = None    # a logical layout: the one-process step
-        elif mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                "tensor-parallel (model > 1) execution of the train step "
-                "is queued work (ROADMAP queue 1); run ZeRO-2 over "
-                "(data, 1) ranks")
+    mesh = _process_mesh(grad_shardings)
 
     def grads(params, batch):
         """(metrics, gradients) of ``loss_fn`` at `params` on `batch`."""
@@ -219,7 +222,7 @@ def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
         return metrics, _map(lambda _: next(it), params)
 
     if mesh is not None:
-        return _zero2_step(accumulated_grads, optimizer, mesh,
+        return _zero2_step(cfg, accumulated_grads, optimizer, mesh,
                            grad_shardings, microbatches)
 
     def train_step(params, opt_state, batch):
@@ -237,64 +240,97 @@ def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
     return train_step
 
 
-def _sharding_mesh(grad_shardings):
+def _sharding_mesh(shardings):
     """The one mesh of a NamedSharding tree, or ValueError."""
     from repro_torch.distributed.sharding import NamedSharding
-    meshes = {id(s.mesh): s.mesh for s in _leaves(grad_shardings)
+    meshes = {id(s.mesh): s.mesh for s in _leaves(shardings)
               if isinstance(s, NamedSharding)}
     if len(meshes) != 1 or not all(isinstance(s, NamedSharding)
-                                   for s in _leaves(grad_shardings)):
-        raise ValueError("grad_shardings must be a tree of "
+                                   for s in _leaves(shardings)):
+        raise ValueError("shardings must be a tree of "
                          "distributed.sharding.NamedSharding on one mesh "
                          f"(found {len(meshes)} meshes)")
     return next(iter(meshes.values()))
 
 
-def _zero2_step(accumulated_grads, optimizer, mesh, grad_shardings,
+def _process_mesh(shardings):
+    """The ``ProcessMesh`` of a NamedSharding tree; None for no tree or
+    one on a ``LogicalMesh`` (a layout only: the one-process step)."""
+    if shardings is None:
+        return None
+    mesh = _sharding_mesh(shardings)
+    return mesh if hasattr(mesh, "groups") else None
+
+
+def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
                 microbatches: int):
-    """ZeRO-2 over the data ranks of `mesh` (a (data, 1) ProcessMesh).
+    """ZeRO-2 over the data ranks of `mesh` (a (data, model)
+    ProcessMesh), tensor-parallel over its model ranks.
+
+    Parameters: this rank's model shards (``grad_shardings`` without the
+    data axes, ``train_step.param_shardings``: ``params_shardings(...,
+    fsdp=False)`` for the reference's layout), replicated over data;
+    ``transformer.forward`` runs them as ``distributed.tensor_parallel``
+    says. At model 1 they are the whole parameters.
 
     Rows: within microbatch i of a global batch of B rows, rank r takes
     rows i * B/mb + r * B/(mb * dp) onward, B/(mb * dp) of them: exactly
     dispatch group r of that microbatch at set_moe_dispatch_groups(dp),
     not the contiguous DP shard of the batch (``transformer._moe_groups``
     raises where finer groups do not split into whole groups a rank).
-    The MoE metrics and aux loss are the microbatch's (``moe.
-    dispatch_moe(data_mesh=)``); the loss (and the aux loss, the same
-    on every rank) is the mean over the equal ranks.
+    Every model rank of a data index takes the same rows, and holds them
+    as ``batch_shardings`` lays them out (the sequence over "model"
+    where it divides), all-gathered over the model group at use. The MoE
+    metrics and aux loss are the microbatch's (``moe.dispatch_moe(
+    data_mesh=)``); the loss (and the aux loss, the same on every rank)
+    is the mean over the data ranks, equal already on every model rank.
 
     Gradients, per microbatch (``accumulated_grads``' `pin`): each
-    leaf's float32 gradient is reduce-scattered (summed) over the data
-    group into this rank's accumulator shard, on the dim its spec gives
-    the data axis; that dim is moved to the front, contiguous, around
-    the collective (a copy, metered in ``stats``). A leaf with no data
-    dim is all-reduced into a whole accumulator. The sum over ranks of
-    each rank's gradient is dp times the microbatch's, so the
-    accumulator is divided by dp.
+    leaf's float32 gradient of this rank's model shard is
+    reduce-scattered (summed) over the data group into this rank's
+    accumulator shard, on the dim its spec gives the data axis; that dim
+    is moved to the front, contiguous, around the collective (a copy,
+    metered in ``stats``). A leaf with no data dim is all-reduced into a
+    whole accumulator. The sum over ranks of each rank's gradient is dp
+    times the microbatch's, so the accumulator is divided by dp.
 
-    The update: ``optimizer.update`` on this rank's shards (μ and ν
-    sharded alike), its global-norm clip summed over the data group with
-    a replicated leaf counted once; then the parameter shards are
-    all-gathered, so the parameters come back replicated over data."""
+    The update: ``optimizer.update`` on this rank's (data, model) shards
+    (μ and ν sharded alike), its global-norm clip's squared norm summed
+    over the data group for leaves split on data and over the model
+    group for leaves split on model, a leaf replicated on an axis
+    counted once; then the shards are all-gathered over the data group
+    only, so the parameters come back as this rank's model shards."""
     from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import dp_axes
     dp, r = mesh.shape["data"], mesh.index("data")
+    param_sh = SH.without_axes(grad_shardings, dp_axes(mesh))
+    data_sh = SH.without_axes(grad_shardings, ("model",))
     stats = {"transpose_bytes": 0, "gathered_bytes": 0, "batch_bytes": 0}
 
     def specs_for(params):
-        """(path, leaf, sharding, data dim) of every leaf, or
-        ValueError where grad_shardings does not match `params`."""
+        """(leaf, data dim, model dim, accumulator shape) of every leaf,
+        or ValueError where grad_shardings does not match `params` (this
+        rank's model shards of `cfg`'s parameters)."""
+        whole = T._whole_shapes(cfg)
         paths = []
         SH.tree_map_with_path(lambda p, x: paths.append((p, x)), params)
         out = []
         for path, leaf in paths:
             try:
                 sh = SH.leaf_at(grad_shardings, path)
-                SH.shard_shape(leaf.shape, sh)
+                full = SH.leaf_at(whole, path).shape
+                want = SH.shard_shape(full, SH.leaf_at(param_sh, path))
+                acc = SH.shard_shape(full, sh)
             except (KeyError, IndexError, TypeError, AttributeError,
                     ValueError) as e:
                 raise ValueError(f"grad_shardings does not match the "
                                  f"parameters at {path}: {e!r}") from None
-            out.append((path, leaf, sh, SH.data_dim(sh)))
+            if tuple(leaf.shape) != want:
+                raise ValueError(f"grad_shardings does not match the "
+                                 f"parameters at {path}: a leaf of "
+                                 f"{tuple(leaf.shape)}, its model shard "
+                                 f"{want}")
+            out.append((leaf, SH.data_dim(sh), SH.model_dim(sh), acc))
         n = len(_leaves(grad_shardings))
         if len(out) != n:
             raise ValueError(f"grad_shardings has {n} leaves, the "
@@ -311,49 +347,65 @@ def _zero2_step(accumulated_grads, optimizer, mesh, grad_shardings,
         return y
 
     def local_rows(batch, device):
+        """This rank's rows, held split over the model group as
+        ``batch_shardings`` lays the global batch out, then gathered."""
         b = batch["tokens"].shape[0]
         _check_microbatches(b, microbatches * dp)
-        return {k: v.reshape((microbatches, dp, b // (microbatches * dp))
-                             + tuple(v.shape[1:]))[:, r]
-                .reshape((b // dp,) + tuple(v.shape[1:])).to(device)
-                for k, v in batch.items()}
+        out, held = {}, 0
+        for k, v in batch.items():
+            rows = v.reshape((microbatches, dp, b // (microbatches * dp))
+                             + tuple(v.shape[1:]))[:, r] \
+                .reshape((b // dp,) + tuple(v.shape[1:]))
+            m = SH.model_dim(SH.batch_shardings(v, mesh))
+            if m is not None:
+                n = rows.shape[m] // mesh.shape["model"]
+                rows = rows.narrow(m, mesh.index("model") * n, n)
+            rows = rows.to(device, copy=True, memory_format=torch.
+                           contiguous_format)
+            held += rows.numel() * rows.element_size()
+            out[k] = rows if m is None else mesh.all_gather(
+                rows, "model").movedim(0, m).flatten(m, m + 1)
+        stats["batch_bytes"] = held
+        return out
 
     def sharded_grads(params, batch):
         specs = specs_for(params)
-        local = local_rows(batch, specs[0][1].device)
-        stats["batch_bytes"] = sum(v.numel() * v.element_size()
-                                   for v in local.values())
+        local = local_rows(batch, specs[0][0].device)
 
         def pin(i: int, g):
-            j = specs[i][3]
+            j = specs[i][1]
             if j is None:
                 return mesh.all_reduce(g, "data")
             return mesh.reduce_scatter(to_front(g, j), "data").movedim(0, j)
 
-        metrics, acc = accumulated_grads(
-            params, local, pin,
-            lambda i, p: SH.shard_shape(p.shape, specs[i][2]))
+        metrics, acc = accumulated_grads(params, local, pin,
+                                         lambda i, p: specs[i][3])
         for k in ("loss", "aux_loss"):
             metrics[k] = mesh.all_reduce(metrics[k], "data") / dp
         return metrics, _map(lambda a: a.div_(dp), acc)
 
     def apply(params, g, opt_state):
         specs = specs_for(params)
-        flags = [j is not None for *_, j in specs]
 
         def sum_squares(sq):
-            shard = [q for q, f in zip(sq, flags) if f]
-            whole = [q for q, f in zip(sq, flags) if not f]
-            total = mesh.all_reduce(sum(shard) if shard else
-                                    torch.zeros((), device=sq[0].device),
-                                    "data")
-            return total + sum(whole) if whole else total
+            # by (split on data, split on model): each part summed over
+            # the axes it is split on, and only those
+            part = {}
+            for q, (_, j, m, _) in zip(sq, specs):
+                key = (j is not None, m is not None)
+                part[key] = part.get(key, 0) + q
+            zero = torch.zeros((), device=sq[0].device)
+            both, data = mesh.all_reduce(torch.stack(
+                [part.get((True, True), zero),
+                 part.get((True, False), zero)]), "data")
+            both, model = mesh.all_reduce(torch.stack(
+                [both, part.get((False, True), zero)]), "model")
+            return both + data + model + part.get((False, False), zero)
 
-        new, opt_state = optimizer.update(
-            SH.shard_tree(params, grad_shardings), g, opt_state,
-            sum_squares)
+        new, opt_state = optimizer.update(SH.shard_tree(params, data_sh), g,
+                                          opt_state, sum_squares)
         out = []
-        for leaf, (_, _, _, j) in zip(_leaves(new), specs):
+        for leaf, (_, j, _, _) in zip(_leaves(new), specs):
             if j is None:
                 out.append(leaf)
                 continue
@@ -373,22 +425,70 @@ def _zero2_step(accumulated_grads, optimizer, mesh, grad_shardings,
         return params, opt_state, metrics
 
     train_step.grads, train_step.apply = sharded_grads, apply
-    train_step.stats = stats
+    train_step.stats, train_step.param_shardings = stats, param_sh
     return train_step
 
 
-def make_prefill_step(cfg, *, window: int = 0):
+def make_prefill_step(cfg, *, window: int = 0, param_shardings=None):
     """prefill_step(params, batch) -> (last-position logits (B, 1, V),
-    metrics): ``forward`` with ``last_only``."""
+    metrics): ``forward`` with ``last_only``.
+
+    param_shardings: the parameters' ``distributed.sharding.
+    NamedSharding`` tree (the reference's ``in_shardings``). On a
+    ``LogicalMesh`` it is a layout only: the one-process step. On a
+    ``ProcessMesh`` `params` are this rank's shards (``sharding.
+    shard_tree(..., copy=True)``), split over "model" only: a layout
+    with data axes (ZeRO-3's) raises NotImplementedError (ROADMAP queue
+    1). Each rank runs its contiguous rows of the global batch (B over
+    data, as ``batch_shardings`` lays it out: its dispatch groups at
+    ``transformer.set_moe_dispatch_groups(data)``), tensor-parallel over
+    its model group, and returns the global logits (B, 1, V) and
+    metrics, equal on every rank: the one-process step's at that
+    dispatch-group count."""
+    mesh = _process_mesh(param_shardings)
+    if mesh is None:
+        def prefill_step(params, batch):
+            return T.forward(cfg, params, batch, window=window,
+                             last_only=True)
+
+        return prefill_step
+    from repro_torch.distributed.sharding import data_dim
+    if any(data_dim(s) is not None for s in _leaves(param_shardings)):
+        raise NotImplementedError(
+            "a prefill on parameters sharded over the data axes (the "
+            "ZeRO-3 layout) is queued work (ROADMAP queue 1); pass "
+            "params_shardings(..., fsdp=False)")
+    dp, r = mesh.shape["data"], mesh.index("data")
+
     def prefill_step(params, batch):
-        return T.forward(cfg, params, batch, window=window, last_only=True)
+        b = batch["tokens"].shape[0]
+        if b % dp:
+            raise ValueError(f"a batch of {b} rows does not split over "
+                             f"{dp} data ranks")
+        dev = _leaves(params)[0].device
+        local = {k: v.narrow(0, r * (b // dp), b // dp).to(dev)
+                 for k, v in batch.items()}
+        logits, metrics = T.forward(cfg, params, local, window=window,
+                                    last_only=True, data_mesh=mesh)
+        if logits.shape[-1] != cfg.padded_vocab:   # this rank's columns
+            logits = TP.gather_from_model(logits, mesh, logits.ndim - 1)
+        return mesh.all_gather(logits, "data").flatten(0, 1), metrics
 
     return prefill_step
 
 
-def make_serve_step(cfg, *, window: int = 0):
+def make_serve_step(cfg, *, window: int = 0, param_shardings=None):
     """serve_step(params, batch, cache, cache_len) -> (logits, cache):
-    one ``decode_step``, the cache written in place."""
+    one ``decode_step``, the cache written in place. `param_shardings`
+    as ``make_prefill_step``'s; a decode step sharded over a process
+    mesh of more than one rank raises NotImplementedError (ROADMAP
+    queue 1: the cache's layout puts its sequence over "model")."""
+    mesh = _process_mesh(param_shardings)
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            "a decode step sharded over a process mesh is queued work "
+            "(ROADMAP queue 1)")
+
     def serve_step(params, batch, cache, cache_len):
         logits, cache, _ = T.decode_step(cfg, params, batch, cache,
                                          cache_len, window=window)

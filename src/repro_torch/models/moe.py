@@ -14,6 +14,24 @@ the expert loads, the drops and the aux loss's f (top-1 shares) are
 summed over the data group, and its p (mean router probabilities) by a
 differentiable sum, since E * sum(f * p) is not linear in a rank's
 tokens.
+
+Under tensor parallelism (``dispatch_moe(model_mesh=)``) the expert bank
+is this rank's F-slices, the reference's layout on a mesh with model >
+1: w_gate and w_up split on their output F, w_down on its input F. The
+rank runs the gate/up product on its F-columns and the down product on
+its F-rows, which gives a partial (E, C, D) sum, summed over the model
+group in float32 and rounded once to the model's dtype before the
+combine (``experts_ffn(mesh=)``): where the one-process path rounds the
+expert outputs. Summed after the combine, on (g, t, D), the bytes would
+be fewer, but the outputs would round at another point: at mixtral's
+widths in bf16 the (1, 2) loss then sat 1.0e-4 off the one-process
+loss on an H100 (``chip_smoke.py`` phase 13's cell). The sum over F is
+taken in two parts added across ranks, in another order than the
+one-process product's. The
+dispatch input passes ``copy_to_model``, whose backward sums its
+partial gradients. Routing, capacities, loads, drops and the aux loss
+are computed alike on every model rank from the replicated activations
+and the gathered router; they are not summed over "model".
 """
 from __future__ import annotations
 
@@ -21,6 +39,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import tensor_parallel as TP
 
 
 def router_topk(logits, top_k: int):
@@ -69,7 +89,8 @@ def load_balance_loss(probs, top_i, num_experts: int):
     return num_experts * torch.sum(f * p)
 
 
-def experts_ffn(p, x, act: str, *, group_sizes=None, impl: str = "ref"):
+def experts_ffn(p, x, act: str, *, group_sizes=None, impl: str = "ref",
+                mesh=None):
     """x: (E, N, D) -> (E, N, D), grouped per-expert FFN through the
     kernels.ops backend selector: SwiGLU (the fused gate/up kernel, then
     the down-projection ``gmm``) or gelu (``gmm`` up, gelu in the tanh
@@ -77,11 +98,33 @@ def experts_ffn(p, x, act: str, *, group_sizes=None, impl: str = "ref"):
     beyond it as padding (outputs zeroed; the kernels also skip whole row
     tiles there). None => all rows active. `p` is a bank in the model's
     dtype, or an int8 bank with per-row float32 ``*_scale`` companions
-    (``kernels.quant`` layout), which runs the dequantizing kernels."""
+    (``kernels.quant`` layout), which runs the dequantizing kernels.
+
+    With `mesh` (model > 1) `p` is this rank's F-slices of a bank in the
+    model's dtype, and the down product's partial is summed over the
+    model group in float32, then rounded once to x's dtype. The kernels
+    write the partial in x's dtype; the plain path takes it in float32
+    (exact products, float32 sums), so that the whole sum rounds once,
+    as the one-process product's does."""
     from repro_torch.kernels import ops as OPS
     if group_sizes is None:
         group_sizes = torch.full((x.shape[0],), x.shape[1],
                                  dtype=torch.int32, device=x.device)
+    if mesh is not None:
+        if OPS.use_kernel(impl, x):
+            part = experts_ffn(p, x, act, group_sizes=group_sizes,
+                               impl=impl)
+        else:
+            if act == "swiglu":
+                h = F.silu(torch.bmm(x, p["w_gate"])) \
+                    * torch.bmm(x, p["w_up"])
+            else:
+                h = F.gelu(torch.bmm(x, p["w_up"]), approximate="tanh")
+            part = torch.bmm(h.float(), p["w_down"].float())
+            rows = torch.arange(x.shape[1], device=x.device)[None] \
+                < group_sizes[:, None]
+            part = torch.where(rows[..., None], part, 0.0)
+        return TP.reduce_partial(part, mesh, x.dtype)
     if "w_up_scale" in p:
         # the dequantizing kernels return x's dtype, their plain
         # versions float32 (as the reference's oracle)
@@ -108,7 +151,7 @@ def experts_ffn(p, x, act: str, *, group_sizes=None, impl: str = "ref"):
 def dispatch_moe(p, x, *, top_k: int, num_experts: int,
                  capacity_factor: float, act: str = "swiglu",
                  groups: int = 1, token_mask=None, impl: str = "ref",
-                 data_mesh=None):
+                 data_mesh=None, model_mesh=None):
     """Grouped capacity dispatch (GShard).
 
     x: (B, S, D). Tokens are flattened and split into `groups` dispatch
@@ -121,9 +164,14 @@ def dispatch_moe(p, x, *, top_k: int, num_experts: int,
     histogram, the dropped-assignment count, the aux loss and the router
     logits. With `data_mesh` (a ``launch.mesh.ProcessMesh``) `x` is this
     rank's share of a data-parallel microbatch, and the expert loads,
-    the drops and the aux loss are the whole microbatch's (module
-    docstring).
+    the drops and the aux loss are the whole microbatch's; with
+    `model_mesh` the expert bank is a column/row pair over its model
+    group (module docstring).
     """
+    if model_mesh is not None and "w_up_scale" in p["experts"]:
+        raise NotImplementedError(
+            "int8 expert banks at model > 1 are queued work (ROADMAP "
+            "queue 1)")
     b, s, d = x.shape
     t = b * s
     groups = max(1, min(groups, t))
@@ -155,6 +203,8 @@ def dispatch_moe(p, x, *, top_k: int, num_experts: int,
     comb = (disp * top_w[..., None, None].to(x.dtype)).sum(dim=2)
 
     expert_in = torch.einsum("gtec,gtd->egcd", disp_te, xg)
+    if model_mesh is not None:
+        expert_in = TP.copy_to_model(expert_in, model_mesh)
     # capacity-layout group sizes for the kernels: with one dispatch
     # group the kept rows of every expert form a contiguous prefix
     # (GShard cumsum positions), so the kernels can skip/mask the tail;
@@ -167,7 +217,8 @@ def dispatch_moe(p, x, *, top_k: int, num_experts: int,
                         device=x.device)
     expert_out = experts_ffn(
         p["experts"], expert_in.reshape(num_experts, groups * cap, d), act,
-        group_sizes=gs, impl=impl).reshape(num_experts, groups, cap, d)
+        group_sizes=gs, impl=impl, mesh=model_mesh).reshape(
+            num_experts, groups, cap, d)
     y = torch.einsum("gtec,egcd->gtd", comb, expert_out)
 
     # dropped = routed assignments of ACTIVE tokens that overflowed

@@ -45,6 +45,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils import checkpoint as C
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import constrain_activations
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -271,12 +272,14 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     cache_len=None, enc_out=None, window=0,
                     collect: bool = False, token_mask=None,
                     block_tables=None, new_counts=None, ep_ctx=None,
-                    ep_state=None, data_mesh=None):
+                    ep_state=None, data_mesh=None, ffn_mesh=None):
     """One sublayer (mixer + optional cross-attention over `enc_out` +
     ffn) with residuals. The layer's cache slice is written in place.
     With `ep_ctx` and this sublayer's `ep_state` the MoE runs through
     the EP slot data plane; with `data_mesh` (``forward``) its metrics
-    and dispatch groups are the data group's. Returns (x, metrics)."""
+    and dispatch groups are the data group's; with `ffn_mesh` its FFN
+    (an expert bank or a dense one) is a column/row pair over the model
+    group (``forward``). Returns (x, metrics)."""
     metrics = {}
     h = L.norm(x, p["norm1"], cfg.norm)
     if sub.mixer == "attn":
@@ -307,7 +310,7 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
                     groups=_moe_groups(h, data_mesh),
                     token_mask=token_mask, impl=cfg.impl,
-                    data_mesh=data_mesh)
+                    data_mesh=data_mesh, model_mesh=ffn_mesh)
             metrics["expert_load"] = m["expert_load"]
             metrics["aux_loss"] = m["aux_loss"]
             metrics["dropped"] = m["dropped"]
@@ -317,7 +320,7 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     metrics["router_logits"] = m["router_logits"].reshape(
                         h.shape[0], h.shape[1], -1)
         else:
-            y = L.ffn(p["ffn"], h, cfg.act)
+            y = L.ffn(p["ffn"], h, cfg.act, mesh=ffn_mesh)
         x = x + y
     return x, metrics
 
@@ -452,9 +455,32 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     only the last position (before the final norm). metrics: 'aux_loss'
     summed over layers, 'expert_load' (Lm, E) and 'dropped' (Lm,); with
     `collect` also 'gate_input' (Lm, B, S, D) and, off the EP plane,
-    'router_logits' (Lm, B, S, E), MoE layers in period-major order."""
+    'router_logits' (Lm, B, S, E), MoE layers in period-major order.
+
+    On a `data_mesh` with model > 1, `params` may be this rank's shards
+    (``distributed.sharding.shard_tree``): each leaf split on the one
+    dim where its shape differs from ``init_params``' (``_tensor_
+    parallel``). A column/row FFN runs on the rank's F-slices, an
+    embedding and a head split on V are vocabulary-parallel, every other
+    split leaf is gathered at its use (``distributed.tensor_parallel``);
+    the logits are then this rank's columns of the vocabulary."""
     pattern = layer_pattern(cfg)
-    x = _embed(params, batch)
+    dims, mesh = _tensor_parallel(cfg, params, data_mesh)
+    embed_mesh = head_mesh = None   # the vocabulary-parallel tables'
+    if mesh is not None:
+        if ep_ctx is not None:
+            raise NotImplementedError(
+                "the EP slot plane at model > 1 is queued work (ROADMAP "
+                "queue 1)")
+        if dims["embed"] == 0:
+            embed_mesh = mesh
+        head_mesh = embed_mesh if cfg.tie_embeddings else \
+            mesh if dims["head"] == 1 else None
+        keep = {("layers",)} | {(k,) for k, m in (("embed", embed_mesh),
+                                                  ("head", head_mesh)) if m}
+        params = TP.gather_tree(params, dims, mesh, keep=keep)
+        layer_dims = [TP.unstack_dims(d) for d in dims["layers"]]
+    x = _embed(params, batch, embed_mesh)
     bsz, seq_len = batch["tokens"].shape
     pos = batch.get("positions")    # (B, S), or (B, S, 3) under mrope
     if pos is None:
@@ -474,12 +500,15 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
         x = constrain_activations(x)
         ms = []
         for j, sub in enumerate(pattern):
-            x, m = _apply_sublayer(cfg, sub, layer_params[j], x, pos,
+            p, ffn_mesh = layer_params[j], None
+            if mesh is not None:   # gathered here: at use, under remat
+                p, ffn_mesh = _gather_sublayer(p, layer_dims[j], mesh)
+            x, m = _apply_sublayer(cfg, sub, p, x, pos,
                                    enc_out=enc_out, window=window,
                                    collect=collect,
                                    token_mask=token_mask, ep_ctx=ep_ctx,
                                    ep_state=layer_ep[j],
-                                   data_mesh=data_mesh)
+                                   data_mesh=data_mesh, ffn_mesh=ffn_mesh)
             ms.append(m)
         return x, ms
 
@@ -504,14 +533,48 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     rl = [m["router_logits"] for m in ms if "router_logits" in m]
     if rl:   # the EP data plane does not emit router logits
         metrics["router_logits"] = torch.stack(rl)
-    return _lm_head(cfg, params, x), metrics
+    return _lm_head(cfg, params, x, head_mesh), metrics
 
 
-def _embed(params, batch):
+@functools.lru_cache(maxsize=16)
+def _whole_shapes(cfg):
+    """``init_params``' tree of `cfg` on the meta device (shapes only)."""
+    return init_params(cfg, 0, torch.device("meta"))
+
+
+def _tensor_parallel(cfg, params, mesh):
+    """(model dims of every leaf of `params`, the mesh) where `mesh` has
+    model > 1, else (None, None): a leaf's model dim is the one where
+    its shape differs from ``init_params``' (``tensor_parallel.
+    model_dims``), None for a leaf held whole."""
+    if TP.model_size(mesh) == 1:
+        return None, None
+    return TP.model_dims(params, _whole_shapes(cfg)), mesh
+
+
+def _gather_sublayer(p, dims, mesh):
+    """(one period's sublayer parameters with every split leaf gathered
+    at use but a column/row FFN's, the mesh where its FFN is such a pair
+    or None)."""
+    keep = set()
+    if "moe" in p and TP.split_ffn(p["moe"]["experts"],
+                                   dims["moe"]["experts"]):
+        keep.add(("moe", "experts"))
+    if "ffn" in p and TP.split_ffn(p["ffn"], dims["ffn"]):
+        keep.add(("ffn",))
+    return TP.gather_tree(p, dims, mesh, keep=keep), \
+        mesh if keep else None
+
+
+def _embed(params, batch, vocab_mesh=None):
     """Token embeddings; a VLM's `vis_embeds` (B, S, D) replace them
     where `vis_mask` (B, S) is set (early fusion of the stub vision
-    frontend's patch embeddings)."""
-    x = params["embed"][batch["tokens"].long()]
+    frontend's patch embeddings). With `vocab_mesh` the table is this
+    rank's rows of the vocabulary (``tensor_parallel.vocab_embed``)."""
+    if vocab_mesh is not None:
+        x = TP.vocab_embed(params["embed"], batch["tokens"], vocab_mesh)
+    else:
+        x = params["embed"][batch["tokens"].long()]
     if "vis_embeds" in batch:
         x = torch.where(batch["vis_mask"][..., None],
                         batch["vis_embeds"].to(x.dtype), x)
@@ -726,12 +789,19 @@ def sample_tokens(logits, temperature, top_k, top_p, seed, step):
     return torch.where(temperature > 0, sampled, greedy).to(torch.int32)
 
 
-def _lm_head(cfg, params, x):
+def _lm_head(cfg, params, x, vocab_mesh=None):
+    """Logits of x; with `vocab_mesh` the head is this rank's columns of
+    the vocabulary (x's gradient summed over the model group) and so
+    are the logits, their pad entries masked at global indices."""
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    lo = 0
+    if vocab_mesh is not None:
+        x = TP.copy_to_model(x, vocab_mesh)
+        lo = TP.vocab_offset(vocab_mesh, head.shape[1])
     logits = x @ head
     if cfg.padded_vocab != cfg.vocab_size:   # mask pad entries
         bias = torch.where(
-            torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size,
-            0.0, -1e9).to(logits.dtype)
+            torch.arange(lo, lo + head.shape[1], device=x.device)
+            < cfg.vocab_size, 0.0, -1e9).to(logits.dtype)
         logits = logits + bias
     return logits

@@ -36,8 +36,9 @@ def global_norm(tree, sum_squares=sum) -> torch.Tensor:
     """The tree's L2 norm. `sum_squares` takes its leaves' squared norms
     (0-d float32 tensors, in leaf order) to the tree's squared norm:
     under ZeRO-2 the leaves are this rank's shards, summed over the data
-    group with a replicated leaf counted once (``models.model.
-    make_train_step(grad_shardings=)``)."""
+    group for a leaf split on data and over the model group for a leaf
+    split on model, a leaf replicated on an axis counted once
+    (``models.model.make_train_step(grad_shardings=)``)."""
     return torch.sqrt(sum_squares([torch.sum(torch.square(l.float()))
                                    for l in _leaves(tree)]))
 

@@ -886,3 +886,52 @@ def test_whisper_decode_and_gelu_experts_match_plain_on_card(cuda):
             want = MOE.experts_ffn(p, xc, "gelu", group_sizes=g, impl="ref")
             torch.testing.assert_close(got.float(), want.float(),
                                        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernels_on_f_shards_on_card(cuda, dtype):
+    """The tensor-parallel prefill's operands on a (1, 2) mesh: each
+    rank's F-columns of w_gate and w_up and its F-rows of w_down, cut by
+    ``sharding.shard_tree(copy=True)`` (contiguous tensors of their
+    own), through ``fused_gate_up`` and ``gmm`` against their plain
+    versions; the two ranks' down products summed equal the whole
+    bank's product; a shard left a view (not contiguous) raises."""
+    from collections import OrderedDict
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import ProcessMesh
+    tol = TOL[dtype]
+    e, c, d, f = 4, 40, 96, 272
+    x, wg, wu = _gmm_case(e, c, d, f, seed=5)
+    wd = np.random.default_rng(6).standard_normal((e, f, d)) \
+        .astype(np.float32) / np.sqrt(f)
+    x = torch.from_numpy(x).to(cuda, dtype)
+    bank = {k: torch.from_numpy(v).to(cuda, dtype)
+            for k, v in (("w_gate", wg), ("w_up", wu), ("w_down", wd))}
+    g = torch.tensor([c, 17, 0, 33], dtype=torch.int32, device=cuda)
+    total = torch.zeros((e, c, d), dtype=torch.float32, device=cuda)
+    for r in range(2):
+        mesh = ProcessMesh(shape=OrderedDict(data=1, model=2), rank=r,
+                           coords=(0, r), device=cuda)
+        specs = SH.params_shardings(bank, mesh, fsdp=False)
+        assert [SH.model_dim(specs[k]) for k in bank] == [2, 2, 1]
+        mine = SH.shard_tree(bank, specs, copy=True)
+        assert all(t.is_contiguous() for t in mine.values())
+        h = MG.fused_gate_up(x, mine["w_gate"], mine["w_up"], g)
+        torch.testing.assert_close(
+            h.float(), MG.fused_gate_up_ref(x, mine["w_gate"], mine["w_up"],
+                                            g).float(), atol=tol, rtol=tol)
+        y = MG.gmm(h, mine["w_down"], g)
+        torch.testing.assert_close(
+            y.float(), MG.gmm_ref(h, mine["w_down"], g).float(), atol=tol,
+            rtol=tol)
+        total += y.float()
+        views = SH.shard_tree(bank, specs)
+        with pytest.raises(ValueError, match="contiguous"):
+            MG.fused_gate_up(x, views["w_gate"], views["w_up"], g)
+        with pytest.raises(ValueError, match="contiguous"):
+            MG.gmm(h, views["w_down"], g)
+    whole = MG.gmm_ref(MG.fused_gate_up_ref(x, bank["w_gate"], bank["w_up"],
+                                            g), bank["w_down"], g)
+    torch.testing.assert_close(total, whole.float(), atol=tol, rtol=tol)

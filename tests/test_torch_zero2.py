@@ -328,9 +328,11 @@ def test_model_axis_and_mismatched_tree_raise():
     params = M.init_params(cfg, 0, "cpu")
     tp2 = ProcessMesh(shape=OrderedDict(data=1, model=2), rank=0,
                       coords=(0, 0), device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        M.make_train_step(cfg, O.adamw(LR), grad_shardings=SH.params_shardings(
-            params, tp2))
+    step = M.make_train_step(cfg, O.adamw(LR), grad_shardings=SH.
+                             params_shardings(params, tp2))
+    assert [s.spec for s in O._leaves(step.param_shardings)] == [
+        s.spec for s in O._leaves(SH.params_shardings(params, tp2,
+                                                      fsdp=False))]
     mesh = make_process_mesh(1, 1, device="cpu")
     other = M.init_params(get_config("qwen3-32b", smoke=True).with_(
         dtype="float32"), 0, "cpu")
