@@ -244,8 +244,51 @@ Phases, each fatal on failure:
      prefill wall a rank against one process, the model group's host ms
      and bytes.
 
+  14. the sharded decode step (``make_serve_step(param_shardings=,
+     cache_shardings=)``): (a) ``decode_attention(return_stats=True)``
+     at the (1, 2) sequence shard of mixtral-8x7b (B 8, H 32, KV 8, hd
+     128, S 2048), bf16 ("mma") and float32 ("simt"), kv_len 0, 1, 17,
+     1000, 2047, 2048, a row hidden by position, a window of 256: the
+     float32 output within TOL of the plain version and each row within
+     ``DEC_REL`` in norm, m and l within ``DEC_STATS_TOL`` of the plain
+     version fed the kernel's own q * scale, m = NEG_INF and l = S
+     exactly on rows with no visible lane; two S 2048 shards merged by
+     ``merge_softmax`` within TOL of one S 4096 call; timed with and
+     without statistics beside its bound, the plain version, SDPA and
+     the merge; ``fused_gate_up`` and ``gmm`` at the bf16 decode
+     F-shard shapes (F 7168, C 3, 2 and 4) against their plain versions
+     (``dec_kernel_shapes``); (b) in this process the one-process
+     oracles on the kernel path (prefill of 8 x 2040 tokens into a
+     4096-slot cache, then 16 greedy decode steps) and their witnesses
+     (bf16: the same steps at impl "ref"; float32: ``ExpertHalves``,
+     the ranks' expert sum in one process), after which it holds nothing on
+     the card; mixtral-8x7b at its published widths on (1, 2) ranks on
+     cuda:0 over gloo, float32 at 2 layers (every step's logits within
+     TOL[float32], greedy tokens, loads and drops equal, the cache
+     assembled from the ranks' shards: positions equal, K/V within
+     ``DEC_KV_TOL`` in the first layer and ``DEC_KV_DEEP_TOL`` after)
+     and bf16 at 8 (every attention sublayer of every decode step
+     against one process on the whole cache from the same input:
+     elementwise within TOL[bf16] and within ``DEC_REL`` in norm; the
+     ``PlainMean`` control moved past ``DEC_CONTROL`` x ``DEC_REL`` on
+     every step before step 9, whose write is the first into rank 1's
+     slots; every MoE sublayer of every decode step from the one-process
+     input, ``moe_sublayer_gates``, at the same bounds, its
+     ``SkipPartial`` control leaving more than ``TP_CONTROL_SHARE`` out
+     and moving the norm past ``DEC_CONTROL`` x ``DEC_REL``), and on
+     (2, 2) ranks bf16 at 2 layers under the default layout,
+     ``seq_over_dp`` and ``cache_heads_model``, with the same bf16
+     gates; on every run ``decode_attention``, ``fused_gate_up`` and
+     ``gmm`` launched once a layer a step a rank, at the shard's S (with
+     statistics) and F 7168 and the run's C, on "mma"/"wgmma" at bf16,
+     and each rank's parameter and cache bytes equal to
+     ``launch.dryrun.build_step``'s decode shardings; printed: the
+     decode step's wall a rank against one process, host ms and bytes
+     of each collective by name, peak a rank against
+     ``dec_reckoning``, the witnesses' drift beside the ranks'.
+
 Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11, 12,
-13.
+13, 14.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -253,6 +296,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -4977,11 +5021,121 @@ class SkipPartial:
         self._tp.reduce_from_model = self._fn
 
 
-def _tp_prefill_config(dtype: str):
+def _mixtral(dtype: str, layers: int):
+    """mixtral-8x7b at its published widths, `layers` deep, impl "auto"
+    (phases 13 and 14)."""
     from repro_torch.configs import get_config
-    layers = TP_F32_LAYERS if dtype == "float32" else TP_BF16_LAYERS
     return get_config("mixtral-8x7b").with_(num_layers=layers, dtype=dtype,
                                             impl="auto")
+
+
+def _tp_prefill_config(dtype: str):
+    return _mixtral(dtype, TP_F32_LAYERS if dtype == "float32"
+                    else TP_BF16_LAYERS)
+
+
+def _rank_shards(mesh, cfg):
+    """(this rank's contiguous shards of `cfg`'s parameters, their
+    shardings): ``params_shardings(fsdp=False)``, the parameters built
+    whole on the card one rank at a time (two whole copies beside the
+    shards may not fit) and cut."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model import init_params
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            full = init_params(cfg, seed=0, device="cuda")
+            ps = SH.params_shardings(full, mesh, fsdp=False)
+            shards = SH.shard_tree(full, ps, copy=True)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return shards, ps
+
+
+def moe_sublayer_gates(mesh, cfg, shards, ios, data_mesh=None) -> list:
+    """Each MoE sublayer of a tensor-parallel rank run from the
+    one-process path's input: `ios` holds, for each layer, the (input,
+    output) pairs of that path's calls on the host (the rows this rank
+    runs). The rank's sublayer (its F-slices of the expert bank,
+    ``dispatch_moe(model_mesh=)``, at the dispatch groups and with the
+    `data_mesh` the step gives it) runs once as it is and once under
+    ``SkipPartial``. A record a call: the layer, max |err|, whether it is
+    within TOL[bf16] elementwise and finite, |err| / |output| in norm
+    ("rel"), and the control's max |err|, share of elements out of that
+    tolerance and norm ("control_rel")."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    dims, _ = T._tensor_parallel(cfg, shards, mesh)
+    ldims = TP.unstack_dims(dims["layers"][0])
+    tol, gate = TOL[torch.bfloat16], []
+    for layer, calls in enumerate(ios):
+        p, ffn_mesh = T._gather_sublayer(
+            T._period(shards["layers"][0], layer), ldims, mesh)
+        if ffn_mesh is None:
+            raise AssertionError("the expert bank is not a column/row pair "
+                                 f"on {dict(mesh.shape)}")
+        for h, want in calls:
+            h, want = h.cuda(), want.cuda().float()
+
+            def moe():
+                return MOE.dispatch_moe(
+                    p["moe"], h, top_k=cfg.moe.top_k,
+                    num_experts=cfg.moe.num_experts,
+                    capacity_factor=cfg.moe.capacity_factor, act=cfg.act,
+                    groups=T._moe_groups(h, data_mesh), impl=cfg.impl,
+                    data_mesh=data_mesh, model_mesh=ffn_mesh)[0].float()
+
+            with torch.no_grad():
+                got = moe()
+                with SkipPartial():
+                    bad = moe()
+            limit = tol + tol * want.abs()
+            norm = want.norm()
+            gate.append({
+                "layer": layer,
+                "max_abs_err": float((got - want).abs().max()),
+                "ok": bool(torch.allclose(got, want, atol=tol, rtol=tol)),
+                "finite": bool(torch.isfinite(got).all()),
+                "rel": float((got - want).norm() / norm),
+                "control_max_abs_err": float((bad - want).abs().max()),
+                "control_share": float(((bad - want).abs() > limit)
+                                       .float().mean()),
+                "control_rel": float((bad - want).norm() / norm)})
+            del h, want, got, bad
+        del p
+    return gate
+
+
+def against_one_process(oracle, rank, meshes, gate, wall_s: float) -> dict:
+    """The frame of phases 13 and 14: in a temporary directory,
+    `oracle(tmp, held)` in this process, which must leave the card as it
+    found it (holding `held` bytes); then, for each (shape, args) of
+    `meshes`, the ranks of ``rank(r, shape, tmp, *args)`` spawned on
+    cuda:0 over gloo, and ``gate(shape, ranks, one)`` on what they
+    return while the directory stands (`one`: what `oracle` returned).
+    Returns {shape: what `gate` returned}."""
+    from repro_torch.launch.mesh import spawn_local
+    torch._C._cuda_clearCublasWorkspaces()
+    held = torch.cuda.memory_allocated()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        one = oracle(tmp, held)
+        torch._C._cuda_clearCublasWorkspaces()
+        if torch.cuda.memory_allocated() != held:
+            raise AssertionError(f"the oracles left "
+                                 f"{torch.cuda.memory_allocated() - held} "
+                                 "bytes on the card before the ranks start")
+        for shape, args in meshes:
+            t1 = time.perf_counter()
+            ranks = spawn_local(rank, shape[0] * shape[1], backend="gloo",
+                                args=(shape, tmp, *args), wall_s=wall_s)
+            log(f"  {len(ranks)} ranks on {shape} over gloo on cuda:0 "
+                f"{time.perf_counter() - t1:.1f} s")
+            out[shape] = gate(shape, ranks, one)
+    return out
 
 
 def _tp_expert_rows(cfg) -> int:
@@ -5086,25 +5240,12 @@ def tp_prefill_rank(mesh, tmp: str) -> dict:
     (``make_prefill_step(param_shardings=)``, impl "auto"); the kernels'
     path at its shapes; at bf16 each MoE sublayer from the one-process
     path's input (in `tmp`), gated and with the control."""
-    import torch.distributed as dist
-    from repro_torch.distributed import sharding as SH
-    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import model as M
-    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
-    from repro_torch.models.model import init_params
     out = {}
     for dtype in ("float32", "bfloat16"):
         cfg = _tp_prefill_config(dtype)
-        for r in range(mesh.size):
-            if mesh.rank == r:
-                full = init_params(cfg, seed=0, device="cuda")
-                ps = SH.params_shardings(full, mesh, fsdp=False)
-                shards = SH.shard_tree(full, ps, copy=True)
-                del full
-                gc.collect()
-                torch.cuda.empty_cache()
-            dist.barrier()
+        shards, ps = _rank_shards(mesh, cfg)
         torch.cuda.reset_peak_memory_stats()
         step = M.make_prefill_step(cfg, param_shardings=ps)
         batch = _tp_prefill_batch(cfg)
@@ -5140,42 +5281,9 @@ def tp_prefill_rank(mesh, tmp: str) -> dict:
                "dropped": m["dropped"].tolist(),
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         if dtype == "bfloat16":
-            dims, _ = T._tensor_parallel(cfg, shards, mesh)
-            ldims = TP.unstack_dims(dims["layers"][0])
-            gate = []
-            for layer, (h, want) in enumerate(
-                    torch.load(os.path.join(tmp, "moe_io.pt"))):
-                p, ffn_mesh = T._gather_sublayer(
-                    T._period(shards["layers"][0], layer), ldims, mesh)
-                if ffn_mesh is None:
-                    raise AssertionError("the expert bank is not a "
-                                         "column/row pair on (1, 2)")
-                h, want = h.cuda(), want.cuda().float()
-
-                def moe():
-                    return MOE.dispatch_moe(
-                        p["moe"], h, top_k=cfg.moe.top_k,
-                        num_experts=e, capacity_factor=cfg.moe.
-                        capacity_factor, act=cfg.act,
-                        groups=T._moe_groups(h), impl=cfg.impl,
-                        model_mesh=ffn_mesh)[0].float()
-
-                tol = TOL[torch.bfloat16]
-                with torch.no_grad():
-                    got = moe()
-                    with SkipPartial():
-                        bad = moe()
-                limit = tol + tol * want.abs()
-                gate.append({
-                    "max_abs_err": float((got - want).abs().max()),
-                    "ok": bool(torch.allclose(got, want, atol=tol,
-                                              rtol=tol)),
-                    "finite": bool(torch.isfinite(got).all()),
-                    "control_max_abs_err": float((bad - want).abs().max()),
-                    "control_share": float(((bad - want).abs() > limit)
-                                           .float().mean())})
-                del p, h, want, got, bad
-            rec["sublayers"] = gate
+            rec["sublayers"] = moe_sublayer_gates(
+                mesh, cfg, shards,
+                [[io] for io in torch.load(os.path.join(tmp, "moe_io.pt"))])
         out[dtype] = rec
         del shards, step, logits, m
         gc.collect()
@@ -5455,7 +5563,6 @@ def tp_phase(card: str) -> dict:
     oracles in this process (which then holds nothing on the card); the
     (1, 2) ranks (training, then the prefill) and the (2, 2) ranks
     (training); gated as the module docstring says."""
-    from repro_torch.launch.mesh import spawn_local
     t13 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(14)
     shapes = tp_kernel_shapes(gen)
@@ -5468,20 +5575,14 @@ def tp_phase(card: str) -> dict:
             f"{shape}: {rec['resident_gb']:.2f} GB resident and "
             f"~{rec['step_gb']:.1f} GB at the update a rank by the "
             "reckoning")
-    torch._C._cuda_clearCublasWorkspaces()
-    held = torch.cuda.memory_allocated()
     res, fails = {"kernels": shapes}, []
-    with tempfile.TemporaryDirectory() as tmp:
+
+    def oracle(tmp, held):
         t0 = time.perf_counter()
         oracles = {d: z2_oracle(d, max(s for (dd, _), s in TP_TRAIN.items()
                                        if dd == d))
                    for d in sorted({dd for dd, _ in TP_TRAIN})}
         prefill = tp_prefill_oracle(tmp)
-        torch._C._cuda_clearCublasWorkspaces()
-        if torch.cuda.memory_allocated() != held:
-            raise AssertionError(f"the oracles left "
-                                 f"{torch.cuda.memory_allocated() - held} "
-                                 "bytes on the card before the ranks start")
         log(f"  the one-process oracles {time.perf_counter() - t0:.1f} s "
             f"(training at dispatch groups {sorted(oracles)}, peaks "
             f"{[round(o['peak_gb'], 2) for o in oracles.values()]} GB; the "
@@ -5489,26 +5590,1081 @@ def tp_phase(card: str) -> dict:
             f"({TP_BF16_LAYERS}), B {TP_PREFILL_B} x {TP_PREFILL_S}); this "
             f"process holds {held / 1e6:.1f} MB on the card while the "
             "ranks run")
-        ranks = {}
-        for shape in TP_TRAIN:
-            t1 = time.perf_counter()
-            got = spawn_local(tp_rank, shape[0] * shape[1], backend="gloo",
-                              args=(shape, tmp, shape == (1, 2)),
-                              wall_s=600.0)
-            for r in got:
-                for k in ("acc", "params1"):
-                    r["train"][k] = torch.load(r["train"][k],
-                                               map_location="cpu")
-            ranks[shape] = got
-            log(f"  {len(got)} ranks on {shape} over gloo on cuda:0 "
-                f"{time.perf_counter() - t1:.1f} s")
-            res[str(shape)] = tp_train_gates(shape, got, oracles[shape[0]],
-                                             card, fails)
-    res["prefill"] = tp_prefill_gates(ranks[(1, 2)], prefill, card, fails)
+        return oracles, prefill
+
+    def gate(shape, got, one):
+        for r in got:
+            for k in ("acc", "params1"):
+                r["train"][k] = torch.load(r["train"][k],
+                                           map_location="cpu")
+        res[str(shape)] = tp_train_gates(shape, got, one[0][shape[0]], card,
+                                         fails)
+        return got, one[1]
+
+    ranks = against_one_process(
+        oracle, tp_rank, [(shape, (shape == (1, 2),)) for shape in TP_TRAIN],
+        gate, 600.0)
+    res["prefill"] = tp_prefill_gates(*ranks[(1, 2)], card, fails)
     res["seconds"] = time.perf_counter() - t13
     log(f"  phase 13 took {res['seconds']:.1f} s")
     if fails:
         raise AssertionError("phase 13: " + "; ".join(fails))
+    return res
+
+
+# ------------------------------------------------------------ phase 14
+
+# phase 14: the sharded decode step, make_serve_step(param_shardings=,
+# cache_shardings=) over (data, model) process meshes, ranks on cuda:0
+# over gloo. (a) ``decode_attention`` with its softmax statistics at
+# mixtral-8x7b's sequence shard at model 2 (DEC_B rows, H 32, KV 8, hd
+# 128, S DEC_SLOTS / 2) against its plain version, and two such shards
+# merged against one whole call; ``fused_gate_up`` and ``gmm`` at the
+# decode step's F-shard shapes. (b) mixtral-8x7b at its published
+# widths: DEC_B prompts prefilled at a uniform DEC_PREFILL tokens into a
+# DEC_SLOTS-slot cache, then DEC_STEPS decode steps fed the one-process
+# oracle's greedy tokens (both sides see the same inputs), impl "auto":
+# on (1, 2) float32 at DEC_F32_LAYERS layers and bf16 at phase 4's
+# DEC_BF16_LAYERS; on (2, 2) bf16 at DEC_22_LAYERS under each cache
+# layout of DEC_LAYOUTS. Step DEC_CROSS writes the first token into the
+# second half of the slots (rank 1's under a sequence split), which
+# until then is wholly hidden.
+DEC_B, DEC_SLOTS, DEC_PREFILL, DEC_STEPS = 8, 4096, 2040, 16
+DEC_CROSS = DEC_SLOTS // 2 - DEC_PREFILL + 1
+DEC_F32_LAYERS, DEC_BF16_LAYERS, DEC_22_LAYERS = 2, 8, 2
+DEC_LAYOUTS = {"default": {}, "seq_over_dp": {"seq_over_dp": True},
+               "cache_heads_model": {"heads_model": True}}
+# Gates, fixed before the run. float32: every step's logits within
+# TOL[float32] of the one-process oracle; the assembled cache's first
+# layer's K/V within DEC_KV_TOL (they depend on the embedding alone,
+# through the same products in both: only a misplaced write moves them)
+# and every later layer's within DEC_KV_DEEP_TOL: they carry the earlier
+# layers' float32 sums taken in the ranks' order (the expert partials in
+# two halves; on the H100 layer 1's read 1.621e-05, PERF.md), which
+# ``ExpertHalves`` takes in one process as a witness. bf16, each
+# attention sublayer of every decode step, the rank's output against one
+# process's on the whole cache from the same input and cache:
+# elementwise at TOL[bf16] (phase 10's) and in norm, |got - want| /
+# |want| <= DEC_REL. At these widths with random weights a
+# decode row averages ~2000 near-uniform lanes, so outputs are ~0.03 and
+# phase 10's absolute 2e-2 cannot see a halved output; the norm can. The
+# control (``PlainMean``: the ranks' outputs averaged without their
+# statistics) must move the norm past DEC_CONTROL x DEC_REL on every
+# step before DEC_CROSS. Each MoE sublayer of every bf16 decode step from
+# the one-process path's input against its output (phase 13's
+# ``moe_sublayer_gates`` at the decode shapes), at the same TOL[bf16] and
+# DEC_REL; its control (``SkipPartial``) must leave more than
+# TP_CONTROL_SHARE of the elements out of tolerance and move the norm
+# past DEC_CONTROL x DEC_REL.
+DEC_KV_TOL, DEC_KV_DEEP_TOL, DEC_REL, DEC_CONTROL = 1e-5, 5e-5, 1e-2, 10.0
+# (a): the kernel's m and l, both dtypes, within DEC_STATS_TOL of the
+# plain version's from the q * scale the kernel takes (rounded to q's
+# dtype, as the TPU kernel rounds it); its float32 output elementwise
+# within TOL of the plain version's and, row by row, within DEC_REL in
+# norm of that version from the kernel's q * scale (the mma path rounds
+# the probabilities to bf16 before P.V)
+DEC_STATS_TOL = 1e-5
+# (a)'s rows: kv_len 0, 1, 17, 1000, 2047, 2048; a row hidden by
+# position; a partial row. The merge: rows across the halves' border.
+STATS_LENS = [0, 1, 17, 1000, 2047, 2048, 1500, 1200]
+STATS_QPOS = [0, 0, 16, 999, 2046, 2047, -1, 1199]
+MERGE_LENS = [1, 17, 2047, 2048, 2049, 3000, 4096, 100]
+
+
+def stats_kernel_check(gen) -> dict:
+    """Phase 14 (a): ``decode_attention(return_stats=True)`` at the (1,
+    2) sequence shard, bf16 ("mma") and float32 ("simt"), with and
+    without a window of 256, against its plain version: the float32
+    output at TOL, and each row's within DEC_REL in norm, m and l within
+    DEC_STATS_TOL of the plain version from the kernel's q * scale; m =
+    NEG_INF and l = S exactly on the rows with no visible lane; two
+    shards merged by ``merge_softmax`` against one whole S call at TOL.
+    Timed at bf16: the launch with and without statistics (eager and in
+    a CUDA graph, in turns), the plain version, SDPA, and the merge's
+    device time."""
+    from repro_torch.distributed import tensor_parallel as TP
+    b, h, kvh, hd, s = DEC_B, 32, 8, 128, DEC_SLOTS // 2
+    out_rec = {}
+    for dtype, want_path in ((torch.bfloat16, "mma"),
+                             (torch.float32, "simt")):
+        q, k, v, pos, kv_len, q_pos = _attn_inputs(
+            gen, b, h, kvh, hd, s, dtype, STATS_LENS, STATS_QPOS, False)
+        path, info = DA.kernel_path(q, k, v)
+        if path != want_path:
+            raise AssertionError(f"decode_attention at the shard took "
+                                 f"{path!r}, not {want_path!r}")
+        # the q the kernel takes: q * scale rounded to q's dtype (in
+        # float32 the product itself), scaled back for the plain version
+        scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32,
+                             device="cuda")
+        q_k = (q.float() * scale).to(dtype).float() * math.sqrt(hd)
+        errs, rows_rel, stats_err = {}, {}, {}
+        for window in (0, 256):
+            got = DA.decode_attention(q, k, v, pos, kv_len, q_pos,
+                                      window=window, return_stats=True)
+            want = DA.decode_attention_ref(q, k, v, pos, kv_len, q_pos,
+                                           window=window, return_stats=True)
+            same = DA.decode_attention_ref(q_k, k, v, pos, kv_len, q_pos,
+                                           window=window, return_stats=True)
+            torch.cuda.synchronize()
+            name = f"decode_attention stats [S {s}, {dtype}, window " \
+                f"{window}]"
+            if got[0].dtype != torch.float32:
+                raise AssertionError(f"{name}: output {got[0].dtype}")
+            errs[window] = check(name, got[0], want[0], dtype)
+            rows_rel[window] = float(((got[0] - same[0]).norm(dim=-1)
+                                      / same[0].norm(dim=-1)).max())
+            if not rows_rel[window] <= DEC_REL:
+                raise AssertionError(
+                    f"{name}: a row's output {rows_rel[window]:.3e} off in "
+                    f"norm, beyond {DEC_REL}")
+            stats_err[window] = 0.0
+            for label, g, w in (("m", got[1], same[1]),
+                                ("l", got[2], same[2])):
+                stats_err[window] = max(stats_err[window], float(
+                    ((g - w).abs() / (DEC_STATS_TOL
+                                      + DEC_STATS_TOL * w.abs())).max()))
+                if not torch.allclose(g, w, atol=DEC_STATS_TOL,
+                                      rtol=DEC_STATS_TOL):
+                    raise AssertionError(
+                        f"{name}: {label} {float((g - w).abs().max()):.3e} "
+                        f"off, beyond atol=rtol={DEC_STATS_TOL}")
+            hidden = want[1] == DA.NEG_INF
+            if not (torch.equal(got[1][hidden], want[1][hidden])
+                    and bool((got[2][hidden] == s).all())
+                    and bool(hidden[0].all()) and bool(hidden[6].all())):
+                raise AssertionError(f"{name}: rows with no visible lane "
+                                     "must give m = NEG_INF, l = S")
+            log(f"  {name}: {path}, cluster {info['nsplit']}, out "
+                f"max_abs_err={errs[window]:.3e}, each row within "
+                f"{rows_rel[window]:.2e} in norm (held to {DEC_REL}); m/l "
+                f"at {stats_err[window]:.3f} of atol=rtol={DEC_STATS_TOL}; "
+                f"{int(hidden[:, 0].sum())} rows with no visible lane exact")
+        q2, k2, v2, pos2, kl2, qp2 = _attn_inputs(
+            gen, b, h, kvh, hd, 2 * s, dtype, MERGE_LENS,
+            [x - 1 for x in MERGE_LENS], False)
+        whole = DA.decode_attention(q2, k2, v2, pos2, kl2, qp2)
+        halves = [DA.decode_attention(
+            q2, *(t[:, i * s:(i + 1) * s].contiguous()
+                  for t in (k2, v2, pos2)),
+            torch.clamp(kl2 - i * s, 0, s).to(torch.int32), qp2,
+            return_stats=True) for i in range(2)]
+        out, m, l = (torch.stack(t) for t in zip(*halves))
+
+        def merge():
+            return TP.merge_softmax(out, m, l, TP.StackedShards(2),
+                                    "model", dtype=dtype)
+
+        merged = merge()[0]
+        torch.cuda.synchronize()
+        merge_err = check(f"two S {s} shards merged vs one S {2 * s} call "
+                          f"[{dtype}]", merged, whole, dtype)
+        log(f"  two S {s} shards (kv_len {MERGE_LENS}) merged by "
+            f"merge_softmax against one S {2 * s} kernel call, {dtype}: "
+            f"max_abs_err={merge_err:.3e} (atol=rtol={TOL[dtype]})")
+        if dtype != torch.bfloat16:
+            continue
+        def run():
+            return DA.decode_attention(q, k, v, pos, kv_len, q_pos)
+
+        def run_stats():
+            return DA.decode_attention(q, k, v, pos, kv_len, q_pos,
+                                       return_stats=True)
+
+        def plain():
+            return DA.decode_attention_ref(q, k, v, pos, kv_len, q_pos,
+                                           return_stats=True)
+        g = h // kvh
+        kr = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+        vr = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+        vis = (torch.arange(s, device="cuda")[None] < kv_len[:, None]) \
+            & (pos <= q_pos[:, None])
+        amask = torch.where(vis, 0.0, DA.NEG_INF).to(dtype)[:, None, None, :]
+        q4 = q[:, :, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(q4, kr, vr, attn_mask=amask)
+        ms, ms_stats = _alternate(run, run_stats)
+        dev, dev_stats = _alternate(run, run_stats, graph_ms)
+        plain_ms, lib_ms = time_ms(plain), time_ms(library)
+        lib_dev = graph_ms(library)
+        merge_dev = graph_ms(merge)
+        # what the call must move: q, each visible lane's K and V and
+        # position, V over every lane of a row with none, the float32
+        # output and its (m, l)
+        n_vis = vis.sum(-1)
+        dead = int((n_vis == 0).sum())
+        isz = q.element_size()
+        nbytes = (b * h * hd + 2 * int(n_vis.sum()) * kvh * hd
+                  + dead * s * kvh * hd) * isz + 4 * int(n_vis.sum()) \
+            + 4 * (b * h * hd + 2 * b * h) + 4 * 3 * b
+        flops = 4.0 * int(n_vis.sum()) * h * hd
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        log(f"  decode_attention at the (1, 2) shard B={b} H={h} KV={kvh} "
+            f"hd={hd} S={s} bf16 ({path}, cluster {info['nsplit']}): "
+            f"ms={ms:.4f} with statistics {ms_stats:.4f}; device_ms="
+            f"{dev:.4f} with statistics {dev_stats:.4f} (in turns); "
+            f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.2f} MB); "
+            f"plain_ms={plain_ms:.4f}; library_ms={lib_ms:.4f} "
+            f"library_device_ms={lib_dev:.4f} (SDPA); the merge of two "
+            f"shards' partials {merge_dev:.4f} device ms")
+        out_rec = dict(shape=f"B{b} H{h} KV{kvh} hd{hd} S{s}, stats",
+                       path=path, cluster=info["nsplit"],
+                       max_abs_err=max(errs.values()),
+                       row_rel=max(rows_rel.values()),
+                       stats_share_of_tol=max(stats_err.values()),
+                       merge_max_abs_err=merge_err, ms=ms_stats,
+                       ms_without_stats=ms, device_ms=dev_stats,
+                       device_ms_without_stats=dev, bound_ms=b_ms,
+                       bound_by=b_by, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_device_ms=lib_dev, merge_device_ms=merge_dev)
+    return out_rec
+
+
+def _dec_expert_rows(cfg, b: int, shape, layout: str) -> int:
+    """C of the expert kernels in a sharded decode step of `b` rows: the
+    rank's rows (b / data where the layout splits them over data, else
+    all b at data dispatch groups, ``transformer._moe_groups``), its
+    groups times a group's capacity."""
+    dp = shape[0]
+    split = dp > 1 and layout != "seq_over_dp"
+    t, g = (b // dp, 1) if split else (b, dp)
+    return g * math.ceil(cfg.moe.capacity_factor * cfg.moe.top_k * (t // g)
+                         / cfg.moe.num_experts)
+
+
+def dec_kernel_shapes(gen, rows: list) -> dict:
+    """``fused_gate_up`` and ``gmm`` at the shapes the bf16 sharded
+    decode steps give them: F 7168 of 14336 and each C of `rows`, every
+    row live, and at the first C a ragged fill with an expert of none;
+    each against its plain version and timed beside its bound."""
+    cfg = _mixtral("bfloat16", 1)
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff // 2
+    out = {}
+    for name, fused in (("fused_gate_up", True), ("gmm", False)):
+        out[name] = {}
+        for c in rows:
+            fills = [("full", [c] * e)]
+            if c == rows[0]:
+                fills.append(("ragged", [i % (c + 1) for i in range(e)]))
+            for fill, gs in fills:
+                label = f"dec C{c} {fill}"
+                shape = (e, c, d, f) if fused else (e, c, f, d)
+                out[name][label] = dict(
+                    shape=list(shape), group_sizes=gs, **gmm_shape_timed(
+                        gen, name, fused, label, shape + (gs,)))
+    return out
+
+
+class PlainMean:
+    """The control of phase 14's bf16 gate: within the block, the ranks'
+    partial attention results are averaged without their softmax
+    statistics (a merge that skips the rescale)."""
+
+    def __enter__(self):
+        from repro_torch.distributed import tensor_parallel as TP
+        self._tp, self._fn = TP, TP.merge_softmax
+
+        def run(out, m, l, mesh, axes, dtype=None):
+            axes = (axes,) if isinstance(axes, str) else tuple(axes)
+            out, n = out.float(), 1
+            for a in axes:
+                out, n = mesh.all_reduce(out, a), n * mesh.group_size(a)
+            return (out / n).to(dtype or torch.float32)
+
+        TP.merge_softmax = run
+        return self
+
+    def __exit__(self, *exc):
+        self._tp.merge_softmax = self._fn
+
+
+class ExpertHalves:
+    """A witness, not a gate: within the block one process runs the
+    expert FFN as the two F-halves of its bank, their down products
+    summed in float32 and rounded once: the sum the (1, 2) ranks take
+    (``moe.experts_ffn(mesh=)``), in their order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self._moe, self._ffn = MOE, MOE.experts_ffn
+        ffn = self._ffn
+
+        def experts(p, x, act, *, group_sizes=None, impl="ref", mesh=None):
+            if mesh is not None or "w_up_scale" in p:
+                return ffn(p, x, act, group_sizes=group_sizes, impl=impl,
+                           mesh=mesh)
+            f = p["w_down"].shape[1] // 2
+            parts = [ffn({"w_gate": p["w_gate"][..., i * f:(i + 1) * f]
+                          .contiguous(),
+                          "w_up": p["w_up"][..., i * f:(i + 1) * f]
+                          .contiguous(),
+                          "w_down": p["w_down"][:, i * f:(i + 1) * f]
+                          .contiguous()},
+                         x, act, group_sizes=group_sizes, impl=impl)
+                     for i in range(2)]
+            return (parts[0].float() + parts[1].float()).to(x.dtype)
+
+        MOE.experts_ffn = experts
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.experts_ffn = self._ffn
+
+
+class MoeCalls:
+    """Within the block, each ``moe.dispatch_moe`` call's parameters,
+    input, output and keywords are kept on the card (the input and output
+    are fresh tensors no later op writes: no copy). ``save`` writes, for
+    each layer, its calls' input and output on the host and, where `dp`
+    > 1, the output of each of the dp row blocks run alone at groups / dp:
+    what a rank holding those rows computes, at the same shapes and so
+    the same routing (``dec_moe_gates``)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self._moe, self._fn, self.calls = MOE, MOE.dispatch_moe, []
+        inner = self._fn
+
+        def spy(p, x, **kw):
+            y, m = inner(p, x, **kw)
+            self.calls.append((p, x.detach(), y.detach(), kw))
+            return y, m
+
+        MOE.dispatch_moe = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.dispatch_moe = self._fn
+
+    def save(self, path: str, layers: int, dp: int) -> None:
+        out = [[] for _ in range(layers)]
+        with torch.no_grad():
+            for i, (p, x, y, kw) in enumerate(self.calls):
+                n = x.shape[0] // dp
+                blocks = [] if dp == 1 else [
+                    self._fn(p, x[j * n:(j + 1) * n],
+                             **{**kw, "groups": kw["groups"] // dp})[0].cpu()
+                    for j in range(dp)]
+                out[i % layers].append({"x": x.cpu(), "y": y.cpu(),
+                                        "blocks": blocks})
+        torch.save(out, path)
+        self.calls = []
+
+
+def dec_prompts(cfg, b: int):
+    gen = torch.Generator().manual_seed(14)
+    return torch.randint(0, cfg.vocab_size, (b, DEC_PREFILL), generator=gen,
+                         dtype=torch.int32)
+
+
+def _dec_record(logits, m) -> dict:
+    """A step's last-position logits (float32, on the host), expert
+    loads and drops."""
+    return {"logits": logits[:, -1].float().cpu(),
+            "expert_load": m["expert_load"].tolist(),
+            "dropped": m["dropped"].tolist()}
+
+
+def dec_oracle(dtype: str, layers: int, groups: int, b: int, tmp: str, *,
+               impl: str = "auto", teacher=None, order=None,
+               keep_cache: bool = False) -> dict:
+    """The same steps in one process (``transformer.decode_step``, what
+    the one-process serve step runs) at dispatch groups `groups`, on the
+    kernels or at `impl`: each step's record and the decode walls; with
+    `keep_cache` the final cache on the host. A witness is fed
+    `teacher`'s tokens and may run within `order` (``ExpertHalves``);
+    else the oracle feeds its own greedy tokens and writes them to `tmp`
+    for the ranks, and at bf16 its MoE sublayers' decode calls
+    (``MoeCalls``). Frees the card."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    cfg = _mixtral(dtype, layers).with_(impl=impl)
+    params = init_params(cfg, seed=0, device="cuda")
+    cache = T.init_cache(cfg, params, b, DEC_SLOTS)
+    calls = MoeCalls() if teacher is None and dtype == "bfloat16" else None
+    T.set_moe_dispatch_groups(groups)
+    recs, walls, tokens = [], [], []
+    try:
+        with torch.no_grad(), order or contextlib.nullcontext():
+            lg, cache, m = T.decode_step(
+                cfg, params, {"tokens": dec_prompts(cfg, b).cuda()}, cache,
+                0)
+            recs.append(_dec_record(lg, m))
+            tokens.append(lg[:, -1].float().argmax(-1).to(torch.int32))
+            del lg
+            cl = torch.full((b,), DEC_PREFILL, dtype=torch.int32,
+                            device="cuda")
+            with calls or contextlib.nullcontext():
+                for i in range(DEC_STEPS):
+                    fed = tokens[-1] if teacher is None else \
+                        teacher[:, i].cuda()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, cache, m = T.decode_step(
+                        cfg, params, {"tokens": fed[:, None]}, cache, cl + i)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    recs.append(_dec_record(lg, m))
+                    tokens.append(lg[:, -1].float().argmax(-1)
+                                  .to(torch.int32))
+            if calls is not None:
+                calls.save(os.path.join(tmp, f"moe-{layers}-{groups}.pt"),
+                           layers, groups)
+    finally:
+        T.set_moe_dispatch_groups(1)
+    out = {"steps": recs, "walls": walls}
+    if teacher is None:
+        out["teacher"] = torch.stack(tokens[:DEC_STEPS], 1).cpu()
+        torch.save(out["teacher"], os.path.join(
+            tmp, f"teacher-{dtype}-{layers}-{groups}.pt"))
+    if keep_cache:
+        out["cache"] = [{k: t.cpu() for k, t in c["attn"].items()}
+                        for c in cache]
+    del params, cache, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dec_drift(got: dict, want: dict) -> dict:
+    """How far one run's steps lie from another's: the logits' max
+    |diff|, the greedy tokens that agree (of rows x steps), whether
+    every step's loads and drops are equal."""
+    pairs = list(zip(got["steps"], want["steps"]))
+    return {"logits": max(float((a["logits"] - w["logits"]).abs().max())
+                          for a, w in pairs),
+            "agree": sum(int((a["logits"].argmax(-1)
+                              == w["logits"].argmax(-1)).sum())
+                         for a, w in pairs),
+            "of": sum(a["logits"].shape[0] for a, _ in pairs),
+            "loads": all(a["expert_load"] == w["expert_load"]
+                         and a["dropped"] == w["dropped"] for a, w in pairs)}
+
+
+def _kv_drift(got: list, want: list) -> dict:
+    """{(layer, "k" or "v"): max |diff|} of two attention caches."""
+    return {(i, k): float((g - w).abs().max())
+            for gl, wl in zip(got, want) for k in ("k", "v")
+            for i, (g, w) in enumerate(zip(gl[k], wl[k]))}
+
+
+def dec_reckoning(cfg, shape, layout: dict, b: int) -> dict:
+    """Bytes of a rank of the sharded decode at its peak, by this
+    script's reckoning: its parameter and cache shards (the dry-run's),
+    plus the prefill's largest transients: its plain attention over the
+    rank's rows and slots (float32 q, and k and v widened to H heads;
+    three (rows, H, DEC_PREFILL, 1024) float32 score-sized temporaries),
+    the dispatch of its tokens (the (g, t, k, E, C) one-hots and the
+    float32 (E, g C, D) partial, twice) and its logits (the rank's
+    vocabulary columns, gathered, and over data)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    dp, mp = shape
+    mesh = _logical(shape)
+    variant = {"fsdp_params": False,
+               "seq_over_dp": layout.get("seq_over_dp", False),
+               "cache_heads_model": layout.get("heads_model", False)}
+    _, args, shardings = D.build_step(
+        cfg, InputShape("decode", DEC_SLOTS, b, "decode"), variant,
+        mesh=mesh)
+    dps, _, dcs, _ = shardings(mesh)
+    params_b, cache_b = SH.shard_nbytes(args[0], dps), \
+        SH.shard_nbytes(args[2], dcs)
+    seq_dp = layout.get("seq_over_dp") and dp > 1
+    rows = b if seq_dp else b // dp
+    slots = DEC_SLOTS if layout.get("heads_model") else DEC_SLOTS // (
+        dp if seq_dp else mp)
+    h, hd, d = cfg.num_heads, cfg.resolved_head_dim, cfg.d_model
+    isz = 4 if cfg.dtype == "float32" else 2
+    attn = 4 * (rows * DEC_PREFILL * h * hd + 2 * rows * slots * h * hd) \
+        + 3 * 4 * rows * h * DEC_PREFILL * 1024
+    t = rows * DEC_PREFILL
+    g = max(1, t // 2048)
+    while t % g:
+        g -= 1
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    cap = math.ceil(cfg.moe.capacity_factor * k * (t // g) / e)
+    moe = 2 * t * k * e * cap * isz + e * g * cap * d * (isz + 8)
+    v = cfg.vocab_size
+    logits = rows * DEC_PREFILL * v * isz * (1 / mp + 1) \
+        + (b * DEC_PREFILL * v * isz if rows < b else 0)
+    att_w = 2 * d * (h + 2 * cfg.num_kv_heads) * hd * isz
+    return {"params": params_b, "cache": cache_b,
+            "peak_gb": (params_b + cache_b + att_w + max(attn, moe)
+                        + logits) / 1e9}
+
+
+def _dec_whole(c, shard):
+    """One period's attention cache slice of this rank gathered whole
+    but for its rows (every split of ``shard`` undone)."""
+    from repro_torch.distributed import tensor_parallel as TP
+    out = {}
+    for name, dims in (("k", shard.gather_kv), ("v", shard.gather_kv),
+                       ("pos", shard.gather_pos)):
+        t = c[name]
+        for dim, axes, _, _ in dims:
+            t = TP.gather_over(t, shard.mesh, dim, axes)
+        if shard.seq:
+            t = TP.gather_over(t, shard.mesh, 1, shard.seq)
+        out[name] = t.contiguous()
+    return out
+
+
+def dec_gated_pass(mesh, cfg, params, cache, cs, step, teacher,
+                   cl) -> list:
+    """Phase 14's bf16 gate on this rank: the decode steps again from the
+    post-prefill `cache`, each attention sublayer of every step run three
+    times from the same input: the rank's sharded call (whose cache goes
+    on), one process's on the whole cache (gathered once, then written
+    by these calls, so it stays the assembled cache) and the
+    ``PlainMean`` control on a copy of the rank's cache (where the
+    layout merges). Returns (step, layer, rel, ok, control rel, control
+    share) records; nothing here is counted or timed."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    shards, _ = T._cache_shards(cache, cs, mesh)
+    n = cfg.num_layers
+    wholes = [_dec_whole(T._period(cache[0], i)["attn"], shards[0])
+              for i in range(n)]
+    inner, calls, gates = L.attention_block, [0], []
+    tol = TOL[torch.bfloat16]
+
+    def spy(p, cfg_, h, positions, **kw):
+        layer, at = calls[0] % n, calls[0] // n + 1
+        calls[0] += 1
+        ctrl = {k: t.clone() for k, t in kw["cache"].items()}
+        got, c = inner(p, cfg_, h, positions, **kw)
+        want, _ = inner(p, cfg_, h, positions,
+                        **{**kw, "cache": wholes[layer], "shard": None})
+        g, w = got.float(), want.float()
+        rec = {"step": at, "layer": layer,
+               "rel": float((g - w).norm() / w.norm()),
+               "ok": bool(((g - w).abs() <= tol + tol * w.abs()).all()
+                          and torch.isfinite(g).all())}
+        if kw["shard"].seq:
+            with PlainMean():
+                bad, _ = inner(p, cfg_, h, positions,
+                               **{**kw, "cache": ctrl})
+            bd = bad.float()
+            rec["control_rel"] = float((bd - w).norm() / w.norm())
+            rec["control_share"] = float(
+                ((bd - w).abs() > tol + tol * w.abs()).float().mean())
+        gates.append(rec)
+        return got, c
+
+    L.attention_block = spy
+    try:
+        for i in range(DEC_STEPS):
+            _, cache = step(params, {"tokens": teacher[:, i:i + 1]}, cache,
+                            cl + i)
+    finally:
+        L.attention_block = inner
+    return gates
+
+
+def dec_moe_gates(mesh, cfg, params, cache, cs, tmp: str) -> list:
+    """Phase 14's bf16 MoE gate on this rank: each MoE sublayer of every
+    decode step run from the one-process oracle's input (``MoeCalls``:
+    the rank's rows of it, where the cache's rows split over data) at the
+    step's dispatch groups and data mesh, against that oracle's output
+    for the same rows (``moe_sublayer_gates``, with its control). Nothing
+    here is counted or timed."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    _, moe_mesh = T._cache_shards(cache, cs, mesh)
+    rows = SH.shard_ranges(SH.leaf_at(cs, (0, "attn", "k")),
+                           cache[0]["attn"]["k"].shape)[1]
+    dp = mesh.shape["data"]
+    io = torch.load(os.path.join(tmp, f"moe-{cfg.num_layers}-{dp}.pt"))
+    if rows is None:
+        ios = [[(c["x"], c["y"]) for c in calls] for calls in io]
+    else:
+        lo, hi = rows[1], rows[2]
+        ios = [[(c["x"][lo:hi], c["blocks"][lo // (hi - lo)])
+                for c in calls] for calls in io]
+    T.set_moe_dispatch_groups(dp)
+    try:
+        return moe_sublayer_gates(mesh, cfg, params, ios, moe_mesh)
+    finally:
+        T.set_moe_dispatch_groups(1)
+
+
+class KernelShapes:
+    """Within the block, each launch of ``decode_attention``, ``fused_
+    gate_up`` and ``gmm`` is recorded with its operands' shapes and
+    dtype (and whether it returns statistics); the launches themselves
+    are the wrappers' own."""
+
+    def __enter__(self):
+        self.seen = {}
+        self._fns = {(DA, "decode_attention"): DA.decode_attention,
+                     (MG, "fused_gate_up"): MG.fused_gate_up,
+                     (MG, "gmm"): MG.gmm}
+
+        def wrap(name, fn):
+            def run(x, w, *args, **kw):
+                key = (name, tuple(x.shape), tuple(w.shape), str(x.dtype),
+                       bool(kw.get("return_stats")))
+                self.seen[key] = self.seen.get(key, 0) + 1
+                return fn(x, w, *args, **kw)
+            return run
+
+        for (mod, name), fn in self._fns.items():
+            setattr(mod, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self._fns.items():
+            setattr(mod, name, fn)
+
+
+def dec_run(mesh, cfg, params, ps, layout: dict, b: int, tmp: str,
+            tag: str) -> dict:
+    """One sharded decode run on this rank: the cache laid out by
+    `layout`, the prefill and DEC_STEPS counted, timed decode steps
+    through ``make_serve_step``, the resident bytes against the
+    dry-run's, and (bf16) the gated passes; float32 keeps its final cache
+    shards in `tmp`."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    whole = T.init_cache(cfg, params, b, DEC_SLOTS)
+    cs = SH.cache_shardings(whole, mesh, **layout)
+    held = SH.shard_tree(whole, cs, copy=True)
+    del whole
+    torch.cuda.empty_cache()
+    variant = {"fsdp_params": False,
+               "seq_over_dp": layout.get("seq_over_dp", False),
+               "cache_heads_model": layout.get("heads_model", False)}
+    _, args, shardings = D.build_step(
+        cfg, InputShape("decode", DEC_SLOTS, b, "decode"), variant,
+        mesh=mesh)
+    dps, _, dcs, _ = shardings(mesh)
+    rec = {"resident": {"params": _nbytes(params), "cache": _nbytes(held)},
+           "reckoned": {"params": SH.shard_nbytes(args[0], dps),
+                        "cache": SH.shard_nbytes(args[2], dcs)},
+           "specs": [{k: tuple(s.spec) for k, s in c["attn"].items()}
+                     for c in cs]}
+    step = M.make_serve_step(cfg, param_shardings=ps, cache_shardings=cs)
+    teacher = torch.load(os.path.join(
+        tmp, f"teacher-{cfg.dtype}-{cfg.num_layers}-"
+        f"{mesh.shape['data']}.pt")).cuda()
+    cl = torch.full((b,), DEC_PREFILL, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        mesh.host_ms.clear()
+        mesh.nbytes.clear()
+        t0 = time.perf_counter()
+        lg, held = step(params, {"tokens": dec_prompts(cfg, b)}, held, 0)
+        torch.cuda.synchronize()
+        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["prefill_collective_ms"] = dict(mesh.host_ms)
+        steps = [_dec_record(lg, step.metrics)]
+        del lg
+        snap = clone_tree(held) if cfg.dtype == "bfloat16" else None
+        K.reset_launch_counts()
+        mesh.host_ms.clear()
+        mesh.nbytes.clear()
+        walls = []
+        with KernelShapes() as shapes:
+            for i in range(DEC_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, held = step(params, {"tokens": teacher[:, i:i + 1]},
+                                held, cl + i)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                steps.append(_dec_record(lg, step.metrics))
+        rec.update(steps=steps, walls=walls,
+                   launches=dict(K.launch_counts()),
+                   shapes=dict(shapes.seen),
+                   collective_ms=dict(mesh.host_ms),
+                   collective_bytes=dict(mesh.nbytes),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if snap is not None:
+            rec["gates"] = dec_gated_pass(mesh, cfg, params, snap, cs, step,
+                                          teacher, cl)
+            del snap
+            rec["moe_gates"] = dec_moe_gates(mesh, cfg, params, held, cs,
+                                             tmp)
+    if cfg.dtype == "float32":
+        rec["cache_file"] = os.path.join(tmp, f"{tag}-cache{mesh.rank}.pt")
+        torch.save([{k: t.cpu() for k, t in c["attn"].items()}
+                    for c in held], rec["cache_file"])
+    del held, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dec_rank(rank: int, shape: tuple, tmp: str, jobs: list) -> dict:
+    """One rank of phase 14 on a (data, model) = `shape` mesh: for each
+    job (dtype, layers, {name: layout}, batch), this rank's parameter
+    shards (``_rank_shards``), then ``dec_run`` under each layout in
+    turn. Everything returned lives on the host."""
+    from repro_torch.launch.mesh import make_process_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_process_mesh(*shape, device="cuda:0")
+    out = {"rank": rank, "coords": mesh.coords, "runs": {}}
+    for dtype, layers, layouts, b in jobs:
+        cfg = _mixtral(dtype, layers)
+        params, ps = _rank_shards(mesh, cfg)
+        for name, layout in layouts.items():
+            out["runs"][dtype, name] = dec_run(
+                mesh, cfg, params, ps, layout, b, tmp,
+                f"{shape[0]}x{shape[1]}-{dtype}-{name}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _dec_launch_gate(name, cfg, run, shard_s, rows, fails: list) -> str:
+    """The kernels of one run's decode steps: each launched once a layer
+    a step, decode attention at `shard_s` slots (with statistics where
+    the slots are a shard), the expert kernels at F/model and C `rows`
+    (``dec_kernel_shapes`` holds them there), on their paths; a failed
+    gate's message goes to `fails`."""
+    want = DEC_STEPS * cfg.num_layers
+    bf16 = cfg.dtype == "bfloat16"
+    for k_name in ("decode_attention", "fused_gate_up", "gmm"):
+        if run["launches"][k_name] != want:
+            fails.append(f"{name}: {k_name} launched "
+                         f"{run['launches'][k_name]} times, not once a "
+                         f"layer a step ({want})")
+    f = cfg.moe.d_ff // 2
+    paths = []
+    for (k_name, xs, ws, dt, stats), n in run["shapes"].items():
+        dtype = getattr(torch, dt.split(".")[-1])
+        x = torch.empty(xs, dtype=dtype, device="cuda")
+        w = torch.empty(ws, dtype=dtype, device="cuda")
+        if k_name == "decode_attention":
+            path = DA.kernel_path(x, w, w)[0]
+            ok = ws[1] == shard_s and stats == (shard_s < DEC_SLOTS) \
+                and path == ("mma" if bf16 else "simt")
+        else:
+            path = MG.kernel_path(x, w, k_name == "fused_gate_up")[0]
+            ok = f in (ws[1], ws[2]) and xs[1] == rows and \
+                path == ("wgmma" if bf16 else "simt")
+        if not ok:
+            fails.append(f"{name}: {k_name} at {xs} x {ws} "
+                         f"(statistics {stats}) took {path}")
+        paths.append(f"{n} {k_name} {xs}x{ws} {path}"
+                     + (" stats" if stats else ""))
+        del x, w
+    return "; ".join(paths)
+
+
+def _dec_bf16_gate(name, run, merges: bool, fails: list) -> str:
+    """Phase 14's bf16 gate on one run's gated pass (``dec_gated_pass``);
+    a failed gate's message goes to `fails`."""
+    g = run["gates"]
+    if len(g) != DEC_STEPS * len({r["layer"] for r in g}):
+        fails.append(f"{name}: {len(g)} gated sublayers")
+    for r in g:
+        if not (r["ok"] and r["rel"] <= DEC_REL):
+            fails.append(f"{name} step {r['step']} layer {r['layer']}: rel "
+                         f"{r['rel']:.3e} (held to {DEC_REL}), elementwise "
+                         f"within {TOL[torch.bfloat16]}: {r['ok']}")
+        if merges and r["step"] < DEC_CROSS and \
+                r["control_rel"] <= DEC_CONTROL * DEC_REL:
+            fails.append(f"{name} step {r['step']} layer {r['layer']}: the "
+                         f"control moved only {r['control_rel']:.3e}")
+    text = (f"attention sublayers against one process on the whole cache: "
+            f"rel {min(r['rel'] for r in g):.2e}-"
+            f"{max(r['rel'] for r in g):.2e} (held to {DEC_REL}), all "
+            f"within atol=rtol={TOL[torch.bfloat16]}: "
+            f"{all(r['ok'] for r in g)}")
+    if merges:
+        early = [r for r in g if r["step"] < DEC_CROSS]
+        late = [r for r in g if r["step"] >= DEC_CROSS]
+        text += (f"; the control (plain mean) before step {DEC_CROSS}: "
+                 f"rel {min(r['control_rel'] for r in early):.3f}-"
+                 f"{max(r['control_rel'] for r in early):.3f}, "
+                 f"{min(r['control_share'] for r in early):.3f}-"
+                 f"{max(r['control_share'] for r in early):.3f} of the "
+                 f"elements out of tolerance; from step {DEC_CROSS}: rel "
+                 f"{min(r['control_rel'] for r in late):.3f}-"
+                 f"{max(r['control_rel'] for r in late):.3f}")
+    else:
+        text += "; no sequence split, no merge: the control does not apply"
+    return text
+
+
+def _dec_report(name, cfg, run, one, rec, card) -> str:
+    coll = {k: round(v / DEC_STEPS, 2) for k, v in
+            run["collective_ms"].items()}
+    gathered = {k: round(v / DEC_STEPS / 1e6, 2) for k, v in
+                run["collective_bytes"].items() if "all_gather" in k}
+    return (f"  {name}: decode step wall median "
+            f"{float(np.median(run['walls'])):.1f} ms (one process "
+            f"{float(np.median(one['walls'])):.1f}); prefill "
+            f"{run['prefill_ms']:.0f} ms; host ms a step by collective "
+            f"{coll}; MB gathered a step {gathered}; resident "
+            f"{run['resident']} bytes "
+            f"{'==' if run['resident'] == run['reckoned'] else '!='} the "
+            f"dry-run's; peak "
+            f"{run['peak_gb']:.2f} GB (reckoned {rec['peak_gb']:.2f}); on "
+            f"{card}")
+
+
+def _dec_moe_gate(name, cfg, run, fails: list) -> str:
+    """Phase 14's bf16 MoE gate on one run's records (``dec_moe_gates``);
+    a failed gate's message goes to `fails`."""
+    g = run["moe_gates"]
+    if len(g) != DEC_STEPS * cfg.num_layers:
+        fails.append(f"{name}: {len(g)} gated MoE sublayers")
+    tol = TOL[torch.bfloat16]
+    for r in g:
+        if not (r["ok"] and r["finite"] and r["rel"] <= DEC_REL):
+            fails.append(f"{name} MoE layer {r['layer']}: rel "
+                         f"{r['rel']:.3e} (held to {DEC_REL}), max |err| "
+                         f"{r['max_abs_err']:.3e}, elementwise within "
+                         f"{tol}: {r['ok']}")
+        if r["control_share"] <= TP_CONTROL_SHARE or \
+                r["control_rel"] <= DEC_CONTROL * DEC_REL:
+            fails.append(f"{name} MoE layer {r['layer']}: the control left "
+                         f"{r['control_share']:.3f} of the elements out of "
+                         f"tolerance, rel {r['control_rel']:.3e}")
+    return (f"MoE sublayers from the one-process input: rel "
+            f"{min(r['rel'] for r in g):.2e}-{max(r['rel'] for r in g):.2e}"
+            f" (held to {DEC_REL}), max |err| "
+            f"{max(r['max_abs_err'] for r in g):.3e}, all within "
+            f"atol=rtol={tol}: {all(r['ok'] for r in g)}; the control "
+            f"(rank 1's partial skipped): "
+            f"{min(r['control_share'] for r in g):.3f}-"
+            f"{max(r['control_share'] for r in g):.3f} of the elements out "
+            f"of tolerance (held above {TP_CONTROL_SHARE}), rel "
+            f"{min(r['control_rel'] for r in g):.3f}-"
+            f"{max(r['control_rel'] for r in g):.3f} (held above "
+            f"{DEC_CONTROL * DEC_REL:.1f})")
+
+
+def _dec_kv_gate(shape, ranks, key, one, fails: list) -> dict:
+    """The float32 cache assembled from the ranks' shards after the last
+    step against the oracle's (positions exact, K/V at DEC_KV_TOL in the
+    first layer and DEC_KV_DEEP_TOL after), beside the ``ExpertHalves``
+    witness's drift from the oracle and the ranks' from the witness; a
+    failed gate's message goes to `fails`."""
+    from repro_torch.distributed import sharding as SH
+    mesh = _logical(shape)
+    parts = [torch.load(r["runs"][key]["cache_file"]) for r in ranks]
+    specs = ranks[0]["runs"][key]["specs"]
+    got = []
+    for j in range(len(one["cache"])):
+        got.append({k: SH.assemble([p[j][k] for p in parts], SH.NamedSharding(
+            mesh, SH.P(*specs[j][k]))) for k in ("k", "v", "pos")})
+        if not torch.equal(got[j]["pos"], one["cache"][j]["pos"]):
+            fails.append(f"{shape} float32: the assembled cache's "
+                         "positions differ")
+    errs = _kv_drift(got, one["cache"])
+    for g, w in zip(got, one["cache"]):
+        for k in ("k", "v"):
+            # one period a layer: index 0 is the first layer
+            for i, (a, b) in enumerate(zip(g[k], w[k])):
+                tol = DEC_KV_TOL if i == 0 else DEC_KV_DEEP_TOL
+                if not torch.allclose(a, b, atol=tol, rtol=tol):
+                    fails.append(f"{shape} float32: the assembled cache's "
+                                 f"layer {i} {k} {errs[i, k]:.3e} off, "
+                                 f"beyond atol=rtol={tol}")
+    wit = _kv_drift(one["witness_cache"], one["cache"])
+    to_wit = _kv_drift(got, one["witness_cache"])
+
+    def fmt(d):
+        return {f"{i} {k}": f"{e:.3e}" for (i, k), e in d.items()}
+    log(f"  {shape} float32: the cache assembled from the ranks' shards "
+        f"after the last step: positions equal; K/V max |err| by layer "
+        f"{fmt(errs)} (layer 0 held to {DEC_KV_TOL}, the rest to "
+        f"{DEC_KV_DEEP_TOL}); the witness, one process with the expert "
+        f"partials summed in two halves (ExpertHalves), against the "
+        f"oracle {fmt(wit)}; the ranks' cache against the witness "
+        f"{fmt(to_wit)}")
+    return {"kv_err": fmt(errs), "witness": fmt(wit),
+            "ranks_to_witness": fmt(to_wit)}
+
+
+def dec_gates(shape, ranks, oracle, b, card, fails: list) -> dict:
+    """Phase 14 (b)'s gates on one mesh's ranks (module docstring); a
+    failed gate's message goes to `fails`. Returns the record."""
+    out = {}
+    for key in ranks[0]["runs"]:
+        dtype, layout = key
+        cfg = _mixtral(dtype, DEC_F32_LAYERS if dtype == "float32"
+                       else DEC_BF16_LAYERS if shape == (1, 2)
+                       else DEC_22_LAYERS)
+        one = oracle[dtype]
+        rec = dec_reckoning(cfg, shape, DEC_LAYOUTS[layout], b)
+        # a sequence split merges; cache_heads_model splits none
+        merges = layout != "cache_heads_model"
+        for r in ranks:
+            run = r["runs"][key]
+            name = f"{shape} {dtype} {layout} rank {r['rank']}"
+            if merges != any(c.endswith("/softmax")
+                             for c in run["collective_ms"]):
+                fails.append(f"{name}: the merge ran {not merges}, where "
+                             f"the layout asks {merges}")
+            if run["resident"] != run["reckoned"]:
+                fails.append(f"{name}: resident {run['resident']} != the "
+                             f"dry-run's {run['reckoned']}")
+            shard_s = DEC_SLOTS // shape[1] if layout == "default" else \
+                DEC_SLOTS // shape[0] if shape[0] > 1 and \
+                layout == "seq_over_dp" else DEC_SLOTS
+            paths = _dec_launch_gate(name, cfg, run, shard_s,
+                                     _dec_expert_rows(cfg, b, shape, layout),
+                                     fails)
+            drift = _dec_drift(run, one)
+            for i, (got, want) in enumerate(zip(run["steps"],
+                                                one["steps"])):
+                if dtype == "float32" and not torch.allclose(
+                        got["logits"], want["logits"],
+                        atol=TOL[torch.float32], rtol=TOL[torch.float32]):
+                    err = float((got["logits"] - want["logits"]).abs()
+                                .max())
+                    fails.append(f"{name} step {i}: logits {err:.3e} off")
+            same_tok = drift["agree"] == drift["of"]
+            if dtype == "float32" and not (same_tok and drift["loads"]):
+                fails.append(f"{name}: greedy tokens equal {same_tok}, "
+                             f"loads and drops equal {drift['loads']}")
+            text = (f"  {name}: prefill + {DEC_STEPS} steps, logits max "
+                    f"|ranks - one process| {drift['logits']:.3e} "
+                    + (f"(held to {TOL[torch.float32]})"
+                       if dtype == "float32" else
+                       f"(reported; one process at impl ref: "
+                       f"{one['witness']['logits']:.3e})")
+                    + f"; greedy tokens {'equal' if same_tok else 'DIFFER'}"
+                    f" ({drift['agree']} of {drift['of']} rows and steps "
+                    f"agree); loads and drops "
+                    f"{'equal' if drift['loads'] else 'DIFFER'}; launches "
+                    f"{ {k: run['launches'][k] for k in ('decode_attention', 'fused_gate_up', 'gmm')} }"
+                    f" ({paths})")
+            if dtype == "bfloat16":
+                text += "; " + _dec_bf16_gate(name, run, merges, fails) \
+                    + "; " + _dec_moe_gate(name, cfg, run, fails)
+            log(text)
+            log(_dec_report(name, cfg, run, one, rec, card))
+        out[f"{dtype} {layout}"] = {
+            "walls_ms": [float(np.median(r["runs"][key]["walls"]))
+                         for r in ranks],
+            "one_process_ms": float(np.median(one["walls"])),
+            "logits_drift": drift["logits"],
+            "launches": [{k: r["runs"][key]["launches"][k]
+                          for k in ("decode_attention", "fused_gate_up",
+                                    "gmm")} for r in ranks],
+            "peak_gb": [r["runs"][key]["peak_gb"] for r in ranks],
+            "reckoned_peak_gb": rec["peak_gb"]}
+        if dtype == "float32":
+            out[f"{dtype} {layout}"]["cache"] = _dec_kv_gate(
+                shape, ranks, key, one, fails)
+        else:
+            out[f"{dtype} {layout}"]["moe_rel"] = max(
+                g["rel"] for r in ranks for g in r["runs"][key]["moe_gates"])
+    return out
+
+
+def _dec_oracles(shape, b: int, tmp: str) -> dict:
+    """The one-process oracles of one mesh's runs, each dtype's, and
+    their witnesses: at float32 the same steps in ``ExpertHalves`` (its
+    cache kept), at bf16 at impl "ref" (``_dec_drift`` from the
+    oracle)."""
+    dp = shape[0]
+    out = {}
+    for dtype in (("float32", "bfloat16") if shape == (1, 2)
+                  else ("bfloat16",)):
+        layers = DEC_F32_LAYERS if dtype == "float32" else \
+            DEC_BF16_LAYERS if shape == (1, 2) else DEC_22_LAYERS
+        one = dec_oracle(dtype, layers, dp, b, tmp,
+                         keep_cache=dtype == "float32")
+        if dtype == "float32":
+            one["witness_cache"] = dec_oracle(
+                dtype, layers, dp, b, tmp, teacher=one["teacher"],
+                order=ExpertHalves(), keep_cache=True)["cache"]
+        else:
+            ref = dec_oracle(dtype, layers, dp, b, tmp, impl="ref",
+                             teacher=one["teacher"])
+            one["witness"] = _dec_drift(ref, one)
+            w = one["witness"]
+            log(f"  the witness on {shape}: one process at impl ref "
+                f"against one process on the kernels, bf16, {layers} "
+                f"layers, fed the same tokens: logits max |diff| "
+                f"{w['logits']:.3e}; greedy tokens agree in {w['agree']} of "
+                f"{w['of']} rows and steps; loads and drops "
+                f"{'equal' if w['loads'] else 'DIFFER'}")
+        out[dtype] = one
+    return out
+
+
+def dec_phase(card: str) -> dict:
+    """Phase 14: (a) the statistics kernel at the shard and the expert
+    kernels at the decode F-shard shapes; the one-process oracles and
+    their witnesses in this process, which then holds nothing on the
+    card; (b) the (1, 2) ranks (float32, then bf16 at 8 layers) and the
+    (2, 2) ranks (bf16 at 2 layers under each layout); gated as the
+    module docstring says."""
+    t14 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    res, fails = {"kernel": stats_kernel_check(gen)}, []
+    # cut the (2, 2) batch, never widths or depth, where four ranks at the
+    # reckoned peak would not fit beside this process
+    b22 = DEC_B
+    cfg22 = _mixtral("bfloat16", DEC_22_LAYERS)
+    while b22 > 2 and 4 * max(dec_reckoning(cfg22, (2, 2), lay, b22)
+                              ["peak_gb"] for lay in DEC_LAYOUTS.values()) \
+            > 0.85 * torch.cuda.get_device_properties(0).total_memory / 1e9:
+        b22 //= 2
+    rows = [_dec_expert_rows(cfg22, DEC_B, (1, 2), "default")] + sorted(
+        {_dec_expert_rows(cfg22, b22, (2, 2), lay) for lay in DEC_LAYOUTS})
+    res["expert_shapes"] = dec_kernel_shapes(gen, rows)
+    for shape, dtype, layers, b in (((1, 2), "float32", DEC_F32_LAYERS, DEC_B),
+                                    ((1, 2), "bfloat16", DEC_BF16_LAYERS,
+                                     DEC_B),
+                                    ((2, 2), "bfloat16", DEC_22_LAYERS, b22)):
+        rec = dec_reckoning(_mixtral(dtype, layers), shape, {}, b)
+        log(f"  mixtral-8x7b, {layers} of 32 layers, {dtype}, B {b}, a "
+            f"{DEC_SLOTS}-slot cache on (data, model) = {shape}: "
+            f"{rec['params'] / 1e9:.2f} GB of parameters and "
+            f"{rec['cache'] / 1e9:.3f} GB of cache a rank (the dry-run's), "
+            f"~{rec['peak_gb']:.1f} GB at the prefill by the reckoning"
+            + (f" (batch cut from {DEC_B})" if b != DEC_B else ""))
+    jobs = {(1, 2): [("float32", DEC_F32_LAYERS, {"default": {}}, DEC_B),
+                     ("bfloat16", DEC_BF16_LAYERS, {"default": {}}, DEC_B)],
+            (2, 2): [("bfloat16", DEC_22_LAYERS, DEC_LAYOUTS, b22)]}
+
+    def oracle(tmp, held):
+        t0 = time.perf_counter()
+        one = {shape: _dec_oracles(shape, job[0][3], tmp)
+               for shape, job in jobs.items()}
+        log(f"  the one-process oracles and their witnesses "
+            f"{time.perf_counter() - t0:.1f} s (decode step walls: float32 "
+            f"{DEC_F32_LAYERS} layers "
+            f"{float(np.median(one[(1, 2)]['float32']['walls'])):.1f} "
+            f"ms, bf16 {DEC_BF16_LAYERS} layers "
+            f"{float(np.median(one[(1, 2)]['bfloat16']['walls'])):.1f}"
+            f", bf16 {DEC_22_LAYERS} layers at dispatch groups 2 "
+            f"{float(np.median(one[(2, 2)]['bfloat16']['walls'])):.1f}"
+            f"); this process holds {held / 1e6:.1f} MB on the card while "
+            "the ranks run")
+        return one
+
+    def gate(shape, ranks, one):
+        return dec_gates(shape, ranks, one[shape], jobs[shape][0][3], card,
+                         fails)
+
+    got = against_one_process(oracle, dec_rank,
+                              [(shape, (job,)) for shape, job in jobs.items()],
+                              gate, 900.0)
+    res.update({str(shape): r for shape, r in got.items()})
+    res["seconds"] = time.perf_counter() - t14
+    log(f"  phase 14 took {res['seconds']:.1f} s")
+    if fails:
+        raise AssertionError("phase 14: " + "; ".join(fails))
     return res
 
 
@@ -5737,6 +6893,13 @@ def main() -> int:
         "on F-shards")
     tp = tp_phase(card)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[14] the sharded decode step: mixtral-8x7b decoding on (1, 2) and "
+        "(2, 2) process meshes with the KV cache sharded, decode attention "
+        "on each rank's sequence shard merged by its softmax statistics")
+    dec = dec_phase(card)
+
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \
         paged["launches"]["decode_attention_paged"]
@@ -5768,6 +6931,15 @@ def main() -> int:
         rec[k_name]["tp_shapes"] = tp["kernels"][k_name]
         rec[k_name]["tp_prefill_launches"] = [
             r[k_name] for r in tp["prefill"]["bfloat16"]["launches"]]
+    # phase 14: decode attention with statistics at the (1, 2) sequence
+    # shard, the expert kernels at the decode F-shard shapes, and the
+    # bf16 (1, 2) decode steps' launches on each rank
+    rec["decode_attention"]["tp_decode_shape"] = dec["kernel"]
+    for k_name in ("fused_gate_up", "gmm"):
+        rec[k_name]["tp_decode_shapes"] = dec["expert_shapes"][k_name]
+    for k_name in ("decode_attention", "fused_gate_up", "gmm"):
+        rec[k_name]["tp_decode_launches"] = [
+            r[k_name] for r in dec["(1, 2)"]["bfloat16 default"]["launches"]]
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

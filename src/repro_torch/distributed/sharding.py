@@ -319,6 +319,26 @@ def _block(mesh, e, coords) -> tuple[int, int]:
     return block, n
 
 
+def shard_ranges(sharding: NamedSharding, local_shape) -> list:
+    """Where this rank's shard of a leaf lies in the whole leaf, dim by
+    dim: None for a dim held whole, else (axes, lo, hi), the mesh axes
+    that split it (a tuple, row-major) and the [lo, hi) of the whole
+    dim that this rank holds. `local_shape` is the shard's shape, and
+    the mesh a ``launch.mesh.ProcessMesh`` (a rank)."""
+    mesh = sharding.mesh
+    coords = {a: mesh.index(a) for a in mesh.axis_names}
+    out = []
+    for e, size in zip(sharding.spec, local_shape):
+        if e is None:
+            out.append(None)
+            continue
+        block, _ = _block(mesh, e, coords)
+        out.append((e if isinstance(e, tuple) else (e,), block * size,
+                    (block + 1) * size))
+    out.extend([None] * (len(local_shape) - len(sharding.spec)))
+    return out
+
+
 def shard_tree(tree, shardings, *, copy: bool = False):
     """This rank's shard of every leaf of `tree` under `shardings` (the
     counterpart of ``jax.device_put`` with shardings): each sharded dim

@@ -33,10 +33,18 @@ float32: ``reduce_partial``) and in the vocabulary sums;
 computes the same whole gradient of a gathered weight from the same
 activations. The collectives are the mesh's, metered by
 name in its ``host_ms`` and ``nbytes``.
+
+The sharded decode step adds two forward-only pieces: ``gather_over``,
+a shard concatenated over any of the mesh's axes (a cache leaf gathered
+at use, the logits' rows and columns), and ``merge_softmax``, which
+merges the partial attention results of ranks that each hold a part of
+a row's cache slots by their softmax statistics.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import refuse_autograd
 
 
 def model_size(mesh) -> int:
@@ -100,6 +108,66 @@ def gather_from_model(x, mesh, dim: int):
     group-rank order; its gradient is this rank's slice of the whole
     gradient, with no sum."""
     return x if model_size(mesh) == 1 else _Gather.apply(x, mesh, dim)
+
+
+def gather_over(x, mesh, dim: int, axes, tag=None):
+    """The shards of `x` on `dim` over the mesh `axes` (a name or a
+    tuple, row-major as ``sharding.shard_tree`` cuts) concatenated in
+    block order; forward only. `tag` names the transfer in the mesh's
+    meters."""
+    for a in reversed((axes,) if isinstance(axes, str) else tuple(axes)):
+        if mesh.group_size(a) > 1:
+            x = mesh.all_gather(x, a, tag=tag).movedim(0, dim) \
+                .flatten(dim, dim + 1)
+    return x
+
+
+def merge_softmax(out, m, l, mesh, axes, dtype=None):
+    """Attention over a row's slots split over the mesh `axes` (a name
+    or a tuple), from each rank's partial result over its own slots:
+    `out` (.., hd) normalised by the rank's own `l`, `m` and `l` (..)
+    its softmax statistics (the max of the scaled scores, the sum of
+    exp(score - m)), all float32. M = max of m over the axes, w =
+    exp(m - M), L = sum of l w, and the result sum of out l w over L
+    (L clamped at 1e-30, as the one-process attention clamps l), cast
+    once to `dtype` (default float32). A rank with no visible slot has
+    m = NEG_INF and weighs nothing beside one that has. The identity on
+    a group of one; forward only (refuses inputs that require grad under
+    grad mode: decode needs no gradient)."""
+    refuse_autograd("merge_softmax", out, m, l)
+    out, m, l = out.float(), m.float(), l.float()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    dtype = torch.float32 if dtype is None else dtype
+    axes = tuple(a for a in axes if mesh.group_size(a) > 1)
+    if not axes:
+        return out.to(dtype)
+    top = m
+    for a in axes:
+        top = mesh.all_reduce(top, a, op="max", tag="softmax")
+    w = l * torch.exp(m - top)
+    # one sum over the axes for the weighted outputs and the weights
+    packed = torch.cat([out * w[..., None], w[..., None]], dim=-1)
+    for a in axes:
+        packed = mesh.all_reduce(packed, a, tag="softmax")
+    acc, total = packed[..., :-1], packed[..., -1:]
+    return (acc / torch.clamp(total, min=1e-30)).to(dtype)
+
+
+class StackedShards:
+    """A stand-in for a mesh where one process holds every rank's
+    partial result stacked on dim 0, as ``merge_softmax`` takes shards
+    computed side by side: a reduction over any axis reduces dim 0 and
+    hands every row the result, as the ranks' all-reduce would."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def group_size(self, axis) -> int:
+        return self.n
+
+    def all_reduce(self, x, group, op="sum", tag=None):
+        r = x.amax(0, keepdim=True) if op == "max" else x.sum(0, keepdim=True)
+        return r.expand_as(x).contiguous()
 
 
 # ------------------------------------------------------------ layouts

@@ -73,6 +73,15 @@
 //   dot products a lane, summed across lanes in 31 shuffles), runs the
 //   online softmax of that head with lane j on slot j, and every thread
 //   accumulates its (head, dim) outputs.
+// * Softmax statistics (the contiguous launch only, on request): a
+//   caller that splits a row's slots over ranks (a sequence-sharded
+//   cache) merges the ranks' partial results by their (m, l), which the
+//   cluster merge already holds per head. With m_out / l_out set, the
+//   CTA that owns a head's first output writes the merged m (the max of
+//   the scaled scores; NEG_INF for a row with no visible lane) and l
+//   (the sum of exp(score - m); S for such a row), and `out` is float32
+//   whatever the input type, so the cross-rank merge rounds once. Null
+//   pointers launch exactly the kernel without them.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
@@ -289,7 +298,9 @@ struct Params {
   const void* v;
   const int* kv_len;
   const int* q_pos;
-  void* out;
+  void* out;        // T, or float32 when m_out is set
+  float* m_out;     // (B, H) softmax statistics, or null
+  float* l_out;
   int H, KV, S, hd, G, window, nsplit, stages, vec;
   float scale;
   int o_ring, o_pos, o_q, o_sc, o_cc, o_cm, o_cl, o_rx, o_hs, o_rxv;
@@ -382,6 +393,23 @@ __device__ __forceinline__ void push_acc(const Params& p,
                                      (i - owner * per)] = a;
 }
 
+// Write output i of the group (float32 with statistics, else T) and,
+// from the owner of a head's first output, that head's (m, l).
+template <typename T>
+__device__ __forceinline__ void store_out(const Params& p, int64_t head0,
+                                          int i, float o, float m,
+                                          float l) {
+  if (p.m_out == nullptr) {
+    static_cast<T*>(p.out)[head0 * p.hd + i] = from_f<T>(o);
+    return;
+  }
+  static_cast<float*>(p.out)[head0 * p.hd + i] = o;
+  if (i % p.hd == 0) {
+    p.m_out[head0 + i / p.hd] = m;
+    p.l_out[head0 + i / p.hd] = l;
+  }
+}
+
 // Every CTA has pushed its partial. Merge this CTA's slice of the
 // group's G * hd outputs from its receive area and write it; a row with
 // no visible lane gets the mean of v over all S lanes. Every CTA of the
@@ -399,7 +427,7 @@ __device__ __forceinline__ void merge_and_store(const Params& p,
   const float* racc = rm + 2 * MAX_SPLIT * G;
   const int per = (G * hd + n - 1) / n;
   const int lo = rank * per, hi = min(lo + per, G * hd);
-  T* out = static_cast<T*>(p.out) + ((int64_t)b * p.H + (int64_t)kvh * G) * hd;
+  const int64_t head0 = (int64_t)b * p.H + (int64_t)kvh * G;
 
   cluster.sync();   // every push into this CTA has landed
   // head 0's m over the cluster: NEG_INF when the row has no visible
@@ -417,7 +445,7 @@ __device__ __forceinline__ void merge_and_store(const Params& p,
         L = fmaf(w, rl[r * G + g], L);
         a = fmaf(w, racc[r * per + (i - lo)], a);
       }
-      out[i] = from_f<T>(a / fmaxf(L, 1e-30f));
+      store_out<T>(p, head0, i, a / fmaxf(L, 1e-30f), M, L);
     }
     return;   // nothing reads this CTA's memory any more
   }
@@ -464,7 +492,7 @@ __device__ __forceinline__ void merge_and_store(const Params& p,
     const int d = i % hd;
     float a = 0.f;
     for (int r = 0; r < n; ++r) a += rxv[r * hd + d];
-    out[i] = from_f<T>(a * inv_s);
+    store_out<T>(p, head0, i, a * inv_s, NEG_INF, (float)S);
   }
 }
 
@@ -989,7 +1017,8 @@ cudaError_t choose_split(const void* fn, int dev, const Plan& pl,
 template <typename Slots>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    const Slots& slots, const int* kv_len, const int* q_pos,
-                   void* out, int B, int H, int KV, int S, int hd,
+                   void* out, float* m_out, float* l_out, int B, int H,
+                   int KV, int S, int hd,
                    int window, float scale, int aligned,
                    cudaStream_t stream) {
   if ((dtype != 0 && dtype != 1) || KV <= 0 || H % KV || hd <= 0)
@@ -1015,6 +1044,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
   p.kv_len = kv_len;
   p.q_pos = q_pos;
   p.out = out;
+  p.m_out = m_out;
+  p.l_out = l_out;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(groups * p.nsplit));
   cfg.blockDim = dim3(NTHREADS);
@@ -1075,17 +1106,19 @@ extern "C" int decode_attn_plan(int dtype, int paged, int B, int H, int KV,
 }
 
 // dtype: 0 = float32, 1 = bfloat16. All int arrays are int32. aligned:
-// k and v are 16-byte aligned. One kernel launch on `stream`; returns
-// its cudaError_t (0 = success).
+// k and v are 16-byte aligned. m_out / l_out: null, or (B, H) float32
+// softmax statistics, and then out is float32. One kernel launch on
+// `stream`; returns its cudaError_t (0 = success).
 extern "C" int decode_attn_launch(int dtype, const void* q, const void* k,
                                   const void* v, const int* kv_pos,
                                   const int* kv_len, const int* q_pos,
-                                  void* out, int B, int H, int KV, int S,
-                                  int hd, int window, float scale,
-                                  int aligned, void* stream) {
+                                  void* out, float* m_out, float* l_out,
+                                  int B, int H, int KV, int S, int hd,
+                                  int window, float scale, int aligned,
+                                  void* stream) {
   const ContiguousSlots slots{kv_pos, S};
-  return (int)launch(dtype, q, k, v, slots, kv_len, q_pos, out, B, H, KV,
-                     S, hd, window, scale, aligned,
+  return (int)launch(dtype, q, k, v, slots, kv_len, q_pos, out, m_out,
+                     l_out, B, H, KV, S, hd, window, scale, aligned,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -1101,7 +1134,8 @@ extern "C" int decode_attn_paged_launch(int dtype, const void* q,
                                         int hd, int window, float scale,
                                         int aligned, void* stream) {
   const PagedSlots slots{kv_pos, tables, blk, nbs};
-  return (int)launch(dtype, q, k, v, slots, kv_len, q_pos, out, B, H, KV,
-                     nbs * blk, hd, window, scale, aligned,
+  return (int)launch(dtype, q, k, v, slots, kv_len, q_pos, out, nullptr,
+                     nullptr, B, H, KV, nbs * blk, hd, window, scale,
+                     aligned,
                      static_cast<cudaStream_t>(stream));
 }

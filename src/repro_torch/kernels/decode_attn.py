@@ -15,6 +15,15 @@ of row b lives at pool block ``block_tables[b, s // blk]``, offset
 ``s % blk``. A wrapper given CPU tensors computes the plain version;
 given CUDA tensors it launches its kernel or raises (as it does for an
 input that requires grad under grad mode: no kernel has a backward).
+
+``return_stats`` (the contiguous form) also returns the softmax
+statistics of each (row, head), float32 (B, H): ``m``, the max of the
+scaled scores, and ``l``, the sum of exp(score - m) over the call's
+lanes; ``out`` is then float32, normalised by this call's own ``l``. A
+caller that splits a row's slots over ranks merges the partial results
+by them (``distributed.tensor_parallel.merge_softmax``) and rounds once.
+A row with no visible lane has m = NEG_INF, l = S and the mean of v
+over its S lanes, which weighs nothing in a merge with a visible lane.
 """
 from __future__ import annotations
 
@@ -35,8 +44,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def decode_attention_ref(q, k, v, kv_pos, kv_len, q_pos, *,
-                         window: int = 0):
-    """Plain version (mirrors models.layers.attention semantics)."""
+                         window: int = 0, return_stats: bool = False):
+    """Plain version (mirrors models.layers.attention semantics); with
+    `return_stats`, (float32 out, m, l) as the module docstring says."""
     b, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     groups = h // kv
@@ -51,6 +61,13 @@ def decode_attention_ref(q, k, v, kv_pos, kv_len, q_pos, *,
         mask = mask & (kv_pos[:, None, :] > q_pos[:, None, None] - window)
     scores = torch.where(mask, scores, torch.full((), NEG_INF,
                                                   device=q.device))
+    if return_stats:
+        m = scores.amax(dim=-1)
+        e = torch.exp(scores - m[..., None])
+        l = e.sum(dim=-1)
+        out = torch.einsum("bhs,bshd->bhd", e, vv.float()) \
+            / torch.clamp(l, min=1e-30)[..., None]
+        return out, m, l
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, vv.float()).to(q.dtype)
 
@@ -77,7 +94,7 @@ def _lib():
     lib = load("decode_attn")
     lib.decode_attn_launch.restype = ctypes.c_int
     lib.decode_attn_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.decode_attn_paged_launch.restype = ctypes.c_int
     lib.decode_attn_paged_launch.argtypes = (
@@ -146,11 +163,13 @@ def _check(q, k, v, kv_pos, kv_len, q_pos):
             raise ValueError("decode_attention: inputs must be contiguous")
 
 
-def decode_attention(q, k, v, kv_pos, kv_len, q_pos, *, window: int = 0):
-    """(B, H, hd) flash-decoding output; CUDA tensors launch the kernel."""
+def decode_attention(q, k, v, kv_pos, kv_len, q_pos, *, window: int = 0,
+                     return_stats: bool = False):
+    """(B, H, hd) flash-decoding output, or with `return_stats` (float32
+    out, m, l) (module docstring); CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_pos, kv_len, q_pos,
-                                    window=window)
+                                    window=window, return_stats=return_stats)
     refuse_autograd("decode_attention", q, k, v)
     _check(q, k, v, kv_pos, kv_len, q_pos)
     b, h, hd = q.shape
@@ -159,20 +178,26 @@ def decode_attention(q, k, v, kv_pos, kv_len, q_pos, *, window: int = 0):
     if (h // kvh) * hd > max_width:
         raise ValueError(f"decode_attention: (H/KV)*hd = {(h // kvh) * hd} "
                          f"exceeds the kernel's {max_width}")
-    out = torch.empty_like(q)
+    if return_stats:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty((b, h), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        stats = (m.data_ptr(), l.data_ptr())
+    else:
+        out, stats = torch.empty_like(q), (None, None)
     if out.numel() == 0:
-        return out
+        return (out, m, l) if return_stats else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attn_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_pos.data_ptr(), kv_len.data_ptr(), q_pos.data_ptr(),
-        out.data_ptr(), b, h, kvh, s, hd, int(window),
+        out.data_ptr(), *stats, b, h, kvh, s, hd, int(window),
         1.0 / math.sqrt(hd), _aligned(k, v), stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention: CUDA launch failed with "
                            f"error {rc}")
     LAUNCHES.bump("decode_attention")
-    return out
+    return (out, m, l) if return_stats else out
 
 
 def _check_paged(q, k, v, kv_pos, block_tables, kv_len, q_pos):

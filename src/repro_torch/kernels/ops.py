@@ -89,15 +89,18 @@ def gmm_quant_impl(x, wq, scale, group_sizes, impl: str):
 
 
 def decode_attention_impl(q, k, v, kv_pos, kv_len, q_pos, *, window: int,
-                          impl: str):
+                          impl: str, return_stats: bool = False):
     """Single-token decode attention against a ring-buffered KV cache:
     q (B, H, hd); k/v (B, S, KV, hd); kv_pos (B, S); kv_len/q_pos (B,).
-    Returns (B, H, hd)."""
+    Returns (B, H, hd), or with `return_stats` (float32 out, m, l) of
+    ``kernels.decode_attn``."""
     if not _use_kernel("decode_attention", impl, q, k, v):
-        return decode_attn.decode_attention_ref(q, k, v, kv_pos, kv_len,
-                                                q_pos, window=window)
+        return decode_attn.decode_attention_ref(
+            q, k, v, kv_pos, kv_len, q_pos, window=window,
+            return_stats=return_stats)
     return decode_attn.decode_attention(q.contiguous(), k, v, kv_pos,
-                                        kv_len, q_pos, window=window)
+                                        kv_len, q_pos, window=window,
+                                        return_stats=return_stats)
 
 
 def decode_attention_paged_impl(q, k, v, kv_pos, block_tables, kv_len,

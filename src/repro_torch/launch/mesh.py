@@ -77,7 +77,9 @@ class ProcessMesh:
     gives each group's member ranks (this rank's group, in group-rank
     order); a group of one rank has no process group and its collectives
     are identities. ``host_ms`` sums the host time of each collective by
-    name (the transport meter), ``nbytes`` the bytes of its results."""
+    name (the transport meter), ``nbytes`` the bytes of its results; a
+    name is "<collective>/<group>", with "/<tag>" where the caller tags
+    what it moves."""
     shape: OrderedDict
     rank: int
     coords: tuple
@@ -106,13 +108,15 @@ class ProcessMesh:
     def group_size(self, name: str) -> int:
         return len(self.members.get(name, (self.rank,)))
 
-    def _timed(self, name: str, t0: float, out) -> None:
+    def _timed(self, name: str, t0: float, out, tag=None) -> None:
+        if tag:
+            name = f"{name}/{tag}"
         self.host_ms[name] = self.host_ms.get(name, 0.0) + \
             (time.perf_counter() - t0) * 1e3
         self.nbytes[name] = self.nbytes.get(name, 0) + \
             out.numel() * out.element_size()
 
-    def all_gather(self, x, group: str):
+    def all_gather(self, x, group: str, tag=None):
         """(n, *x.shape): every member's `x`, in group-rank order."""
         n = self.group_size(group)
         if n == 1:
@@ -122,7 +126,7 @@ class ProcessMesh:
         out = x.new_empty((n * x.numel(),))
         dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
                                     group=self.groups[group])
-        self._timed(f"all_gather/{group}", t0, out)
+        self._timed(f"all_gather/{group}", t0, out, tag)
         return out.view((n,) + tuple(x.shape))
 
     def all_to_all(self, x, group: str):
@@ -137,7 +141,7 @@ class ProcessMesh:
         self._timed(f"all_to_all/{group}", t0, out)
         return out
 
-    def all_reduce(self, x, group: str, op: str = "sum"):
+    def all_reduce(self, x, group: str, op: str = "sum", tag=None):
         """The sum (or, with `op` "max", the maximum) of `x` over the
         group (a new tensor)."""
         if self.group_size(group) == 1:
@@ -145,7 +149,7 @@ class ProcessMesh:
         t0 = time.perf_counter()
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=_OPS[op], group=self.groups[group])
-        self._timed(f"all_reduce/{group}", t0, out)
+        self._timed(f"all_reduce/{group}", t0, out, tag)
         return out
 
     def all_reduce_autograd(self, x, group: str):

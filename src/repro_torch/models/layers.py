@@ -5,10 +5,17 @@ a paged block pool), and the dense FFN.
 Parameters are plain dicts of tensors. Shape conventions:
 x: (B, S, D)   q/k/v: (B, S, H, hd)   cache: (B, Smax, KV, hd)
 paged pool: (NB, block, KV, hd) addressed by block tables (B, nbs)
+
+A contiguous cache may be one rank's shard of the whole cache of a
+decode step sharded over a process mesh (``CacheShard``): its sequence
+split over ranks, each attending its own slots and merging the results
+by their softmax statistics, or its heads or head dims split, gathered
+at use.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -109,14 +116,18 @@ def _repeat_kv(k, num_groups: int):
 
 
 def attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
-              window: int = 0, kv_len=None, chunk: int = 1024):
+              window: int = 0, kv_len=None, chunk: int = 1024,
+              return_stats: bool = False):
     """Chunked online-softmax GQA attention (flash-style in plain torch,
     as the reference computes it in plain jnp).
 
     q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd). Positions give the absolute
     token index of every slot (enables caches / ring buffers). `window`>0
     masks keys older than `q_pos - window + 1` (sliding window). `kv_len`
-    (scalar or (B,)) masks unwritten cache slots.
+    (scalar or (B,)) masks unwritten cache slots. Returns the float32
+    output (B, Sq, H, hd); with `return_stats` also its softmax
+    statistics (B, Sq, H): the running max m of the scaled scores and
+    the sum l of exp(score - m), which it keeps anyway.
     """
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -161,12 +172,135 @@ def attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
         acc = acc * corr[..., None] + torch.einsum("bhqc,bchd->bhqd", p, vc)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
+    if return_stats:
+        return out.transpose(1, 2), m.transpose(1, 2), l.transpose(1, 2)
     return out.transpose(1, 2)  # (B, Sq, H, hd)
+
+
+@dataclass(frozen=True)
+class CacheShard:
+    """This rank's part of one attention sublayer's contiguous cache in
+    a decode step sharded over a process mesh (``transformer.
+    decode_step(data_mesh=, cache_shardings=)``). The rank's k/v (B,
+    n, KV', hd') and pos (B, n') hold its batch rows whole; `seq` are
+    the mesh axes that split the sequence of k, v and pos alike (the
+    merge's axes; () where no such split), `lo` the first global slot
+    the rank holds, `smax` the whole cache's slots. `gather_kv` and
+    `gather_pos` are (dim, axes, lo, hi) of each other split of the
+    period slices (k/v dims 1-3, pos dim 1), gathered at use: every
+    such step moves the layer's K/V over the wire, which partial-score
+    attention over an hd split would not (ROADMAP, parked)."""
+    mesh: object
+    smax: int
+    seq: tuple = ()
+    lo: int = 0
+    gather_kv: tuple = ()
+    gather_pos: tuple = ()
+
+
+def _ring_slots(cache_len, b: int, s: int, smax: int, device):
+    """(global slot (B, s) of each new token, valid slots (B,) after the
+    write) of the contiguous ring: an int `cache_len` (uniform batch)
+    writes one window from its ring slot, clamped so that it fits (as
+    the reference's ``dynamic_update_slice`` does); per-row lengths (B,)
+    write each row at its own ring offset."""
+    steps = torch.arange(s, dtype=torch.int32, device=device)
+    if isinstance(cache_len, int):
+        start = min(max(cache_len % smax, 0), smax - s)
+        return (start + steps)[None].expand(b, s), torch.full(
+            (b,), min(cache_len + s, smax), dtype=torch.int32,
+            device=device)
+    idx = torch.remainder(cache_len[:, None] + steps[None], smax)
+    return idx, torch.clamp(cache_len + s, max=smax).to(torch.int32)
+
+
+def _write_slots(t, idx, new, lo=None):
+    """Write token j of row b, new[b, j], at global slot idx[b, j] of a
+    cache tensor t (B, n, ...) in place: with `lo` None t holds every
+    slot; else only [lo, lo + n), and tokens outside it are dropped.
+    A dropped token rewrites the value t holds at (slot - lo) mod n, a
+    slot that no other token of its chunk of n writes, so the write
+    needs no host sync (a masked index would)."""
+    new = new.to(t.dtype)
+    rows = torch.arange(idx.shape[0], device=t.device)[:, None] \
+        .expand_as(idx)
+    if lo is None:
+        t[rows, idx] = new
+        return
+    n = t.shape[1]
+    for j in range(0, idx.shape[1], n):
+        ix, r = idx[:, j:j + n], rows[:, j:j + n]
+        at = torch.remainder(ix - lo, n)
+        mine = ((ix >= lo) & (ix < lo + n)).reshape(
+            ix.shape + (1,) * (t.dim() - 2))
+        t[r, at] = torch.where(mine, new[:, j:j + n], t[r, at])
+
+
+def _gather_at_use(t, mesh, dims):
+    from repro_torch.distributed import tensor_parallel as TP
+    for dim, axes, _, _ in dims:
+        t = TP.gather_over(t, mesh, dim, axes, tag="cache")
+    return t
+
+
+def _ring_attention(q, k, v, pos1, cache, cache_len, window: int,
+                    impl: str, shard=None):
+    """Write this step's k/v into the contiguous ring cache (in place)
+    and attend: (B, S, H, hd), the decode-attention kernel's output type
+    for one new token on the kernel path, else float32. With `shard`
+    (a ``CacheShard``) the cache is this rank's shard: the leaves split
+    other than on the sequence are gathered at use and this rank's slice
+    written back; over a sequence split (``shard.seq``) each rank
+    attends its own slots and the results merge by their softmax
+    statistics (``tensor_parallel.merge_softmax``), rounded once, as one
+    process rounds."""
+    b, s = q.shape[:2]
+    held = (cache["k"], cache["v"], cache["pos"])
+    if shard is None:
+        shard = CacheShard(None, held[0].shape[1])
+    mesh = shard.mesh
+    gk, gv = (_gather_at_use(t, mesh, shard.gather_kv) for t in held[:2])
+    gp = _gather_at_use(held[2], mesh, shard.gather_pos)
+    idx, n_valid = _ring_slots(cache_len, b, s, shard.smax, q.device)
+    lo = shard.lo if shard.seq else None
+    for t, new in ((gk, k), (gv, v), (gp, pos1)):
+        _write_slots(t, idx, new, lo)
+    for t, full, dims in zip(held, (gk, gv, gp), (
+            shard.gather_kv, shard.gather_kv, shard.gather_pos)):
+        if dims:
+            for dim, _, a, e in dims:
+                full = full.narrow(dim, a, e - a)
+            t.copy_(full)
+    stats = bool(shard.seq)
+    kv_len = torch.clamp(n_valid - shard.lo, 0, gk.shape[1]) \
+        .to(torch.int32) if stats else n_valid
+    # kernels.ops is imported here so the plain model paths never pull in
+    # the kernel wrappers
+    from repro_torch.kernels import ops as KOPS
+    if s == 1 and KOPS.use_kernel(impl, q):
+        # q_pos as its own (B,) tensor: a view of 3-axis or broadcast
+        # positions is strided, and the kernel takes contiguous inputs
+        got = KOPS.decode_attention_impl(
+            q[:, 0], gk, gv, gp, kv_len, pos1[:, 0].contiguous(),
+            window=window, impl=impl, return_stats=stats)
+        if not stats:
+            return got[:, None]
+        out, m, l = (t[:, None] for t in got)
+        dtype = q.dtype   # the one-process kernel's output type
+    else:
+        got = attention(q, gk, gv, pos1, gp, causal=True, window=window,
+                        kv_len=kv_len, return_stats=stats)
+        if not stats:
+            return got
+        out, m, l = got
+        dtype = torch.float32
+    from repro_torch.distributed import tensor_parallel as TP
+    return TP.merge_softmax(out, m, l, mesh, shard.seq, dtype=dtype)
 
 
 def attention_block(p, cfg, x, positions, *, cache=None, cache_len=None,
                     window: int = 0, impl: str = "ref",
-                    block_tables=None, new_counts=None):
+                    block_tables=None, new_counts=None, shard=None):
     """Full attention sublayer: qkv proj -> rope -> attention -> out proj.
 
     Without a cache this is a prefill pass over x: (B, S, D). With
@@ -195,6 +329,10 @@ def attention_block(p, cfg, x, positions, *, cache=None, cache_len=None,
     (kernels.ops): on CUDA tensors with impl auto/cuda and S_new == 1
     the decode-attention kernel (contiguous or paged) runs; otherwise
     the chunked attention does. Returns (out, new_cache).
+
+    With `shard` (a ``CacheShard``) the cache is this rank's shard of a
+    contiguous cache sharded over a process mesh, written in place at
+    the global slots that it holds (``_ring_attention``).
     """
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -232,42 +370,9 @@ def attention_block(p, cfg, x, positions, *, cache=None, cache_len=None,
                                block_tables, new_counts, window, impl)
         new_cache = cache
     else:
-        ck, cv, kv_pos = cache["k"], cache["v"], cache["pos"]
-        smax = ck.shape[1]
-        if isinstance(cache_len, int):
-            # uniform batch: one contiguous window starting at the ring
-            # slot, clamped so it fits (as dynamic_update_slice does)
-            start = min(max(cache_len % smax, 0), smax - s)
-            ck[:, start:start + s] = k.to(ck.dtype)
-            cv[:, start:start + s] = v.to(cv.dtype)
-            kv_pos[:, start:start + s] = pos1.to(torch.int32)
-            n_valid = torch.full((b,), min(cache_len + s, smax),
-                                 dtype=torch.int32, device=x.device)
-        else:
-            # per-row lengths: each row writes at its own ring offset
-            cl = cache_len
-            rows = torch.arange(b, device=x.device)[:, None]
-            idx = torch.remainder(
-                cl[:, None] + torch.arange(s, dtype=torch.int32,
-                                           device=x.device)[None], smax)
-            ck[rows, idx] = k.to(ck.dtype)
-            cv[rows, idx] = v.to(cv.dtype)
-            kv_pos[rows, idx] = pos1.to(torch.int32)
-            n_valid = torch.clamp(cl + s, max=smax).to(torch.int32)
-        # kernels.ops is imported here so the plain model paths never
-        # pull in the kernel wrappers
-        from repro_torch.kernels import ops as KOPS
-        if s == 1 and KOPS.use_kernel(impl, q):
-            # q_pos as its own (B,) tensor: a view of 3-axis or
-            # broadcast positions is strided, and the kernel takes
-            # contiguous inputs
-            out = KOPS.decode_attention_impl(
-                q[:, 0], ck, cv, kv_pos, n_valid, pos1[:, 0].contiguous(),
-                window=window, impl=impl)[:, None]
-        else:
-            out = attention(q, ck, cv, pos1, kv_pos, causal=True,
-                            window=window, kv_len=n_valid)
-        new_cache = {"k": ck, "v": cv, "pos": kv_pos}
+        out = _ring_attention(q, k, v, pos1, cache, cache_len, window,
+                              impl, shard)
+        new_cache = cache
     # f32 attention output times a bf16 projection promotes to f32, as
     # in the reference
     out = out.reshape(b, s, h * hd)

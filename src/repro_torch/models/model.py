@@ -477,23 +477,74 @@ def make_prefill_step(cfg, *, window: int = 0, param_shardings=None):
     return prefill_step
 
 
-def make_serve_step(cfg, *, window: int = 0, param_shardings=None):
+def make_serve_step(cfg, *, window: int = 0, param_shardings=None,
+                    cache_shardings=None):
     """serve_step(params, batch, cache, cache_len) -> (logits, cache):
-    one ``decode_step``, the cache written in place. `param_shardings`
-    as ``make_prefill_step``'s; a decode step sharded over a process
-    mesh of more than one rank raises NotImplementedError (ROADMAP
-    queue 1: the cache's layout puts its sequence over "model")."""
+    one ``decode_step``, the cache written in place. The step's metrics
+    (expert loads and drops) are left on ``serve_step.metrics``.
+
+    param_shardings: as ``make_prefill_step``'s. cache_shardings: the
+    cache's NamedSharding tree (``distributed.sharding.cache_shardings``,
+    the reference's cache ``in_shardings``). On a ``ProcessMesh`` of more
+    than one rank `params` are this rank's shards (a ZeRO-3 layout, with
+    data axes, raises NotImplementedError, as the prefill does), `cache`
+    is this rank's contiguous shards of the whole cache, written in
+    place, and `batch` and `cache_len` (an int, a 0-d or a (B,) tensor)
+    are global: the rank runs its rows where the cache's batch splits
+    over data, else the whole batch. The step runs at
+    ``transformer.set_moe_dispatch_groups(data)``, as the reference's
+    dry-run sets it; the logits (B, S_new, V) and the metrics are the
+    global ones, equal on every rank. Attention caches only: recurrent
+    and encoder-decoder configs raise NotImplementedError
+    (``transformer.require_sharded_decode``)."""
     mesh = _process_mesh(param_shardings)
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            "a decode step sharded over a process mesh is queued work "
-            "(ROADMAP queue 1)")
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        from repro_torch.distributed import sharding as SH
+        T.require_sharded_decode(cfg)
+        if any(SH.data_dim(s) is not None for s in _leaves(param_shardings)):
+            raise NotImplementedError(
+                "a decode step on parameters sharded over the data axes "
+                "(the ZeRO-3 layout) is queued work (ROADMAP queue 1); pass "
+                "params_shardings(..., fsdp=False)")
+        if cache_shardings is None:
+            raise ValueError("a decode step on a process mesh needs the "
+                             "cache's layout (cache_shardings)")
+        rows_sharding = SH.leaf_at(cache_shardings, (0, "attn", "k"))
 
     def serve_step(params, batch, cache, cache_len):
-        logits, cache, _ = T.decode_step(cfg, params, batch, cache,
-                                         cache_len, window=window)
+        if not sharded:
+            logits, cache, serve_step.metrics = T.decode_step(
+                cfg, params, batch, cache, cache_len, window=window)
+            return logits, cache
+        rows = SH.shard_ranges(rows_sharding, cache[0]["attn"]["k"].shape)[1]
+        dev = cache[0]["attn"]["k"].device
+
+        def mine(t):
+            t = t.to(dev)
+            return t if rows is None else t.narrow(0, rows[1],
+                                                   rows[2] - rows[1])
+        local = {k: mine(v) for k, v in batch.items()}
+        if isinstance(cache_len, torch.Tensor):
+            cache_len = cache_len.to(dev)
+            if cache_len.ndim:
+                cache_len = mine(cache_len)
+        groups = T._MOE_GROUPS["groups"]
+        T.set_moe_dispatch_groups(mesh.shape["data"])
+        try:
+            logits, cache, serve_step.metrics = T.decode_step(
+                cfg, params, local, cache, cache_len, window=window,
+                data_mesh=mesh, cache_shardings=cache_shardings)
+        finally:
+            T.set_moe_dispatch_groups(groups)
+        if logits.shape[-1] != cfg.padded_vocab:   # this rank's columns
+            logits = TP.gather_over(logits, mesh, logits.ndim - 1, "model",
+                                    tag="logits")
+        if rows is not None:
+            logits = TP.gather_over(logits, mesh, 0, rows[0], tag="logits")
         return logits, cache
 
+    serve_step.metrics = None
     return serve_step
 
 

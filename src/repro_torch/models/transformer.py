@@ -31,8 +31,8 @@ Entry points:
   init_cache(cfg, params, batch, max_len)    -> cache
   init_paged_cache(cfg, params, num_blocks, block)
                                              -> paged cache
-  decode_step(cfg, params, batch, cache, cache_len)
-                                             -> (logits, cache, metrics)
+  decode_step(cfg, params, batch, cache, cache_len,
+              [data_mesh, cache_shardings])  -> (logits, cache, metrics)
   sample_tokens(logits, temperature, top_k, top_p, seed, step)
                                              -> next tokens (B,)
 """
@@ -45,6 +45,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils import checkpoint as C
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import constrain_activations
 from repro_torch.models import layers as L
@@ -272,9 +273,12 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     cache_len=None, enc_out=None, window=0,
                     collect: bool = False, token_mask=None,
                     block_tables=None, new_counts=None, ep_ctx=None,
-                    ep_state=None, data_mesh=None, ffn_mesh=None):
+                    ep_state=None, data_mesh=None, ffn_mesh=None,
+                    cache_shard=None):
     """One sublayer (mixer + optional cross-attention over `enc_out` +
-    ffn) with residuals. The layer's cache slice is written in place.
+    ffn) with residuals. The layer's cache slice is written in place
+    (with `cache_shard`, a ``layers.CacheShard``, it is this rank's
+    shard of it).
     With `ep_ctx` and this sublayer's `ep_state` the MoE runs through
     the EP slot data plane; with `data_mesh` (``forward``) its metrics
     and dispatch groups are the data group's; with `ffn_mesh` its FFN
@@ -287,7 +291,8 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
             p["attn"], cfg, h, positions,
             cache=None if cache is None else cache["attn"],
             cache_len=cache_len, window=window, impl=cfg.impl,
-            block_tables=block_tables, new_counts=new_counts)
+            block_tables=block_tables, new_counts=new_counts,
+            shard=cache_shard)
     else:
         y = _apply_mixer(cfg, sub, p, h, cache)
     x = x + y
@@ -465,22 +470,9 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     split leaf is gathered at its use (``distributed.tensor_parallel``);
     the logits are then this rank's columns of the vocabulary."""
     pattern = layer_pattern(cfg)
-    dims, mesh = _tensor_parallel(cfg, params, data_mesh)
-    embed_mesh = head_mesh = None   # the vocabulary-parallel tables'
-    if mesh is not None:
-        if ep_ctx is not None:
-            raise NotImplementedError(
-                "the EP slot plane at model > 1 is queued work (ROADMAP "
-                "queue 1)")
-        if dims["embed"] == 0:
-            embed_mesh = mesh
-        head_mesh = embed_mesh if cfg.tie_embeddings else \
-            mesh if dims["head"] == 1 else None
-        keep = {("layers",)} | {(k,) for k, m in (("embed", embed_mesh),
-                                                  ("head", head_mesh)) if m}
-        params = TP.gather_tree(params, dims, mesh, keep=keep)
-        layer_dims = [TP.unstack_dims(d) for d in dims["layers"]]
-    x = _embed(params, batch, embed_mesh)
+    tp = _tp_layout(cfg, params, data_mesh, ep_ctx)
+    params = tp.params
+    x = _embed(params, batch, tp.embed_mesh)
     bsz, seq_len = batch["tokens"].shape
     pos = batch.get("positions")    # (B, S), or (B, S, 3) under mrope
     if pos is None:
@@ -500,9 +492,8 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
         x = constrain_activations(x)
         ms = []
         for j, sub in enumerate(pattern):
-            p, ffn_mesh = layer_params[j], None
-            if mesh is not None:   # gathered here: at use, under remat
-                p, ffn_mesh = _gather_sublayer(p, layer_dims[j], mesh)
+            # gathered here: at use, under remat
+            p, ffn_mesh = tp.sublayer(j, layer_params[j])
             x, m = _apply_sublayer(cfg, sub, p, x, pos,
                                    enc_out=enc_out, window=window,
                                    collect=collect,
@@ -533,7 +524,7 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     rl = [m["router_logits"] for m in ms if "router_logits" in m]
     if rl:   # the EP data plane does not emit router logits
         metrics["router_logits"] = torch.stack(rl)
-    return _lm_head(cfg, params, x, head_mesh), metrics
+    return _lm_head(cfg, params, x, tp.head_mesh), metrics
 
 
 @functools.lru_cache(maxsize=16)
@@ -550,6 +541,49 @@ def _tensor_parallel(cfg, params, mesh):
     if TP.model_size(mesh) == 1:
         return None, None
     return TP.model_dims(params, _whole_shapes(cfg)), mesh
+
+
+@dataclass(frozen=True)
+class _TPLayout:
+    """How a step runs a rank's parameters tensor-parallel (``forward``
+    and ``decode_step`` alike): `params` with every split leaf gathered
+    at use but the layers' and a vocabulary-parallel embedding's and
+    head's, the model group's mesh (None off one), the layers' model
+    dims of one period, and the meshes of the vocabulary-parallel
+    embedding and head (None where a table is whole)."""
+    params: dict
+    mesh: object = None
+    layer_dims: list = None
+    embed_mesh: object = None
+    head_mesh: object = None
+
+    def sublayer(self, j: int, p):
+        """(sublayer j's period parameters `p` gathered at use, the mesh
+        of its FFN where that is a column/row pair, else None)."""
+        if self.mesh is None:
+            return p, None
+        return _gather_sublayer(p, self.layer_dims[j], self.mesh)
+
+
+def _tp_layout(cfg, params, data_mesh, ep_ctx=None) -> _TPLayout:
+    """The ``_TPLayout`` of `params` on `data_mesh` (model > 1: each
+    leaf split on the one dim where its shape differs from
+    ``init_params``'; else everything as it is)."""
+    dims, mesh = _tensor_parallel(cfg, params, data_mesh)
+    if mesh is None:
+        return _TPLayout(params)
+    if ep_ctx is not None:
+        raise NotImplementedError(
+            "the EP slot plane at model > 1 is queued work (ROADMAP "
+            "queue 1)")
+    embed_mesh = mesh if dims["embed"] == 0 else None
+    head_mesh = embed_mesh if cfg.tie_embeddings else \
+        mesh if dims["head"] == 1 else None
+    keep = {("layers",)} | {(k,) for k, m in (("embed", embed_mesh),
+                                              ("head", head_mesh)) if m}
+    return _TPLayout(TP.gather_tree(params, dims, mesh, keep=keep), mesh,
+                     [TP.unstack_dims(d) for d in dims["layers"]],
+                     embed_mesh, head_mesh)
 
 
 def _gather_sublayer(p, dims, mesh):
@@ -640,6 +674,65 @@ def require_paged_kv(cfg) -> list[SubLayer]:
     return pattern
 
 
+def require_sharded_decode(cfg) -> list[SubLayer]:
+    """`cfg`'s layer pattern, or NotImplementedError where its decode
+    cannot run sharded over a process mesh: the sharded decode step
+    holds attention caches only (the configs ``require_paged_kv``
+    accepts); recurrent state and an encoder-decoder's cache are queued
+    work."""
+    try:
+        return require_paged_kv(cfg)
+    except ValueError:
+        raise NotImplementedError(
+            f"{cfg.name}: a decode step sharded over a process mesh holds "
+            "attention caches only; the sharded decode of recurrent and "
+            "encoder-decoder caches is queued work (ROADMAP queue 1)") \
+            from None
+
+
+def _cache_shards(cache, cache_shardings, mesh):
+    """(each pattern position's ``layers.CacheShard``, the mesh of the
+    MoE's data-parallel metrics or None): this rank's part of every
+    attention sublayer's cache from its shardings (``distributed.
+    sharding.cache_shardings``) and the shapes it holds. The batch rows
+    must split alike in every leaf (over the data axes, whose ranks then
+    sum the MoE metrics) or in none; a sequence split shared by k, v and
+    pos stays local and merges, and every other split is gathered at
+    use."""
+    shards, rows = [], set()
+    for j, c in enumerate(cache):
+        c = c["attn"]
+        got = {name: SH.shard_ranges(SH.leaf_at(cache_shardings,
+                                                (j, "attn", name)),
+                                     c[name].shape)
+               for name in ("k", "v", "pos")}
+        if got["k"] != got["v"]:
+            raise ValueError("k and v of a cache must share one layout")
+        kr, pr = got["k"], got["pos"]
+        rows.add(kr[1] and kr[1][0])
+        rows.add(pr[1] and pr[1][0])
+        seq = kr[2] if kr[2] == pr[2] else None
+
+        def others(r, first):
+            return tuple((d - 1, *r[d]) for d in range(first, len(r))
+                         if r[d] is not None)
+        smax = c["pos"].shape[2] * (1 if pr[2] is None else
+                                    SH._axis_size(mesh, pr[2][0]))
+        shards.append(L.CacheShard(
+            mesh, smax, seq=() if seq is None else seq[0],
+            lo=0 if seq is None else seq[1],
+            gather_kv=others(kr, 3 if seq else 2),
+            gather_pos=others(pr, 3 if seq else 2)))
+    if len(rows) > 1:
+        raise ValueError(f"the cache's batch rows split differently over "
+                         f"its leaves: {rows}")
+    split = rows.pop()
+    if split and set(split) != {"data"}:
+        raise ValueError(f"the cache's batch rows split over {split}; the "
+                         "sharded decode step takes them over 'data'")
+    return shards, mesh if split else None
+
+
 def init_paged_cache(cfg, params, num_blocks: int, block: int):
     """Paged-pool cache tree: the same per-period stacking as
     ``init_cache``, but each attention sublayer holds ONE global block
@@ -655,7 +748,8 @@ def init_paged_cache(cfg, params, num_blocks: int, block: int):
 
 
 def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
-                collect: bool = False, ep_ctx=None, ep_state=None):
+                collect: bool = False, ep_ctx=None, ep_state=None,
+                data_mesh=None, cache_shardings=None):
     """One decode iteration: batch['tokens'] is (B, S_new) — S_new=1 for
     token-by-token decode, S_new=prompt_len for prefill-into-cache
     (cache_len=0). `cache_len` is an int (uniform batch), a 0-d tensor
@@ -682,10 +776,30 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     own position's
     sinusoid, so a prefill into a fresh cache and the decode steps after
     it give ``forward``'s logits (the reference's ``decode_step`` does
-    neither). Returns (logits (B,S_new,V), cache, metrics)."""
+    neither). Returns (logits (B,S_new,V), cache, metrics).
+
+    On a `data_mesh` (a ``launch.mesh.ProcessMesh``) of more than one
+    rank, `cache` is this rank's shards of the whole cache laid out by
+    `cache_shardings` (``distributed.sharding.cache_shardings``), and
+    `batch` and `cache_len` are this rank's rows of the batch where the
+    cache's rows split over data (then the MoE metrics are summed over
+    the data group), else the whole batch. `params` are this rank's
+    shards as ``forward`` takes them, and the logits are this rank's
+    rows and, where the head splits the vocabulary, its columns
+    (``models.model.make_serve_step`` gathers them). Attention caches
+    only (``require_sharded_decode``)."""
     pattern = layer_pattern(cfg)
+    shards, moe_mesh = [None] * len(pattern), None
+    if data_mesh is not None and data_mesh.size > 1:
+        require_sharded_decode(cfg)
+        if cache_shardings is None:
+            raise ValueError("a decode step on a process mesh needs the "
+                             "cache's layout (cache_shardings)")
+        shards, moe_mesh = _cache_shards(cache, cache_shardings, data_mesh)
+    tp = _tp_layout(cfg, params, data_mesh, ep_ctx)
+    params = tp.params
     tokens = batch["tokens"]
-    x = _embed(params, batch)
+    x = _embed(params, batch, tp.embed_mesh)
     bsz, s_new = tokens.shape
     steps = torch.arange(s_new, dtype=torch.int32, device=tokens.device)
     enc_out = None
@@ -729,8 +843,9 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     ms = []
     for i in range(np_):
         for j, sub in enumerate(pattern):
-            x, m = _apply_sublayer(cfg, sub, _period(params["layers"][j], i),
-                                   x, pos, cache=_period(cache[j], i),
+            p, ffn_mesh = tp.sublayer(j, _period(params["layers"][j], i))
+            x, m = _apply_sublayer(cfg, sub, p, x, pos,
+                                   cache=_period(cache[j], i),
                                    cache_len=cache_len, enc_out=enc_out,
                                    window=window,
                                    collect=collect, token_mask=token_mask,
@@ -738,10 +853,12 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
                                    new_counts=new_counts, ep_ctx=ep_ctx,
                                    ep_state=None if ep_state is None
                                    or ep_state[j] is None
-                                   else _period(ep_state[j], i))
+                                   else _period(ep_state[j], i),
+                                   data_mesh=moe_mesh, ffn_mesh=ffn_mesh,
+                                   cache_shard=shards[j])
             ms.append(m)
     x = L.norm(x, params["final_norm"], cfg.norm)
-    return _lm_head(cfg, params, x), cache, \
+    return _lm_head(cfg, params, x, tp.head_mesh), cache, \
         _stack_metrics(ms, collect, x.device)
 
 

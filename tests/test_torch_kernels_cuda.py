@@ -384,6 +384,40 @@ def test_decode_attention_misaligned_kv_takes_simt_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [18, 128])
+def test_decode_attention_stats_match_plain_on_card(cuda, dtype, hd):
+    """``return_stats=True`` on the "mma" and "simt" paths: the float32
+    output, m and l against the plain version's (m and l to the output's
+    tolerance: the kernel rounds q * scale to the input type before the
+    dot, as the TPU kernel does, the plain version does not), m =
+    NEG_INF and l = S exactly on the rows with no visible lane (kv_len 0
+    among them), and with the window; the output rounded to the input
+    type equals a launch without statistics bit for bit, which is what
+    that launch computed before the option existed."""
+    tol = TOL[dtype]
+    b, kvh, s = len(HIDDEN_KV_LEN), 2, 40
+    args = _to_card(cuda, dtype, *_attn_case(
+        b, 4 * kvh, kvh, hd, s, HIDDEN_KV_LEN, HIDDEN_Q_POS, False,
+        past=1e4))
+    assert DA.kernel_path(*args[:3])[0] == _want_path(dtype, hd)
+    for window in (0, 16):
+        out, m, l = DA.decode_attention(*args, window=window,
+                                        return_stats=True)
+        want = DA.decode_attention_ref(*args, window=window,
+                                       return_stats=True)
+        assert out.dtype == m.dtype == l.dtype == torch.float32
+        for got, w in zip((out, m, l), want):
+            torch.testing.assert_close(got, w, atol=tol, rtol=tol)
+        hidden = want[1] == DA.NEG_INF
+        assert hidden[0].all()                      # kv_len 0
+        assert torch.equal(m[hidden], want[1][hidden])
+        assert torch.all(l[hidden] == s)
+        plain = DA.decode_attention(*args, window=window)
+        assert torch.equal(out.to(dtype), plain)
+
+
+@pytest.mark.cuda
 def test_decode_attention_graph_capture_on_card(cuda):
     """Three calls (contiguous bf16, paged bf16, contiguous f32) captured
     in one CUDA graph: a replay gives the eager calls' outputs bit for

@@ -54,6 +54,7 @@ from repro.models import model as JM
 from repro.models import transformer as JT
 from repro.training import optimizer as JO
 from repro_torch.configs import get_config, list_archs
+from repro_torch.configs.base import InputShape
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch.mesh import (LogicalMesh, ProcessMesh, dp_axes,
                                      make_production_mesh)
@@ -642,9 +643,10 @@ def test_copied_shards_own_their_storage_and_assemble():
 
 
 def test_model_dim_and_refusals():
-    """``model_dim`` of the reference's layouts; a (1, 2) decode step and
-    a prefill on the ZeRO-3 layout raise; int8 banks and the EP plane at
-    model > 1 raise naming the queue."""
+    """``model_dim`` of the reference's layouts; a (1, 2) decode step
+    builds with its cache's layout (``tests/test_torch_tp_decode.py``
+    runs it); a decode step and a prefill on the ZeRO-3 layout raise;
+    int8 banks and the EP plane at model > 1 raise naming the queue."""
     cfg = get_config(MIXTRAL, smoke=True).with_(dtype="float32")
     params = M.init_params(cfg, 0, "cpu")
     tp2 = _meshes((1, 2))[0]
@@ -654,14 +656,19 @@ def test_model_dim_and_refusals():
     assert SH.model_dim(ps["layers"][0]["moe"]["experts"]["w_down"]) == 2
     assert SH.model_dim(ps["layers"][0]["attn"]["wk"]) == 1
     assert SH.model_dim(SH.replicated(tp2)) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        M.make_serve_step(cfg, param_shardings=ps)
+    cs = SH.cache_shardings(M.abstract_cache(cfg, InputShape(
+        "decode", 128, 2, "decode")), tp2)
+    assert callable(M.make_serve_step(cfg, param_shardings=ps,
+                                      cache_shardings=cs))
     M.make_serve_step(cfg, param_shardings=SH.params_shardings(
         params, _meshes((1, 1))[0], fsdp=False))
     m22 = _meshes((2, 2))[0]
     with pytest.raises(NotImplementedError, match="ZeRO-3"):
         M.make_prefill_step(cfg, param_shardings=SH.params_shardings(
             params, m22, fsdp=True))
+    with pytest.raises(NotImplementedError, match="ZeRO-3"):
+        M.make_serve_step(cfg, param_shardings=SH.params_shardings(
+            params, m22, fsdp=True), cache_shardings=cs)
     shards = SH.shard_tree(params, ps, copy=True)
     with pytest.raises(NotImplementedError, match="EP slot plane"):
         from repro_torch.models import transformer as T
