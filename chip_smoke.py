@@ -235,7 +235,7 @@ Phases, each fatal on failure:
      ranks, ``make_prefill_step(param_shardings=)`` at impl "auto" over
      8 x 512 tokens: float32 at 2 layers, logits within TOL[float32] of
      the one-process prefill, greedy tokens, loads and drops equal;
-     bf16 at 8 layers, every MoE sublayer from the one-process path's
+     bf16 at 2 layers, every MoE sublayer from the one-process path's
      own input within TOL[bf16] and a control (rank 1 adding zeros for
      its partial sum, ``SkipPartial``) leaving more than
      ``TP_CONTROL_SHARE`` of each sublayer out of it; both kernels
@@ -267,7 +267,7 @@ Phases, each fatal on failure:
      TOL[float32], greedy tokens, loads and drops equal, the cache
      assembled from the ranks' shards: positions equal, K/V within
      ``DEC_KV_TOL`` in the first layer and ``DEC_KV_DEEP_TOL`` after)
-     and bf16 at 8 (every attention sublayer of every decode step
+     and bf16 at 2 (every attention sublayer of every decode step
      against one process on the whole cache from the same input:
      elementwise within TOL[bf16] and within ``DEC_REL`` in norm; the
      ``PlainMean`` control moved past ``DEC_CONTROL`` x ``DEC_REL`` on
@@ -276,7 +276,7 @@ Phases, each fatal on failure:
      input, ``moe_sublayer_gates``, at the same bounds, its
      ``SkipPartial`` control leaving more than ``TP_CONTROL_SHARE`` out
      and moving the norm past ``DEC_CONTROL`` x ``DEC_REL``), and on
-     (2, 2) ranks bf16 at 2 layers under the default layout,
+     (2, 2) ranks bf16 at 1 layer under the default layout,
      ``seq_over_dp`` and ``cache_heads_model``, with the same bf16
      gates; on every run ``decode_attention``, ``fused_gate_up`` and
      ``gmm`` launched once a layer a step a rank, at the shard's S (with
@@ -287,8 +287,41 @@ Phases, each fatal on failure:
      of each collective by name, peak a rank against
      ``dec_reckoning``, the witnesses' drift beside the ranks'.
 
+  15. the ZeRO-3 layout (``params_shardings(fsdp=True)``: every leaf
+     split over data as well, gathered over the data group at use a
+     layer period at a time, ``tensor_parallel.gather_from_data``), ranks
+     on cuda:0 over gloo: (a) mixtral-8x7b at its published widths, 1 of
+     32 layers (phase 14's (2, 2) depth), bf16, impl "auto", on (2, 1)
+     and (2, 2):
+     phase 13's prefill cell (8 x 512) and phase 14's decode cell (B 8, a
+     2040-token prefill into 4096 slots, then steps fed the same tokens:
+     4 under the default cache layout on (2, 1), 10 under
+     ``seq_over_dp`` on (2, 2), through the step that first writes its
+     second data rank's slots; ``Z3_SERVE``)
+     through ``make_prefill_step`` and ``make_serve_step`` on the
+     ZeRO-3 shards, against the same mesh's ``fsdp=False`` steps from the
+     same weights and inputs: two ``fsdp=False`` runs must agree bit for
+     bit (the witness), and then the ZeRO-3 logits and caches must equal
+     theirs bit for bit (else the gate is TOL[bf16] elementwise and
+     ``DEC_REL`` in norm); the control (``SwappedShards``: layer 0's
+     attention output projection gathered with its data shards swapped,
+     in the prefill and in the first decode step) must fail that gate; ``fused_gate_up`` and ``gmm`` launched once a
+     layer a call on "wgmma", ``decode_attention`` once a layer a step on
+     "mma"; resident parameter bytes a rank equal to ``launch.dryrun.
+     build_step``'s default variant (``fsdp_params`` on) and below the
+     ``fsdp=False`` layout's; (b) phase 12's training cell through
+     ``make_train_step(param_shardings=)`` on (2, 1) for 2 steps and (2,
+     2) for 1, against the ZeRO-2 step on the same mesh from the same
+     weights and batches (phase 12's ranks, phase 13's (2, 2) ranks):
+     each step's loss within ``MB_LOSS_TOL``, the assembled parameters
+     after the last step within one bf16 ulp (bit for bit reported), the
+     parameters still this rank's (data, model) shards, resident
+     parameter and optimizer bytes equal to the dry-run's reckoning and
+     below ZeRO-2's; printed: walls a step a rank, host ms and bytes of
+     ``all_gather/data/params`` and ``reduce_scatter/data/grads``, peaks.
+
 Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11, 12,
-13, 14.
+13, 14, 15.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -4709,6 +4742,9 @@ def z2_rank(rank: int, tmp: str) -> dict:
             "dropped": m["dropped"].tolist(),
             "collective_ms": dict(mesh.host_ms),
             "ranks_agree": _ranks_agree(params)})
+    if rank == 0:    # the ZeRO-2 oracle of phase 15 (b) on this mesh
+        out["params_final"] = os.path.join(tmp, "params_final.pt")
+        torch.save(_host(params), out["params_final"])
     out["resident"] = {"params": _nbytes(params), "opt": _nbytes(state),
                        "batch": step.stats["batch_bytes"]}
     out["mu_bytes"] = _nbytes(state["mu"])
@@ -4755,6 +4791,7 @@ def zero2_phase(card: str) -> dict:
             r["acc"] = torch.load(r["acc"], map_location="cpu")
             if "params1" in r:
                 r["params1"] = torch.load(r["params1"], map_location="cpu")
+        final = torch.load(ranks[0].pop("params_final"), map_location="cpu")
     t2 = time.perf_counter()
     log(f"  the one-process oracle {t1 - t0:.1f} s (peak "
         f"{one['peak_gb']:.2f} GB, step walls "
@@ -4852,7 +4889,8 @@ def zero2_phase(card: str) -> dict:
     return {"oracle": {k: v for k, v in one.items()},
             "ranks": [{k: v for k, v in r.items()
                        if k not in ("acc", "params1")} for r in ranks],
-            "grad_rel": rel, "ulps": max(ulps), "seconds": t2 - t0}
+            "grad_rel": rel, "ulps": max(ulps), "seconds": t2 - t0,
+            "params_final": final}
 
 
 def mamba_levers(card: str) -> dict:
@@ -4950,13 +4988,14 @@ TP_TRAIN = {(1, 2): 2, (2, 2): 1}
 # mixtral-8x7b at its published widths, TP_PREFILL_B prompts at the
 # TP_PREFILL_S bucket, impl "auto": float32 at TP_F32_LAYERS layers held
 # to the one-process prefill on the kernel path (logits within
-# TOL[float32], greedy tokens and loads exact); bf16 at phase 4's
-# TP_BF16_LAYERS layers gated per MoE sublayer at TOL[bf16] from the
+# TOL[float32], greedy tokens and loads exact); bf16 at
+# TP_BF16_LAYERS layers (8 until phase 15 needed the script's time)
+# gated per MoE sublayer at TOL[bf16] from the
 # one-process path's own input, with a control (rank 1 adding zeros in
 # place of its partial sum) that must leave more than TP_CONTROL_SHARE of
 # a sublayer's elements out of that tolerance
 TP_PREFILL_B, TP_PREFILL_S = 8, 512
-TP_F32_LAYERS, TP_BF16_LAYERS = 2, 8
+TP_F32_LAYERS, TP_BF16_LAYERS = 2, 2
 TP_CONTROL_SHARE = 0.5
 
 
@@ -5426,6 +5465,8 @@ def tp_train_gates(shape, ranks, one, card, fails: list) -> dict:
     del g, p0
     ulps = [float(((a.cuda().float() - b.float()).abs()
                    / _ulp_bf16(b)).max()) for a, b in zip(p1, _leaves(want))]
+    # after one step, the ZeRO-2 oracle of phase 15 (b) on this mesh
+    final = p1 if TP_TRAIN[shape] == 1 else None
     del want, p1
     gc.collect()
     torch.cuda.empty_cache()
@@ -5454,7 +5495,9 @@ def tp_train_gates(shape, ranks, one, card, fails: list) -> dict:
                        for r in ranks],
             "walls": [[s["wall_ms"] for s in r["train"]["steps"]]
                       for r in ranks],
-            "peaks": [r["train"]["peak_gb"] for r in ranks]}
+            "peaks": [r["train"]["peak_gb"] for r in ranks],
+            "resident": [r["train"]["resident"] for r in ranks],
+            "params_final": final}
 
 
 def tp_prefill_gates(ranks, one, card, fails: list) -> dict:
@@ -5624,14 +5667,16 @@ def tp_phase(card: str) -> dict:
 # widths: DEC_B prompts prefilled at a uniform DEC_PREFILL tokens into a
 # DEC_SLOTS-slot cache, then DEC_STEPS decode steps fed the one-process
 # oracle's greedy tokens (both sides see the same inputs), impl "auto":
-# on (1, 2) float32 at DEC_F32_LAYERS layers and bf16 at phase 4's
+# on (1, 2) float32 at DEC_F32_LAYERS layers and bf16 at
 # DEC_BF16_LAYERS; on (2, 2) bf16 at DEC_22_LAYERS under each cache
 # layout of DEC_LAYOUTS. Step DEC_CROSS writes the first token into the
 # second half of the slots (rank 1's under a sequence split), which
-# until then is wholly hidden.
+# until then is wholly hidden. The depths were 8 (bf16, (1, 2)) and 2
+# ((2, 2)) until phase 15 needed the script's time: over gloo a layer
+# costs ~8 s of phase 14 on (1, 2) and ~30 s on (2, 2) (PERF.md).
 DEC_B, DEC_SLOTS, DEC_PREFILL, DEC_STEPS = 8, 4096, 2040, 16
 DEC_CROSS = DEC_SLOTS // 2 - DEC_PREFILL + 1
-DEC_F32_LAYERS, DEC_BF16_LAYERS, DEC_22_LAYERS = 2, 8, 2
+DEC_F32_LAYERS, DEC_BF16_LAYERS, DEC_22_LAYERS = 2, 2, 1
 DEC_LAYOUTS = {"default": {}, "seq_over_dp": {"seq_over_dp": True},
                "cache_heads_model": {"heads_model": True}}
 # Gates, fixed before the run. float32: every step's logits within
@@ -6605,8 +6650,8 @@ def dec_phase(card: str) -> dict:
     """Phase 14: (a) the statistics kernel at the shard and the expert
     kernels at the decode F-shard shapes; the one-process oracles and
     their witnesses in this process, which then holds nothing on the
-    card; (b) the (1, 2) ranks (float32, then bf16 at 8 layers) and the
-    (2, 2) ranks (bf16 at 2 layers under each layout); gated as the
+    card; (b) the (1, 2) ranks (float32, then bf16, at 2 layers) and
+    the (2, 2) ranks (bf16 at 1 layer under each layout); gated as the
     module docstring says."""
     t14 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -6665,6 +6710,592 @@ def dec_phase(card: str) -> dict:
     log(f"  phase 14 took {res['seconds']:.1f} s")
     if fails:
         raise AssertionError("phase 14: " + "; ".join(fails))
+    return res
+
+
+# ------------------------------------------------------------ phase 15
+
+# phase 15: the ZeRO-3 layout (params_shardings(fsdp=True)): each leaf
+# held as this rank's (data, model) shard and gathered over the data
+# group at use, a layer period at a time, ranks on cuda:0 over gloo.
+# (a) mixtral-8x7b at its published widths, Z3_LAYERS deep, bf16, impl
+# "auto": phase 13's prefill cell (TP_PREFILL_B x TP_PREFILL_S) and phase
+# 14's decode cell (DEC_B rows, a DEC_PREFILL-token prefill into DEC_SLOTS
+# slots, the first of its steps fed the same tokens) on each mesh of
+# Z3_SERVE under its cache layout, against the same mesh's fsdp=False
+# step from
+# the same weights and inputs in the same process: logits and caches bit
+# for bit where two runs of the fsdp=False step agree bit for bit (the
+# witness), else at phase 14's TOL[bf16] elementwise and DEC_REL in norm;
+# the control (``SwappedShards``: the data shards of layer 0's attention
+# output projection gathered in swapped order) must fail the gate that
+# applies. (b) phase 12's training cell through make_train_step(
+# param_shardings=) for Z3_TRAIN[shape] steps, against the ZeRO-2 step
+# on the same mesh from the same weights and batches (phase 12's ranks
+# on (2, 1), phase 13's on (2, 2), which this phase reads back): each
+# step's loss within MB_LOSS_TOL, the assembled parameters after the last
+# step within one bf16 ulp of ZeRO-2's (bit for bit reported).
+# phase 14's (2, 2) depth: every ZeRO-3 call gathers the whole model
+# shard over gloo (~3.4 GB a call on (2, 1) at one layer, the expert
+# banks 82% of it)
+Z3_LAYERS = DEC_22_LAYERS
+# Each mesh's decode cell: (the name of phase 14's cache layout, its
+# ``cache_shardings`` keywords, decode steps). Every ZeRO-3 step gathers
+# the model shard again (3.4 GB on (2, 1), 1.7 on (2, 2)) and the
+# script's time holds neither both layouts a mesh nor phase 14's 16
+# steps: (2, 1) runs the default layout (rows over data, no sequence
+# split) for 4 steps; (2, 2) runs seq_over_dp through DEC_CROSS, whose
+# write is the first into its second data rank's slots, and one after.
+Z3_SERVE = {(2, 1): ("default", {}, 4),
+            (2, 2): ("seq_over_dp", {"seq_over_dp": True}, DEC_CROSS + 1)}
+Z3_TRAIN = {(2, 1): Z2_STEPS, (2, 2): 1}
+
+
+class SwappedShards:
+    """The control of phase 15's serving gate: within the block, the data
+    group's shards of one leaf (`leaf`: each period's slice of it that
+    starts its storage, period 0) are concatenated in rolled order, one
+    shard over: at data 2 swapped."""
+
+    def __init__(self, leaf):
+        self.ptr = leaf.untyped_storage().data_ptr()
+        self.hits = 0
+
+    def __enter__(self):
+        from repro_torch.distributed import tensor_parallel as TP
+        self._tp, self._fn = TP, TP.gather_from_data
+        inner = self._fn
+
+        def run(x, mesh, dim, sink=None):
+            y = inner(x, mesh, dim, sink)
+            if x.untyped_storage().data_ptr() == self.ptr and \
+                    x.storage_offset() == 0 and y.shape[dim] != x.shape[dim]:
+                self.hits += 1
+                y = torch.roll(y, x.shape[dim], dim)
+            return y
+
+        TP.gather_from_data = run
+        return self
+
+    def __exit__(self, *exc):
+        self._tp.gather_from_data = self._fn
+
+
+def _z3_layouts(mesh, cfg):
+    """(fsdp=False shards, their shardings, ZeRO-3 shards, theirs) of
+    `cfg`'s parameters on this rank, built whole on the card one rank at
+    a time and cut."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model import init_params
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            full = init_params(cfg, seed=0, device="cuda")
+            ps2 = SH.params_shardings(full, mesh, fsdp=False)
+            ps3 = SH.params_shardings(full, mesh, fsdp=True)
+            out = (SH.shard_tree(full, ps2, copy=True), ps2,
+                   SH.shard_tree(full, ps3, copy=True), ps3)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _same(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _within(got: list, want: list) -> tuple[bool, float, float]:
+    """(every tensor of `got` within TOL[bf16] of `want`'s elementwise
+    and within DEC_REL in norm, the max |err|, the largest norm ratio)."""
+    tol, ok, err, rel = TOL[torch.bfloat16], True, 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        r = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        ok &= bool((d <= tol + tol * w.abs()).all()) and r <= DEC_REL
+        err, rel = max(err, float(d.max())), max(rel, r)
+    return ok, err, rel
+
+
+def _z3_pair(got: list, want: list) -> dict:
+    """`got` against `want` (lists of tensors), bit for bit and at the
+    tolerance (``_within``)."""
+    ok, err, rel = _within(got, want)
+    return {"same": _same(got, want), "within": ok, "max_abs_err": err,
+            "rel": rel}
+
+
+def _z3_compare(runs: dict, key: str = "logits",
+                names=("B", "zero3", "control")) -> dict:
+    """Phase 15's serving records of one cell: the tensors under `key`
+    of each run of `names` against the first fsdp=False run's ("A"):
+    the witness ("B"), the ZeRO-3 run, the control."""
+    return {name: _z3_pair(runs[name][key], runs["A"][key])
+            for name in names}
+
+
+def z3_prefill(mesh, cfg, layouts, card_hits: list) -> dict:
+    """Phase 15 (a)'s prefill on this rank: the fsdp=False step twice
+    (A, then the witness B), the ZeRO-3 step counted and timed, the
+    control; each one's global last-position logits on the card."""
+    from repro_torch.models import model as M
+    sh2, ps2, sh3, ps3 = layouts
+    batch = _tp_prefill_batch(cfg)
+    step2 = M.make_prefill_step(cfg, param_shardings=ps2)
+    step3 = M.make_prefill_step(cfg, param_shardings=ps3)
+    runs, rec = {}, {}
+    with torch.no_grad():
+        step2(sh2, batch)   # warm
+        for name in ("A", "B"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, m = step2(sh2, batch)
+            torch.cuda.synchronize()
+            rec[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            runs[name] = {"logits": [lg], "metrics": m}
+        K.reset_launch_counts()
+        mesh.host_ms.clear()
+        mesh.nbytes.clear()
+        with KernelShapes() as shapes:
+            t0 = time.perf_counter()
+            lg, m = step3(sh3, batch)
+            torch.cuda.synchronize()
+        rec["zero3_ms"] = (time.perf_counter() - t0) * 1e3
+        rec.update(launches=dict(K.launch_counts()), shapes=dict(shapes.seen),
+                   collective_ms=dict(mesh.host_ms),
+                   collective_bytes=dict(mesh.nbytes))
+        runs["zero3"] = {"logits": [lg], "metrics": m}
+        ctrl = SwappedShards(sh3["layers"][0]["attn"]["wo"])
+        with ctrl:
+            lg, _ = step3(sh3, batch)
+        card_hits.append(ctrl.hits)
+        runs["control"] = {"logits": [lg]}
+    rec["compare"] = _z3_compare(runs)
+    rec["metrics_same"] = all(
+        torch.equal(runs["zero3"]["metrics"][k], runs["A"]["metrics"][k])
+        for k in ("expert_load", "dropped"))
+    return rec
+
+
+def z3_decode(mesh, cfg, layouts, layout: dict, steps: int,
+              card_hits: list) -> dict:
+    """Phase 15 (a)'s decode cell on this rank under `layout`, `steps`
+    decode steps after the prefill: the
+    fsdp=False serve step (A: greedy, its tokens fed to every other
+    run), again (the witness B), the ZeRO-3 step (its decode steps
+    counted and timed); the control, the ZeRO-3 step's first decode
+    step again from its post-prefill cache with the shards swapped. The
+    global last-position logits of every step and the final cache
+    shards, compared on the card."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    sh2, ps2, sh3, ps3 = layouts
+    whole = T.init_cache(cfg, sh2, DEC_B, DEC_SLOTS)
+    cs = SH.cache_shardings(whole, mesh, **layout)
+    held0 = SH.shard_tree(whole, cs, copy=True)
+    del whole
+    cl = torch.full((DEC_B,), DEC_PREFILL, dtype=torch.int32, device="cuda")
+    prompts = dec_prompts(cfg, DEC_B)
+    runs, teacher = {}, None
+    for name, params, ps in (("A", sh2, ps2), ("B", sh2, ps2),
+                             ("zero3", sh3, ps3)):
+        # four ranks' prefill transients share the card: hand back what
+        # the last run's left reserved
+        gc.collect()
+        torch.cuda.empty_cache()
+        step = M.make_serve_step(cfg, param_shardings=ps, cache_shardings=cs)
+        held = clone_tree(held0)
+        rec, counted = {"walls": []}, name == "zero3"
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, held = step(params, {"tokens": prompts}, held, 0)
+            torch.cuda.synchronize()
+            rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            # a copy: a view would hold the prefill's (B, S, V) logits
+            logits, tokens = [lg[:, -1].clone()], []
+            del lg
+            if counted:
+                snap = clone_tree(held)
+                K.reset_launch_counts()
+                mesh.host_ms.clear()
+                mesh.nbytes.clear()
+            with KernelShapes() if counted else \
+                    contextlib.nullcontext() as shapes:
+                for i in range(steps):
+                    fed = logits[-1].float().argmax(-1).to(torch.int32) \
+                        if teacher is None else teacher[:, i]
+                    tokens.append(fed)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, held = step(params, {"tokens": fed[:, None]}, held,
+                                    cl + i)
+                    torch.cuda.synchronize()
+                    rec["walls"].append((time.perf_counter() - t0) * 1e3)
+                    logits.append(lg[:, -1].clone())
+            if counted:
+                rec.update(launches=dict(K.launch_counts()),
+                           shapes=dict(shapes.seen),
+                           collective_ms=dict(mesh.host_ms),
+                           collective_bytes=dict(mesh.nbytes))
+                ctrl = SwappedShards(sh3["layers"][0]["attn"]["wo"])
+                with ctrl:
+                    lg, _ = step(params, {"tokens": teacher[:, :1]}, snap,
+                                 cl)
+                card_hits.append(ctrl.hits)
+                control = [lg[:, -1].clone()]
+                del snap
+        if teacher is None:
+            teacher = torch.stack(tokens, 1)
+        rec.update(logits=logits, cache=[t for c in held
+                                         for t in c["attn"].values()])
+        runs[name] = rec
+        del held, step
+    out = {k: v for k, v in runs["zero3"].items()
+           if k not in ("logits", "cache")}
+    out.update(compare=dict(_z3_compare(runs, names=("B", "zero3")),
+                            control=_z3_pair(control,
+                                             runs["A"]["logits"][1:2])),
+               cache=_z3_compare(runs, "cache", ("B", "zero3")),
+               fsdp_false_walls=runs["A"]["walls"],
+               cache_bytes=_nbytes(held0))
+    del runs, held0
+    return out
+
+
+def z3_serve(mesh, shape) -> dict:
+    """Phase 15 (a) on this rank: the parameters in both layouts, the
+    resident bytes against the dry-run's reckoning of the default
+    variant's prefill and decode steps on this mesh, then the prefill
+    and each decode layout."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as T
+    cfg = _mixtral("bfloat16", Z3_LAYERS)
+    layouts = _z3_layouts(mesh, cfg)
+    reckoned = {}
+    for kind, s, b in (("prefill", TP_PREFILL_S, TP_PREFILL_B),
+                       ("decode", DEC_SLOTS, DEC_B)):
+        _, args, shardings = D.build_step(cfg, InputShape(kind, s, b, kind),
+                                          mesh=mesh)
+        reckoned[kind] = SH.shard_nbytes(args[0], shardings(mesh)[0])
+    out = {"resident": _nbytes(layouts[2]), "fsdp_false": _nbytes(layouts[0]),
+           "reckoned": reckoned, "hits": []}
+    T.set_moe_dispatch_groups(shape[0])
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out["prefill"] = z3_prefill(mesh, cfg, layouts, out["hits"])
+        name, lay, steps = Z3_SERVE[shape]
+        out["decode"] = {name: z3_decode(mesh, cfg, layouts, lay, steps,
+                                         out["hits"])}
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        T.set_moe_dispatch_groups(1)
+    del layouts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def z3_train(mesh, shape, tmp: str) -> dict:
+    """Phase 15 (b) on this rank: phase 12's cell through the ZeRO-3 step
+    (``make_train_step(param_shardings=)``) for Z3_TRAIN[shape] steps;
+    each step's loss, wall and collectives, the resident bytes against
+    the dry-run's reckoning of the default variant's train step, the
+    final (data, model) shards to a file in `tmp`."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    cfg, opt, batches = _z2_setup()
+    T.set_moe_dispatch_groups(shape[0])
+    try:
+        full = init_params(cfg, seed=0, device="cuda")
+        ps = SH.params_shardings(full, mesh, fsdp=True)
+        params = SH.shard_tree(full, ps, copy=True)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = opt.init(params)
+        step = M.make_train_step(cfg, opt, microbatches=Z2_MB,
+                                 param_shardings=ps)
+        _, args, shardings = D.build_step(
+            cfg, InputShape("z3", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            {"microbatches": Z2_MB}, mesh=mesh)
+        reckoned = {k: SH.shard_nbytes(a, s) for k, a, s in
+                    zip(("params", "opt", "batch"), args, shardings(mesh))}
+        want = [tuple(SH.shard_shape(a.shape, s)) for a, s in
+                zip(_leaves(args[0]), _leaves(shardings(mesh)[0]))]
+        out = {"steps": [], "reckoned": reckoned}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches[:Z3_TRAIN[shape]]:
+            mesh.host_ms.clear()
+            mesh.nbytes.clear()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            out["steps"].append({
+                "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "loss": float(m["loss"]), "aux_loss": float(m["aux_loss"]),
+                "collective_ms": dict(mesh.host_ms),
+                "collective_bytes": dict(mesh.nbytes)})
+        out["resident"] = {"params": _nbytes(params), "opt": _nbytes(state),
+                           "batch": step.stats["batch_bytes"]}
+        out["shards_kept"] = [tuple(t.shape) for t in _leaves(params)] == want
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["params"] = os.path.join(tmp, f"z3p{mesh.rank}.pt")
+        torch.save(_host(params), out["params"])
+    finally:
+        T.set_moe_dispatch_groups(1)
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def z3_rank(rank: int, shape: tuple, tmp: str) -> dict:
+    """One rank of phase 15 on a (data, model) = `shape` mesh: (a), then
+    (b). Everything returned lives on the host."""
+    from repro_torch.launch.mesh import make_process_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_process_mesh(*shape, device="cuda:0")
+    out = {"rank": rank, "coords": mesh.coords,
+           "serve": z3_serve(mesh, shape),
+           "train": z3_train(mesh, shape, tmp)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _z3_said(c: dict) -> str:
+    """One comparison of ``_z3_compare`` in words."""
+    return "bit for bit" if c["same"] else \
+        f"max |err| {c['max_abs_err']:.3e}, rel {c['rel']:.3e}"
+
+
+def _z3_cell_gate(name, cmp: dict, fails: list) -> str:
+    """The serving gate of one cell on one rank (module docstring): bit
+    for bit where the witness is, else at the tolerance; the control
+    must fail the gate that applies. Without "control" in `cmp` (a
+    cache) only the first part."""
+    exact = cmp["B"]["same"]
+    key = "same" if exact else "within"
+    if not cmp["zero3"][key]:
+        fails.append(f"{name}: ZeRO-3 against fsdp=False: "
+                     f"{_z3_said(cmp['zero3'])}, beyond the gate "
+                     f"({'bit for bit' if exact else 'the tolerance'})")
+    text = (f"witness (two fsdp=False runs) {_z3_said(cmp['B'])}; ZeRO-3 "
+            f"{_z3_said(cmp['zero3'])} (gated "
+            f"{'bit for bit' if exact else f'at TOL[bf16], rel {DEC_REL}'})")
+    if "control" not in cmp:
+        return text
+    if cmp["control"][key]:
+        fails.append(f"{name}: the control (swapped shards) passed the gate")
+    return text + f"; the control {_z3_said(cmp['control'])}"
+
+
+def _z3_launch_gate(name, run, calls: int, attn: int, fails: list) -> str:
+    """The kernels of one ZeRO-3 run: the expert kernels `calls` times
+    each (once a layer a call), decode attention `attn` times, bf16 on
+    "wgmma" and "mma"."""
+    for k_name, n in (("fused_gate_up", calls), ("gmm", calls),
+                      ("decode_attention", attn)):
+        if run["launches"][k_name] != n:
+            fails.append(f"{name}: {k_name} launched "
+                         f"{run['launches'][k_name]} times, not {n}")
+    paths = []
+    for (k_name, xs, ws, dt, stats), n in run["shapes"].items():
+        x = torch.empty(xs, dtype=torch.bfloat16, device="cuda")
+        w = torch.empty(ws, dtype=torch.bfloat16, device="cuda")
+        if k_name == "decode_attention":
+            path, want = DA.kernel_path(x, w, w)[0], "mma"
+        else:
+            path, want = MG.kernel_path(x, w, k_name == "fused_gate_up")[0], \
+                "wgmma"
+        if path != want or "bfloat16" not in dt:
+            fails.append(f"{name}: {k_name} at {xs} x {ws} took {path}")
+        paths.append(f"{n} {k_name} {xs}x{ws} {path}"
+                     + (" stats" if stats else ""))
+        del x, w
+    return "; ".join(paths)
+
+
+def _per_call(d: dict, n: int, scale: float = 1.0) -> dict:
+    return {k: round(v / n / scale, 2) for k, v in d.items()}
+
+
+def z3_serve_gates(shape, ranks, card, fails: list) -> dict:
+    """Phase 15 (a)'s gates on one mesh's ranks; printed with walls,
+    collectives, bytes and peaks."""
+    cfg = _mixtral("bfloat16", Z3_LAYERS)
+    steps = Z3_SERVE[shape][2]
+    for r in ranks:
+        s = r["serve"]
+        name = f"{shape} rank {r['rank']}"
+        if s["resident"] != s["reckoned"]["prefill"] or \
+                s["resident"] != s["reckoned"]["decode"]:
+            fails.append(f"{name}: resident parameter bytes {s['resident']} "
+                         f"!= the dry-run's {s['reckoned']}")
+        if not s["resident"] < s["fsdp_false"]:
+            fails.append(f"{name}: ZeRO-3 holds {s['resident']} bytes, not "
+                         f"below fsdp=False's {s['fsdp_false']}")
+        if not all(h > 0 for h in s["hits"]):
+            fails.append(f"{name}: the control swapped nothing ({s['hits']})")
+        p = s["prefill"]
+        text = _z3_cell_gate(f"{name} prefill", p["compare"], fails)
+        if not p["metrics_same"]:
+            fails.append(f"{name} prefill: loads or drops differ")
+        paths = _z3_launch_gate(f"{name} prefill", p, cfg.num_layers, 0,
+                                fails)
+        log(f"  {name} prefill {TP_PREFILL_B} x {TP_PREFILL_S}, "
+            f"{cfg.num_layers} of 32 layers, bf16: {text}; loads and drops "
+            f"{'equal' if p['metrics_same'] else 'DIFFER'}; launches {paths}; "
+            f"wall {p['zero3_ms']:.1f} ms (fsdp=False {p['B_ms']:.1f}); "
+            f"host ms by collective "
+            f"{ {k: round(v, 1) for k, v in p['collective_ms'].items()} }, "
+            f"MB {_per_call(p['collective_bytes'], 1, 1e6)}; on {card}")
+        for lay, d in s["decode"].items():
+            cell = f"{name} decode {lay}"
+            text = _z3_cell_gate(cell, d["compare"], fails)
+            ctext = _z3_cell_gate(cell + " cache", d["cache"], fails)
+            n = cfg.num_layers * steps
+            paths = _z3_launch_gate(cell, d, n, n, fails)
+            log(f"  {cell}, B {DEC_B}, a {DEC_PREFILL}-token prefill into "
+                f"{DEC_SLOTS} slots + {steps} steps: logits {text}; "
+                f"caches: {ctext}; launches "
+                f"{paths}; decode step wall median "
+                f"{float(np.median(d['walls'])):.1f} ms (fsdp=False "
+                f"{float(np.median(d['fsdp_false_walls'])):.1f}), prefill "
+                f"{d['prefill_ms']:.0f} ms; host ms a step by collective "
+                f"{_per_call(d['collective_ms'], steps)}, MB a step "
+                f"{_per_call(d['collective_bytes'], steps, 1e6)}; on "
+                f"{card}")
+        log(f"  {name}: parameters resident {s['resident']} bytes == the "
+            f"dry-run's reckoning (fsdp_params on) {s['reckoned']}; "
+            f"fsdp=False {s['fsdp_false']}; peak {s['peak_gb']:.2f} GB "
+            f"(both layouts held); on {card}")
+    r0 = ranks[0]["serve"]
+    out = {"resident": [r["serve"]["resident"] for r in ranks],
+           "fsdp_false": r0["fsdp_false"], "peak_gb":
+           [r["serve"]["peak_gb"] for r in ranks],
+           "prefill_ms": [r["serve"]["prefill"]["zero3_ms"] for r in ranks],
+           "prefill_fsdp_false_ms": r0["prefill"]["B_ms"],
+           "launches": [{k: sum(d["launches"][k] for d in
+                                r["serve"]["decode"].values())
+                         + r["serve"]["prefill"]["launches"][k]
+                         for k in ("fused_gate_up", "gmm",
+                                   "decode_attention")} for r in ranks],
+           "decode": {lay: {"wall_ms": float(np.median(d["walls"])),
+                            "fsdp_false_ms": float(np.median(
+                                d["fsdp_false_walls"])),
+                            "gathered_mb_a_step": d["collective_bytes"].get(
+                                "all_gather/data/params", 0) / steps
+                            / 1e6}
+                      for lay, d in r0["decode"].items()}}
+    return out
+
+
+def z3_train_gates(shape, ranks, zero2, card, fails: list) -> dict:
+    """Phase 15 (b)'s gates on one mesh's ranks against `zero2`, the
+    ZeRO-2 step's record on the same mesh ({losses, params: the whole
+    leaves after the last step, resident, peak_gb})."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model import abstract_params
+    cfg, _, _ = _z2_setup()
+    mesh = _logical(shape)
+    specs = _leaves(SH.params_shardings(abstract_params(cfg), mesh,
+                                        fsdp=True))
+    # on the card: the host takes ~25 s a mesh for these 1.7 B elements
+    parts = [_leaves(torch.load(r["train"]["params"], map_location="cuda"))
+             for r in ranks]
+    ulps, same = [], True
+    for s, p, want in zip(specs, zip(*parts), _leaves(zero2["params"])):
+        a, b = SH.assemble(list(p), s), want.cuda()
+        ulps.append(float(((a.float() - b.float()).abs()
+                           / _ulp_bf16(b)).max()))
+        same &= bool(torch.equal(a, b))
+        del a, b
+    del parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    if max(ulps) > 1:
+        fails.append(f"{shape} training: the parameters after the last step "
+                     f"{max(ulps):.3f} bf16 ulp off ZeRO-2's")
+    for r in ranks:
+        t = r["train"]
+        for i, s in enumerate(t["steps"]):
+            want = zero2["losses"][i]
+            if abs(s["loss"] - want) > MB_LOSS_TOL:
+                fails.append(f"{shape} rank {r['rank']} step {i + 1}: loss "
+                             f"{s['loss']} against ZeRO-2's {want}")
+        if t["resident"]["params"] != t["reckoned"]["params"] or \
+                t["resident"]["opt"] != t["reckoned"]["opt"]:
+            fails.append(f"{shape} rank {r['rank']}: resident {t['resident']}"
+                         f" != the dry-run's {t['reckoned']}")
+        if not t["shards_kept"]:
+            fails.append(f"{shape} rank {r['rank']}: the parameters are not "
+                         "the (data, model) shards after the steps")
+        if not sum(t["resident"].values()) < zero2["resident"]:
+            fails.append(f"{shape} rank {r['rank']}: resident "
+                         f"{sum(t['resident'].values())} not below ZeRO-2's "
+                         f"{zero2['resident']}")
+    t = ranks[0]["train"]
+    log(f"  {shape} training, {len(t['steps'])} step(s): losses "
+        f"{[round(s['loss'], 6) for s in t['steps']]} against ZeRO-2's "
+        f"{[round(x, 6) for x in zero2['losses'][:len(t['steps'])]]} (held "
+        f"to {MB_LOSS_TOL:.0e}); parameters after the last step "
+        f"{'bit for bit' if same else 'within %.3f bf16 ulp' % max(ulps)} of "
+        f"ZeRO-2's (held to 1 ulp)")
+    for r in ranks:
+        t = r["train"]
+        gb = [_per_call(s["collective_bytes"], 1, 1e9) for s in t["steps"]]
+        log(f"  {shape} rank {r['rank']} {tuple(r['coords'])}: step walls "
+            f"{[round(s['wall_ms'], 1) for s in t['steps']]} ms; host ms a "
+            f"step {[_per_call(s['collective_ms'], 1) for s in t['steps']]};"
+            f" GB a step {gb}; resident {t['resident']} bytes == the "
+            f"dry-run's reckoning (fsdp_params on), ZeRO-2's "
+            f"{zero2['resident']}; peak "
+            f"{t['peak_gb']:.2f} GB (ZeRO-2 {zero2['peak_gb']:.2f}); "
+            f"{r['seconds']:.1f} s from its start to its return; on {card}")
+    return {"losses": [s["loss"] for s in ranks[0]["train"]["steps"]],
+            "bitwise": same, "ulps": max(ulps),
+            "walls": [[s["wall_ms"] for s in r["train"]["steps"]]
+                      for r in ranks],
+            "resident": [r["train"]["resident"] for r in ranks],
+            "peak_gb": [r["train"]["peak_gb"] for r in ranks]}
+
+
+def zero3_phase(card: str, zero2: dict) -> dict:
+    """Phase 15: for each mesh of Z3_SERVE the ranks (``launch.mesh.
+    spawn_local``, gloo on cuda:0), serving then training, gated as the
+    module docstring says. `zero2`: {shape: the ZeRO-2 step's record on
+    that mesh} (phases 12 and 13)."""
+    from repro_torch.launch.mesh import spawn_local
+    t15 = time.perf_counter()
+    res, fails = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for shape in Z3_SERVE:
+            t0 = time.perf_counter()
+            ranks = spawn_local(z3_rank, shape[0] * shape[1], backend="gloo",
+                                args=(shape, tmp), wall_s=900.0)
+            log(f"  {len(ranks)} ranks on {shape} over gloo on cuda:0 "
+                f"{time.perf_counter() - t0:.1f} s")
+            res[str(shape)] = {
+                "serve": z3_serve_gates(shape, ranks, card, fails),
+                "train": z3_train_gates(shape, ranks, zero2[shape], card,
+                                        fails)}
+    res["seconds"] = time.perf_counter() - t15
+    log(f"  phase 15 took {res['seconds']:.1f} s")
+    if fails:
+        raise AssertionError("phase 15: " + "; ".join(fails))
     return res
 
 
@@ -6884,7 +7515,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("[12] the dry-run and sharding: the meta-device sweep, ZeRO-2 "
         "training of mixtral-8x7b on two ranks, the Mamba levers")
-    sharding_phase(card)
+    z2 = sharding_phase(card)["zero2"]
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -6899,6 +7530,23 @@ def main() -> int:
         "(2, 2) process meshes with the KV cache sharded, decode attention "
         "on each rank's sequence shard merged by its softmax statistics")
     dec = dec_phase(card)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[15] the ZeRO-3 layout: mixtral-8x7b on (2, 1) and (2, 2) process "
+        "meshes with every leaf split over data as well, gathered at use a "
+        "period at a time: the prefill and decode steps against fsdp=False, "
+        "training against ZeRO-2")
+    z22 = tp["(2, 2)"]
+    zero3 = zero3_phase(card, {
+        (2, 1): {"losses": [s["loss"] for s in z2["ranks"][0]["steps"]],
+                 "params": z2.pop("params_final"),
+                 "resident": sum(z2["ranks"][0]["resident"].values()),
+                 "peak_gb": z2["ranks"][0]["peak_gb"]},
+        (2, 2): {"losses": z22["losses"][0],
+                 "params": z22.pop("params_final"),
+                 "resident": sum(z22["resident"][0].values()),
+                 "peak_gb": z22["peaks"][0]}})
 
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \
@@ -6940,6 +7588,11 @@ def main() -> int:
     for k_name in ("decode_attention", "fused_gate_up", "gmm"):
         rec[k_name]["tp_decode_launches"] = [
             r[k_name] for r in dec["(1, 2)"]["bfloat16 default"]["launches"]]
+    # phase 15: each rank's launches in its ZeRO-3 prefill and decode runs
+    for k_name in ("decode_attention", "fused_gate_up", "gmm"):
+        rec[k_name]["zero3_launches"] = {
+            shape: [r[k_name] for r in z["serve"]["launches"]]
+            for shape, z in zero3.items() if shape != "seconds"}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

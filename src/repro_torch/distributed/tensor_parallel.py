@@ -24,6 +24,8 @@ identity on a group of one:
   copy_to_model       identity;          backward: sum over the group
   reduce_from_model   sum over the group; backward: identity
   gather_from_model   all-gather on dim;  backward: this rank's slice
+  gather_from_data    all-gather on dim over the data axes;
+                                          backward: reduce-scatter (sum)
 
 ``copy_to_model`` goes before a product whose input gradient is partial
 on each rank (a column-parallel product, a head over the rank's logit
@@ -34,6 +36,18 @@ computes the same whole gradient of a gathered weight from the same
 activations. The collectives are the mesh's, metered by
 name in its ``host_ms`` and ``nbytes``.
 
+The ZeRO-3 layout (``params_shardings(fsdp=True)``) splits a leaf over
+the data axes too. ``gather_from_data`` undoes that split at use: its
+forward concatenates the data group's shards in block order, and its
+backward sums the gradient over the group, since each data rank holds
+other rows of the batch, and hands this rank its block. The sum is
+taken in float32 (the gradient arrives in the leaf's dtype, bf16 on
+the card). Autograd would round a returned float32 gradient back to the
+leaf's dtype, so where the caller gives a float32 `sink` (this rank's
+accumulator of the leaf's gradient) the backward adds the float32 sum
+into it in place and returns no gradient for the leaf; with no sink it
+returns the sum, rounded by autograd.
+
 The sharded decode step adds two forward-only pieces: ``gather_over``,
 a shard concatenated over any of the mesh's axes (a cache leaf gathered
 at use, the logits' rows and columns), and ``merge_softmax``, which
@@ -42,14 +56,24 @@ a row's cache slots by their softmax statistics.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import refuse_autograd
+from repro_torch.launch.mesh import dp_axes
 
 
 def model_size(mesh) -> int:
     """The model degree of `mesh` (1 for None or a mesh without it)."""
     return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def data_size(mesh) -> int:
+    """The data degree of `mesh`, the product over its data axes (1 for
+    None)."""
+    return 1 if mesh is None else math.prod(mesh.shape[a]
+                                            for a in dp_axes(mesh))
 
 
 class _Copy(torch.autograd.Function):
@@ -86,6 +110,28 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
 
 
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, sink):
+        ctx.mesh, ctx.dim, ctx.sink = mesh, dim, sink
+        return gather_over(x, mesh, dim, dp_axes(mesh),
+                           tag="params").contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        # the gather's blocks are row-major over the data axes: scatter
+        # over the outer axis first
+        part = g.float().movedim(ctx.dim, 0)
+        for a in dp_axes(ctx.mesh):
+            part = ctx.mesh.reduce_scatter(part.contiguous(), a,
+                                           tag="grads")
+        part = part.movedim(0, ctx.dim)
+        if ctx.sink is None:
+            return part, None, None, None
+        ctx.sink.add_(part)
+        return None, None, None, None
+
+
 def copy_to_model(x, mesh):
     """`x` as it is; its gradient summed over the model group."""
     return x if model_size(mesh) == 1 else _Copy.apply(x, mesh)
@@ -108,6 +154,17 @@ def gather_from_model(x, mesh, dim: int):
     group-rank order; its gradient is this rank's slice of the whole
     gradient, with no sum."""
     return x if model_size(mesh) == 1 else _Gather.apply(x, mesh, dim)
+
+
+def gather_from_data(x, mesh, dim: int, sink=None):
+    """The data group's shards of a leaf concatenated on `dim`, in block
+    order over the data axes (``sharding.shard_tree``'s cut undone); its
+    gradient summed over the group in float32 and cut to this rank's
+    block: added into `sink` (float32, `x`'s shape) where given, with no
+    gradient returned for `x`, else returned (module docstring). Every
+    data rank must call it, in the same order."""
+    return x if data_size(mesh) == 1 else _GatherData.apply(x, mesh, dim,
+                                                            sink)
 
 
 def gather_over(x, mesh, dim: int, axes, tag=None):
@@ -213,6 +270,27 @@ def gather_tree(tree, dims, mesh, keep=(), path=()):
         return type(tree)(gather_tree(v, d, mesh, keep, path + (i,))
                           for i, (v, d) in enumerate(zip(tree, dims)))
     return tree if dims is None else gather_from_model(tree, mesh, dims)
+
+
+def gather_data_tree(tree, dims, mesh, sinks=None, keep=(), path=()):
+    """`tree` with every leaf that has a data dim in `dims` gathered over
+    the data group (``gather_from_data``), its gradient summed into the
+    leaf of `sinks` (a tree of `tree`'s structure, float32 tensors or
+    None; None for no sink) at the same place, but the subtrees at the
+    paths in `keep`."""
+    if path in keep:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_data_tree(v, dims[k], mesh,
+                                    None if sinks is None else sinks[k],
+                                    keep, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            gather_data_tree(v, d, mesh, None if sinks is None else sinks[i],
+                             keep, path + (i,))
+            for i, (v, d) in enumerate(zip(tree, dims)))
+    return tree if dims is None else gather_from_data(tree, mesh, dims, sinks)
 
 
 def unstack_dims(dims):

@@ -100,7 +100,15 @@ RESULTS_DIR = pathlib.Path(__file__).resolve().parents[3] \
 def build_step(cfg, shape, variant=None, *, mesh=None):
     """Returns (step_fn, abstract_args, shardings_builder), the args on
     the meta device. `mesh` is the mesh the ZeRO-2 variant's gradient
-    layout is pinned to (the reference hangs it on the function).
+    layout is pinned to (the reference hangs it on the function). On a
+    ``launch.mesh.ProcessMesh`` (a rank) the step runs the layout that
+    ``shardings_builder(mesh)`` returns: with ``fsdp_params`` (the
+    default) the ZeRO-3 train step (``make_train_step(param_shardings=
+    )``), and the prefill and decode steps on the same (data, model)
+    shards; without it the ZeRO-2 train step and the prefill and decode
+    steps on the model shards. On a ``LogicalMesh`` the shardings are a
+    layout only and the step is the one-process step (ZeRO-2's gradient
+    layout pinned to it as a layout).
 
     `variant` (dict) selects the reference's hillclimb configurations:
       microbatches: int (train, default 8)
@@ -120,6 +128,10 @@ def build_step(cfg, shape, variant=None, *, mesh=None):
     window = M.effective_window(cfg, shape)
     batch = M.input_specs(cfg, shape, abstract=True)
     aparams = M.abstract_params(cfg)
+    # a rank's step runs its shards (the layout below); a logical mesh's
+    # is the one-process step
+    ps = params_shardings(aparams, mesh, fsdp=fsdp, ep_experts=epx) \
+        if hasattr(mesh, "groups") else None
 
     if shape.kind == "train":
         opt = adamw(1e-4)
@@ -132,7 +144,8 @@ def build_step(cfg, shape, variant=None, *, mesh=None):
         step = M.make_train_step(cfg, opt, window=window,
                                  microbatches=v.get("microbatches", 8),
                                  remat=v.get("remat", "full"),
-                                 grad_shardings=gs)
+                                 grad_shardings=gs,
+                                 param_shardings=ps if fsdp else None)
 
         def shardings(mesh):
             return (params_shardings(aparams, mesh, fsdp=fsdp,
@@ -142,7 +155,7 @@ def build_step(cfg, shape, variant=None, *, mesh=None):
         return step, (aparams, aopt, batch), shardings
 
     if shape.kind == "prefill":
-        step = M.make_prefill_step(cfg, window=window)
+        step = M.make_prefill_step(cfg, window=window, param_shardings=ps)
 
         def shardings(mesh):
             return (params_shardings(aparams, mesh, fsdp=fsdp,
@@ -151,11 +164,14 @@ def build_step(cfg, shape, variant=None, *, mesh=None):
         return step, (aparams, batch), shardings
 
     # decode
-    step = M.make_serve_step(cfg, window=window)
     acache = M.abstract_cache(cfg, shape)
     cache_len = torch.empty((), dtype=torch.int32, device="meta")
     seq_dp = v.get("seq_over_dp", False)
     heads_model = v.get("cache_heads_model", False)
+    step = M.make_serve_step(
+        cfg, window=window, param_shardings=ps,
+        cache_shardings=None if ps is None else cache_shardings(
+            acache, mesh, seq_over_dp=seq_dp, heads_model=heads_model))
 
     def shardings(mesh):
         return (params_shardings(aparams, mesh, fsdp=fsdp,

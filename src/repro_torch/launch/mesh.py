@@ -35,9 +35,9 @@ axes with the others fixed) and their collectives, with each
 collective's host ms and bytes. ``ServingMesh`` is its (data, ep, tp)
 form with the three groups above; ``make_process_mesh`` and
 ``make_host_mesh`` build its ("data", "model") form, with the data
-groups of the ZeRO-2 step and the model groups of its tensor
-parallelism (``models.model.make_train_step(grad_shardings=)``,
-``make_prefill_step(param_shardings=)``). ``LogicalMesh``
+groups of the ZeRO-2 and ZeRO-3 steps and the model groups of their
+tensor parallelism (``models.model.make_train_step(grad_shardings=,
+param_shardings=)``, ``make_prefill_step(param_shardings=)``). ``LogicalMesh``
 (``make_production_mesh``) has axis sizes only, no devices and no
 process group: the dry-run reckons per-rank bytes on it.
 
@@ -163,7 +163,7 @@ class ProcessMesh:
         self._timed(f"all_reduce_autograd/{group}", t0, out)
         return out
 
-    def reduce_scatter(self, x, group: str):
+    def reduce_scatter(self, x, group: str, tag=None):
         """Member i receives block i of the sum over the group of `x`
         (n blocks of equal size on dim 0)."""
         n = self.group_size(group)
@@ -173,7 +173,7 @@ class ProcessMesh:
         out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
         dist.reduce_scatter_tensor(out, x.contiguous(),
                                    group=self.groups[group])
-        self._timed(f"reduce_scatter/{group}", t0, out)
+        self._timed(f"reduce_scatter/{group}", t0, out, tag)
         return out
 
     def check_same(self, what: str, payload: bytes) -> None:

@@ -110,17 +110,21 @@ def input_specs(cfg, shape, *, abstract: bool = True, generator=None,
 
 
 def loss_fn(cfg, params, batch, *, window: int = 0, aux_weight: float = 0.01,
-            remat: str = "full", data_mesh=None):
+            remat: str = "full", data_mesh=None, param_shardings=None,
+            grad_sinks=None):
     """(total, metrics): the mean next-token cross entropy of
     batch['labels'] (B, S) under float32 logits, in logsumexp form (the
     padded vocab's -1e9 entries stay inside the logsumexp), plus
     `aux_weight` times the summed router aux loss; metrics gain
-    'loss'. `data_mesh`: ``transformer.forward``'s (the ZeRO-2 step);
-    where its logits are this rank's vocabulary columns (model > 1) the
-    cross entropy is reduced over the model group without gathering
-    them (``tensor_parallel.vocab_cross_entropy``)."""
+    'loss'. `data_mesh`, `param_shardings`, `grad_sinks`:
+    ``transformer.forward``'s (the ZeRO-2 and ZeRO-3 steps); where its
+    logits are this rank's vocabulary columns (model > 1) the cross
+    entropy is reduced over the model group without gathering them
+    (``tensor_parallel.vocab_cross_entropy``)."""
     logits, metrics = T.forward(cfg, params, batch, window=window,
-                                remat=remat, data_mesh=data_mesh)
+                                remat=remat, data_mesh=data_mesh,
+                                param_shardings=param_shardings,
+                                grad_sinks=grad_sinks)
     logits = logits.float()
     if logits.shape[-1] != cfg.padded_vocab:
         loss = TP.vocab_cross_entropy(logits, batch["labels"],
@@ -141,7 +145,8 @@ def _check_microbatches(batch_size: int, parts: int) -> None:
 
 
 def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
-                    microbatches: int = 1, grad_shardings=None):
+                    microbatches: int = 1, grad_shardings=None,
+                    param_shardings=None):
     """train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), functional as the reference's: gradients of ``loss_fn``
     through ``torch.autograd.grad`` on detached leaves (the caller's
@@ -171,33 +176,59 @@ def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
     (``optimizer.init`` of ``sharding.shard_tree(params,
     grad_shardings)``).
 
+    param_shardings: the parameters' layout (the reference's params
+    ``in_shardings``), a NamedSharding tree. With data axes in it
+    (``params_shardings(..., fsdp=True)``) the step on a ``ProcessMesh``
+    is ZeRO-3 (``_zero2_step``'s frame, `zero3`): the parameters in and
+    out and `opt_state` are this rank's (data, model) shards
+    (``sharding.shard_tree(params, param_shardings, copy=True)``), each
+    data-split leaf gathered over the data group at use and its
+    gradient reduce-scattered back in float32; ``grad_shardings``
+    defaults to it, and given with another layout raises ValueError.
+    Without data axes it is the ZeRO-2 step's parameter layout
+    (``grad_shardings`` without the data axes; the accumulator is then
+    ``grad_shardings``, or the parameters' layout where none is given).
+
     The returned step carries its two halves: ``train_step.grads(params,
     batch) -> (metrics, gradients)`` (the accumulator: this rank's
-    shards under ZeRO-2) and ``train_step.apply(params, gradients,
-    opt_state) -> (params, opt_state)``; ``train_step.stats`` holds
-    the ZeRO-2 step's meters."""
+    shards under ZeRO-2 and ZeRO-3) and ``train_step.apply(params,
+    gradients, opt_state) -> (params, opt_state)``;
+    ``train_step.stats`` holds the sharded step's meters."""
+    zero3 = _check_layouts(param_shardings, grad_shardings)
+    if grad_shardings is None:
+        grad_shardings = param_shardings
     mesh = _process_mesh(grad_shardings)
+    layout = param_shardings if zero3 and mesh is not None else None
 
-    def grads(params, batch):
-        """(metrics, gradients) of ``loss_fn`` at `params` on `batch`."""
+    def grads(params, batch, sinks=None):
+        """(metrics, gradients) of ``loss_fn`` at `params` on `batch`.
+        `sinks`: ``forward``'s `grad_sinks` (ZeRO-3): a leaf with a sink
+        has its gradient there and None here."""
         live = _map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad():
             total, metrics = loss_fn(cfg, live, batch, window=window,
-                                     remat=remat, data_mesh=mesh)
+                                     remat=remat, data_mesh=mesh,
+                                     param_shardings=layout,
+                                     grad_sinks=sinks)
             leaves = _leaves(live)
             gs = torch.autograd.grad(total, leaves, allow_unused=True)
-        it = iter([torch.zeros_like(p) if g is None else g
-                   for p, g in zip(leaves, gs)])
+        sunk = [False] * len(leaves) if sinks is None else \
+            [s is not None for s in _leaves(sinks)]
+        it = iter([torch.zeros_like(p) if g is None and not s else g
+                   for p, g, s in zip(leaves, gs, sunk)])
         return ({k: v.detach() for k, v in metrics.items()},
                 _map(lambda _: next(it), params))
 
-    def accumulated_grads(params, batch, pin=None, acc_shape=None):
+    def accumulated_grads(params, batch, pin=None, acc_shape=None,
+                          sunk=()):
         """(metrics, gradients) of `batch` in `microbatches` equal parts:
         each part's gradients summed into a float32 accumulator, then
         the accumulator and the summed metrics divided by `microbatches`.
         ZeRO-2 passes `pin(i, g)`, which takes leaf i's float32 gradient
         of a part to this rank's contribution to its accumulator leaf,
-        of shape `acc_shape(i, leaf)`."""
+        of shape `acc_shape(i, leaf)`; ZeRO-3 also passes `sunk`, the
+        leaves whose accumulator the forward's data gathers sum into
+        themselves (``forward``'s `grad_sinks`)."""
         if microbatches == 1 and pin is None:
             return grads(params, batch)
         _check_microbatches(batch["tokens"].shape[0], microbatches)
@@ -206,10 +237,16 @@ def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
         acc = [torch.zeros(p.shape if acc_shape is None else acc_shape(i, p),
                            dtype=torch.float32, device=p.device)
                for i, p in enumerate(_leaves(params))]
+        sinks = None
+        if sunk:
+            it = iter([a if i in sunk else None for i, a in enumerate(acc)])
+            sinks = _map(lambda _: next(it), params)
         metrics = None
         for i in range(microbatches):
-            m, g = grads(params, {k: v[i] for k, v in mb.items()})
+            m, g = grads(params, {k: v[i] for k, v in mb.items()}, sinks)
             for j, (a, q) in enumerate(zip(acc, _leaves(g))):
+                if j in sunk:
+                    continue
                 a.add_(q if pin is None else pin(j, q.float()))
             metrics = m if metrics is None else \
                 {k: metrics[k] + m[k] for k in m}
@@ -223,7 +260,7 @@ def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
 
     if mesh is not None:
         return _zero2_step(cfg, accumulated_grads, optimizer, mesh,
-                           grad_shardings, microbatches)
+                           grad_shardings, microbatches, layout)
 
     def train_step(params, opt_state, batch):
         # named ranges for a profile of the step; autograd runs the
@@ -253,6 +290,31 @@ def _sharding_mesh(shardings):
     return next(iter(meshes.values()))
 
 
+def _check_layouts(param_shardings, grad_shardings) -> bool:
+    """Whether `param_shardings` splits leaves over the data axes (the
+    ZeRO-3 layout); ValueError where both trees are given and disagree:
+    in a leaf's model dim, or (ZeRO-3) in its data dim."""
+    if param_shardings is None:
+        return False
+    from repro_torch.distributed import sharding as SH
+    ps = _leaves(param_shardings)
+    _sharding_mesh(param_shardings)
+    zero3 = any(SH.data_dim(s) is not None for s in ps)
+    if grad_shardings is None:
+        return zero3
+    gs = _leaves(grad_shardings)
+    if len(gs) != len(ps) or any(
+            SH.model_dim(p) != SH.model_dim(g)
+            or (zero3 and SH.data_dim(p) != SH.data_dim(g))
+            for p, g in zip(ps, gs)):
+        raise ValueError("param_shardings and grad_shardings lay the "
+                         "parameters out differently" + (
+                             " over the data axes (ZeRO-3 takes its "
+                             "accumulator in the parameters' layout)"
+                             if zero3 else ""))
+    return zero3
+
+
 def _process_mesh(shardings):
     """The ``ProcessMesh`` of a NamedSharding tree; None for no tree or
     one on a ``LogicalMesh`` (a layout only: the one-process step)."""
@@ -263,9 +325,10 @@ def _process_mesh(shardings):
 
 
 def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
-                microbatches: int):
+                microbatches: int, zero3=None):
     """ZeRO-2 over the data ranks of `mesh` (a (data, model)
-    ProcessMesh), tensor-parallel over its model ranks.
+    ProcessMesh), tensor-parallel over its model ranks; ZeRO-3 where
+    `zero3` is the parameters' layout with data axes (below).
 
     Parameters: this rank's model shards (``grad_shardings`` without the
     data axes, ``train_step.param_shardings``: ``params_shardings(...,
@@ -299,11 +362,26 @@ def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
     over the data group for leaves split on data and over the model
     group for leaves split on model, a leaf replicated on an axis
     counted once; then the shards are all-gathered over the data group
-    only, so the parameters come back as this rank's model shards."""
+    only, so the parameters come back as this rank's model shards.
+
+    ZeRO-3 (`zero3`, ``make_train_step(param_shardings=)``): the
+    parameters are this rank's (data, model) shards, in and out. The
+    rows, the division by dp, the clip and the meters are as above;
+    ``transformer.forward`` gathers each data-split leaf over the data
+    group at use, and its backward reduce-scatters that leaf's float32
+    gradient straight into this rank's accumulator shard
+    (``tensor_parallel.gather_from_data`` with the accumulator as its
+    sink), so `pin` takes only the leaves with no data dim (all-reduced,
+    as above). The update runs on the shards as they are and nothing is
+    gathered after it. Every rank issues the same collectives in the
+    same order: the forward's gathers and the backward's scatters follow
+    the graph, which every rank builds alike, and `pin`'s all-reduces
+    run after the backward in leaf order."""
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import dp_axes
     dp, r = mesh.shape["data"], mesh.index("data")
-    param_sh = SH.without_axes(grad_shardings, dp_axes(mesh))
+    param_sh = zero3 if zero3 is not None else \
+        SH.without_axes(grad_shardings, dp_axes(mesh))
     data_sh = SH.without_axes(grad_shardings, ("model",))
     stats = {"transpose_bytes": 0, "gathered_bytes": 0, "batch_bytes": 0}
 
@@ -378,8 +456,10 @@ def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
                 return mesh.all_reduce(g, "data")
             return mesh.reduce_scatter(to_front(g, j), "data").movedim(0, j)
 
+        sunk = () if zero3 is None else \
+            {i for i, s in enumerate(specs) if s[1] is not None}
         metrics, acc = accumulated_grads(params, local, pin,
-                                         lambda i, p: specs[i][3])
+                                         lambda i, p: specs[i][3], sunk)
         for k in ("loss", "aux_loss"):
             metrics[k] = mesh.all_reduce(metrics[k], "data") / dp
         return metrics, _map(lambda a: a.div_(dp), acc)
@@ -402,6 +482,8 @@ def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
                 [both, part.get((False, True), zero)]), "model")
             return both + data + model + part.get((False, False), zero)
 
+        if zero3 is not None:
+            return optimizer.update(params, g, opt_state, sum_squares)
         new, opt_state = optimizer.update(SH.shard_tree(params, data_sh), g,
                                           opt_state, sum_squares)
         out = []
@@ -437,9 +519,12 @@ def make_prefill_step(cfg, *, window: int = 0, param_shardings=None):
     NamedSharding`` tree (the reference's ``in_shardings``). On a
     ``LogicalMesh`` it is a layout only: the one-process step. On a
     ``ProcessMesh`` `params` are this rank's shards (``sharding.
-    shard_tree(..., copy=True)``), split over "model" only: a layout
-    with data axes (ZeRO-3's) raises NotImplementedError (ROADMAP queue
-    1). Each rank runs its contiguous rows of the global batch (B over
+    shard_tree(..., copy=True)``), split over "model" and, under ZeRO-3
+    (``params_shardings(fsdp=True)``), over the data axes too: a
+    data-split leaf is gathered over the data group at use, one layer
+    period at a time (``transformer.forward``), so the step computes
+    what it computes on the ``fsdp=False`` layout, bit for bit. Each
+    rank runs its contiguous rows of the global batch (B over
     data, as ``batch_shardings`` lays it out: its dispatch groups at
     ``transformer.set_moe_dispatch_groups(data)``), tensor-parallel over
     its model group, and returns the global logits (B, 1, V) and
@@ -452,12 +537,6 @@ def make_prefill_step(cfg, *, window: int = 0, param_shardings=None):
                              last_only=True)
 
         return prefill_step
-    from repro_torch.distributed.sharding import data_dim
-    if any(data_dim(s) is not None for s in _leaves(param_shardings)):
-        raise NotImplementedError(
-            "a prefill on parameters sharded over the data axes (the "
-            "ZeRO-3 layout) is queued work (ROADMAP queue 1); pass "
-            "params_shardings(..., fsdp=False)")
     dp, r = mesh.shape["data"], mesh.index("data")
 
     def prefill_step(params, batch):
@@ -469,7 +548,8 @@ def make_prefill_step(cfg, *, window: int = 0, param_shardings=None):
         local = {k: v.narrow(0, r * (b // dp), b // dp).to(dev)
                  for k, v in batch.items()}
         logits, metrics = T.forward(cfg, params, local, window=window,
-                                    last_only=True, data_mesh=mesh)
+                                    last_only=True, data_mesh=mesh,
+                                    param_shardings=param_shardings)
         if logits.shape[-1] != cfg.padded_vocab:   # this rank's columns
             logits = TP.gather_from_model(logits, mesh, logits.ndim - 1)
         return mesh.all_gather(logits, "data").flatten(0, 1), metrics
@@ -486,8 +566,8 @@ def make_serve_step(cfg, *, window: int = 0, param_shardings=None,
     param_shardings: as ``make_prefill_step``'s. cache_shardings: the
     cache's NamedSharding tree (``distributed.sharding.cache_shardings``,
     the reference's cache ``in_shardings``). On a ``ProcessMesh`` of more
-    than one rank `params` are this rank's shards (a ZeRO-3 layout, with
-    data axes, raises NotImplementedError, as the prefill does), `cache`
+    than one rank `params` are this rank's shards (under ZeRO-3 also
+    split over the data axes, gathered at use as the prefill's), `cache`
     is this rank's contiguous shards of the whole cache, written in
     place, and `batch` and `cache_len` (an int, a 0-d or a (B,) tensor)
     are global: the rank runs its rows where the cache's batch splits
@@ -502,11 +582,6 @@ def make_serve_step(cfg, *, window: int = 0, param_shardings=None,
     if sharded:
         from repro_torch.distributed import sharding as SH
         T.require_sharded_decode(cfg)
-        if any(SH.data_dim(s) is not None for s in _leaves(param_shardings)):
-            raise NotImplementedError(
-                "a decode step on parameters sharded over the data axes "
-                "(the ZeRO-3 layout) is queued work (ROADMAP queue 1); pass "
-                "params_shardings(..., fsdp=False)")
         if cache_shardings is None:
             raise ValueError("a decode step on a process mesh needs the "
                              "cache's layout (cache_shardings)")
@@ -534,7 +609,8 @@ def make_serve_step(cfg, *, window: int = 0, param_shardings=None,
         try:
             logits, cache, serve_step.metrics = T.decode_step(
                 cfg, params, local, cache, cache_len, window=window,
-                data_mesh=mesh, cache_shardings=cache_shardings)
+                data_mesh=mesh, cache_shardings=cache_shardings,
+                param_shardings=param_shardings)
         finally:
             T.set_moe_dispatch_groups(groups)
         if logits.shape[-1] != cfg.padded_vocab:   # this rank's columns

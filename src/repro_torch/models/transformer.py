@@ -38,6 +38,7 @@ Entry points:
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -211,7 +212,10 @@ def init_params(cfg, seed: int, device):
 
 
 def _period(tree, i: int):
-    """Period `i`'s slice of a stacked tree (views, no copies)."""
+    """Period `i`'s slice of a stacked tree (views, no copies); None
+    stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _period(v, i) for k, v in tree.items()}
     if isinstance(tree, tuple):
@@ -438,7 +442,8 @@ def _remat(body, remat: str):
 
 def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
             remat: str = "none", last_only: bool = False, ep_ctx=None,
-            ep_state=None, token_mask=None, data_mesh=None):
+            ep_state=None, token_mask=None, data_mesh=None,
+            param_shardings=None, grad_sinks=None):
     """Prefill / training forward over whole sequences, writing no cache.
     batch: {tokens (B, S), [positions (B, S)], [token_mask (B, S)],
     [enc_embeds (B, T, D)]} -> (logits, metrics). An encoder-decoder
@@ -465,12 +470,23 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     On a `data_mesh` with model > 1, `params` may be this rank's shards
     (``distributed.sharding.shard_tree``): each leaf split on the one
     dim where its shape differs from ``init_params``' (``_tensor_
-    parallel``). A column/row FFN runs on the rank's F-slices, an
+    parallel``), or on the dims `param_shardings` (their NamedSharding
+    tree) gives it. A column/row FFN runs on the rank's F-slices, an
     embedding and a head split on V are vocabulary-parallel, every other
     split leaf is gathered at its use (``distributed.tensor_parallel``);
-    the logits are then this rank's columns of the vocabulary."""
+    the logits are then this rank's columns of the vocabulary. Where
+    `param_shardings` splits leaves over the data axes too (ZeRO-3,
+    ``params_shardings(fsdp=True)``), each such leaf is gathered over
+    the data group first (``tensor_parallel.gather_from_data``): the
+    leaves outside the layers once a call, a layer's leaves one period
+    at a time inside the period's body (again in remat's recompute).
+    `grad_sinks` (a tree of `params`' structure: this rank's float32
+    accumulator of each data-split leaf, None elsewhere) takes the
+    gradient of each such leaf, summed over the data group in float32,
+    and the leaf then gets none from autograd (the ZeRO-3 train step)."""
     pattern = layer_pattern(cfg)
-    tp = _tp_layout(cfg, params, data_mesh, ep_ctx)
+    tp = _tp_layout(cfg, params, data_mesh, ep_ctx, param_shardings,
+                    grad_sinks)
     params = tp.params
     x = _embed(params, batch, tp.embed_mesh)
     bsz, seq_len = batch["tokens"].shape
@@ -488,12 +504,12 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
         enc_out = run_encoder(cfg, params, batch["enc_embeds"])
         x = x + _sinusoidal(seq_len, cfg.d_model, x.device).to(x.dtype)[None]
 
-    def body(x, layer_params, layer_ep):
+    def body(x, layer_params, layer_ep, i):
         x = constrain_activations(x)
         ms = []
         for j, sub in enumerate(pattern):
             # gathered here: at use, under remat
-            p, ffn_mesh = tp.sublayer(j, layer_params[j])
+            p, ffn_mesh = tp.sublayer(j, layer_params[j], i)
             x, m = _apply_sublayer(cfg, sub, p, x, pos,
                                    enc_out=enc_out, window=window,
                                    collect=collect,
@@ -512,7 +528,7 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
         x, m_i = body(x, [lp[i] for lp in layers],
                       [None if ep_state is None or ep_state[j] is None
                        else _period(ep_state[j], i)
-                       for j in range(len(pattern))])
+                       for j in range(len(pattern))], i)
         for m in m_i:
             if "aux_loss" in m:
                 aux = aux + m["aux_loss"]
@@ -545,45 +561,90 @@ def _tensor_parallel(cfg, params, mesh):
 
 @dataclass(frozen=True)
 class _TPLayout:
-    """How a step runs a rank's parameters tensor-parallel (``forward``
-    and ``decode_step`` alike): `params` with every split leaf gathered
-    at use but the layers' and a vocabulary-parallel embedding's and
+    """How a step runs a rank's parameters sharded (``forward`` and
+    ``decode_step`` alike): `params` with every split leaf gathered at
+    use but the layers' and a vocabulary-parallel embedding's and
     head's, the model group's mesh (None off one), the layers' model
     dims of one period, and the meshes of the vocabulary-parallel
-    embedding and head (None where a table is whole)."""
+    embedding and head (None where a table is whole); under ZeRO-3 the
+    mesh whose data group gathers the layers' data-split leaves (None
+    where none is split), their data dims of one period, and the layers'
+    gradient sinks (``forward``'s `grad_sinks`, stacked, or None)."""
     params: dict
     mesh: object = None
     layer_dims: list = None
     embed_mesh: object = None
     head_mesh: object = None
+    data_mesh: object = None
+    layer_data_dims: list = None
+    layer_sinks: list = None
 
-    def sublayer(self, j: int, p):
-        """(sublayer j's period parameters `p` gathered at use, the mesh
-        of its FFN where that is a column/row pair, else None)."""
+    def sublayer(self, j: int, p, i: int):
+        """(sublayer j's parameters `p` of period `i` gathered at use:
+        over the data group, then over the model group, the mesh of its
+        FFN where that is a column/row pair, else None)."""
+        if self.data_mesh is not None:
+            p = TP.gather_data_tree(
+                p, self.layer_data_dims[j], self.data_mesh,
+                None if self.layer_sinks is None
+                else _period(self.layer_sinks[j], i))
         if self.mesh is None:
             return p, None
         return _gather_sublayer(p, self.layer_dims[j], self.mesh)
 
 
-def _tp_layout(cfg, params, data_mesh, ep_ctx=None) -> _TPLayout:
-    """The ``_TPLayout`` of `params` on `data_mesh` (model > 1: each
-    leaf split on the one dim where its shape differs from
-    ``init_params``'; else everything as it is)."""
-    dims, mesh = _tensor_parallel(cfg, params, data_mesh)
+def _split_dims(cfg, params, mesh, shardings):
+    """(data dims, model dims): trees of `params`' structure, each leaf's
+    dim split over the data axes and over "model" (None for a leaf held
+    whole on them), or None for an axis of size one. From `shardings`
+    (a NamedSharding tree: ``sharding.data_dim``, ``model_dim``) where
+    given; else no data dims and the model dims inferred from shapes
+    (``_tensor_parallel``)."""
+    if shardings is None:
+        return None, _tensor_parallel(cfg, params, mesh)[0]
     if mesh is None:
+        raise ValueError("param_shardings needs the mesh of the ranks "
+                         "that hold the shards (data_mesh)")
+    return (SH.tree_map(SH.data_dim, shardings)
+            if TP.data_size(mesh) > 1 else None,
+            SH.tree_map(SH.model_dim, shardings)
+            if TP.model_size(mesh) > 1 else None)
+
+
+def _tp_layout(cfg, params, data_mesh, ep_ctx=None, shardings=None,
+               sinks=None) -> _TPLayout:
+    """The ``_TPLayout`` of `params` on `data_mesh` (``_split_dims``:
+    every leaf split as `shardings` says or, without them, at model > 1
+    on the one dim where its shape differs from ``init_params``'; else
+    everything as it is). The leaves outside the layers are gathered
+    over the data group here, `sinks` taking their gradients."""
+    ddims, dims = _split_dims(cfg, params, data_mesh, shardings)
+    if ddims is None and dims is None:
         return _TPLayout(params)
     if ep_ctx is not None:
         raise NotImplementedError(
-            "the EP slot plane at model > 1 is queued work (ROADMAP "
-            "queue 1)")
+            "the EP slot plane at model > 1 or on parameters split over "
+            "data is queued work (ROADMAP queue 1)")
+    out = _TPLayout(params)
+    if ddims is not None:
+        out = _TPLayout(
+            TP.gather_data_tree(params, ddims, data_mesh, sinks,
+                                keep={("layers",)}),
+            data_mesh=data_mesh,
+            layer_data_dims=[TP.unstack_dims(d) for d in ddims["layers"]],
+            layer_sinks=None if sinks is None else sinks["layers"])
+    if dims is None:
+        return out
+    mesh = data_mesh
     embed_mesh = mesh if dims["embed"] == 0 else None
     head_mesh = embed_mesh if cfg.tie_embeddings else \
         mesh if dims["head"] == 1 else None
     keep = {("layers",)} | {(k,) for k, m in (("embed", embed_mesh),
                                               ("head", head_mesh)) if m}
-    return _TPLayout(TP.gather_tree(params, dims, mesh, keep=keep), mesh,
-                     [TP.unstack_dims(d) for d in dims["layers"]],
-                     embed_mesh, head_mesh)
+    return dataclasses.replace(
+        out, params=TP.gather_tree(out.params, dims, mesh, keep=keep),
+        mesh=mesh, layer_dims=[TP.unstack_dims(d) for d in dims["layers"]],
+        embed_mesh=embed_mesh, head_mesh=head_mesh)
 
 
 def _gather_sublayer(p, dims, mesh):
@@ -749,7 +810,7 @@ def init_paged_cache(cfg, params, num_blocks: int, block: int):
 
 def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
                 collect: bool = False, ep_ctx=None, ep_state=None,
-                data_mesh=None, cache_shardings=None):
+                data_mesh=None, cache_shardings=None, param_shardings=None):
     """One decode iteration: batch['tokens'] is (B, S_new) — S_new=1 for
     token-by-token decode, S_new=prompt_len for prefill-into-cache
     (cache_len=0). `cache_len` is an int (uniform batch), a 0-d tensor
@@ -784,7 +845,9 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     `batch` and `cache_len` are this rank's rows of the batch where the
     cache's rows split over data (then the MoE metrics are summed over
     the data group), else the whole batch. `params` are this rank's
-    shards as ``forward`` takes them, and the logits are this rank's
+    shards as ``forward`` takes them (laid out by `param_shardings`
+    where given, ZeRO-3's data splits gathered at use as there), and
+    the logits are this rank's
     rows and, where the head splits the vocabulary, its columns
     (``models.model.make_serve_step`` gathers them). Attention caches
     only (``require_sharded_decode``)."""
@@ -796,7 +859,7 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
             raise ValueError("a decode step on a process mesh needs the "
                              "cache's layout (cache_shardings)")
         shards, moe_mesh = _cache_shards(cache, cache_shardings, data_mesh)
-    tp = _tp_layout(cfg, params, data_mesh, ep_ctx)
+    tp = _tp_layout(cfg, params, data_mesh, ep_ctx, param_shardings)
     params = tp.params
     tokens = batch["tokens"]
     x = _embed(params, batch, tp.embed_mesh)
@@ -843,7 +906,7 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     ms = []
     for i in range(np_):
         for j, sub in enumerate(pattern):
-            p, ffn_mesh = tp.sublayer(j, _period(params["layers"][j], i))
+            p, ffn_mesh = tp.sublayer(j, _period(params["layers"][j], i), i)
             x, m = _apply_sublayer(cfg, sub, p, x, pos,
                                    cache=_period(cache[j], i),
                                    cache_len=cache_len, enc_out=enc_out,

@@ -969,3 +969,81 @@ def test_gmm_kernels_on_f_shards_on_card(cuda, dtype):
     whole = MG.gmm_ref(MG.fused_gate_up_ref(x, bank["w_gate"], bank["w_up"],
                                             g), bank["w_down"], g)
     torch.testing.assert_close(total, whole.float(), atol=tol, rtol=tol)
+
+
+ZERO3_SCRIPT = r'''
+import sys
+import torch
+from repro_torch import kernels as K
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as SH
+from repro_torch.kernels import build as KB
+from repro_torch.launch.mesh import make_process_mesh, spawn_local
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
+from repro_torch.training.optimizer import _leaves
+
+
+def world(rank):
+    mesh = make_process_mesh(2, 1, device="cuda:0")
+    cfg = get_config("mixtral-8x7b", smoke=True).with_(dtype="bfloat16",
+                                                      impl="auto")
+    params = M.init_params(cfg, 0, "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 64),
+                                     generator=torch.Generator()
+                                     .manual_seed(3), dtype=torch.int32)}
+    T.set_moe_dispatch_groups(2)
+    out = {}
+    with torch.no_grad():
+        for fsdp in (False, True):
+            ps = SH.params_shardings(params, mesh, fsdp=fsdp)
+            step = M.make_prefill_step(cfg, param_shardings=ps)
+            shards = SH.shard_tree(params, ps, copy=True)
+            K.reset_launch_counts()
+            logits, m = step(shards, batch)
+            torch.cuda.synchronize()
+            out[fsdp] = {"logits": logits.float().cpu(),
+                         "loads": m["expert_load"].cpu(),
+                         "launches": dict(K.launch_counts()),
+                         "bytes": sum(t.numel() * t.element_size()
+                                      for t in _leaves(shards)),
+                         "gathered": dict(mesh.nbytes)}
+    return out
+
+
+if __name__ == "__main__":
+    KB.build()
+    ranks = spawn_local(world, 2, backend="gloo", wall_s=300.0)
+    torch.save(ranks, sys.argv[1])
+'''
+
+
+@pytest.mark.cuda
+def test_zero3_prefill_through_the_kernels_on_card(cuda, tmp_path):
+    """The ZeRO-3 prefill (``params_shardings(fsdp=True)``) of the
+    mixtral smoke config at bf16 on a (2, 1) mesh of two ranks sharing
+    the card over gloo (NCCL refuses two ranks on one device), through
+    ``fused_gate_up`` and ``gmm``, against the ``fsdp=False`` step on the
+    same mesh: logits and loads bit for bit, both launching each expert
+    kernel once a layer, each rank holding half the parameter bytes.
+    The ranks run in a subprocess that spawns them."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    script = tmp_path / "zero3.py"
+    script.write_text(ZERO3_SCRIPT)
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    proc = subprocess.run(
+        [sys.executable, str(script), str(tmp_path / "out.pt")],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(src)})
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    for r in torch.load(tmp_path / "out.pt"):
+        z2, z3 = r[False], r[True]
+        assert torch.equal(z3["logits"], z2["logits"])
+        assert torch.equal(z3["loads"], z2["loads"])
+        for k in ("fused_gate_up", "gmm"):
+            assert z3["launches"][k] == z2["launches"][k] == 2
+        assert z3["bytes"] * 2 == z2["bytes"]
+        assert z3["gathered"]["all_gather/data/params"] == z2["bytes"]

@@ -645,8 +645,9 @@ def test_copied_shards_own_their_storage_and_assemble():
 def test_model_dim_and_refusals():
     """``model_dim`` of the reference's layouts; a (1, 2) decode step
     builds with its cache's layout (``tests/test_torch_tp_decode.py``
-    runs it); a decode step and a prefill on the ZeRO-3 layout raise;
-    int8 banks and the EP plane at model > 1 raise naming the queue."""
+    runs it); a decode step and a prefill build on the (2, 2) ZeRO-3
+    layout (``tests/test_torch_zero3.py`` runs them); int8 banks and the
+    EP plane at model > 1 raise naming the queue."""
     cfg = get_config(MIXTRAL, smoke=True).with_(dtype="float32")
     params = M.init_params(cfg, 0, "cpu")
     tp2 = _meshes((1, 2))[0]
@@ -663,12 +664,13 @@ def test_model_dim_and_refusals():
     M.make_serve_step(cfg, param_shardings=SH.params_shardings(
         params, _meshes((1, 1))[0], fsdp=False))
     m22 = _meshes((2, 2))[0]
-    with pytest.raises(NotImplementedError, match="ZeRO-3"):
-        M.make_prefill_step(cfg, param_shardings=SH.params_shardings(
-            params, m22, fsdp=True))
-    with pytest.raises(NotImplementedError, match="ZeRO-3"):
-        M.make_serve_step(cfg, param_shardings=SH.params_shardings(
-            params, m22, fsdp=True), cache_shardings=cs)
+    assert callable(M.make_prefill_step(cfg, param_shardings=SH.
+                                        params_shardings(params, m22,
+                                                         fsdp=True)))
+    assert callable(M.make_serve_step(cfg, param_shardings=SH.
+                                      params_shardings(params, m22,
+                                                       fsdp=True),
+                                      cache_shardings=cs))
     shards = SH.shard_tree(params, ps, copy=True)
     with pytest.raises(NotImplementedError, match="EP slot plane"):
         from repro_torch.models import transformer as T
