@@ -169,8 +169,9 @@ Phases, each fatal on failure:
      gelu (``gmm`` launched, ``fused_gate_up`` never).
 
   11. multi-rank EP: ``ServingEngine(mesh=...)`` over local ranks that
-     share cuda:0 through gloo (``launch.mesh.spawn_local``; NCCL
-     refuses two ranks on one device), mixtral-8x7b at its published
+     share cuda:0 (``launch.mesh.spawn_local`` over gloo, NCCL refusing
+     two ranks on one device; their collectives move the card's tensors
+     through staging buffers all ranks map, ``launch.transport``), mixtral-8x7b at its published
      widths (``MR_WORLDS``): W1 (1,4,1) bf16 and W2 (1,4,1) float32 at 1
      of 32 layers, W3 (1,2,2) with int8 slot banks at 2; each rank holds
      the replicated non-expert layers and its slice of the slot banks.
@@ -197,7 +198,7 @@ Phases, each fatal on failure:
      (``make_train_step(grad_shardings=)`` over a (2, 1)
      ``launch.mesh.ProcessMesh``): mixtral-8x7b at published widths, 1
      of 32 layers, bf16, 8 x 256 tokens in 2 microbatches, 2 steps, two
-     ranks on cuda:0 over gloo, after the one-process oracle at dispatch
+     ranks on cuda:0, after the one-process oracle at dispatch
      groups 2 in this process (which then holds nothing on the card);
      gated at phase 9's drop-free capacity: each step's loss within
      ``MB_LOSS_TOL`` of the one-process step from the same weights, the
@@ -222,7 +223,7 @@ Phases, each fatal on failure:
      and bf16), which then holds nothing on the card; (a) phase 12's
      training cell through ``make_train_step(grad_shardings=)`` on
      (data, model) = (1, 2) for 2 steps and (2, 2) for 1 (``TP_TRAIN``),
-     ranks on cuda:0 over gloo, gated: each step's loss within
+     ranks on cuda:0, gated: each step's loss within
      ``MB_LOSS_TOL`` of the one-process step from the same weights, the
      step-1 accumulator assembled from every rank's shard within
      ``GRAD_REL_TOL`` of each leaf's norm, the sharded AdamW within one
@@ -263,7 +264,7 @@ Phases, each fatal on failure:
      (bf16: the same steps at impl "ref"; float32: ``ExpertHalves``,
      the ranks' expert sum in one process), after which it holds nothing on
      the card; mixtral-8x7b at its published widths on (1, 2) ranks on
-     cuda:0 over gloo, float32 at 2 layers (every step's logits within
+     cuda:0, float32 at 2 layers (every step's logits within
      TOL[float32], greedy tokens, loads and drops equal, the cache
      assembled from the ranks' shards: positions equal, K/V within
      ``DEC_KV_TOL`` in the first layer and ``DEC_KV_DEEP_TOL`` after)
@@ -290,7 +291,7 @@ Phases, each fatal on failure:
   15. the ZeRO-3 layout (``params_shardings(fsdp=True)``: every leaf
      split over data as well, gathered over the data group at use a
      layer period at a time, ``tensor_parallel.gather_from_data``), ranks
-     on cuda:0 over gloo: (a) mixtral-8x7b at its published widths, 1 of
+     on cuda:0: (a) mixtral-8x7b at its published widths, 1 of
      32 layers (phase 14's (2, 2) depth), bf16, impl "auto", on (2, 1)
      and (2, 2):
      phase 13's prefill cell (8 x 512) and phase 14's decode cell (B 8, a
@@ -310,8 +311,8 @@ Phases, each fatal on failure:
      "mma"; resident parameter bytes a rank equal to ``launch.dryrun.
      build_step``'s default variant (``fsdp_params`` on) and below the
      ``fsdp=False`` layout's; (b) phase 12's training cell through
-     ``make_train_step(param_shardings=)`` on (2, 1) for 2 steps and (2,
-     2) for 1, against the ZeRO-2 step on the same mesh from the same
+     ``make_train_step(param_shardings=)`` on (2, 1) for two steps and
+     (2, 2) for one, against the ZeRO-2 step on the same mesh from the same
      weights and batches (phase 12's ranks, phase 13's (2, 2) ranks):
      each step's loss within ``MB_LOSS_TOL``, the assembled parameters
      after the last step within one bf16 ulp (bit for bit reported), the
@@ -320,8 +321,37 @@ Phases, each fatal on failure:
      below ZeRO-2's; printed: walls a step a rank, host ms and bytes of
      ``all_gather/data/params`` and ``reduce_scatter/data/grads``, peaks.
 
+  16. the sharded decode step of recurrent and encoder-decoder caches
+     (``make_serve_step(param_shardings=, cache_shardings=)`` for
+     jamba-v0.1-52b, xlstm-125m and whisper-base at their published
+     widths), on phase 14's ranks after phase 14's runs (one spawn of
+     ranks a mesh serves both phases): (a) ``decode_attention(
+     return_stats=True)`` at jamba's (1, 2) sequence shard (B 8, H 32,
+     KV 8, hd 128, S 128, bf16, "mma") and whisper's (2, 2) one (B 4, H
+     8, KV 8, hd 64, S 128, float32 timed, "simt"), phase 14's checks
+     at each; ``fused_gate_up`` and ``gmm`` at jamba's F-shard (E 16, D
+     4096, F 7168, C 2) against their plain versions; (b) in this
+     process the one-process oracles on the kernel path (8 prompts of
+     126 tokens prefilled into a 256-slot cache, 4 greedy steps), then
+     on the ranks (``ST_RUNS``): xlstm-125m (12 layers) float32 on (1,
+     2) under the default layout and bf16 on (2, 2) under
+     ``seq_over_dp``; whisper-base (6 + 6 layers, 1500 frames) float32
+     on (1, 2) under ``cache_heads_model`` and on (2, 2) under the
+     default layout with ZeRO-3 parameters; jamba-v0.1-52b (one 8-layer
+     period of 32) bf16 on (1, 2) under the default layout. Gated:
+     float32 every step's logits within TOL[float32] of one process,
+     greedy tokens equal, every cache leaf assembled from the ranks'
+     shards within ``ST_STATE_TOL`` (positions exactly); bf16 every
+     attention, recurrent mixer and MoE sublayer of every step against
+     one process from the same input (the mixers' new state too) within
+     ``DEC_REL`` in norm, each with a control that must fail (the plain
+     mean before step 3, the rank writing back the other rank's slice
+     of a state leaf, rank 1's expert partial skipped); the kernels
+     launched once a sublayer a step at the shard's S and F 7168 on
+     their paths; each rank's parameter and cache bytes the dry-run's.
+
 Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11, 12,
-13, 14, 15.
+13, 14 and 16 (one spawn of ranks a mesh), 15.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -359,6 +389,14 @@ HBM_BYTES_S = 3.35e12
 PAGED_BLOCK, PAGED_CHUNK = 16, 256   # the paged phase's serving knobs
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # atol = rtol
+# how the multi-rank phases' ranks share the card: spawned over gloo,
+# their collectives through staging buffers every rank maps
+# (launch.transport, the mesh's transport="shared")
+ON_CARD = "on cuda:0 (collectives through shared staging buffers)"
+# the multi-rank phases' ranks and the dry-run's workers fork from one
+# server process that imported this script (and torch) once; a spawned
+# process imports both again, seconds a rank
+START_METHOD = "forkserver"
 SOURCES = {
     "fused_gate_up": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                       "src/repro/kernels/moe_gmm.py:198"),
@@ -999,16 +1037,17 @@ def check_decode_attention(gen, shape) -> dict:
 
 
 def decode_attention_timed(gen, shape, label: str, want_path: str,
-                           main: bool = False) -> dict:
-    """``decode_attention`` at one bf16 serving shape (B, H, KV, hd, S,
-    kv_len): its path must be `want_path`; against its plain version,
+                           main: bool = False,
+                           dtype=torch.bfloat16) -> dict:
+    """``decode_attention`` at one serving shape (B, H, KV, hd, S,
+    kv_len) in `dtype`: its path must be `want_path`; against its plain
+    version,
     at the `main` path's shape one launch a call (torch.profiler; at
     phase 8's geometries its traces missed one record of four), and its
     time eager and in a CUDA graph beside its bound, the plain version
     and SDPA (float additive mask from the finite NEG_INF). Returns the
     record."""
     b, h, kvh, hd, s, kl = shape
-    dtype = torch.bfloat16
     q, k, v, pos, kv_len, q_pos = _attn_inputs(
         gen, b, h, kvh, hd, s, dtype, kl, [x - 1 for x in kl], False)
     path, info = DA.kernel_path(q, k, v)
@@ -1042,7 +1081,7 @@ def decode_attention_timed(gen, shape, label: str, want_path: str,
     flops = 4.0 * n_vis * h * hd
     b_ms, b_by = bound(nbytes, flops, dtype)
     log(f"  {'decode_attention':<16} {label:<8} B={b} H={h} KV={kvh} "
-        f"hd={hd} S={s} bf16 path={path} cluster={info['nsplit']} "
+        f"hd={hd} S={s} {dtype} path={path} cluster={info['nsplit']} "
         f"stages={info['stages']} smem={info['smem']} B "
         f"max_abs_err={err:.3e} ms={ms:.4f} device_ms={dev_ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
@@ -1394,7 +1433,7 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, list):
+    elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
     else:
@@ -4031,8 +4070,9 @@ def whisper_phase(card: str) -> dict:
 
 # ------------------------------------------------------------ phase 11
 
-# the worlds of phase 11: local ranks on cuda:0 over gloo (NCCL refuses
-# two ranks on one device), each holding the replicated non-expert layers
+# the worlds of phase 11: local ranks on cuda:0 (NCCL refuses two ranks on
+# one device; gloo carries the barriers, the card's tensors move through
+# the ranks' shared staging buffers), each holding the replicated non-expert layers
 # and its own slice of the expert slot banks. mixtral-8x7b at its
 # published widths, 1 layer of 32 (2 in W3): each rank holds the layer's
 # experts, their padded source bank and its slot banks, and four ranks
@@ -4232,8 +4272,8 @@ def mr_serve(cfg, params, mesh, w: dict, gen: int):
 
 def mr_transport(cfg, mesh, n: int = 10) -> dict:
     """Host ms of one scatter all-to-all at a 128-token prefill's send
-    buffer (ep x slots_per_rank*cap rows x D), gloo on the card's
-    tensors against the same buffer staged through host memory, in
+    buffer (ep x slots_per_rank*cap rows x D), through the card's shared
+    staging buffers against the same buffer through gloo in host memory, in
     turns (native, staged, staged, native), `n` calls each."""
     ep = mesh.shape["ep"]
     cap = math.ceil(cfg.moe.capacity_factor * cfg.moe.top_k * MR_PROMPT
@@ -4249,7 +4289,8 @@ def mr_transport(cfg, mesh, n: int = 10) -> dict:
         return mesh.all_to_all(x.cpu(), "ep").to(x.device)
 
     if not torch.equal(native(), staged()):
-        raise AssertionError("staged all-to-all differs from gloo's own")
+        raise AssertionError("gloo's all-to-all differs from the shared "
+                             "buffers'")
     times = {"native": [], "staged": []}
     for name in ("native", "staged", "staged", "native"):
         fn = native if name == "native" else staged
@@ -4294,7 +4335,8 @@ def mr_world(rank: int, name: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     w = MR_WORLDS[name]
     data, ep, tp = w["degrees"]
-    mesh = make_serving_mesh(ep=ep, tp=tp, data=data, device="cuda:0")
+    mesh = make_serving_mesh(ep=ep, tp=tp, data=data, device="cuda:0",
+                             transport="shared")
     cfg = mr_config(w)
     params = init_params(cfg, seed=0, device="cuda")
     out = {"rank": rank, "coords": list(mesh.coords),
@@ -4360,11 +4402,10 @@ def ep_phase(card: str) -> dict:
         t1 = time.perf_counter()
         n = data * ep * tp
         ranks = spawn_local(mr_world, n, backend="gloo", args=(name,),
-                            wall_s=600.0)
+                            wall_s=600.0, start_method=START_METHOD)
         t2 = time.perf_counter()
-        log(f"    (1,1,1) in this process {t1 - t0:.1f} s; {n} ranks over "
-            f"gloo on cuda:0 (collectives on the card's tensors) "
-            f"{t2 - t1:.1f} s")
+        log(f"    (1,1,1) in this process {t1 - t0:.1f} s; {n} ranks "
+            f"{ON_CARD} {t2 - t1:.1f} s")
         # the layer gate: every rank returns the whole batch, all equal
         y1, l1, d1 = one["layer"]
         for r in ranks:
@@ -4454,8 +4495,8 @@ def ep_phase(card: str) -> dict:
         if w.get("transport"):
             tr = [r["transport"] for r in ranks]
             log(f"    one scatter all-to-all of {tr[0]['mb']:.2f} MB a rank, "
-                f"host ms, in turns: gloo on the card's tensors "
-                f"{[round(t['native'], 3) for t in tr]}, staged through "
+                f"host ms, in turns: the card's shared staging buffers "
+                f"{[round(t['native'], 3) for t in tr]}, gloo through "
                 f"host memory {[round(t['staged'], 3) for t in tr]}")
         log(f"    (1,1,1): decode step {s1['decode_ms']:.2f} ms wall, expert "
             f"FFN {s1['ffn_ms']:.4f} ms device, peak {s1['peak_gb']:.2f} GB; "
@@ -4470,7 +4511,7 @@ def ep_phase(card: str) -> dict:
 
 # phase 12 (b): mixtral-8x7b at its published widths, phase 9's one of
 # 32 layers and TokenStream batches of 8 x 256, bf16, impl "ref",
-# trained by ZeRO-2 over two data ranks sharing cuda:0 through gloo, two
+# trained by ZeRO-2 over two data ranks sharing cuda:0, two
 # microbatches, two steps, against the one-process step at dispatch
 # groups 2, held to phase 9's MB_LOSS_TOL and GRAD_REL_TOL at its
 # drop-free capacity factor (E / top_k), as phase 9's microbatch rule
@@ -4505,7 +4546,7 @@ def dryrun_sweep(card: str) -> dict:
     jobs = min(8, os.cpu_count() or 1)
     results, failures = D.sweep(
         [(a, s) for a in list_archs() for s in INPUT_SHAPES], jobs=jobs,
-        save=False, verbose=False)
+        save=False, verbose=False, start_method=START_METHOD)
     if failures:
         raise AssertionError(f"{len(failures)} dry-run combinations "
                              f"failed: {[f[:2] for f in failures]}")
@@ -4701,7 +4742,8 @@ def z2_rank(rank: int, tmp: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     cfg, opt, batches = _z2_setup()
-    mesh = make_process_mesh(Z2_RANKS, 1, device="cuda:0")
+    mesh = make_process_mesh(Z2_RANKS, 1, device="cuda:0",
+                             transport="shared")
     T.set_moe_dispatch_groups(Z2_RANKS)
     params = init_params(cfg, seed=0, device="cuda")
     gs = SH.params_shardings(params, mesh, fsdp=True)
@@ -4758,7 +4800,7 @@ def z2_rank(rank: int, tmp: str) -> dict:
 
 def zero2_phase(card: str) -> dict:
     """Phase 12 (b): the oracle in this process, then two ZeRO-2 ranks
-    (``launch.mesh.spawn_local``, gloo on cuda:0); gated as the module
+    (``launch.mesh.spawn_local`` on cuda:0); gated as the module
     docstring says."""
     from repro_torch.launch.mesh import spawn_local
     from repro_torch.models.model import init_params
@@ -4786,7 +4828,7 @@ def zero2_phase(card: str) -> dict:
         "ranks run")
     with tempfile.TemporaryDirectory() as tmp:
         ranks = spawn_local(z2_rank, Z2_RANKS, backend="gloo", args=(tmp,),
-                            wall_s=600.0)
+                            wall_s=600.0, start_method=START_METHOD)
         for r in ranks:
             r["acc"] = torch.load(r["acc"], map_location="cpu")
             if "params1" in r:
@@ -4796,7 +4838,7 @@ def zero2_phase(card: str) -> dict:
     log(f"  the one-process oracle {t1 - t0:.1f} s (peak "
         f"{one['peak_gb']:.2f} GB, step walls "
         f"{[round(s['wall_ms'], 1) for s in one['steps']]} ms); "
-        f"{Z2_RANKS} ranks over gloo on cuda:0 {t2 - t1:.1f} s")
+        f"{Z2_RANKS} ranks {ON_CARD} {t2 - t1:.1f} s")
     # each step's loss against the one-process step's from the same
     # weights: step 1 the oracle's; step 2 the one-process loss at the
     # ranks' own step-1 weights, which sit within a bf16 ulp of the
@@ -4980,7 +5022,7 @@ def sharding_phase(card: str) -> dict:
 # over (data, model) process meshes with model 2: phase 12's mixtral-8x7b
 # at its published widths (1 of 32 layers, bf16, impl "ref", TokenStream
 # batches of 8 x 256 in 2 microbatches, the drop-free capacity factor 4),
-# each mesh (its steps in TP_TRAIN) on ranks sharing cuda:0 over gloo,
+# each mesh (its steps in TP_TRAIN) on ranks sharing cuda:0,
 # against the one-process step at dispatch groups = data, held to phase
 # 9's MB_LOSS_TOL and GRAD_REL_TOL as phase 12 is
 TP_TRAIN = {(1, 2): 2, (2, 2): 1}
@@ -5073,18 +5115,18 @@ def _tp_prefill_config(dtype: str):
                     else TP_BF16_LAYERS)
 
 
-def _rank_shards(mesh, cfg):
+def _rank_shards(mesh, cfg, fsdp: bool = False):
     """(this rank's contiguous shards of `cfg`'s parameters, their
-    shardings): ``params_shardings(fsdp=False)``, the parameters built
-    whole on the card one rank at a time (two whole copies beside the
-    shards may not fit) and cut."""
+    shardings): ``params_shardings(fsdp=)``, the parameters built whole
+    on the card one rank at a time (two whole copies beside the shards
+    may not fit) and cut."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding as SH
     from repro_torch.models.model import init_params
     for r in range(mesh.size):
         if mesh.rank == r:
             full = init_params(cfg, seed=0, device="cuda")
-            ps = SH.params_shardings(full, mesh, fsdp=False)
+            ps = SH.params_shardings(full, mesh, fsdp=fsdp)
             shards = SH.shard_tree(full, ps, copy=True)
             del full
             gc.collect()
@@ -5093,11 +5135,14 @@ def _rank_shards(mesh, cfg):
     return shards, ps
 
 
-def moe_sublayer_gates(mesh, cfg, shards, ios, data_mesh=None) -> list:
+def moe_sublayer_gates(mesh, cfg, shards, ios, data_mesh=None,
+                       positions=None) -> list:
     """Each MoE sublayer of a tensor-parallel rank run from the
-    one-process path's input: `ios` holds, for each layer, the (input,
-    output) pairs of that path's calls on the host (the rows this rank
-    runs). The rank's sublayer (its F-slices of the expert bank,
+    one-process path's input: `ios` holds, for each MoE layer, the
+    (input, output) pairs of that path's calls on the host (the rows
+    this rank runs), and `positions` each MoE layer's (pattern position,
+    period) (default: position 0, period = the layer). The rank's
+    sublayer (its F-slices of the expert bank,
     ``dispatch_moe(model_mesh=)``, at the dispatch groups and with the
     `data_mesh` the step gives it) runs once as it is and once under
     ``SkipPartial``. A record a call: the layer, max |err|, whether it is
@@ -5108,11 +5153,12 @@ def moe_sublayer_gates(mesh, cfg, shards, ios, data_mesh=None) -> list:
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
     dims, _ = T._tensor_parallel(cfg, shards, mesh)
-    ldims = TP.unstack_dims(dims["layers"][0])
     tol, gate = TOL[torch.bfloat16], []
     for layer, calls in enumerate(ios):
+        j, i = (0, layer) if positions is None else positions[layer]
         p, ffn_mesh = T._gather_sublayer(
-            T._period(shards["layers"][0], layer), ldims, mesh)
+            T._period(shards["layers"][j], i),
+            TP.unstack_dims(dims["layers"][j]), mesh)
         if ffn_mesh is None:
             raise AssertionError("the expert bank is not a column/row pair "
                                  f"on {dict(mesh.shape)}")
@@ -5153,7 +5199,7 @@ def against_one_process(oracle, rank, meshes, gate, wall_s: float) -> dict:
     `oracle(tmp, held)` in this process, which must leave the card as it
     found it (holding `held` bytes); then, for each (shape, args) of
     `meshes`, the ranks of ``rank(r, shape, tmp, *args)`` spawned on
-    cuda:0 over gloo, and ``gate(shape, ranks, one)`` on what they
+    cuda:0, and ``gate(shape, ranks, one)`` on what they
     return while the directory stands (`one`: what `oracle` returned).
     Returns {shape: what `gate` returned}."""
     from repro_torch.launch.mesh import spawn_local
@@ -5170,8 +5216,9 @@ def against_one_process(oracle, rank, meshes, gate, wall_s: float) -> dict:
         for shape, args in meshes:
             t1 = time.perf_counter()
             ranks = spawn_local(rank, shape[0] * shape[1], backend="gloo",
-                                args=(shape, tmp, *args), wall_s=wall_s)
-            log(f"  {len(ranks)} ranks on {shape} over gloo on cuda:0 "
+                                args=(shape, tmp, *args), wall_s=wall_s,
+                                start_method=START_METHOD)
+            log(f"  {len(ranks)} ranks on {shape} {ON_CARD} "
                 f"{time.perf_counter() - t1:.1f} s")
             out[shape] = gate(shape, ranks, one)
     return out
@@ -5338,7 +5385,8 @@ def tp_rank(rank: int, shape: tuple, tmp: str, prefill: bool) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    mesh = make_process_mesh(*shape, device="cuda:0")
+    mesh = make_process_mesh(*shape, device="cuda:0",
+                             transport="shared")
     out = {"rank": rank, "coords": mesh.coords,
            "train": tp_train_rank(mesh, shape, tmp)}
     if prefill:
@@ -5658,8 +5706,8 @@ def tp_phase(card: str) -> dict:
 # ------------------------------------------------------------ phase 14
 
 # phase 14: the sharded decode step, make_serve_step(param_shardings=,
-# cache_shardings=) over (data, model) process meshes, ranks on cuda:0
-# over gloo. (a) ``decode_attention`` with its softmax statistics at
+# cache_shardings=) over (data, model) process meshes, ranks on cuda:0.
+# (a) ``decode_attention`` with its softmax statistics at
 # mixtral-8x7b's sequence shard at model 2 (DEC_B rows, H 32, KV 8, hd
 # 128, S DEC_SLOTS / 2) against its plain version, and two such shards
 # merged against one whole call; ``fused_gate_up`` and ``gmm`` at the
@@ -5716,24 +5764,31 @@ STATS_QPOS = [0, 0, 16, 999, 2046, 2047, -1, 1199]
 MERGE_LENS = [1, 17, 2047, 2048, 2049, 3000, 4096, 100]
 
 
-def stats_kernel_check(gen) -> dict:
+def stats_kernel_check(gen, geometry=(DEC_B, 32, 8, 128, DEC_SLOTS // 2),
+                       lens=STATS_LENS, qpos=STATS_QPOS,
+                       merge_lens=MERGE_LENS, timed=torch.bfloat16,
+                       where: str = "the (1, 2) shard") -> dict:
     """Phase 14 (a): ``decode_attention(return_stats=True)`` at the (1,
-    2) sequence shard, bf16 ("mma") and float32 ("simt"), with and
+    2) sequence shard (`geometry`: B, H, KV, hd, S; `lens` and `qpos`
+    each row's kv_len and query position, `merge_lens` the merged rows'
+    kv_len), bf16 ("mma") and float32 ("simt"), with and
     without a window of 256, against its plain version: the float32
     output at TOL, and each row's within DEC_REL in norm, m and l within
     DEC_STATS_TOL of the plain version from the kernel's q * scale; m =
-    NEG_INF and l = S exactly on the rows with no visible lane; two
-    shards merged by ``merge_softmax`` against one whole S call at TOL.
-    Timed at bf16: the launch with and without statistics (eager and in
-    a CUDA graph, in turns), the plain version, SDPA, and the merge's
-    device time."""
+    NEG_INF and l = S exactly on the rows with no visible lane (kv_len
+    0 or a negative query position among them); two shards merged by
+    ``merge_softmax`` against one whole S call at TOL. Timed at `timed`:
+    the launch with and without statistics (eager and in a CUDA graph,
+    in turns), the plain version, SDPA, and the merge's device time."""
     from repro_torch.distributed import tensor_parallel as TP
-    b, h, kvh, hd, s = DEC_B, 32, 8, 128, DEC_SLOTS // 2
+    b, h, kvh, hd, s = geometry
+    must_hide = [i for i, (n, p) in enumerate(zip(lens, qpos))
+                 if n == 0 or p < 0]
     out_rec = {}
     for dtype, want_path in ((torch.bfloat16, "mma"),
                              (torch.float32, "simt")):
         q, k, v, pos, kv_len, q_pos = _attn_inputs(
-            gen, b, h, kvh, hd, s, dtype, STATS_LENS, STATS_QPOS, False)
+            gen, b, h, kvh, hd, s, dtype, lens, qpos, False)
         path, info = DA.kernel_path(q, k, v)
         if path != want_path:
             raise AssertionError(f"decode_attention at the shard took "
@@ -5777,7 +5832,7 @@ def stats_kernel_check(gen) -> dict:
             hidden = want[1] == DA.NEG_INF
             if not (torch.equal(got[1][hidden], want[1][hidden])
                     and bool((got[2][hidden] == s).all())
-                    and bool(hidden[0].all()) and bool(hidden[6].all())):
+                    and all(bool(hidden[i].all()) for i in must_hide)):
                 raise AssertionError(f"{name}: rows with no visible lane "
                                      "must give m = NEG_INF, l = S")
             log(f"  {name}: {path}, cluster {info['nsplit']}, out "
@@ -5786,8 +5841,8 @@ def stats_kernel_check(gen) -> dict:
                 f"at {stats_err[window]:.3f} of atol=rtol={DEC_STATS_TOL}; "
                 f"{int(hidden[:, 0].sum())} rows with no visible lane exact")
         q2, k2, v2, pos2, kl2, qp2 = _attn_inputs(
-            gen, b, h, kvh, hd, 2 * s, dtype, MERGE_LENS,
-            [x - 1 for x in MERGE_LENS], False)
+            gen, b, h, kvh, hd, 2 * s, dtype, merge_lens,
+            [x - 1 for x in merge_lens], False)
         whole = DA.decode_attention(q2, k2, v2, pos2, kl2, qp2)
         halves = [DA.decode_attention(
             q2, *(t[:, i * s:(i + 1) * s].contiguous()
@@ -5804,11 +5859,12 @@ def stats_kernel_check(gen) -> dict:
         torch.cuda.synchronize()
         merge_err = check(f"two S {s} shards merged vs one S {2 * s} call "
                           f"[{dtype}]", merged, whole, dtype)
-        log(f"  two S {s} shards (kv_len {MERGE_LENS}) merged by "
+        log(f"  two S {s} shards (kv_len {merge_lens}) merged by "
             f"merge_softmax against one S {2 * s} kernel call, {dtype}: "
             f"max_abs_err={merge_err:.3e} (atol=rtol={TOL[dtype]})")
-        if dtype != torch.bfloat16:
+        if dtype != timed:
             continue
+
         def run():
             return DA.decode_attention(q, k, v, pos, kv_len, q_pos)
 
@@ -5845,8 +5901,8 @@ def stats_kernel_check(gen) -> dict:
             + 4 * (b * h * hd + 2 * b * h) + 4 * 3 * b
         flops = 4.0 * int(n_vis.sum()) * h * hd
         b_ms, b_by = bound(nbytes, flops, dtype)
-        log(f"  decode_attention at the (1, 2) shard B={b} H={h} KV={kvh} "
-            f"hd={hd} S={s} bf16 ({path}, cluster {info['nsplit']}): "
+        log(f"  decode_attention at {where} B={b} H={h} KV={kvh} "
+            f"hd={hd} S={s} {dtype} ({path}, cluster {info['nsplit']}): "
             f"ms={ms:.4f} with statistics {ms_stats:.4f}; device_ms="
             f"{dev:.4f} with statistics {dev_stats:.4f} (in turns); "
             f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.2f} MB); "
@@ -5878,12 +5934,13 @@ def _dec_expert_rows(cfg, b: int, shape, layout: str) -> int:
                          / cfg.moe.num_experts)
 
 
-def dec_kernel_shapes(gen, rows: list) -> dict:
+def dec_kernel_shapes(gen, rows: list, cfg=None) -> dict:
     """``fused_gate_up`` and ``gmm`` at the shapes the bf16 sharded
-    decode steps give them: F 7168 of 14336 and each C of `rows`, every
-    row live, and at the first C a ragged fill with an expert of none;
-    each against its plain version and timed beside its bound."""
-    cfg = _mixtral("bfloat16", 1)
+    decode steps of `cfg` (mixtral-8x7b by default) give them at model
+    2: F/2 (7168 of 14336) and each C of `rows`, every row live, and at
+    the first C a ragged fill with an expert of none; each against its
+    plain version and timed beside its bound."""
+    cfg = cfg or _mixtral("bfloat16", 1)
     e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff // 2
     out = {}
     for name, fused in (("fused_gate_up", True), ("gmm", False)):
@@ -6007,8 +6064,8 @@ def _dec_record(logits, m) -> dict:
     """A step's last-position logits (float32, on the host), expert
     loads and drops."""
     return {"logits": logits[:, -1].float().cpu(),
-            "expert_load": m["expert_load"].tolist(),
-            "dropped": m["dropped"].tolist()}
+            **{k: m[k].tolist() if k in m else []
+               for k in ("expert_load", "dropped")}}
 
 
 def dec_oracle(dtype: str, layers: int, groups: int, b: int, tmp: str, *,
@@ -6209,20 +6266,21 @@ def dec_gated_pass(mesh, cfg, params, cache, cs, step, teacher,
     return gates
 
 
-def dec_moe_gates(mesh, cfg, params, cache, cs, tmp: str) -> list:
+def dec_moe_gates(mesh, cfg, params, cache, cs, tmp: str, path=None,
+                  positions=None) -> list:
     """Phase 14's bf16 MoE gate on this rank: each MoE sublayer of every
-    decode step run from the one-process oracle's input (``MoeCalls``:
-    the rank's rows of it, where the cache's rows split over data) at the
-    step's dispatch groups and data mesh, against that oracle's output
-    for the same rows (``moe_sublayer_gates``, with its control). Nothing
-    here is counted or timed."""
+    decode step run from the one-process oracle's input (``MoeCalls``,
+    saved at `path`: the rank's rows of it, where the cache's rows split
+    over data) at the step's dispatch groups and data mesh, against that
+    oracle's output for the same rows (``moe_sublayer_gates``, with its
+    control; `positions` as there). Nothing here is counted or timed."""
     from repro_torch.distributed import sharding as SH
     from repro_torch.models import transformer as T
     _, moe_mesh = T._cache_shards(cache, cs, mesh)
-    rows = SH.shard_ranges(SH.leaf_at(cs, (0, "attn", "k")),
-                           cache[0]["attn"]["k"].shape)[1]
+    rows = SH.shard_ranges(next(_leaves(cs)), next(_leaves(cache)).shape)[1]
     dp = mesh.shape["data"]
-    io = torch.load(os.path.join(tmp, f"moe-{cfg.num_layers}-{dp}.pt"))
+    io = torch.load(path or os.path.join(
+        tmp, f"moe-{cfg.num_layers}-{dp}.pt"))
     if rows is None:
         ios = [[(c["x"], c["y"]) for c in calls] for calls in io]
     else:
@@ -6231,7 +6289,8 @@ def dec_moe_gates(mesh, cfg, params, cache, cs, tmp: str) -> list:
                 for c in calls] for calls in io]
     T.set_moe_dispatch_groups(dp)
     try:
-        return moe_sublayer_gates(mesh, cfg, params, ios, moe_mesh)
+        return moe_sublayer_gates(mesh, cfg, params, ios, moe_mesh,
+                                  positions)
     finally:
         T.set_moe_dispatch_groups(1)
 
@@ -6347,16 +6406,20 @@ def dec_run(mesh, cfg, params, ps, layout: dict, b: int, tmp: str,
     return rec
 
 
-def dec_rank(rank: int, shape: tuple, tmp: str, jobs: list) -> dict:
-    """One rank of phase 14 on a (data, model) = `shape` mesh: for each
-    job (dtype, layers, {name: layout}, batch), this rank's parameter
-    shards (``_rank_shards``), then ``dec_run`` under each layout in
-    turn. Everything returned lives on the host."""
+def dec_rank(rank: int, shape: tuple, tmp: str, jobs: list,
+             state_jobs: list = ()) -> dict:
+    """One rank of phases 14 and 16 on a (data, model) = `shape` mesh:
+    for each job (dtype, layers, {name: layout}, batch), this rank's
+    parameter shards (``_rank_shards``), then ``dec_run`` under each
+    layout in turn; then phase 16's ``state_run`` of each of
+    `state_jobs` (arch, dtype, layout, fsdp). Everything returned lives
+    on the host."""
     from repro_torch.launch.mesh import make_process_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    mesh = make_process_mesh(*shape, device="cuda:0")
+    mesh = make_process_mesh(*shape, device="cuda:0",
+                             transport="shared")
     out = {"rank": rank, "coords": mesh.coords, "runs": {}}
     for dtype, layers, layouts, b in jobs:
         cfg = _mixtral(dtype, layers)
@@ -6369,43 +6432,46 @@ def dec_rank(rank: int, shape: tuple, tmp: str, jobs: list) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
+    out["state_runs"] = {(arch, dtype, layout): state_run(
+        mesh, arch, dtype, layout, fsdp, tmp)
+        for arch, dtype, layout, fsdp in state_jobs}
     return out
 
 
-def _dec_launch_gate(name, cfg, run, shard_s, rows, fails: list) -> str:
-    """The kernels of one run's decode steps: each launched once a layer
-    a step, decode attention at `shard_s` slots (with statistics where
-    the slots are a shard), the expert kernels at F/model and C `rows`
-    (``dec_kernel_shapes`` holds them there), on their paths; a failed
+def _dec_launch_gate(name, cfg, run, want: dict, shard_s: int,
+                     stats: bool, rows: int, fails: list) -> str:
+    """The kernels of one run's decode steps: each launched `want[name]`
+    times (once a sublayer a step), decode attention at `shard_s` slots
+    (with statistics where `stats`: the slots are a sequence shard), the
+    expert kernels at F/model and C `rows` (``dec_kernel_shapes`` holds
+    them there), on "mma"/"wgmma" at bf16 and "simt" at float32; a failed
     gate's message goes to `fails`."""
-    want = DEC_STEPS * cfg.num_layers
     bf16 = cfg.dtype == "bfloat16"
-    for k_name in ("decode_attention", "fused_gate_up", "gmm"):
-        if run["launches"][k_name] != want:
+    for k_name, n in want.items():
+        if run["launches"][k_name] != n:
             fails.append(f"{name}: {k_name} launched "
                          f"{run['launches'][k_name]} times, not once a "
-                         f"layer a step ({want})")
-    f = cfg.moe.d_ff // 2
+                         f"sublayer a step ({n})")
     paths = []
-    for (k_name, xs, ws, dt, stats), n in run["shapes"].items():
+    for (k_name, xs, ws, dt, got_stats), n in run["shapes"].items():
         dtype = getattr(torch, dt.split(".")[-1])
         x = torch.empty(xs, dtype=dtype, device="cuda")
         w = torch.empty(ws, dtype=dtype, device="cuda")
         if k_name == "decode_attention":
             path = DA.kernel_path(x, w, w)[0]
-            ok = ws[1] == shard_s and stats == (shard_s < DEC_SLOTS) \
+            ok = ws[1] == shard_s and got_stats == stats \
                 and path == ("mma" if bf16 else "simt")
         else:
             path = MG.kernel_path(x, w, k_name == "fused_gate_up")[0]
-            ok = f in (ws[1], ws[2]) and xs[1] == rows and \
-                path == ("wgmma" if bf16 else "simt")
+            ok = cfg.moe.d_ff // 2 in (ws[1], ws[2]) and xs[1] == rows \
+                and path == ("wgmma" if bf16 else "simt")
         if not ok:
             fails.append(f"{name}: {k_name} at {xs} x {ws} "
-                         f"(statistics {stats}) took {path}")
+                         f"(statistics {got_stats}) took {path}")
         paths.append(f"{n} {k_name} {xs}x{ws} {path}"
-                     + (" stats" if stats else ""))
+                     + (" stats" if got_stats else ""))
         del x, w
-    return "; ".join(paths)
+    return "; ".join(paths) or "no kernel on its path"
 
 
 def _dec_bf16_gate(name, run, merges: bool, fails: list) -> str:
@@ -6461,11 +6527,12 @@ def _dec_report(name, cfg, run, one, rec, card) -> str:
             f"{card}")
 
 
-def _dec_moe_gate(name, cfg, run, fails: list) -> str:
-    """Phase 14's bf16 MoE gate on one run's records (``dec_moe_gates``);
-    a failed gate's message goes to `fails`."""
+def _dec_moe_gate(name, cfg, run, fails: list, want=None) -> str:
+    """Phase 14's bf16 MoE gate on one run's records (``dec_moe_gates``;
+    `want` of them, default one a layer a step); a failed gate's message
+    goes to `fails`."""
     g = run["moe_gates"]
-    if len(g) != DEC_STEPS * cfg.num_layers:
+    if len(g) != (DEC_STEPS * cfg.num_layers if want is None else want):
         fails.append(f"{name}: {len(g)} gated MoE sublayers")
     tol = TOL[torch.bfloat16]
     for r in g:
@@ -6562,9 +6629,12 @@ def dec_gates(shape, ranks, oracle, b, card, fails: list) -> dict:
             shard_s = DEC_SLOTS // shape[1] if layout == "default" else \
                 DEC_SLOTS // shape[0] if shape[0] > 1 and \
                 layout == "seq_over_dp" else DEC_SLOTS
-            paths = _dec_launch_gate(name, cfg, run, shard_s,
-                                     _dec_expert_rows(cfg, b, shape, layout),
-                                     fails)
+            paths = _dec_launch_gate(
+                name, cfg, run, dict.fromkeys(
+                    ("decode_attention", "fused_gate_up", "gmm"),
+                    DEC_STEPS * cfg.num_layers), shard_s,
+                shard_s < DEC_SLOTS, _dec_expert_rows(cfg, b, shape, layout),
+                fails)
             drift = _dec_drift(run, one)
             for i, (got, want) in enumerate(zip(run["steps"],
                                                 one["steps"])):
@@ -6647,15 +6717,19 @@ def _dec_oracles(shape, b: int, tmp: str) -> dict:
 
 
 def dec_phase(card: str) -> dict:
-    """Phase 14: (a) the statistics kernel at the shard and the expert
-    kernels at the decode F-shard shapes; the one-process oracles and
-    their witnesses in this process, which then holds nothing on the
-    card; (b) the (1, 2) ranks (float32, then bf16, at 2 layers) and
-    the (2, 2) ranks (bf16 at 1 layer under each layout); gated as the
-    module docstring says."""
+    """Phases 14 and 16 on one spawn of ranks a mesh. Phase 14: (a) the
+    statistics kernel at the shard and the expert kernels at the decode
+    F-shard shapes; the one-process oracles and their witnesses in this
+    process, which then holds nothing on the card; (b) the (1, 2) ranks
+    (float32, then bf16, at 2 layers) and the (2, 2) ranks (bf16 at 1
+    layer under each layout); gated as the module docstring says. Phase
+    16 (``ST_RUNS``): its kernels at their new geometries, its oracles
+    after phase 14's, its runs on the same ranks after phase 14's,
+    gated as its constants' comment says; its record is the returned
+    record's "state"."""
     t14 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(15)
-    res, fails = {"kernel": stats_kernel_check(gen)}, []
+    res, fails, fails16 = {"kernel": stats_kernel_check(gen)}, [], []
     # cut the (2, 2) batch, never widths or depth, where four ranks at the
     # reckoned peak would not fit beside this process
     b22 = DEC_B
@@ -6681,6 +6755,28 @@ def dec_phase(card: str) -> dict:
     jobs = {(1, 2): [("float32", DEC_F32_LAYERS, {"default": {}}, DEC_B),
                      ("bfloat16", DEC_BF16_LAYERS, {"default": {}}, DEC_B)],
             (2, 2): [("bfloat16", DEC_22_LAYERS, DEC_LAYOUTS, b22)]}
+    t16 = time.perf_counter()
+    log("[16] the sharded decode step of recurrent and encoder-decoder "
+        "caches (phase 14's ranks serve it, after phase 14's runs): (a) "
+        "its kernels at their new geometries")
+    state = {"kernels": state_kernel_shapes(gen)}
+    spent16 = time.perf_counter() - t16
+    groups16 = {}
+    for shape, runs in ST_RUNS.items():
+        for arch, dtype, _, _ in runs:
+            cfg = state_config(arch, dtype)
+            g = shape[0] if cfg.is_moe else 1
+            if groups16.setdefault((arch, dtype), g) != g:
+                raise AssertionError(f"phase 16: {arch} {dtype} runs at two "
+                                     "dispatch-group counts; one oracle "
+                                     "serves it")
+    for shape, runs in ST_RUNS.items():
+        for arch, dtype, layout, fsdp in runs:
+            cfg = state_config(arch, dtype)
+            log(f"  {arch}, {cfg.num_layers} layers, {dtype}, B {ST_B}, a "
+                f"{ST_SLOTS}-slot cache, a {ST_PREFILL}-token prefill and "
+                f"{ST_STEPS} steps on (data, model) = {shape} under "
+                f"{layout}" + (", ZeRO-3 parameters" if fsdp else ""))
 
     def oracle(tmp, held):
         t0 = time.perf_counter()
@@ -6694,30 +6790,627 @@ def dec_phase(card: str) -> dict:
             f"{float(np.median(one[(1, 2)]['bfloat16']['walls'])):.1f}"
             f", bf16 {DEC_22_LAYERS} layers at dispatch groups 2 "
             f"{float(np.median(one[(2, 2)]['bfloat16']['walls'])):.1f}"
-            f"); this process holds {held / 1e6:.1f} MB on the card while "
-            "the ranks run")
+            ")")
+        t0 = time.perf_counter()
+        one["state"] = {key: state_oracle(*key, g, tmp)
+                        for key, g in groups16.items()}
+        spent[1] = time.perf_counter() - t0
+        log(f"  [16] the one-process oracles {spent[1]:.1f} s (decode step "
+            "walls: " + ", ".join(
+                f"{a} {d} {float(np.median(o['walls'])):.1f} ms"
+                for (a, d), o in one["state"].items())
+            + f"); this process holds {held / 1e6:.1f} MB on the card "
+            "while the ranks run")
         return one
 
     def gate(shape, ranks, one):
-        return dec_gates(shape, ranks, one[shape], jobs[shape][0][3], card,
-                         fails)
+        out = dec_gates(shape, ranks, one[shape], jobs[shape][0][3], card,
+                        fails)
+        t0 = time.perf_counter()
+        state[str(shape)] = state_gates(shape, ranks, one["state"], card,
+                                        fails16)
+        # the ranks run phase 16 after phase 14, one rank at a time in
+        # step: the slowest rank's runs are the phase's share of the spawn
+        spent[0] += max(sum(v["seconds"] for v in r["state_runs"].values())
+                        for r in ranks) + time.perf_counter() - t0
+        return out
 
-    got = against_one_process(oracle, dec_rank,
-                              [(shape, (job,)) for shape, job in jobs.items()],
-                              gate, 900.0)
+    spent = [spent16, 0.0]
+    got = against_one_process(
+        oracle, dec_rank, [(shape, (job, ST_RUNS[shape]))
+                           for shape, job in jobs.items()], gate, 900.0)
     res.update({str(shape): r for shape, r in got.items()})
-    res["seconds"] = time.perf_counter() - t14
-    log(f"  phase 14 took {res['seconds']:.1f} s")
-    if fails:
-        raise AssertionError("phase 14: " + "; ".join(fails))
+    state["seconds"] = spent[0] + spent[1]
+    res["seconds"] = time.perf_counter() - t14 - state["seconds"]
+    res["state"] = state
+    log(f"  phase 14 took {res['seconds']:.1f} s and phase 16 "
+        f"{state['seconds']:.1f} s (its kernels, oracles, its runs on the "
+        "slowest rank and its gates; one spawn of ranks a mesh served both)")
+    if fails or fails16:
+        raise AssertionError("; ".join(
+            [f"phase 14: {f}" for f in fails]
+            + [f"phase 16: {f}" for f in fails16]))
     return res
+
+
+# ------------------------------------------------------------ phase 16
+
+# phase 16: the sharded decode step of recurrent and encoder-decoder
+# caches, make_serve_step(param_shardings=, cache_shardings=) for
+# jamba-v0.1-52b (Mamba state, an attention cache, experts), xlstm-125m
+# (mLSTM and sLSTM state) and whisper-base (a self-attention cache,
+# cross-attention over the encoder output) at their published widths,
+# on phase 14's ranks (one spawn of ranks a mesh serves both phases, so
+# the script pays for two spawns, not four). ST_B prompts prefilled at
+# ST_PREFILL tokens into an ST_SLOTS-slot cache, then ST_STEPS decode
+# steps fed the one-process oracle's greedy tokens, impl "auto"; step
+# ST_CROSS writes the first token into the second half of the slots
+# (rank 1's under a sequence split over model). whisper-base's prefill
+# takes its frame embeddings (the rank runs the encoder on its rows, its
+# weights gathered at use), its steps the oracle's encoder output, and
+# one length for the batch; the others per-row lengths. ST_RUNS: (arch,
+# dtype, cache layout of DEC_LAYOUTS, fsdp) by mesh. jamba-v0.1-52b runs
+# one 8-layer period of 32 (ST_JAMBA_LAYERS: 13.3 B parameters, 26.6 GB
+# in bf16, a rank's shard ~13.3 GB), bf16 only: at float32 the period
+# is 53 GB, and one rank's whole copy beside the other's shard does not
+# fit the card. Gates, set before the run: float32, every step's logits
+# within TOL[float32] of one process, greedy tokens equal, every cache
+# leaf assembled from the ranks' shards within ST_STATE_TOL (positions
+# exactly); bf16, each attention sublayer as phase 14 gates it (its
+# PlainMean control before ST_CROSS), each recurrent mixer of every step
+# against one process's on the whole state from the same input and
+# state, its output and its new state within DEC_REL in norm (the output
+# also within TOL[bf16] elementwise), the control (the rank writing back
+# the other rank's slice of the first split leaf) moving the new state
+# past DEC_CONTROL x DEC_REL; every MoE sublayer as phase 14's (its
+# SkipPartial control); the kernels launched once a sublayer a step at
+# the shard's S (statistics where the sequence splits) and F/2 and the
+# run's C; each rank's parameter and cache bytes the dry-run's.
+ST_B, ST_SLOTS, ST_PREFILL, ST_STEPS = 8, 256, 126, 4
+ST_CROSS = ST_SLOTS // 2 - ST_PREFILL + 1
+ST_JAMBA_LAYERS = 8
+ST_STATE_TOL = 1e-4
+ST_RUNS = {(1, 2): [("xlstm-125m", "float32", "default", False),
+                    ("whisper-base", "float32", "cache_heads_model", False),
+                    ("jamba-v0.1-52b", "bfloat16", "default", False)],
+           (2, 2): [("xlstm-125m", "bfloat16", "seq_over_dp", False),
+                    ("whisper-base", "float32", "default", True)]}
+# (a)'s decode attention rows at each new shard: kv_len and query
+# position a row (rows with none visible, lanes across the shard's end),
+# and the merged rows' kv_len over two shards
+ST_ATTN = {
+    "jamba-v0.1-52b": dict(
+        lens=[0, 1, 17, 64, 127, 128, 100, 90],
+        qpos=[0, 0, 16, 63, 126, 127, -1, 89],
+        merge_lens=[1, 17, 127, 128, 129, 200, 256, 100]),
+    "whisper-base": dict(lens=[0, 17, 128, 100], qpos=[0, 16, 127, -1],
+                         merge_lens=[1, 128, 129, 256])}
+
+
+def state_config(arch: str, dtype: str):
+    """`arch` at its published widths, impl "auto"; jamba-v0.1-52b one
+    period deep."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).with_(dtype=dtype, impl="auto")
+    return cfg.with_(num_layers=ST_JAMBA_LAYERS) \
+        if arch == "jamba-v0.1-52b" else cfg
+
+
+def state_inputs(cfg):
+    """Seeded prompts (ST_B, ST_PREFILL) on the host and, for an
+    encoder-decoder, frame embeddings (ST_B, T, D) of unit scale in the
+    model's dtype (else None)."""
+    gen = torch.Generator().manual_seed(16)
+    toks = torch.randint(0, cfg.vocab_size, (ST_B, ST_PREFILL),
+                         generator=gen, dtype=torch.int32)
+    if cfg.encdec is None:
+        return toks, None
+    emb = torch.randn((ST_B, cfg.encdec.encoder_seq_len, cfg.d_model),
+                      generator=gen)
+    return toks, emb.to(getattr(torch, cfg.dtype))
+
+
+def _st_len(cfg, at: int):
+    """A step's cache length: one int for an encoder-decoder, per-row
+    lengths otherwise."""
+    return at if cfg.encdec is not None else \
+        torch.full((ST_B,), at, dtype=torch.int32, device="cuda")
+
+
+def _st_count(cfg, what) -> int:
+    """How many sublayers of `cfg`'s stack `what(sub)` holds for."""
+    from repro_torch.models import transformer as T
+    pattern = T.layer_pattern(cfg)
+    return cfg.num_layers // len(pattern) * sum(map(what, pattern))
+
+
+def _moe_positions(cfg) -> list:
+    """(pattern position, period) of each MoE sublayer, in the order a
+    step runs them."""
+    from repro_torch.models import transformer as T
+    pattern = T.layer_pattern(cfg)
+    return [(j, i) for i in range(cfg.num_layers // len(pattern))
+            for j, sub in enumerate(pattern) if sub.ffn == "moe"]
+
+
+def _cache_leaves(cache) -> dict:
+    """{"position/mixer/key": leaf} of a cache tree (or of its
+    shardings)."""
+    from repro_torch.models import transformer as T
+    return {"/".join(map(str, (j, mixer) + path)): t
+            for j, c in enumerate(cache) for mixer, sub in c.items()
+            for path, t in T._leaf_paths(sub)}
+
+
+def _whole_cache(cfg):
+    """The empty whole decode cache of `cfg` (ST_B rows, ST_SLOTS slots)
+    on the card, built from the parameters' shapes: a rank holds only
+    its shards, and ``init_cache`` reads the state's widths off the
+    parameters (stand-ins of one element, strides 0)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import abstract_params
+    like = SH.tree_map(lambda t: torch.empty_strided(
+        tuple(t.shape), (0,) * t.dim(), dtype=t.dtype, device="cuda"),
+        abstract_params(cfg))
+    return T.init_cache(cfg, like, ST_B, ST_SLOTS)
+
+
+def state_oracle(arch: str, dtype: str, groups: int, tmp: str) -> dict:
+    """Phase 16's one-process run of `arch` at `dtype` on the kernels
+    (``transformer.decode_step``, what the one-process serve step runs)
+    at dispatch groups `groups`: the prefill and ST_STEPS greedy steps,
+    each step's record, the walls; its greedy tokens (and whisper's
+    encoder output) go to `tmp` for the ranks, at bf16 its MoE
+    sublayers' decode calls (``MoeCalls``), at float32 its final cache
+    on the host. Frees the card."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    cfg = state_config(arch, dtype)
+    params = init_params(cfg, seed=0, device="cuda")
+    cache = T.init_cache(cfg, params, ST_B, ST_SLOTS)
+    toks, emb = state_inputs(cfg)
+    batch, extra = {"tokens": toks.cuda()}, {}
+    if emb is not None:
+        batch["enc_embeds"] = emb.cuda()
+        with torch.no_grad():
+            extra["enc_out"] = T.run_encoder(cfg, params,
+                                             batch["enc_embeds"])
+        torch.save(extra["enc_out"].cpu(),
+                   os.path.join(tmp, f"enc-{arch}-{dtype}.pt"))
+    calls = MoeCalls() if cfg.is_moe and dtype == "bfloat16" else None
+    T.set_moe_dispatch_groups(groups)
+    recs, walls, tokens = [], [], []
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache, m = T.decode_step(cfg, params, batch, cache, 0)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            recs.append(_dec_record(lg, m))
+            tokens.append(lg[:, -1].float().argmax(-1).to(torch.int32))
+            del lg
+            with calls or contextlib.nullcontext():
+                for i in range(ST_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, cache, m = T.decode_step(
+                        cfg, params, {"tokens": tokens[-1][:, None],
+                                      **extra}, cache,
+                        _st_len(cfg, ST_PREFILL + i))
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    recs.append(_dec_record(lg, m))
+                    tokens.append(lg[:, -1].float().argmax(-1)
+                                  .to(torch.int32))
+            if calls is not None:
+                calls.save(os.path.join(tmp, f"moe-{arch}-{groups}.pt"),
+                           _st_count(cfg, lambda s: s.ffn == "moe"), groups)
+    finally:
+        T.set_moe_dispatch_groups(1)
+    torch.save(torch.stack(tokens[:ST_STEPS], 1).cpu(),
+               os.path.join(tmp, f"teacher-{arch}-{dtype}.pt"))
+    out = {"steps": recs, "walls": walls, "prefill_ms": prefill_ms}
+    if dtype == "float32":
+        out["cache"] = {k: t.cpu() for k, t in _cache_leaves(cache).items()}
+    del params, cache, calls, extra, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel(got, want) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def _swapped(shard: tuple) -> tuple:
+    """The control of phase 16's mixer gate: a mixer's records
+    (``layers.StateShard``, one a leaf) with the first split leaf's
+    first split moved one slice over (mod the whole dim): the rank
+    writes back the other rank's slice of it, its gathers untouched."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import layers as L
+    out = list(shard)
+    for n, r in enumerate(out):
+        if r.splits:
+            (dim, axes, lo, hi), *rest = r.splits
+            w = hi - lo
+            lo = (lo + w) % (w * SH._axis_size(r.mesh, axes))
+            out[n] = L.StateShard(r.mesh, ((dim, axes, lo, lo + w), *rest))
+            return tuple(out)
+    raise AssertionError("no split state leaf to swap")
+
+
+def state_gated_pass(mesh, cfg, params, cache, cs, step, teacher,
+                     extra) -> list:
+    """Phase 16's bf16 gate on this rank: the decode steps again from the
+    post-prefill `cache`. Each attention sublayer of every step runs as
+    phase 14's gate runs it (the rank's call, one process's on the whole
+    cache gathered once, the ``PlainMean`` control where the layout
+    merges); each recurrent mixer from the same input three times: the
+    rank's call (whose state goes on), one process's on the whole state
+    gathered just before it, and the rank's call on a copy of its shards
+    with the first split leaf's slice swapped on write-back
+    (``_swapped``). Returns records (kind, step, rel of the output,
+    elementwise ok, rel of the new state, the control's); nothing here
+    is counted or timed."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    shards, _ = T._cache_shards(cache, cs, mesh)
+    pattern = T.layer_pattern(cfg)
+    wholes = {}
+    for j, sub in enumerate(pattern):
+        if sub.mixer == "attn":
+            for i in range(cfg.num_layers // len(pattern)):
+                c = T._period(cache[j], i)["attn"]
+                wholes[c["k"].data_ptr()] = _dec_whole(c, shards[j])
+    inner_attn, inner_mix = L.attention_block, T._apply_mixer
+    gates, at, tol = [], [0], TOL[torch.bfloat16]
+
+    def record(kind, got, want):
+        g, w = got.float(), want.float()
+        return {"kind": kind, "step": at[0], "rel": _rel(g, w),
+                "ok": bool(((g - w).abs() <= tol + tol * w.abs()).all()
+                           and torch.isfinite(g).all())}
+
+    def attn(p, cfg_, h, positions, **kw):
+        ctrl = {k: t.clone() for k, t in kw["cache"].items()}
+        got, c = inner_attn(p, cfg_, h, positions, **kw)
+        want, _ = inner_attn(p, cfg_, h, positions, **{
+            **kw, "cache": wholes[kw["cache"]["k"].data_ptr()],
+            "shard": None})
+        rec = record("attn", got, want)
+        if kw["shard"].seq:
+            with PlainMean():
+                bad, _ = inner_attn(p, cfg_, h, positions,
+                                    **{**kw, "cache": ctrl})
+            rec["control_rel"] = _rel(bad, want)
+        gates.append(rec)
+        return got, c
+
+    def mixer(cfg_, sub, p, h, cache_, shard=None):
+        state = cache_[sub.mixer]
+        held = T._state_leaves(state)
+        splits = [r.splits for r in shard]
+
+        def whole(ts):
+            return [L._gather_at_use(t, mesh, sp) for t, sp in
+                    zip(ts, splits)]
+        before = [t.clone() for t in whole(held)]
+        ctrl = [t.clone() for t in held]
+        got = inner_mix(cfg_, sub, p, h, cache_, shard)
+        mine = whole(held)
+        want = inner_mix(cfg_, sub, p, h,
+                         {sub.mixer: T._as_state(state, before)}, None)
+        inner_mix(cfg_, sub, p, h, {sub.mixer: T._as_state(state, ctrl)},
+                  _swapped(shard))
+        rec = record(sub.mixer, got, want)
+        rec["state_rel"] = max(_rel(a, b) for a, b in zip(mine, before))
+        rec["control_rel"] = max(_rel(a, b) for a, b in
+                                 zip(whole(ctrl), before))
+        gates.append(rec)
+        return got
+
+    L.attention_block, T._apply_mixer = attn, mixer
+    try:
+        for i in range(ST_STEPS):
+            at[0] = i + 1
+            _, cache = step(params, {"tokens": teacher[:, i:i + 1],
+                                     **extra}, cache,
+                            _st_len(cfg, ST_PREFILL + i))
+    finally:
+        L.attention_block, T._apply_mixer = inner_attn, inner_mix
+    return gates
+
+
+def state_run(mesh, arch: str, dtype: str, layout: str, fsdp: bool,
+              tmp: str) -> dict:
+    """One phase-16 run on this rank: `arch`'s parameter shards
+    (``params_shardings(fsdp=)``), its cache laid out by `layout`, the
+    prefill and ST_STEPS timed and counted decode steps through
+    ``make_serve_step``, the resident bytes against the dry-run's; at
+    bf16 the gated passes, at float32 its final cache shards in `tmp`."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    t_start = time.perf_counter()
+    cfg = state_config(arch, dtype)
+    params, ps = _rank_shards(mesh, cfg, fsdp)
+    whole = _whole_cache(cfg)
+    cs = SH.cache_shardings(whole, mesh, **DEC_LAYOUTS[layout])
+    held = SH.shard_tree(whole, cs, copy=True)
+    del whole
+    torch.cuda.empty_cache()
+    variant = {"fsdp_params": fsdp, "seq_over_dp": layout == "seq_over_dp",
+               "cache_heads_model": layout == "cache_heads_model"}
+    _, args, shardings = D.build_step(
+        cfg, InputShape("decode", ST_SLOTS, ST_B, "decode"), variant,
+        mesh=mesh)
+    dps, _, dcs, _ = shardings(mesh)
+    rec = {"resident": {"params": _nbytes(params), "cache": _nbytes(held)},
+           "reckoned": {"params": SH.shard_nbytes(args[0], dps),
+                        "cache": SH.shard_nbytes(args[2], dcs)},
+           "specs": {k: tuple(sh.spec) for k, sh in
+                     _cache_leaves(cs).items()}}
+    step = M.make_serve_step(cfg, param_shardings=ps, cache_shardings=cs)
+    teacher = torch.load(os.path.join(
+        tmp, f"teacher-{arch}-{dtype}.pt")).cuda()
+    toks, emb = state_inputs(cfg)
+    batch, extra = {"tokens": toks}, {}
+    if emb is not None:
+        batch["enc_embeds"] = emb
+        extra["enc_out"] = torch.load(os.path.join(
+            tmp, f"enc-{arch}-{dtype}.pt")).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        mesh.host_ms.clear()
+        mesh.nbytes.clear()
+        t0 = time.perf_counter()
+        lg, held = step(params, batch, held, 0)
+        torch.cuda.synchronize()
+        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["prefill_collective_bytes"] = dict(mesh.nbytes)
+        steps = [_dec_record(lg, step.metrics)]
+        del lg
+        snap = clone_tree(held) if dtype == "bfloat16" else None
+        K.reset_launch_counts()
+        mesh.host_ms.clear()
+        mesh.nbytes.clear()
+        walls = []
+        with KernelShapes() as shapes:
+            for i in range(ST_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, held = step(params, {"tokens": teacher[:, i:i + 1],
+                                         **extra}, held,
+                                _st_len(cfg, ST_PREFILL + i))
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                steps.append(_dec_record(lg, step.metrics))
+        rec.update(steps=steps, walls=walls,
+                   launches=dict(K.launch_counts()),
+                   shapes=dict(shapes.seen),
+                   collective_ms=dict(mesh.host_ms),
+                   collective_bytes=dict(mesh.nbytes),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if snap is not None:
+            rec["gates"] = state_gated_pass(mesh, cfg, params, snap, cs,
+                                            step, teacher, extra)
+            del snap
+            if cfg.is_moe:
+                rec["moe_gates"] = dec_moe_gates(
+                    mesh, cfg, params, held, cs, tmp,
+                    path=os.path.join(tmp, f"moe-{arch}-"
+                                      f"{mesh.shape['data']}.pt"),
+                    positions=_moe_positions(cfg))
+    if dtype == "float32":
+        rec["cache_file"] = os.path.join(
+            tmp, f"state-{arch}-{layout}-{mesh.rank}.pt")
+        torch.save({k: t.cpu() for k, t in _cache_leaves(held).items()},
+                   rec["cache_file"])
+    del held, step, params, extra, teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def state_kernel_shapes(gen) -> dict:
+    """Phase 16 (a): ``decode_attention(return_stats=True)`` at
+    jamba-v0.1-52b's (1, 2) sequence shard (bf16, "mma") and at
+    whisper-base's (2, 2) one (float32 timed, "simt"; its rows a data
+    rank's); ``decode_attention`` at whisper-base's (1, 2)
+    ``cache_heads_model`` step (the whole gathered cache, float32,
+    "simt"); ``fused_gate_up`` and ``gmm`` at jamba-v0.1-52b's F-shard at
+    model 2 (E 16, D 4096, F 7168, its (1, 2) decode C); each against
+    its plain version and timed beside its bound."""
+    jamba = state_config("jamba-v0.1-52b", "bfloat16")
+    whisper = state_config("whisper-base", "float32")
+    out = {"decode_attention": {
+        "jamba-v0.1-52b": stats_kernel_check(
+            gen, (ST_B, jamba.num_heads, jamba.num_kv_heads,
+                  jamba.resolved_head_dim, ST_SLOTS // 2),
+            **ST_ATTN["jamba-v0.1-52b"], where="jamba's (1, 2) shard"),
+        "whisper-base": stats_kernel_check(
+            gen, (ST_B // 2, whisper.num_heads, whisper.num_kv_heads,
+                  whisper.resolved_head_dim, ST_SLOTS // 2),
+            **ST_ATTN["whisper-base"], timed=torch.float32,
+            where="whisper's (2, 2) shard"),
+        "whisper-base heads_model": decode_attention_timed(
+            gen, (ST_B, whisper.num_heads, whisper.num_kv_heads,
+                  whisper.resolved_head_dim, ST_SLOTS,
+                  [ST_PREFILL + ST_STEPS] * ST_B),
+            "whisper (1, 2) cache_heads_model", "simt",
+            dtype=torch.float32)}}
+    rows = _dec_expert_rows(jamba, ST_B, (1, 2), "default")
+    out.update(dec_kernel_shapes(gen, [rows], jamba))
+    return out
+
+
+def _state_bf16_gate(name, run, merges: bool, fails: list) -> str:
+    """Phase 16's bf16 attention and mixer gates on one run's gated pass
+    (``state_gated_pass``); a failed gate's message goes to `fails`."""
+    texts = []
+    for kind in sorted({r["kind"] for r in run["gates"]}):
+        g = [r for r in run["gates"] if r["kind"] == kind]
+        for r in g:
+            if not (r["ok"] and r["rel"] <= DEC_REL
+                    and r.get("state_rel", 0.0) <= DEC_REL):
+                fails.append(f"{name} {kind} step {r['step']}: rel "
+                             f"{r['rel']:.3e}, state rel "
+                             f"{r.get('state_rel', 0.0):.3e} (held to "
+                             f"{DEC_REL}), elementwise: {r['ok']}")
+            control = kind != "attn" or (merges and r["step"] < ST_CROSS)
+            if control and r["control_rel"] <= DEC_CONTROL * DEC_REL:
+                fails.append(f"{name} {kind} step {r['step']}: the control "
+                             f"moved only {r['control_rel']:.3e}")
+        text = (f"{len(g)} {kind} sublayers against one process: rel "
+                f"{max(r['rel'] for r in g):.2e} at most")
+        if kind == "attn":
+            ctl = [r["control_rel"] for r in g if r["step"] < ST_CROSS
+                   and "control_rel" in r]
+            text += (f"; the plain-mean control before step {ST_CROSS}: "
+                     f"rel {min(ctl):.3f}-{max(ctl):.3f}" if ctl else
+                     "; no merge, the control does not apply")
+        else:
+            text += (f", new state rel "
+                     f"{max(r['state_rel'] for r in g):.2e} at most (held "
+                     f"to {DEC_REL}); the swapped-slice control: state rel "
+                     f"{min(r['control_rel'] for r in g):.3f}-"
+                     f"{max(r['control_rel'] for r in g):.3f} (held above "
+                     f"{DEC_CONTROL * DEC_REL:.1f})")
+        texts.append(text)
+    return "; ".join(texts)
+
+
+def state_gates(shape, ranks, oracles, card, fails: list) -> dict:
+    """Phase 16's gates on one mesh's ranks (the constants' comment); a
+    failed gate's message goes to `fails`. Returns the record."""
+    from repro_torch.distributed import sharding as SH
+    dp, mp = shape
+    out = {}
+    for arch, dtype, layout, fsdp in ST_RUNS[shape]:
+        key = (arch, dtype, layout)
+        cfg = state_config(arch, dtype)
+        one = oracles[arch, dtype]
+        has_attn = _st_count(cfg, lambda s: s.mixer == "attn") > 0
+        merges = has_attn and layout != "cache_heads_model"
+        shard_s = ST_SLOTS // mp if layout == "default" else \
+            ST_SLOTS // dp if layout == "seq_over_dp" and dp > 1 \
+            else ST_SLOTS
+        rows = _dec_expert_rows(cfg, ST_B, shape, layout) if cfg.is_moe \
+            else 0
+        tag = f"{shape} {arch} {dtype} {layout}" + \
+            (" ZeRO-3" if fsdp else "")
+        launches = {"decode_attention": ST_STEPS * _st_count(
+            cfg, lambda s: s.mixer == "attn")}
+        launches["fused_gate_up"] = launches["gmm"] = ST_STEPS * _st_count(
+            cfg, lambda s: s.ffn == "moe")
+        for r in ranks:
+            run = r["state_runs"][key]
+            name = f"{tag} rank {r['rank']}"
+            if merges != any(c.endswith("/softmax")
+                             for c in run["collective_ms"]):
+                fails.append(f"{name}: the merge ran {not merges}, where "
+                             f"the layout asks {merges}")
+            if run["resident"] != run["reckoned"]:
+                fails.append(f"{name}: resident {run['resident']} != the "
+                             f"dry-run's {run['reckoned']}")
+            paths = _dec_launch_gate(name, cfg, run, launches, shard_s,
+                                     merges, rows, fails)
+            drift = _dec_drift(run, one)
+            if dtype == "float32":
+                for i, (got, want) in enumerate(zip(run["steps"],
+                                                    one["steps"])):
+                    if not torch.allclose(got["logits"], want["logits"],
+                                          atol=TOL[torch.float32],
+                                          rtol=TOL[torch.float32]):
+                        fails.append(f"{name} step {i}: logits "
+                                     f"{float((got['logits'] - want['logits']).abs().max()):.3e} off")
+                if drift["agree"] != drift["of"] or not drift["loads"]:
+                    fails.append(f"{name}: greedy tokens agree in "
+                                 f"{drift['agree']} of {drift['of']}, "
+                                 f"loads and drops equal {drift['loads']}")
+            text = (f"  {name}: prefill + {ST_STEPS} steps, logits max "
+                    f"|ranks - one process| {drift['logits']:.3e} "
+                    + (f"(held to {TOL[torch.float32]})"
+                       if dtype == "float32" else "(reported)")
+                    + f"; greedy tokens agree in {drift['agree']} of "
+                    f"{drift['of']}; launches "
+                    f"{ {k: run['launches'][k] for k in ('decode_attention', 'fused_gate_up', 'gmm')} }"
+                    f" ({paths})")
+            if dtype == "bfloat16":
+                text += "; " + _state_bf16_gate(name, run, merges, fails)
+                if cfg.is_moe:
+                    text += "; " + _dec_moe_gate(
+                        name, cfg, run, fails,
+                        ST_STEPS * len(_moe_positions(cfg)))
+            log(text)
+            coll = {k: round(v / ST_STEPS, 2) for k, v in
+                    run["collective_ms"].items()}
+            gathered = {k: round(v / ST_STEPS / 1e6, 2) for k, v in
+                        run["collective_bytes"].items()
+                        if "all_gather" in k}
+            log(f"  {name}: decode step wall median "
+                f"{float(np.median(run['walls'])):.1f} ms (one process "
+                f"{float(np.median(one['walls'])):.1f}); prefill "
+                f"{run['prefill_ms']:.0f} ms (one process "
+                f"{one['prefill_ms']:.0f}); host ms a step by collective "
+                f"{coll}; MB gathered a step {gathered}; resident "
+                f"{run['resident']} bytes "
+                f"{'==' if run['resident'] == run['reckoned'] else '!='} "
+                f"the dry-run's; peak {run['peak_gb']:.2f} GB; "
+                f"{run['seconds']:.1f} s on the rank; on {card}")
+        rec = {"walls_ms": [float(np.median(r["state_runs"][key]["walls"]))
+                            for r in ranks],
+               "one_process_ms": float(np.median(one["walls"])),
+               "gathered_mb": [sum(v for k, v in r["state_runs"][key]
+                                   ["collective_bytes"].items()
+                                   if "all_gather" in k) / ST_STEPS / 1e6
+                               for r in ranks],
+               "logits_drift": drift["logits"],
+               "launches": [{k: r["state_runs"][key]["launches"][k]
+                             for k in ("decode_attention", "fused_gate_up",
+                                       "gmm")} for r in ranks],
+               "peak_gb": [r["state_runs"][key]["peak_gb"] for r in ranks]}
+        if dtype == "float32":
+            mesh = _logical(shape)
+            parts = [torch.load(r["state_runs"][key]["cache_file"])
+                     for r in ranks]
+            specs = ranks[0]["state_runs"][key]["specs"]
+            worst = 0.0
+            for k, want in one["cache"].items():
+                got = SH.assemble([p[k] for p in parts], SH.NamedSharding(
+                    mesh, SH.P(*specs[k])))
+                if k.endswith("/pos"):
+                    if not torch.equal(got, want):
+                        fails.append(f"{tag}: the assembled {k} differs")
+                    continue
+                worst = max(worst, float((got.float() - want.float())
+                                         .abs().max()))
+                if not torch.allclose(got, want, atol=ST_STATE_TOL,
+                                      rtol=ST_STATE_TOL):
+                    fails.append(f"{tag}: the assembled {k} "
+                                 f"{float((got - want).abs().max()):.3e} "
+                                 f"off, beyond atol=rtol={ST_STATE_TOL}")
+            rec["cache_err"] = worst
+            log(f"  {tag}: every cache leaf ({len(one['cache'])}) assembled "
+                f"from the ranks' shards after the last step: positions "
+                f"equal, the rest within {worst:.3e} of one process (held "
+                f"to {ST_STATE_TOL})")
+        out[f"{arch} {dtype} {layout}"] = rec
+    return out
 
 
 # ------------------------------------------------------------ phase 15
 
 # phase 15: the ZeRO-3 layout (params_shardings(fsdp=True)): each leaf
 # held as this rank's (data, model) shard and gathered over the data
-# group at use, a layer period at a time, ranks on cuda:0 over gloo.
+# group at use, a layer period at a time, ranks on cuda:0.
 # (a) mixtral-8x7b at its published widths, Z3_LAYERS deep, bf16, impl
 # "auto": phase 13's prefill cell (TP_PREFILL_B x TP_PREFILL_S) and phase
 # 14's decode cell (DEC_B rows, a DEC_PREFILL-token prefill into DEC_SLOTS
@@ -6736,8 +7429,8 @@ def dec_phase(card: str) -> dict:
 # step's loss within MB_LOSS_TOL, the assembled parameters after the last
 # step within one bf16 ulp of ZeRO-2's (bit for bit reported).
 # phase 14's (2, 2) depth: every ZeRO-3 call gathers the whole model
-# shard over gloo (~3.4 GB a call on (2, 1) at one layer, the expert
-# banks 82% of it)
+# shard (~3.4 GB a call on (2, 1) at one layer, the expert banks 82% of
+# it)
 Z3_LAYERS = DEC_22_LAYERS
 # Each mesh's decode cell: (the name of phase 14's cache layout, its
 # ``cache_shardings`` keywords, decode steps). Every ZeRO-3 step gathers
@@ -6748,6 +7441,8 @@ Z3_LAYERS = DEC_22_LAYERS
 # write is the first into its second data rank's slots, and one after.
 Z3_SERVE = {(2, 1): ("default", {}, 4),
             (2, 2): ("seq_over_dp", {"seq_over_dp": True}, DEC_CROSS + 1)}
+# (2, 1) trains phase 12's two steps, against its ZeRO-2 parameters after
+# the second; (2, 2) phase 13's one
 Z3_TRAIN = {(2, 1): Z2_STEPS, (2, 2): 1}
 
 
@@ -7067,7 +7762,8 @@ def z3_rank(rank: int, shape: tuple, tmp: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    mesh = make_process_mesh(*shape, device="cuda:0")
+    mesh = make_process_mesh(*shape, device="cuda:0",
+                             transport="shared")
     out = {"rank": rank, "coords": mesh.coords,
            "serve": z3_serve(mesh, shape),
            "train": z3_train(mesh, shape, tmp)}
@@ -7275,7 +7971,7 @@ def z3_train_gates(shape, ranks, zero2, card, fails: list) -> dict:
 
 def zero3_phase(card: str, zero2: dict) -> dict:
     """Phase 15: for each mesh of Z3_SERVE the ranks (``launch.mesh.
-    spawn_local``, gloo on cuda:0), serving then training, gated as the
+    spawn_local`` on cuda:0), serving then training, gated as the
     module docstring says. `zero2`: {shape: the ZeRO-2 step's record on
     that mesh} (phases 12 and 13)."""
     from repro_torch.launch.mesh import spawn_local
@@ -7285,8 +7981,9 @@ def zero3_phase(card: str, zero2: dict) -> dict:
         for shape in Z3_SERVE:
             t0 = time.perf_counter()
             ranks = spawn_local(z3_rank, shape[0] * shape[1], backend="gloo",
-                                args=(shape, tmp), wall_s=900.0)
-            log(f"  {len(ranks)} ranks on {shape} over gloo on cuda:0 "
+                                args=(shape, tmp), wall_s=900.0,
+                                start_method=START_METHOD)
+            log(f"  {len(ranks)} ranks on {shape} {ON_CARD} "
                 f"{time.perf_counter() - t0:.1f} s")
             res[str(shape)] = {
                 "serve": z3_serve_gates(shape, ranks, card, fails),
@@ -7307,6 +8004,12 @@ def main() -> int:
     # float32 products in full float32 (TF32 off), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the server the multi-rank phases fork from imports this script now,
+    # beside phases 3-10, and never touches the card
+    import multiprocessing.forkserver
+    torch.multiprocessing.get_context(START_METHOD).set_forkserver_preload(
+        ["__main__"])
+    multiprocessing.forkserver.ensure_running()
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import MoElessController, ServingEngine
@@ -7506,7 +8209,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    log("[11] multi-rank EP on the card: local ranks on cuda:0 over gloo, "
+    log("[11] multi-rank EP on the card: local ranks on cuda:0, "
         "mixtral-8x7b at its published widths through "
         "ServingEngine(mesh=...)")
     worlds = ep_phase(card)
@@ -7528,7 +8231,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("[14] the sharded decode step: mixtral-8x7b decoding on (1, 2) and "
         "(2, 2) process meshes with the KV cache sharded, decode attention "
-        "on each rank's sequence shard merged by its softmax statistics")
+        "on each rank's sequence shard merged by its softmax statistics; "
+        "its ranks then run phase 16: jamba-v0.1-52b, xlstm-125m and "
+        "whisper-base decoding with their recurrent state and "
+        "encoder-decoder caches sharded")
     dec = dec_phase(card)
 
     gc.collect()
@@ -7588,6 +8294,18 @@ def main() -> int:
     for k_name in ("decode_attention", "fused_gate_up", "gmm"):
         rec[k_name]["tp_decode_launches"] = [
             r[k_name] for r in dec["(1, 2)"]["bfloat16 default"]["launches"]]
+    # phase 16: decode attention with statistics at jamba's and whisper's
+    # shards, the expert kernels at jamba's F-shard, and each run's
+    # launches on each rank
+    st = dec["state"]
+    rec["decode_attention"]["state_decode_shapes"] = \
+        st["kernels"]["decode_attention"]
+    for k_name in ("fused_gate_up", "gmm"):
+        rec[k_name]["state_decode_shapes"] = st["kernels"][k_name]
+    for k_name in ("decode_attention", "fused_gate_up", "gmm"):
+        rec[k_name]["state_decode_launches"] = {
+            f"{shape} {run}": [r[k_name] for r in got["launches"]]
+            for shape in map(str, ST_RUNS) for run, got in st[shape].items()}
     # phase 15: each rank's launches in its ZeRO-3 prefill and decode runs
     for k_name in ("decode_attention", "fused_gate_up", "gmm"):
         rec[k_name]["zero3_launches"] = {

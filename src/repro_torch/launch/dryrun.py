@@ -370,10 +370,10 @@ def _corner_job(job):
 
 def sweep(combos, *, jobs: int, multi_pod: bool = False, variant=None,
           tag: str = "", save: bool = True, verbose: bool = True,
-          results_dir=None) -> tuple[list, list]:
+          results_dir=None, start_method: str = "spawn") -> tuple[list, list]:
     """``run_one`` for every (arch, shape name) of `combos`, the meta
-    runs of all of them spread over `jobs` spawned processes (a meta run
-    is Python bound): first each combination's first corner, which
+    runs of all of them spread over `jobs` processes of `start_method`
+    (a meta run is Python bound): first each combination's first corner, which
     finds its loops over time, then the other corners, the costliest
     first. Each result's ``count_seconds`` sums its runs' seconds, and
     ``count_touched_cuda`` says whether any of its runs' processes had
@@ -395,7 +395,7 @@ def sweep(combos, *, jobs: int, multi_pod: bool = False, variant=None,
                 failures.setdefault(c, traceback.format_exc(limit=-3))
         return done
 
-    ctx = multiprocessing.get_context("spawn")
+    ctx = multiprocessing.get_context(start_method)
     with ProcessPoolExecutor(max_workers=jobs, mp_context=ctx) as pool:
         runs = collect({(c, first[c]): pool.submit(
             _corner_job, (*c, variant, multi_pod, first[c])) for c in combos})

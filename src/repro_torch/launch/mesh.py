@@ -23,7 +23,12 @@ The backend is the caller's choice, made when the default group is
 initialised: NCCL across cards; gloo on the CPU and where ranks share
 one card (NCCL refuses two ranks on one device). ``spawn_local`` starts
 N local ranks over gloo; under ``torchrun`` the caller initialises the
-group itself.
+group itself. Where every rank of a gloo group holds the same card, the
+collectives on that card's tensors move their bytes through staging
+buffers all ranks map, and meet through a barrier table in host memory
+(``launch.transport.SharedBuffers``), instead of through gloo; the
+group then carries the tensors on the host (``transport=``: "auto",
+"shared" or "group").
 
 On a serving mesh only the EP data plane is multi-rank: embeddings,
 attention, the KV cache, norms and the LM head run replicated on every
@@ -60,6 +65,8 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.transport import SharedBuffers
+
 AXES = ("data", "ep", "tp")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # the most any collective or the process-group rendezvous may wait
@@ -76,7 +83,9 @@ class ProcessMesh:
     its device, and the collectives over its named groups. ``members``
     gives each group's member ranks (this rank's group, in group-rank
     order); a group of one rank has no process group and its collectives
-    are identities. ``host_ms`` sums the host time of each collective by
+    are identities. ``shared`` holds the staging buffers of ranks that
+    share this rank's card (None: every collective runs on the process
+    group). ``host_ms`` sums the host time of each collective by
     name (the transport meter), ``nbytes`` the bytes of its results; a
     name is "<collective>/<group>", with "/<tag>" where the caller tags
     what it moves."""
@@ -88,6 +97,7 @@ class ProcessMesh:
     groups: dict = field(default_factory=dict)
     host_ms: dict = field(default_factory=dict)
     nbytes: dict = field(default_factory=dict)
+    shared: SharedBuffers | None = None
 
     @property
     def axis_names(self) -> tuple:
@@ -108,6 +118,9 @@ class ProcessMesh:
     def group_size(self, name: str) -> int:
         return len(self.members.get(name, (self.rank,)))
 
+    def _on_card(self, x) -> bool:
+        return self.shared is not None and x.device == self.shared.device
+
     def _timed(self, name: str, t0: float, out, tag=None) -> None:
         if tag:
             name = f"{name}/{tag}"
@@ -122,10 +135,13 @@ class ProcessMesh:
         if n == 1:
             return x[None]
         t0 = time.perf_counter()
-        # gloo takes only the concatenated (flat) form
-        out = x.new_empty((n * x.numel(),))
-        dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
-                                    group=self.groups[group])
+        if self._on_card(x):
+            out = self.shared.all_gather(x, self.members[group])
+        else:
+            # gloo takes only the concatenated (flat) form
+            out = x.new_empty((n * x.numel(),))
+            dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
+                                        group=self.groups[group])
         self._timed(f"all_gather/{group}", t0, out, tag)
         return out.view((n,) + tuple(x.shape))
 
@@ -135,9 +151,12 @@ class ProcessMesh:
         if self.group_size(group) == 1:
             return x
         t0 = time.perf_counter()
-        out = torch.empty_like(x, memory_format=torch.contiguous_format)
-        dist.all_to_all_single(out, x.contiguous(),
-                               group=self.groups[group])
+        if self._on_card(x):
+            out = self.shared.all_to_all(x, self.members[group])
+        else:
+            out = torch.empty_like(x, memory_format=torch.contiguous_format)
+            dist.all_to_all_single(out, x.contiguous(),
+                                   group=self.groups[group])
         self._timed(f"all_to_all/{group}", t0, out)
         return out
 
@@ -147,9 +166,15 @@ class ProcessMesh:
         if self.group_size(group) == 1:
             return x
         t0 = time.perf_counter()
+        out = self._reduce(x, group, op)
+        self._timed(f"all_reduce/{group}", t0, out, tag)
+        return out
+
+    def _reduce(self, x, group: str, op: str = "sum"):
+        if self._on_card(x):
+            return self.shared.all_reduce(x, self.members[group], op)
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=_OPS[op], group=self.groups[group])
-        self._timed(f"all_reduce/{group}", t0, out, tag)
         return out
 
     def all_reduce_autograd(self, x, group: str):
@@ -157,9 +182,8 @@ class ProcessMesh:
         sums the members' gradients the same way."""
         if self.group_size(group) == 1:
             return x
-        from torch.distributed.nn.functional import all_reduce
         t0 = time.perf_counter()
-        out = all_reduce(x.contiguous(), group=self.groups[group])
+        out = _AllReduceSum.apply(x, self, group)
         self._timed(f"all_reduce_autograd/{group}", t0, out)
         return out
 
@@ -170,9 +194,14 @@ class ProcessMesh:
         if n == 1:
             return x
         t0 = time.perf_counter()
-        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-        dist.reduce_scatter_tensor(out, x.contiguous(),
-                                   group=self.groups[group])
+        shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+        if self._on_card(x):
+            out = self.shared.reduce_scatter(
+                x, self.members[group]).view(shape)
+        else:
+            out = x.new_empty(shape)
+            dist.reduce_scatter_tensor(out, x.contiguous(),
+                                       group=self.groups[group])
         self._timed(f"reduce_scatter/{group}", t0, out, tag)
         return out
 
@@ -195,6 +224,20 @@ class ProcessMesh:
                 f"every rank must run the same session")
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The group's sum, whose backward is the group's sum of the
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, group):
+        ctx.mesh, ctx.group = mesh, group
+        return mesh._reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._reduce(g, ctx.group), None, None
+
+
 @dataclass
 class ServingMesh(ProcessMesh):
     """A (data, ep, tp) ``ProcessMesh`` with the EP slot plane's three
@@ -206,13 +249,56 @@ class ServingMesh(ProcessMesh):
         return self.coords[0] * self.shape["ep"] + self.coords[1]
 
 
-def _build(cls, shape: OrderedDict, spans: dict, device):
+TRANSPORTS = ("auto", "shared", "group")
+# this process's staging buffers, by (default process group, device)
+_SHARED: dict = {}
+
+
+def shared_buffers(device, transport: str = "auto"):
+    """This process's ``SharedBuffers`` for `device` (made at the first
+    call, which every rank makes in one order), or None where the
+    collectives stay on the process group: `transport` "group", one
+    rank, or under "auto" a device that is not CUDA, a backend that is
+    not gloo, or ranks on different cards. "shared" insists (on the CPU
+    it maps files, which the tests use)."""
+    if transport not in TRANSPORTS:
+        raise ValueError(f"transport={transport!r} (expected one of "
+                         f"{TRANSPORTS})")
+    device = torch.device(device)
+    if transport == "group" or not dist.is_initialized() or \
+            dist.get_world_size() == 1:
+        return None
+    if transport == "auto" and (device.type != "cuda"
+                                or dist.get_backend() != "gloo"):
+        return None
+    key = (id(dist.group.WORLD), str(device))
+    if key not in _SHARED:
+        _SHARED[key] = SharedBuffers.connect(
+            device, require_same_card=transport == "shared")
+    if _SHARED[key] is None and transport == "shared":
+        raise RuntimeError("transport='shared' needs every rank on one card")
+    return _SHARED[key]
+
+
+def release_shared_buffers(*, meet: bool = True) -> None:
+    """Drop this process's mapped staging buffers (with `meet`, once
+    every rank has: call it on every rank before the process group
+    ends)."""
+    while _SHARED:
+        bufs = _SHARED.popitem()[1]
+        if bufs is not None:
+            bufs.close(meet=meet)
+
+
+def _build(cls, shape: OrderedDict, spans: dict, device,
+           transport: str = "auto"):
     """A `cls` mesh of `shape` over the ranks of the initialised default
     process group (rank 0 of one without one). `spans` maps each group's
     name to the axes it varies: a group holds the ranks that share this
     rank's coordinates on the other axes, in row-major order. Every
     rank creates every group of more than one rank, in one order
-    (``dist.new_group``'s rule)."""
+    (``dist.new_group``'s rule), and its staging buffers under
+    `transport` (``shared_buffers``)."""
     rank = dist.get_rank() if dist.is_initialized() else 0
     names, sizes = list(shape), list(shape.values())
     coords = tuple((rank // math.prod(sizes[i + 1:])) % sizes[i]
@@ -240,6 +326,7 @@ def _build(cls, shape: OrderedDict, spans: dict, device):
             g = dist.new_group(ranks)
             if rank in ranks:
                 mesh.members[name], mesh.groups[name] = ranks, g
+    mesh.shared = shared_buffers(mesh.device, transport)
     return mesh
 
 
@@ -259,16 +346,17 @@ def _factor(n: int, ep, tp: int, data: int) -> tuple[int, int, int]:
 
 
 def make_serving_mesh(devices: int | None = None, *, ep: int | None = None,
-                      tp: int = 1, data: int = 1,
-                      device=None) -> ServingMesh:
+                      tp: int = 1, data: int = 1, device=None,
+                      transport: str = "auto") -> ServingMesh:
     """("data", "ep", "tp") mesh for the EP serving hot path over the
     ranks of the initialised default process group (`devices`, when
     given, must equal its world size; without a process group only the
     one-rank mesh exists). `ep` defaults to devices // (data * tp); the
     factorisation must use exactly data * ep * tp ranks. `device` is
-    where this rank's tensors live (default: the current CUDA device).
-    Every rank must call this, in the same order as its other group
-    creations."""
+    where this rank's tensors live (default: the current CUDA device);
+    `transport` picks how its collectives move bytes (module docstring,
+    ``shared_buffers``). Every rank must call this, in the same order as
+    its other group creations."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = world if devices is None else int(devices)
     if n != world:
@@ -281,7 +369,7 @@ def make_serving_mesh(devices: int | None = None, *, ep: int | None = None,
         raise ValueError(f"{e}: {HOW_TO_START}") from None
     return _build(ServingMesh, OrderedDict(zip(AXES, degrees)),
                   {"ep": ("ep",), "tp": ("tp",), "shard": ("data", "ep")},
-                  device)
+                  device, transport)
 
 
 def check_degrees(degrees) -> tuple[int, int, int]:
@@ -351,13 +439,14 @@ def mp_axis(mesh) -> str:
     return "model"
 
 
-def make_process_mesh(data: int, model: int = 1, *,
-                      device=None) -> ProcessMesh:
+def make_process_mesh(data: int, model: int = 1, *, device=None,
+                      transport: str = "auto") -> ProcessMesh:
     """A (data, model) ``ProcessMesh`` over the ranks of the initialised
     default process group (without one, only the (1, 1) mesh exists);
     data * model must equal its world size. `device` is where this
-    rank's tensors live (default: the current CUDA device). Every rank
-    must call this, in the same order as its other group creations."""
+    rank's tensors live (default: the current CUDA device); `transport`
+    as for ``make_serving_mesh``. Every rank must call this, in the same
+    order as its other group creations."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     data, model = int(data), int(model)
     if data < 1 or model < 1 or data * model != world:
@@ -365,7 +454,8 @@ def make_process_mesh(data: int, model: int = 1, *,
                          f"factor the {world} rank(s) of this process "
                          f"group: {HOW_TO_START}")
     return _build(ProcessMesh, OrderedDict(zip(MESH_AXES, (data, model))),
-                  {"data": ("data",), "model": ("model",)}, device)
+                  {"data": ("data",), "model": ("model",)}, device,
+                  transport)
 
 
 def make_host_mesh(*, device=None) -> ProcessMesh:
@@ -384,34 +474,40 @@ def _rank_main(rank, fn, nprocs, backend, store, timeout_s, results, args):
         backend, init_method=f"file://{store}", rank=rank,
         world_size=nprocs, timeout=datetime.timedelta(seconds=timeout_s))
     try:
+        out = fn(rank, *args)
+        release_shared_buffers()
         # plain pickle bytes: a tensor is copied, not shared through a
         # file descriptor that dies with this process
-        results.put((rank, pickle.dumps(fn(rank, *args))))
+        results.put((rank, pickle.dumps(out)))
     finally:
+        release_shared_buffers(meet=False)
         dist.destroy_process_group()
 
 
 def spawn_local(fn, nprocs: int, *, backend: str, args=(),
                 timeout_s: float = INIT_TIMEOUT_S,
-                wall_s: float = 600.0) -> list:
+                wall_s: float = 600.0, start_method: str = "spawn") -> list:
     """Run ``fn(rank, *args)`` in `nprocs` fresh local processes that
     form one process group over `backend` (a file rendezvous in a
     temporary directory; collectives wait at most `timeout_s`). `fn` must
-    be importable by name (the spawn start method pickles it). Returns
-    each rank's result in rank order; a rank's exception is raised here,
-    and the ranks are killed after `wall_s`. Build the CUDA kernels
-    before calling this, so the ranks do not each run nvcc."""
+    be importable by name (the start method pickles it). Returns each
+    rank's result in rank order; a rank's exception is raised here, and
+    the ranks are killed after `wall_s`. Build the CUDA kernels before
+    calling this, so the ranks do not each run nvcc. `start_method`
+    "forkserver" forks each rank from one server process, which imports
+    what ``set_forkserver_preload`` names once (a fresh "spawn" process
+    imports torch and the main module again, seconds a rank)."""
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend={backend!r} (expected 'gloo' or 'nccl')")
     mp = torch.multiprocessing
-    results = mp.get_context("spawn").SimpleQueue()
+    results = mp.get_context(start_method).SimpleQueue()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
         ctx = mp.start_processes(
             _rank_main, args=(fn, nprocs, backend, store, timeout_s,
                               results, tuple(args)),
-            nprocs=nprocs, join=False, start_method="spawn")
+            nprocs=nprocs, join=False, start_method=start_method)
         deadline = time.monotonic() + wall_s
         try:
             while True:

@@ -10,7 +10,8 @@ A contiguous cache may be one rank's shard of the whole cache of a
 decode step sharded over a process mesh (``CacheShard``): its sequence
 split over ranks, each attending its own slots and merging the results
 by their softmax statistics, or its heads or head dims split, gathered
-at use.
+at use. A recurrent state leaf's splits (``StateShard``) are all
+gathered at use (``update_at_use``).
 """
 from __future__ import annotations
 
@@ -198,6 +199,35 @@ class CacheShard:
     gather_pos: tuple = ()
 
 
+@dataclass(frozen=True)
+class StateShard:
+    """This rank's part of one recurrent state leaf (a Mamba ``conv`` or
+    ``ssm``, an mLSTM or sLSTM tensor) in a decode step sharded over a
+    process mesh. The rank holds its batch rows whole; `splits` are the
+    (dim, axes, lo, hi) of each other split of the leaf's period slice,
+    every one gathered at use (``update_at_use``): a state is read whole
+    by its mixer (Mamba's ``x_proj`` takes all of d_inner)."""
+    mesh: object
+    splits: tuple = ()
+
+
+def update_at_use(held, splits, mesh, write):
+    """Update the rank's shards `held` (a list of tensors) of whole
+    tensors split as `splits` says (for each, its (dim, axes, lo, hi)
+    splits): each gathered whole at use over its splits, `write(wholes)`
+    returns the updated wholes (the same tensors written in place, or
+    new ones), and this rank's slice of each is copied back into its
+    shard. Returns the updated wholes."""
+    wholes = [_gather_at_use(t, mesh, s) for t, s in zip(held, splits)]
+    new = write(wholes)
+    for t, n, s in zip(held, new, splits):
+        for dim, _, a, e in s:
+            n = n.narrow(dim, a, e - a)
+        if n is not t:
+            t.copy_(n)
+    return new
+
+
 def _ring_slots(cache_len, b: int, s: int, smax: int, device):
     """(global slot (B, s) of each new token, valid slots (B,) after the
     write) of the contiguous ring: an int `cache_len` (uniform batch)
@@ -255,22 +285,20 @@ def _ring_attention(q, k, v, pos1, cache, cache_len, window: int,
     statistics (``tensor_parallel.merge_softmax``), rounded once, as one
     process rounds."""
     b, s = q.shape[:2]
-    held = (cache["k"], cache["v"], cache["pos"])
+    held = [cache["k"], cache["v"], cache["pos"]]
     if shard is None:
         shard = CacheShard(None, held[0].shape[1])
     mesh = shard.mesh
-    gk, gv = (_gather_at_use(t, mesh, shard.gather_kv) for t in held[:2])
-    gp = _gather_at_use(held[2], mesh, shard.gather_pos)
     idx, n_valid = _ring_slots(cache_len, b, s, shard.smax, q.device)
     lo = shard.lo if shard.seq else None
-    for t, new in ((gk, k), (gv, v), (gp, pos1)):
-        _write_slots(t, idx, new, lo)
-    for t, full, dims in zip(held, (gk, gv, gp), (
-            shard.gather_kv, shard.gather_kv, shard.gather_pos)):
-        if dims:
-            for dim, _, a, e in dims:
-                full = full.narrow(dim, a, e - a)
-            t.copy_(full)
+
+    def write(wholes):
+        for t, new in zip(wholes, (k, v, pos1)):
+            _write_slots(t, idx, new, lo)
+        return wholes
+    gk, gv, gp = update_at_use(
+        held, (shard.gather_kv, shard.gather_kv, shard.gather_pos), mesh,
+        write)
     stats = bool(shard.seq)
     kv_len = torch.clamp(n_valid - shard.lo, 0, gk.shape[1]) \
         .to(torch.int32) if stats else n_valid

@@ -571,29 +571,32 @@ def make_serve_step(cfg, *, window: int = 0, param_shardings=None,
     is this rank's contiguous shards of the whole cache, written in
     place, and `batch` and `cache_len` (an int, a 0-d or a (B,) tensor)
     are global: the rank runs its rows where the cache's batch splits
-    over data, else the whole batch. The step runs at
-    ``transformer.set_moe_dispatch_groups(data)``, as the reference's
-    dry-run sets it; the logits (B, S_new, V) and the metrics are the
-    global ones, equal on every rank. Attention caches only: recurrent
-    and encoder-decoder configs raise NotImplementedError
-    (``transformer.require_sharded_decode``)."""
+    over data, else the whole batch (an encoder-decoder's `enc_out` or
+    `enc_embeds` too, and its `cache_len` an int or a 0-d tensor). The
+    step runs at ``transformer.set_moe_dispatch_groups(data)``, as the
+    reference's dry-run sets it; the logits (B, S_new, V) and the
+    metrics are the global ones, equal on every rank. Every config runs
+    so: attention caches, recurrent state (Mamba, mLSTM, sLSTM) and
+    encoder-decoder caches (``transformer.decode_step``)."""
     mesh = _process_mesh(param_shardings)
     sharded = mesh is not None and mesh.size > 1
     if sharded:
         from repro_torch.distributed import sharding as SH
-        T.require_sharded_decode(cfg)
         if cache_shardings is None:
             raise ValueError("a decode step on a process mesh needs the "
                              "cache's layout (cache_shardings)")
-        rows_sharding = SH.leaf_at(cache_shardings, (0, "attn", "k"))
+        # the batch rows split alike in every leaf (transformer.
+        # _cache_shards): read them from the first, whatever its mixer
+        rows_sharding = _leaves(cache_shardings)[0]
 
     def serve_step(params, batch, cache, cache_len):
         if not sharded:
             logits, cache, serve_step.metrics = T.decode_step(
                 cfg, params, batch, cache, cache_len, window=window)
             return logits, cache
-        rows = SH.shard_ranges(rows_sharding, cache[0]["attn"]["k"].shape)[1]
-        dev = cache[0]["attn"]["k"].device
+        first = _leaves(cache)[0]
+        rows = SH.shard_ranges(rows_sharding, first.shape)[1]
+        dev = first.device
 
         def mine(t):
             t = t.to(dev)

@@ -237,14 +237,16 @@ def _periods(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _write_state(view, new) -> None:
-    """Copy a mixer's new recurrent state into its cache slice."""
-    if isinstance(view, dict):
-        for k in view:
-            view[k].copy_(new[k])
-    else:
-        for v, n in zip(view, new):
-            v.copy_(n)
+def _state_leaves(state) -> list:
+    """A mixer state's leaves in order: a dict's values, a tuple's
+    items."""
+    return list(state.values()) if isinstance(state, dict) else list(state)
+
+
+def _as_state(like, leaves):
+    """`leaves` in the structure of the state `like`."""
+    return dict(zip(like, leaves)) if isinstance(like, dict) \
+        else tuple(leaves)
 
 
 _SEQ = {"mamba": S.mamba_seq, "mlstm": S.mlstm_seq, "slstm": S.slstm_seq}
@@ -252,22 +254,37 @@ _STEP = {"mamba": S.mamba_step, "mlstm": S.mlstm_step,
          "slstm": S.slstm_step}
 
 
-def _apply_mixer(cfg, sub: SubLayer, p, h, cache):
+def _apply_mixer(cfg, sub: SubLayer, p, h, cache, shard=None):
     """A recurrent mixer over h (B, S, D). With no cache, ``*_seq`` from
     the zero state; with a cache, ``*_step`` for one new token and
     ``*_seq`` from the cached state for several (a prompt prefilled into
-    the cache), the new state written into the cache slice in place."""
+    the cache), the new state written into the cache slice in place.
+    With `shard` (a tuple of ``layers.StateShard``, one a state leaf in
+    order) the cache slice is this rank's shard of the state: each leaf
+    gathered whole at use, and the rank's slice of the new state
+    written back (``layers.update_at_use``)."""
     arg = cfg.ssm if sub.mixer == "mamba" else cfg.num_heads
     mp = p[sub.mixer]
     if cache is None:
         return _SEQ[sub.mixer](mp, h, arg)[0]
     state = cache[sub.mixer]
-    if h.shape[1] == 1:
-        y, new = _STEP[sub.mixer](mp, h, state, arg)
+    held = _state_leaves(state)
+    ys = []
+
+    def write(wholes):
+        whole = _as_state(state, wholes)
+        if h.shape[1] == 1:
+            y, new = _STEP[sub.mixer](mp, h, whole, arg)
+        else:
+            y, new = _SEQ[sub.mixer](mp, h, arg, whole)
+        ys.append(y)
+        return _state_leaves(new)
+    if shard is None:
+        L.update_at_use(held, [()] * len(held), None, write)
     else:
-        y, new = _SEQ[sub.mixer](mp, h, arg, state)
-    _write_state(state, new)
-    return y
+        L.update_at_use(held, [r.splits for r in shard], shard[0].mesh,
+                        write)
+    return ys[0]
 
 
 # ---------------------------------------------------------------- forward
@@ -281,8 +298,9 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
                     cache_shard=None):
     """One sublayer (mixer + optional cross-attention over `enc_out` +
     ffn) with residuals. The layer's cache slice is written in place
-    (with `cache_shard`, a ``layers.CacheShard``, it is this rank's
-    shard of it).
+    (with `cache_shard`, a ``layers.CacheShard`` for an attention cache
+    or a tuple of ``layers.StateShard`` for a recurrent state, it is
+    this rank's shard of it).
     With `ep_ctx` and this sublayer's `ep_state` the MoE runs through
     the EP slot data plane; with `data_mesh` (``forward``) its metrics
     and dispatch groups are the data group's; with `ffn_mesh` its FFN
@@ -298,7 +316,7 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
             block_tables=block_tables, new_counts=new_counts,
             shard=cache_shard)
     else:
-        y = _apply_mixer(cfg, sub, p, h, cache)
+        y = _apply_mixer(cfg, sub, p, h, cache, cache_shard)
     x = x + y
     if sub.cross_attn:
         x = x + _cross_attention(cfg, p["xattn"],
@@ -735,48 +753,48 @@ def require_paged_kv(cfg) -> list[SubLayer]:
     return pattern
 
 
-def require_sharded_decode(cfg) -> list[SubLayer]:
-    """`cfg`'s layer pattern, or NotImplementedError where its decode
-    cannot run sharded over a process mesh: the sharded decode step
-    holds attention caches only (the configs ``require_paged_kv``
-    accepts); recurrent state and an encoder-decoder's cache are queued
-    work."""
-    try:
-        return require_paged_kv(cfg)
-    except ValueError:
-        raise NotImplementedError(
-            f"{cfg.name}: a decode step sharded over a process mesh holds "
-            "attention caches only; the sharded decode of recurrent and "
-            "encoder-decoder caches is queued work (ROADMAP queue 1)") \
-            from None
+def _leaf_paths(tree, path=()) -> list:
+    """[(path, leaf)] of a cache subtree (dicts and tuples), in leaf
+    order."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(path, tree)]
+    return [pl for k, v in items for pl in _leaf_paths(v, path + (k,))]
 
 
 def _cache_shards(cache, cache_shardings, mesh):
-    """(each pattern position's ``layers.CacheShard``, the mesh of the
-    MoE's data-parallel metrics or None): this rank's part of every
-    attention sublayer's cache from its shardings (``distributed.
-    sharding.cache_shardings``) and the shapes it holds. The batch rows
-    must split alike in every leaf (over the data axes, whose ranks then
-    sum the MoE metrics) or in none; a sequence split shared by k, v and
-    pos stays local and merges, and every other split is gathered at
-    use."""
+    """(each pattern position's record, the mesh of the MoE's
+    data-parallel metrics or None): this rank's part of every sublayer's
+    cache from its shardings (``distributed.sharding.cache_shardings``)
+    and the shapes it holds, a ``layers.CacheShard`` for an attention
+    cache and a tuple of ``layers.StateShard`` (one a leaf, in order) for
+    a recurrent state. The batch rows must split alike in every leaf,
+    attention's and recurrent state's (over the data axes, whose ranks
+    then sum the MoE metrics), or in none; an attention cache's sequence
+    split shared by k, v and pos stays local and merges, and every other
+    split is gathered at use."""
     shards, rows = [], set()
-    for j, c in enumerate(cache):
-        c = c["attn"]
-        got = {name: SH.shard_ranges(SH.leaf_at(cache_shardings,
-                                                (j, "attn", name)),
-                                     c[name].shape)
-               for name in ("k", "v", "pos")}
-        if got["k"] != got["v"]:
-            raise ValueError("k and v of a cache must share one layout")
-        kr, pr = got["k"], got["pos"]
-        rows.add(kr[1] and kr[1][0])
-        rows.add(pr[1] and pr[1][0])
-        seq = kr[2] if kr[2] == pr[2] else None
 
-        def others(r, first):
-            return tuple((d - 1, *r[d]) for d in range(first, len(r))
-                         if r[d] is not None)
+    def others(r, first):
+        return tuple((d - 1, *r[d]) for d in range(first, len(r))
+                     if r[d] is not None)
+    for j, c in enumerate(cache):
+        (mixer, c), = c.items()
+        got = {path: SH.shard_ranges(
+            SH.leaf_at(cache_shardings, (j, mixer) + path), t.shape)
+            for path, t in _leaf_paths(c)}
+        rows.update(r[1] and r[1][0] for r in got.values())
+        if mixer != "attn":
+            shards.append(tuple(L.StateShard(mesh, others(r, 2))
+                                for r in got.values()))
+            continue
+        kr, pr = got[("k",)], got[("pos",)]
+        if kr != got[("v",)]:
+            raise ValueError("k and v of a cache must share one layout")
+        seq = kr[2] if kr[2] == pr[2] else None
         smax = c["pos"].shape[2] * (1 if pr[2] is None else
                                     SH._axis_size(mesh, pr[2][0]))
         shards.append(L.CacheShard(
@@ -849,16 +867,23 @@ def decode_step(cfg, params, batch, cache, cache_len, *, window: int = 0,
     where given, ZeRO-3's data splits gathered at use as there), and
     the logits are this rank's
     rows and, where the head splits the vocabulary, its columns
-    (``models.model.make_serve_step`` gathers them). Attention caches
-    only (``require_sharded_decode``)."""
+    (``models.model.make_serve_step`` gathers them). Every cache runs so:
+    an attention cache split on its sequence merges the ranks' softmax
+    statistics, and every other split of an attention cache or of a
+    recurrent state leaf is gathered at use and the rank's slice written
+    back (``_cache_shards``); an encoder-decoder's `enc_out` (or
+    `enc_embeds`, through ``run_encoder`` on the encoder's weights
+    gathered at use) holds the rank's rows, as the tokens do."""
     pattern = layer_pattern(cfg)
     shards, moe_mesh = [None] * len(pattern), None
     if data_mesh is not None and data_mesh.size > 1:
-        require_sharded_decode(cfg)
         if cache_shardings is None:
             raise ValueError("a decode step on a process mesh needs the "
                              "cache's layout (cache_shardings)")
         shards, moe_mesh = _cache_shards(cache, cache_shardings, data_mesh)
+    if "enc_out" in batch and "encoder" in params:
+        # the encoder does not run: its weights are not gathered at use
+        params = {k: v for k, v in params.items() if k != "encoder"}
     tp = _tp_layout(cfg, params, data_mesh, ep_ctx, param_shardings)
     params = tp.params
     tokens = batch["tokens"]

@@ -36,7 +36,9 @@ Each rank's parameter and cache shards against the dry-run's
 ranks run in a subprocess that spawns them (``launch.mesh.spawn_local``:
 a file rendezvous, collectives bounded at 60 s, each spawn killed after
 300 s), so this process forks nothing. In process: recurrent and
-encoder-decoder configs refuse a (1, 2) mesh; ``merge_softmax`` on a
+encoder-decoder configs build their sharded step (their runs are
+``tests/test_torch_sharded_state.py``'s) and the dry-run builds their
+decode steps on a rank; ``merge_softmax`` on a
 stacked stand-in mesh (``tensor_parallel.StackedShards``), against the
 unsplit call and against a plain mean of the splits, which must fail;
 ``attention(return_stats=True)``.
@@ -444,18 +446,44 @@ def _meshes(shape):
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m",
                                   "whisper-base"])
-def test_recurrent_and_encdec_refuse_a_mesh(arch):
-    """A recurrent or encoder-decoder cache on a (1, 2) mesh raises at
-    build time, naming the queue; on no mesh the step builds."""
-    cfg = get_config(arch, smoke=True).with_(dtype="float32")
-    params = M.abstract_params(cfg)
-    mesh = _meshes((1, 2))[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        M.make_serve_step(cfg, param_shardings=SH.params_shardings(
-            params, mesh, fsdp=False))
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        T.require_sharded_decode(cfg)
-    M.make_serve_step(cfg)
+def test_recurrent_and_encdec_build_on_a_mesh(arch):
+    """A recurrent or encoder-decoder config builds its sharded decode
+    step on a (1, 2) mesh, and the dry-run's ``build_step(mesh=
+    ProcessMesh)`` builds the decode step of each of its decode shapes
+    (at the full config, on the meta device) under every cache layout,
+    ZeRO-3 and ``fsdp=False``: each rank's parameter and cache shards
+    equal its shardings in shape and bytes. The sharded runs are
+    ``tests/test_torch_sharded_state.py``'s."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.training.optimizer import _leaves
+    small = get_config(arch, smoke=True).with_(dtype="float32")
+    params = M.abstract_params(small)
+    meshes = _meshes((1, 2))
+    cache = T.init_cache(small, params, 2, 16)
+    M.make_serve_step(small, param_shardings=SH.params_shardings(
+        params, meshes[0], fsdp=False), cache_shardings=SH.cache_shardings(
+        cache, meshes[0]))
+    cfg = get_config(arch)
+    shapes = [s for s in INPUT_SHAPES.values() if s.kind == "decode"]
+    assert {s.name for s in shapes} == {"decode_32k", "long_500k"}
+    for shape in shapes:
+        for variant in ({}, {"fsdp_params": False, "seq_over_dp": True},
+                        {"cache_heads_model": True}):
+            for mesh in _meshes((2, 2)):
+                _, args, shardings = D.build_step(cfg, shape, variant,
+                                                  mesh=mesh)
+                ps, _, cs, _ = shardings(mesh)
+                for tree, sh in ((args[0], ps), (args[2], cs)):
+                    held = SH.shard_tree(tree, sh)
+                    got, want = [], []
+                    SH.tree_map_with_path(lambda path, t: got.append(
+                        tuple(t.shape)), held)
+                    SH.tree_map_with_path(lambda path, t: want.append(
+                        SH.shard_shape(t.shape, SH.leaf_at(sh, path))), tree)
+                    assert got == want
+                    assert sum(t.numel() * t.element_size() for t in
+                               _leaves(held)) == SH.shard_nbytes(tree, sh)
 
 
 def _attn_case(b, g, kvh, hd, s, seed):
