@@ -350,8 +350,46 @@ Phases, each fatal on failure:
      launched once a sublayer a step at the shard's S and F 7168 on
      their paths; each rank's parameter and cache bytes the dry-run's.
 
+  17. the expert-parallel layout (``params_shardings(ep_experts=True)``:
+     each model rank holds E/model whole experts, runs ``fused_gate_up``
+     and ``gmm`` on its experts' rows of the dispatch buffer and
+     all-gathers their outputs before the combine; no expert leaf is
+     gathered over "model"), on phase 14's ranks after phase 16: (a)
+     ``fused_gate_up`` and ``gmm`` at (E, C, D, F) = (4, C, 4096, 14336)
+     and (4, C, 14336, 4096), C of the decode cells (3, 2) and the
+     prefills (1280, 640), against their plain versions and timed; (b)
+     in this process the one-process bf16 prefill of 8 x 512 tokens at
+     each mesh's depth and dispatch groups (its MoE calls kept), then on
+     the ranks mixtral-8x7b at its published widths, bf16, impl "auto":
+     on (1, 2) ``fsdp=False`` at 2 layers and on (2, 2) ZeRO-3 at 1, the
+     prefill and phase 14's decode cell under the default cache layout,
+     and on (2, 2) phase 15's training cell for one ZeRO-3 step (impl
+     "ref"). Gated: every MoE sublayer from the one-process input bit
+     for bit or within TOL[bf16] and ``DEC_REL``, the control
+     (``RolledExperts``: the gathered outputs rolled by one rank's
+     experts) past ``DEC_CONTROL`` x ``DEC_REL``; the (1, 2) prefill's
+     logits bit for bit or within TOL[bf16] and ``DEC_REL``, loads and
+     drops equal; every decode step's tokens, loads and logits against
+     one process where phase 14's own run of the cell agrees with it,
+     and always against that run on the same ranks (tokens, and rows
+     within ``DEC_CONTROL`` x ``DEC_REL`` in norm, in ``EP_DEC_AGREE``
+     of the rows and steps); the expert kernels once a layer a call at E/2 experts with F whole
+     on "wgmma"; each call's ``all_gather/model`` bytes the weights
+     phase 14's run gathers (no expert leaf) and
+     ``all_gather/model/experts`` E x C x D x 2 a layer; resident bytes
+     the dry-run's ``ep_experts`` variant's; each rank's peak less what
+     it held, less under ZeRO-3 the E/model experts its gather over data
+     makes whole, below one period's whole expert banks; training: the loss within ``MB_LOSS_TOL`` of
+     phase 13's ZeRO-2 step, the step-1 gradients within
+     ``GRAD_REL_TOL`` of its accumulator in each leaf's norm, the
+     sharded update within one bf16 ulp of the unsharded update of those
+     gradients. Printed: the walls a rank against the same mesh's
+     default layout (phases 13, 14, 15) and one process, each
+     collective's host ms and bytes, the bytes the expert gather moves
+     into a rank, peaks.
+
 Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11, 12,
-13, 14 and 16 (one spawn of ranks a mesh), 15.
+13, 14, 16 and 17 (one spawn of ranks a mesh), 15.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -5080,6 +5118,27 @@ def _group_agree(mesh, tensors, group: str) -> bool:
     return bool(flag.item())
 
 
+class RolledExperts:
+    """The control of phase 17's MoE gate: within the block, the expert
+    outputs are gathered over the model group and then rolled by one
+    rank's block of experts, so each expert's rows land on another
+    expert's place before the combine."""
+
+    def __enter__(self):
+        from repro_torch.distributed import tensor_parallel as TP
+        self._tp, self._fn = TP, TP.gather_experts
+        inner = self._fn
+
+        def run(y, mesh):
+            return torch.roll(inner(y, mesh), y.shape[0], dims=0)
+
+        TP.gather_experts = run
+        return self
+
+    def __exit__(self, *exc):
+        self._tp.gather_experts = self._fn
+
+
 class SkipPartial:
     """The control of phase 13's prefill gate: within the block, the
     model group's sums take part as before, but rank 1 adds zeros in
@@ -5115,18 +5174,18 @@ def _tp_prefill_config(dtype: str):
                     else TP_BF16_LAYERS)
 
 
-def _rank_shards(mesh, cfg, fsdp: bool = False):
+def _rank_shards(mesh, cfg, fsdp: bool = False, ep: bool = False):
     """(this rank's contiguous shards of `cfg`'s parameters, their
-    shardings): ``params_shardings(fsdp=)``, the parameters built whole
-    on the card one rank at a time (two whole copies beside the shards
-    may not fit) and cut."""
+    shardings): ``params_shardings(fsdp=, ep_experts=ep)``, the
+    parameters built whole on the card one rank at a time (two whole
+    copies beside the shards may not fit) and cut."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding as SH
     from repro_torch.models.model import init_params
     for r in range(mesh.size):
         if mesh.rank == r:
             full = init_params(cfg, seed=0, device="cuda")
-            ps = SH.params_shardings(full, mesh, fsdp=fsdp)
+            ps = SH.params_shardings(full, mesh, fsdp=fsdp, ep_experts=ep)
             shards = SH.shard_tree(full, ps, copy=True)
             del full
             gc.collect()
@@ -5136,32 +5195,37 @@ def _rank_shards(mesh, cfg, fsdp: bool = False):
 
 
 def moe_sublayer_gates(mesh, cfg, shards, ios, data_mesh=None,
-                       positions=None) -> list:
+                       positions=None, shardings=None) -> list:
     """Each MoE sublayer of a tensor-parallel rank run from the
     one-process path's input: `ios` holds, for each MoE layer, the
     (input, output) pairs of that path's calls on the host (the rows
     this rank runs), and `positions` each MoE layer's (pattern position,
     period) (default: position 0, period = the layer). The rank's
-    sublayer (its F-slices of the expert bank,
-    ``dispatch_moe(model_mesh=)``, at the dispatch groups and with the
-    `data_mesh` the step gives it) runs once as it is and once under
-    ``SkipPartial``. A record a call: the layer, max |err|, whether it is
+    sublayer (its F-slices of the expert bank or its whole experts,
+    ``dispatch_moe(model_mesh=)``: the layout its shards have, gathered at use as the step gathers them, over data
+    first where `shardings` split them so) runs at the dispatch groups
+    and with the `data_mesh` the step gives it, once as it is and once
+    under its control: ``SkipPartial`` for F-slices, ``RolledExperts``
+    for whole experts. A record a call: the layer, whether it equals the
+    one-process output bit for bit ("same"), max |err|, whether it is
     within TOL[bf16] elementwise and finite, |err| / |output| in norm
     ("rel"), and the control's max |err|, share of elements out of that
     tolerance and norm ("control_rel")."""
-    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
-    dims, _ = T._tensor_parallel(cfg, shards, mesh)
+    tp = T._tp_layout(cfg, shards, mesh, shardings=shardings)
     tol, gate = TOL[torch.bfloat16], []
     for layer, calls in enumerate(ios):
         j, i = (0, layer) if positions is None else positions[layer]
-        p, ffn_mesh = T._gather_sublayer(
-            T._period(shards["layers"][j], i),
-            TP.unstack_dims(dims["layers"][j]), mesh)
+        p, ffn_mesh = tp.sublayer(j, T._period(tp.params["layers"][j], i),
+                                  i)
         if ffn_mesh is None:
-            raise AssertionError("the expert bank is not a column/row pair "
-                                 f"on {dict(mesh.shape)}")
+            raise AssertionError("the expert bank is neither a column/row "
+                                 "pair nor split by expert on "
+                                 f"{dict(mesh.shape)}")
+        by_expert = p["moe"]["experts"]["w_down"].shape[0] \
+            != cfg.moe.num_experts
+        control = RolledExperts if by_expert else SkipPartial
         for h, want in calls:
             h, want = h.cuda(), want.cuda().float()
 
@@ -5175,12 +5239,12 @@ def moe_sublayer_gates(mesh, cfg, shards, ios, data_mesh=None,
 
             with torch.no_grad():
                 got = moe()
-                with SkipPartial():
+                with control():
                     bad = moe()
             limit = tol + tol * want.abs()
             norm = want.norm()
             gate.append({
-                "layer": layer,
+                "layer": layer, "same": bool(torch.equal(got, want)),
                 "max_abs_err": float((got - want).abs().max()),
                 "ok": bool(torch.allclose(got, want, atol=tol, rtol=tol)),
                 "finite": bool(torch.isfinite(got).all()),
@@ -5224,14 +5288,16 @@ def against_one_process(oracle, rank, meshes, gate, wall_s: float) -> dict:
     return out
 
 
-def _tp_expert_rows(cfg) -> int:
-    """C of the expert kernels in phase 13's prefill: its dispatch
-    groups (``transformer._moe_groups``: at most 2048 tokens a group)
-    times a group's capacity."""
+def _tp_expert_rows(cfg, dp: int = 1) -> int:
+    """C of the expert kernels in phase 13's prefill cell on a rank of a
+    mesh of `dp` data ranks (phases 13 and 17): its dispatch groups
+    (``transformer._moe_groups``: at most 2048 tokens a group of the
+    batch, an equal run of them a data rank) times a group's
+    capacity."""
     t = TP_PREFILL_B * TP_PREFILL_S
-    g = max(1, t // 2048)
-    return g * math.ceil(cfg.moe.capacity_factor * cfg.moe.top_k * (t // g)
-                         / cfg.moe.num_experts)
+    g = max(dp, t // 2048)
+    return g // dp * math.ceil(cfg.moe.capacity_factor * cfg.moe.top_k
+                               * (t // g) / cfg.moe.num_experts)
 
 
 def _tp_prefill_batch(cfg):
@@ -5508,6 +5574,8 @@ def tp_train_gates(shape, ranks, one, card, fails: list) -> dict:
     p0 = init_params(cfg, seed=0, device="cuda")
     it = iter(gathered)
     g = O._map(lambda _: next(it).cuda(), p0)
+    # after one step, phase 17's oracle of its gradients on this mesh
+    acc = gathered if TP_TRAIN[shape] == 1 else None
     del gathered
     want, _ = opt.update(p0, g, opt.init(p0))
     del g, p0
@@ -5545,7 +5613,7 @@ def tp_train_gates(shape, ranks, one, card, fails: list) -> dict:
                       for r in ranks],
             "peaks": [r["train"]["peak_gb"] for r in ranks],
             "resident": [r["train"]["resident"] for r in ranks],
-            "params_final": final}
+            "params_final": final, "acc_final": acc}
 
 
 def tp_prefill_gates(ranks, one, card, fails: list) -> dict:
@@ -6267,13 +6335,14 @@ def dec_gated_pass(mesh, cfg, params, cache, cs, step, teacher,
 
 
 def dec_moe_gates(mesh, cfg, params, cache, cs, tmp: str, path=None,
-                  positions=None) -> list:
+                  positions=None, shardings=None) -> list:
     """Phase 14's bf16 MoE gate on this rank: each MoE sublayer of every
     decode step run from the one-process oracle's input (``MoeCalls``,
     saved at `path`: the rank's rows of it, where the cache's rows split
     over data) at the step's dispatch groups and data mesh, against that
     oracle's output for the same rows (``moe_sublayer_gates``, with its
-    control; `positions` as there). Nothing here is counted or timed."""
+    control; `positions` and `shardings`, the parameters' layout, as
+    there). Nothing here is counted or timed."""
     from repro_torch.distributed import sharding as SH
     from repro_torch.models import transformer as T
     _, moe_mesh = T._cache_shards(cache, cs, mesh)
@@ -6290,7 +6359,7 @@ def dec_moe_gates(mesh, cfg, params, cache, cs, tmp: str, path=None,
     T.set_moe_dispatch_groups(dp)
     try:
         return moe_sublayer_gates(mesh, cfg, params, ios, moe_mesh,
-                                  positions)
+                                  positions, shardings)
     finally:
         T.set_moe_dispatch_groups(1)
 
@@ -6325,11 +6394,14 @@ class KernelShapes:
 
 
 def dec_run(mesh, cfg, params, ps, layout: dict, b: int, tmp: str,
-            tag: str) -> dict:
+            tag: str, fsdp: bool = False, ep: bool = False) -> dict:
     """One sharded decode run on this rank: the cache laid out by
     `layout`, the prefill and DEC_STEPS counted, timed decode steps
     through ``make_serve_step``, the resident bytes against the
-    dry-run's, and (bf16) the gated passes; float32 keeps its final cache
+    dry-run's (its ``fsdp_params`` and ``ep_experts`` variant: `fsdp`,
+    `ep`), the peak over the decode steps, and (bf16) the gated passes:
+    the MoE sublayers, and but for `ep` (phase 17, whose attention is
+    phase 14's) the attention sublayers; float32 keeps its final cache
     shards in `tmp`."""
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed import sharding as SH
@@ -6341,7 +6413,7 @@ def dec_run(mesh, cfg, params, ps, layout: dict, b: int, tmp: str,
     held = SH.shard_tree(whole, cs, copy=True)
     del whole
     torch.cuda.empty_cache()
-    variant = {"fsdp_params": False,
+    variant = {"fsdp_params": fsdp, "ep_experts": ep,
                "seq_over_dp": layout.get("seq_over_dp", False),
                "cache_heads_model": layout.get("heads_model", False)}
     _, args, shardings = D.build_step(
@@ -6370,7 +6442,11 @@ def dec_run(mesh, cfg, params, ps, layout: dict, b: int, tmp: str,
         rec["prefill_collective_ms"] = dict(mesh.host_ms)
         steps = [_dec_record(lg, step.metrics)]
         del lg
-        snap = clone_tree(held) if cfg.dtype == "bfloat16" else None
+        snap = clone_tree(held) if cfg.dtype == "bfloat16" and not ep \
+            else None
+        prefill_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rec["held_before_steps"] = torch.cuda.memory_allocated()
         K.reset_launch_counts()
         mesh.host_ms.clear()
         mesh.nbytes.clear()
@@ -6389,13 +6465,15 @@ def dec_run(mesh, cfg, params, ps, layout: dict, b: int, tmp: str,
                    shapes=dict(shapes.seen),
                    collective_ms=dict(mesh.host_ms),
                    collective_bytes=dict(mesh.nbytes),
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                   steps_peak=torch.cuda.max_memory_allocated())
+        rec["peak_gb"] = max(prefill_peak, rec["steps_peak"]) / 1e9
         if snap is not None:
             rec["gates"] = dec_gated_pass(mesh, cfg, params, snap, cs, step,
                                           teacher, cl)
             del snap
+        if cfg.dtype == "bfloat16":
             rec["moe_gates"] = dec_moe_gates(mesh, cfg, params, held, cs,
-                                             tmp)
+                                             tmp, shardings=ps)
     if cfg.dtype == "float32":
         rec["cache_file"] = os.path.join(tmp, f"{tag}-cache{mesh.rank}.pt")
         torch.save([{k: t.cpu() for k, t in c["attn"].items()}
@@ -6407,13 +6485,14 @@ def dec_run(mesh, cfg, params, ps, layout: dict, b: int, tmp: str,
 
 
 def dec_rank(rank: int, shape: tuple, tmp: str, jobs: list,
-             state_jobs: list = ()) -> dict:
-    """One rank of phases 14 and 16 on a (data, model) = `shape` mesh:
-    for each job (dtype, layers, {name: layout}, batch), this rank's
-    parameter shards (``_rank_shards``), then ``dec_run`` under each
-    layout in turn; then phase 16's ``state_run`` of each of
-    `state_jobs` (arch, dtype, layout, fsdp). Everything returned lives
-    on the host."""
+             state_jobs: list = (), ep_b: int = 0) -> dict:
+    """One rank of phases 14, 16 and 17 on a (data, model) = `shape`
+    mesh: for each job (dtype, layers, {name: layout}, batch), this
+    rank's parameter shards (``_rank_shards``), then ``dec_run`` under
+    each layout in turn; then phase 16's ``state_run`` of each of
+    `state_jobs` (arch, dtype, layout, fsdp); then, with `ep_b` (the
+    decode cell's rows), phase 17 (``ep_rank``). Everything returned
+    lives on the host."""
     from repro_torch.launch.mesh import make_process_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6435,6 +6514,8 @@ def dec_rank(rank: int, shape: tuple, tmp: str, jobs: list,
     out["state_runs"] = {(arch, dtype, layout): state_run(
         mesh, arch, dtype, layout, fsdp, tmp)
         for arch, dtype, layout, fsdp in state_jobs}
+    if ep_b:
+        out["ep"] = ep_rank(mesh, shape, tmp, ep_b)
     return out
 
 
@@ -6716,20 +6797,25 @@ def _dec_oracles(shape, b: int, tmp: str) -> dict:
     return out
 
 
-def dec_phase(card: str) -> dict:
-    """Phases 14 and 16 on one spawn of ranks a mesh. Phase 14: (a) the
-    statistics kernel at the shard and the expert kernels at the decode
-    F-shard shapes; the one-process oracles and their witnesses in this
-    process, which then holds nothing on the card; (b) the (1, 2) ranks
-    (float32, then bf16, at 2 layers) and the (2, 2) ranks (bf16 at 1
-    layer under each layout); gated as the module docstring says. Phase
-    16 (``ST_RUNS``): its kernels at their new geometries, its oracles
-    after phase 14's, its runs on the same ranks after phase 14's,
-    gated as its constants' comment says; its record is the returned
-    record's "state"."""
+def dec_phase(card: str, zero2=None) -> dict:
+    """Phases 14, 16 and 17 on one spawn of ranks a mesh. Phase 14: (a)
+    the statistics kernel at the shard and the expert kernels at the
+    decode F-shard shapes; the one-process oracles and their witnesses
+    in this process, which then holds nothing on the card; (b) the (1,
+    2) ranks (float32, then bf16, at 2 layers) and the (2, 2) ranks
+    (bf16 at 1 layer under each layout); gated as the module docstring
+    says. Phase 16 (``ST_RUNS``): its kernels at their new geometries,
+    its oracles after phase 14's, its runs on the same ranks after phase
+    14's, gated as its constants' comment says; its record is the
+    returned record's "state". Phase 17 (``EP_SERVE``): its kernels, its
+    prefill oracles after phase 16's, its runs on the same ranks last,
+    gated as its constants' comment says, training against `zero2`
+    (phase 13's (2, 2) ZeRO-2 record); its record is the returned
+    record's "ep"."""
     t14 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(15)
-    res, fails, fails16 = {"kernel": stats_kernel_check(gen)}, [], []
+    res, fails, fails16, fails17 = {"kernel": stats_kernel_check(gen)}, \
+        [], [], []
     # cut the (2, 2) batch, never widths or depth, where four ranks at the
     # reckoned peak would not fit beside this process
     b22 = DEC_B
@@ -6761,6 +6847,21 @@ def dec_phase(card: str) -> dict:
         "its kernels at their new geometries")
     state = {"kernels": state_kernel_shapes(gen)}
     spent16 = time.perf_counter() - t16
+    t17 = time.perf_counter()
+    log("[17] the expert-parallel layout (ep_experts; phase 14's ranks "
+        "serve it, after phase 16's runs): (a) fused_gate_up and gmm at "
+        "E/2 experts with F whole")
+    ep = {"kernels": ep_kernel_shapes(gen, b22)}
+    for shape, (layers, fsdp) in EP_SERVE.items():
+        cfg = _mixtral("bfloat16", layers)
+        log(f"  mixtral-8x7b, {layers} of 32 layers, bf16, on (data, "
+            f"model) = {shape}, {'ZeRO-3' if fsdp else 'fsdp=False'}, "
+            f"each rank {cfg.moe.num_experts // shape[1]} whole experts: "
+            f"the {TP_PREFILL_B} x {TP_PREFILL_S} prefill and the decode "
+            f"cell" + (", then phase 15's training step" if shape == (2, 2)
+                       else "") + f"; one period's expert banks "
+            f"{ep_bank_bytes(cfg) / 1e9:.3f} GB by the reckoning")
+    spent17 = [time.perf_counter() - t17]
     groups16 = {}
     for shape, runs in ST_RUNS.items():
         for arch, dtype, _, _ in runs:
@@ -6801,6 +6902,13 @@ def dec_phase(card: str) -> dict:
                 for (a, d), o in one["state"].items())
             + f"); this process holds {held / 1e6:.1f} MB on the card "
             "while the ranks run")
+        t0 = time.perf_counter()
+        one["ep"] = ep_prefill_oracle(tmp)
+        spent17[0] += time.perf_counter() - t0
+        log(f"  [17] the one-process prefill oracles "
+            f"{time.perf_counter() - t0:.1f} s (walls: " + ", ".join(
+                f"{shape} {o['wall_ms']:.1f} ms"
+                for shape, o in one["ep"].items()) + ")")
         return one
 
     def gate(shape, ranks, one):
@@ -6813,23 +6921,35 @@ def dec_phase(card: str) -> dict:
         # step: the slowest rank's runs are the phase's share of the spawn
         spent[0] += max(sum(v["seconds"] for v in r["state_runs"].values())
                         for r in ranks) + time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ep[str(shape)] = ep_gates(
+            shape, ranks, one["ep"][shape], one[shape]["bfloat16"],
+            jobs[shape][0][3], card, fails17,
+            zero2 if shape == (2, 2) else None)
+        spent17[0] += max(r["ep"]["seconds"] for r in ranks) \
+            + time.perf_counter() - t0
         return out
 
     spent = [spent16, 0.0]
     got = against_one_process(
-        oracle, dec_rank, [(shape, (job, ST_RUNS[shape]))
+        oracle, dec_rank, [(shape, (job, ST_RUNS[shape],
+                                    job[0][3] if shape in EP_SERVE else 0))
                            for shape, job in jobs.items()], gate, 900.0)
     res.update({str(shape): r for shape, r in got.items()})
     state["seconds"] = spent[0] + spent[1]
-    res["seconds"] = time.perf_counter() - t14 - state["seconds"]
-    res["state"] = state
-    log(f"  phase 14 took {res['seconds']:.1f} s and phase 16 "
-        f"{state['seconds']:.1f} s (its kernels, oracles, its runs on the "
-        "slowest rank and its gates; one spawn of ranks a mesh served both)")
-    if fails or fails16:
+    ep["seconds"] = spent17[0]
+    res["seconds"] = time.perf_counter() - t14 - state["seconds"] \
+        - ep["seconds"]
+    res["state"], res["ep"] = state, ep
+    log(f"  phase 14 took {res['seconds']:.1f} s, phase 16 "
+        f"{state['seconds']:.1f} s and phase 17 {ep['seconds']:.1f} s "
+        "(each its kernels, oracles, its runs on the slowest rank and its "
+        "gates; one spawn of ranks a mesh served all three)")
+    if fails or fails16 or fails17:
         raise AssertionError("; ".join(
             [f"phase 14: {f}" for f in fails]
-            + [f"phase 16: {f}" for f in fails16]))
+            + [f"phase 16: {f}" for f in fails16]
+            + [f"phase 17: {f}" for f in fails17]))
     return res
 
 
@@ -7406,6 +7526,564 @@ def state_gates(shape, ranks, oracles, card, fails: list) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 17
+
+# phase 17: the expert-parallel layout (``params_shardings(ep_experts=
+# True)``): each model rank holds E/model whole experts and runs the
+# expert kernels on its experts' rows of the dispatch buffer, their
+# outputs all-gathered over "model" in group-rank order before the
+# combine (``moe.dispatch_moe``), so no expert leaf is gathered over
+# "model". It runs on phase 14's ranks after phases 14 and 16 (no spawn
+# of its own): mixtral-8x7b at its published widths, bf16, impl "auto",
+# on each mesh of EP_SERVE (its depth and whether ZeRO-3 splits the
+# parameters over data as well): phase 13's prefill cell (TP_PREFILL_B x
+# TP_PREFILL_S) and phase 14's decode cell under the default cache
+# layout (the oracle's prefill and teacher tokens, DEC_STEPS steps); on
+# (2, 2) also phase 15's training cell through the ZeRO-3 step (impl
+# "ref", one step), against phase 13's ZeRO-2 step on (2, 2). Gates:
+# (a) every MoE sublayer of the prefill and of every decode step, run
+# from the one-process path's input, bit for bit or within TOL[bf16]
+# elementwise and DEC_REL in norm of its output, the control
+# (``RolledExperts``: the gathered outputs rolled by one rank's experts)
+# moving the norm past DEC_CONTROL x DEC_REL; (b) the prefill's logits on
+# (1, 2), whose rows and attention are the one process's, bit for bit or
+# within TOL[bf16] and DEC_REL, loads and drops equal (on (2, 2), whose
+# rows split over data, reported); every decode step's loads and greedy
+# tokens equal to one process's and its logits within TOL[bf16] and
+# DEC_REL where phase 14's own run of the cell on the same ranks (the
+# default layout's experts, F-split) agrees with one process in tokens
+# and loads (its witness), else reported; and always against that run
+# (the same attention and sequence merge, only the experts' layout
+# differs): greedy tokens, and rows whose logits lie within DEC_CONTROL x
+# DEC_REL of its in norm, each in at least EP_DEC_AGREE of the rows and
+# steps; (c) ``fused_gate_up`` and ``gmm`` launched once a layer a call
+# at (E/model, C, D, F) with F whole, on "wgmma", decode attention once a
+# layer a step; (d) no expert leaf over "model": each call's
+# "all_gather/model" bytes equal the weights phase 14's run of the cell
+# gathers a step (its banks are column/row pairs, never gathered), plus
+# the prefill's logit columns, and "all_gather/model/experts" moves E x C
+# x D x 2 bytes a layer a call; (e) resident parameter (and cache) bytes
+# equal to the dry-run's ``ep_experts`` variant, and each rank's peak
+# less what it held before the call (the prefill) or the steps (the
+# decode), less under ZeRO-3 the period's E/model experts its gather over
+# data makes whole at use, below one period's whole expert banks
+# (``ep_bank_bytes``, by the reckoning); (f) training: the loss within
+# MB_LOSS_TOL of ZeRO-2's, the step-1 gradients within GRAD_REL_TOL of
+# its accumulator in each leaf's norm, the sharded update within one bf16
+# ulp of the unsharded update of those gradients (``ep_train_gates``).
+EP_SERVE = {(1, 2): (DEC_BF16_LAYERS, False), (2, 2): (DEC_22_LAYERS, True)}
+# the decode step against phase 14's run of the cell on the same ranks:
+# the share of rows and steps whose greedy token agrees and whose logits
+# lie within DEC_CONTROL x DEC_REL of its in norm (a row past that has
+# taken another expert or a wrong expert's output)
+EP_DEC_AGREE = 0.9
+
+
+def ep_bank_bytes(cfg) -> int:
+    """One period's whole expert banks of `cfg` in bf16, by the
+    reckoning: what a rank held beside its shards while the layout
+    gathered its banks whole at use."""
+    from repro_torch.models import transformer as T
+    moe = sum(sub.ffn == "moe" for sub in T.layer_pattern(cfg))
+    return moe * cfg.moe.num_experts * 3 * cfg.d_model * cfg.moe.d_ff * 2
+
+
+def ep_kernel_shapes(gen, b22: int) -> dict:
+    """``fused_gate_up`` and ``gmm`` at the shapes phase 17's steps give
+    them: E/2 = 4 of mixtral's 8 experts, F whole, C of the (1, 2) and
+    (2, 2) decode cells and prefills; each against its plain version and
+    timed beside its bound."""
+    cfg = _mixtral("bfloat16", 1)
+    e, d, f = cfg.moe.num_experts // 2, cfg.d_model, cfg.moe.d_ff
+    rows = {"dec (1, 2)": _dec_expert_rows(cfg, DEC_B, (1, 2), "default"),
+            "dec (2, 2)": _dec_expert_rows(cfg, b22, (2, 2), "default"),
+            "prefill (1, 2)": _tp_expert_rows(cfg, 1),
+            "prefill (2, 2)": _tp_expert_rows(cfg, 2)}
+    out = {}
+    for name, fused in (("fused_gate_up", True), ("gmm", False)):
+        out[name] = {}
+        for label, c in rows.items():
+            shape = (e, c, d, f) if fused else (e, c, f, d)
+            out[name][f"ep {label} C{c}"] = dict(
+                shape=list(shape), **gmm_shape_timed(
+                    gen, name, fused, f"ep {label}", shape + ([c] * e,)))
+    return out
+
+
+def ep_prefill_oracle(tmp: str) -> dict:
+    """The one-process bf16 prefill of the cell on the kernel path at
+    each mesh's depth and dispatch groups (EP_SERVE), in this process:
+    last-position logits, loads, drops and wall on the host, and each MoE
+    sublayer's calls to `tmp` (``MoeCalls``: the rows of each data rank
+    run alone too). Frees the card."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import init_params
+    out = {}
+    for shape, (layers, _) in EP_SERVE.items():
+        dp = shape[0]
+        cfg = _mixtral("bfloat16", layers)
+        params = init_params(cfg, seed=0, device="cuda")
+        step = M.make_prefill_step(cfg)
+        batch = {k: v.cuda() for k, v in _tp_prefill_batch(cfg).items()}
+        calls = MoeCalls()
+        T.set_moe_dispatch_groups(dp)
+        try:
+            with torch.no_grad():
+                step(params, batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, m = step(params, batch)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                with calls:
+                    step(params, batch)
+                calls.save(os.path.join(tmp, f"ep-prefill-{layers}-{dp}.pt"),
+                           layers, dp)
+        finally:
+            T.set_moe_dispatch_groups(1)
+        out[shape] = {"logits": logits[:, -1].float().cpu(),
+                      "wall_ms": wall,
+                      "expert_load": m["expert_load"].tolist(),
+                      "dropped": m["dropped"].tolist()}
+        del params, step, logits, m, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_prefill(mesh, cfg, params, ps, fsdp: bool, tmp: str) -> dict:
+    """Phase 17's prefill on this rank: a warm call, then the counted and
+    timed ``make_prefill_step(param_shardings=)`` call, its peak less
+    what the rank held before it, its collectives; the resident bytes
+    against the dry-run's; each MoE sublayer from the one-process input
+    (the rank's rows of it), gated with its control."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    dp, r = mesh.shape["data"], mesh.index("data")
+    batch = _tp_prefill_batch(cfg)
+    step = M.make_prefill_step(cfg, param_shardings=ps)
+    _, args, shardings = D.build_step(
+        cfg, InputShape("prefill", TP_PREFILL_S, TP_PREFILL_B, "prefill"),
+        {"fsdp_params": fsdp, "ep_experts": True}, mesh=mesh)
+    rec = {"resident": _nbytes(params),
+           "reckoned": SH.shard_nbytes(args[0], shardings(mesh)[0])}
+    T.set_moe_dispatch_groups(dp)
+    try:
+        with torch.no_grad():
+            step(params, batch)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rec["held_before"] = torch.cuda.memory_allocated()
+            K.reset_launch_counts()
+            mesh.host_ms.clear()
+            mesh.nbytes.clear()
+            with KernelShapes() as shapes:
+                t0 = time.perf_counter()
+                logits, m = step(params, batch)
+                torch.cuda.synchronize()
+            rec.update(wall_ms=(time.perf_counter() - t0) * 1e3,
+                       peak=torch.cuda.max_memory_allocated(),
+                       launches=dict(K.launch_counts()),
+                       shapes=dict(shapes.seen),
+                       collective_ms=dict(mesh.host_ms),
+                       collective_bytes=dict(mesh.nbytes),
+                       logits=logits[:, -1].float().cpu(),
+                       expert_load=m["expert_load"].tolist(),
+                       dropped=m["dropped"].tolist())
+            del logits, m
+        io = torch.load(os.path.join(
+            tmp, f"ep-prefill-{cfg.num_layers}-{dp}.pt"))
+        n = TP_PREFILL_B // dp
+        ios = [[(c["x"][r * n:(r + 1) * n],
+                 c["blocks"][r] if dp > 1 else c["y"]) for c in calls]
+               for calls in io]
+        rec["moe_gates"] = moe_sublayer_gates(mesh, cfg, params, ios, mesh,
+                                              shardings=ps)
+    finally:
+        T.set_moe_dispatch_groups(1)
+    return rec
+
+
+def ep_rank(mesh, shape: tuple, tmp: str, b: int) -> dict:
+    """Phase 17 on this rank of phase 14's mesh `shape`: its parameter
+    shards of the ``ep_experts`` layout (EP_SERVE), the prefill
+    (``ep_prefill``) and the decode cell (``dec_run`` at `b` rows under
+    the default cache layout), then on (2, 2) the ZeRO-3 training step
+    (``z3_train``). Everything returned lives on the host."""
+    t0 = time.perf_counter()
+    layers, fsdp = EP_SERVE[shape]
+    cfg = _mixtral("bfloat16", layers)
+    params, ps = _rank_shards(mesh, cfg, fsdp=fsdp, ep=True)
+    out = {"prefill": ep_prefill(mesh, cfg, params, ps, fsdp, tmp)}
+    out["decode"] = dec_run(mesh, cfg, params, ps, {}, b, tmp,
+                            f"ep-{shape[0]}x{shape[1]}", fsdp=fsdp, ep=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if shape == (2, 2):
+        out["train"] = z3_train(mesh, shape, tmp, ep=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _ep_launch_gate(name, cfg, run, calls: int, attn: int,
+                    fails: list) -> str:
+    """Phase 15's launch gate (``_z3_launch_gate``) on one phase-17 call
+    or run, and every expert kernel at E/2 experts with F whole."""
+    text = _z3_launch_gate(name, run, calls, attn, fails)
+    e = cfg.moe.num_experts // 2
+    for k_name, xs, ws, _, _ in run["shapes"]:
+        if k_name != "decode_attention" and not (
+                xs[0] == ws[0] == e and cfg.moe.d_ff in ws[1:]):
+            fails.append(f"{name}: {k_name} at {xs} x {ws}, not on E/2 "
+                         "whole experts")
+    return text
+
+
+def _ep_moe_gate(name, gates: list, fails: list) -> str:
+    """Phase 17's MoE gate on one call's or run's records
+    (``moe_sublayer_gates``); a failed gate's message goes to `fails`."""
+    tol = TOL[torch.bfloat16]
+    for g in gates:
+        if not (g["same"] or (g["ok"] and g["finite"]
+                              and g["rel"] <= DEC_REL)):
+            fails.append(f"{name} MoE layer {g['layer']}: rel "
+                         f"{g['rel']:.3e}, max |err| {g['max_abs_err']:.3e}"
+                         f" (held to bit for bit, or {tol} and {DEC_REL})")
+        if g["control_rel"] <= DEC_CONTROL * DEC_REL:
+            fails.append(f"{name} MoE layer {g['layer']}: the control moved "
+                         f"only {g['control_rel']:.3e}")
+    same = sum(g["same"] for g in gates)
+    return (f"MoE sublayers from the one-process input: {same} of "
+            f"{len(gates)} bit for bit, max |err| "
+            f"{max(g['max_abs_err'] for g in gates):.3e}, rel up to "
+            f"{max(g['rel'] for g in gates):.3e}; the control (outputs "
+            f"rolled by one rank's experts) rel "
+            f"{min(g['control_rel'] for g in gates):.3f}-"
+            f"{max(g['control_rel'] for g in gates):.3f} (held above "
+            f"{DEC_CONTROL * DEC_REL:.1f})")
+
+
+def _ep_logits(got, want) -> dict:
+    """One step's bf16 logits against one process's: bit for bit, max
+    |err|, |err| / |want| in norm, within TOL[bf16] and DEC_REL."""
+    tol = TOL[torch.bfloat16]
+    d = (got - want).abs()
+    rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    return {"same": bool(torch.equal(got, want)), "err": float(d.max()),
+            "rel": rel, "ok": bool((d <= tol + tol * want.abs()).all())
+            and rel <= DEC_REL}
+
+
+def _ep_rows(got: dict, want: dict) -> list:
+    """|err| / |want| in norm of each row of each step's logits of one
+    decode run against another's."""
+    return [float(r) for g, w in zip(got["steps"], want["steps"])
+            for r in (g["logits"] - w["logits"]).norm(dim=-1)
+            / w["logits"].norm(dim=-1).clamp_min(1e-30)]
+
+
+def ep_gates(shape, ranks, one, oracle, b, card, fails: list,
+             zero2=None) -> dict:
+    """Phase 17's gates on the ranks of phase 14's mesh `shape` (the
+    constants' comment): `one` the one-process prefill's record,
+    `oracle` phase 14's bf16 one-process decode of the cell, `zero2`
+    phase 13's ZeRO-2 training record on (2, 2). Returns the record."""
+    layers, fsdp = EP_SERVE[shape]
+    cfg = _mixtral("bfloat16", layers)
+    e, d, mp = cfg.moe.num_experts, cfg.d_model, shape[1]
+    bank = ep_bank_bytes(cfg)
+    lay = f"{'ZeRO-3' if fsdp else 'fsdp=False'} ep_experts"
+    out = {"prefill": [], "decode": []}
+    for r in ranks:
+        name = f"[17] {shape} rank {r['rank']}"
+        z14 = r["runs"]["bfloat16", "default"]
+        weights = z14["collective_bytes"].get("all_gather/model", 0) \
+            // DEC_STEPS
+        p, dd = r["ep"]["prefill"], r["ep"]["decode"]
+        # (a) the MoE sublayers
+        ptext = _ep_moe_gate(f"{name} prefill", p["moe_gates"], fails)
+        dtext = _ep_moe_gate(f"{name} decode", dd["moe_gates"], fails)
+        # (b) the whole step against one process
+        lg = _ep_logits(p["logits"], one["logits"])
+        loads = p["expert_load"] == one["expert_load"] and \
+            p["dropped"] == one["dropped"]
+        if shape[0] == 1 and not (lg["same"] or lg["ok"]) or \
+                shape[0] == 1 and not loads:
+            fails.append(f"{name} prefill: logits {lg}, loads and drops "
+                         f"equal {loads}")
+        witness = _dec_drift(z14, oracle)
+        agrees = witness["agree"] == witness["of"] and witness["loads"]
+        drift = _dec_drift(dd, oracle)
+        steps = [_ep_logits(g["logits"], w["logits"])
+                 for g, w in zip(dd["steps"], oracle["steps"])]
+        if agrees and not (drift["agree"] == drift["of"] and drift["loads"]
+                           and all(s["same"] or s["ok"] for s in steps)):
+            fails.append(f"{name} decode: where phase 14's run agrees with "
+                         f"one process, tokens {drift['agree']} of "
+                         f"{drift['of']}, loads equal {drift['loads']}, "
+                         f"logits rel up to "
+                         f"{max(s['rel'] for s in steps):.3e}")
+        # ... and always against phase 14's run on these ranks
+        d14 = _dec_drift(dd, z14)
+        rows = _ep_rows(dd, z14)
+        close = sum(x <= DEC_CONTROL * DEC_REL for x in rows)
+        if min(d14["agree"], close) < EP_DEC_AGREE * d14["of"]:
+            fails.append(f"{name} decode against phase 14's run: tokens "
+                         f"{d14['agree']}, rows within "
+                         f"{DEC_CONTROL * DEC_REL:.1f} in norm {close}, of "
+                         f"{d14['of']} (held to {EP_DEC_AGREE} of them)")
+        # (c) the kernels
+        kp = _ep_launch_gate(f"{name} prefill", cfg, p, cfg.num_layers, 0,
+                             fails)
+        n = cfg.num_layers * DEC_STEPS
+        kd = _ep_launch_gate(f"{name} decode", cfg, dd, n, n, fails)
+        # (d) no expert leaf over "model"
+        pb, db = p["collective_bytes"], dd["collective_bytes"]
+        cols = TP_PREFILL_B // shape[0] * cfg.padded_vocab * 2
+        cp = _tp_expert_rows(cfg, shape[0])
+        cd = _dec_expert_rows(cfg, b, shape, "default")
+        for what, got, want in (
+                ("prefill all_gather/model", pb.get("all_gather/model"),
+                 weights + cols),
+                ("decode all_gather/model", db.get("all_gather/model"),
+                 weights * DEC_STEPS),
+                ("prefill all_gather/model/experts",
+                 pb.get("all_gather/model/experts"),
+                 cfg.num_layers * e * cp * d * 2),
+                ("decode all_gather/model/experts",
+                 db.get("all_gather/model/experts"),
+                 n * e * cd * d * 2)):
+            if got != want:
+                fails.append(f"{name}: {what} {got} bytes, not {want}")
+        # (e) bytes a rank
+        if p["resident"] != p["reckoned"] or \
+                dd["resident"] != dd["reckoned"]:
+            fails.append(f"{name}: resident {p['resident']}, "
+                         f"{dd['resident']} != the dry-run's "
+                         f"{p['reckoned']}, {dd['reckoned']}")
+        # peak less held, less the E/model experts of a period that
+        # ZeRO-3's gather over data makes whole on the rank at use (a
+        # rank of the layout that gathered the banks over "model" held
+        # the whole banks beside those)
+        dgath = bank // mp if fsdp else 0
+        raw_p = p["peak"] - p["held_before"]
+        raw_d = dd["steps_peak"] - dd["held_before_steps"]
+        over_p, over_d = raw_p - dgath, raw_d - dgath
+        if not max(over_p, over_d) < bank:
+            fails.append(f"{name}: peak less held {raw_p}, {raw_d} bytes, "
+                         f"less the data-gathered experts {dgath}, not "
+                         f"below one period's expert banks {bank}")
+        log(f"  {name} prefill {TP_PREFILL_B} x {TP_PREFILL_S}, "
+            f"{cfg.num_layers} layer(s), {lay}: {ptext}; logits "
+            f"{'bit for bit' if lg['same'] else 'max |err| %.3e, rel %.3e' % (lg['err'], lg['rel'])}"
+            f" of one process ({'gated' if shape[0] == 1 else 'reported'}),"
+            f" loads and drops {'equal' if loads else 'DIFFER'}; launches "
+            f"{kp}; wall {p['wall_ms']:.1f} ms (one process "
+            f"{one['wall_ms']:.1f}); host ms by collective "
+            f"{ {k: round(v, 2) for k, v in p['collective_ms'].items()} }, "
+            f"MB {_per_call(pb, 1, 1e6)} (all_gather/model/experts moves "
+            f"{cfg.num_layers * (e - e // mp) * cp * d * 2 / 1e6:.2f} MB "
+            f"into a rank); peak less held {raw_p / 1e9:.3f} GB, less "
+            f"the data-gathered experts {dgath / 1e9:.3f}: "
+            f"{over_p / 1e9:.3f} (one "
+            f"period's banks {bank / 1e9:.3f}); resident {p['resident']} "
+            f"bytes (the dry-run's {p['reckoned']}); on {card}")
+        log(f"  {name} decode, B {b}, a {DEC_PREFILL}-token prefill into "
+            f"{DEC_SLOTS} slots + {DEC_STEPS} steps, default cache layout, "
+            f"{lay}: {dtext}; logits "
+            f"{sum(s['same'] for s in steps)} of {len(steps)} steps bit for "
+            f"bit, max |err| {drift['logits']:.3e}, rel up to "
+            f"{max(s['rel'] for s in steps):.3e}; greedy tokens "
+            f"{drift['agree']} of {drift['of']}, loads "
+            f"{'equal' if drift['loads'] else 'DIFFER'} (gated: phase 14's "
+            f"run {'agrees' if agrees else 'does not agree'} with one "
+            f"process, {witness['agree']} of {witness['of']}); against "
+            f"phase 14's run on these ranks: greedy tokens {d14['agree']}"
+            f" of {d14['of']}, rows within {DEC_CONTROL * DEC_REL:.1f} in "
+            f"norm {close}, row rel median {float(np.median(rows)):.3e}, "
+            f"max {max(rows):.3e} (held to {EP_DEC_AGREE} of them); "
+            f"launches "
+            f"{kd}; decode step wall median "
+            f"{float(np.median(dd['walls'])):.1f} ms (phase 14's default "
+            f"layout {float(np.median(z14['walls'])):.1f}, one process "
+            f"{float(np.median(oracle['walls'])):.1f}); host ms a step "
+            f"{_per_call(dd['collective_ms'], DEC_STEPS)}, MB a step "
+            f"{_per_call(db, DEC_STEPS, 1e6)} (all_gather/model/experts "
+            f"moves {cfg.num_layers * (e - e // mp) * cd * d * 2 / 1e6:.3f}"
+            f" MB a step into a rank); peak less held "
+            f"{raw_d / 1e9:.3f} GB, less the data-gathered experts "
+            f"{dgath / 1e9:.3f}: {over_d / 1e9:.3f};"
+            f" resident {dd['resident']} (the dry-run's {dd['reckoned']}); "
+            f"on {card}")
+        out["prefill"].append({
+            "wall_ms": p["wall_ms"], "one_process_ms": one["wall_ms"],
+            "same": lg["same"], "rel": lg["rel"],
+            "launches": {k: p["launches"][k]
+                         for k in ("fused_gate_up", "gmm")},
+            "over_gb": over_p / 1e9, "raw_gb": raw_p / 1e9,
+            "moe_same": sum(g["same"] for g in p["moe_gates"]),
+            "collective_bytes": pb})
+        out["decode"].append({
+            "wall_ms": float(np.median(dd["walls"])),
+            "default_ms": float(np.median(z14["walls"])),
+            "one_process_ms": float(np.median(oracle["walls"])),
+            "same_steps": sum(s["same"] for s in steps),
+            "rel": max(s["rel"] for s in steps),
+            "vs_phase14": {"agree": d14["agree"], "close": close,
+                           "of": d14["of"], "rel_max": max(rows)},
+            "launches": {k: dd["launches"][k] for k in
+                         ("fused_gate_up", "gmm", "decode_attention")},
+            "over_gb": over_d / 1e9, "raw_gb": raw_d / 1e9,
+            "moe_same": sum(g["same"] for g in dd["moe_gates"]),
+            "collective_bytes": db})
+    out["bank_gb"] = bank / 1e9
+    if zero2 is not None:
+        out["train"] = ep_train_gates(shape, ranks, zero2, card, fails)
+    return out
+
+
+def ep_summary(tp, ep, zero3) -> dict:
+    """Phase 17's walls a rank beside the default layout's on the same
+    mesh and depth (phase 13's (1, 2) prefill, phase 14's decode on the
+    same ranks, phase 15's (2, 2) ZeRO-3 prefill and decode) and one
+    process's; peaks less held, and less ZeRO-3's data-gathered experts,
+    against one period's banks; the decode steps against phase 14's.
+    `tp`, `ep`, `zero3`: phases 13's, 17's and 15's records."""
+    z15 = zero3["(2, 2)"]["serve"]
+    return {
+        "(1, 2) prefill ms a rank": {
+            "ep_experts": [round(x["wall_ms"], 2)
+                           for x in ep["(1, 2)"]["prefill"]],
+            "default (phase 13)": [round(x, 2) for x in
+                                   tp["prefill"]["bfloat16"]["wall_ms"]],
+            "one process": round(ep["(1, 2)"]["prefill"][0]
+                                 ["one_process_ms"], 2)},
+        "(2, 2) ZeRO-3 prefill ms a rank": {
+            "ep_experts": [round(x["wall_ms"], 2)
+                           for x in ep["(2, 2)"]["prefill"]],
+            "default (phase 15)": [round(x, 2) for x in z15["prefill_ms"]],
+            "one process": round(ep["(2, 2)"]["prefill"][0]
+                                 ["one_process_ms"], 2)},
+        **{f"{shape} decode step ms a rank": {
+            "ep_experts": [round(x["wall_ms"], 2)
+                           for x in ep[shape]["decode"]],
+            "default fsdp=False (phase 14)": [round(x["default_ms"], 2)
+                                              for x in ep[shape]["decode"]],
+            "one process": round(ep[shape]["decode"][0]["one_process_ms"],
+                                 2)} for shape in ("(1, 2)", "(2, 2)")},
+        "(2, 2) ZeRO-3 decode step ms (phase 15, seq_over_dp)": {
+            lay: round(v["wall_ms"], 2) for lay, v in z15["decode"].items()},
+        **{f"peak less held GB a rank ({key})": {
+            shape: [round(max(a[key], b[key]), 3) for a, b in
+                    zip(ep[shape]["prefill"], ep[shape]["decode"])]
+            for shape in ("(1, 2)", "(2, 2)")}
+           for key in ("raw_gb", "over_gb")},
+        "decode against phase 14's run (rank 0)": {
+            shape: ep[shape]["decode"][0]["vs_phase14"]
+            for shape in ("(1, 2)", "(2, 2)")},
+        "one period's expert banks GB": round(ep["(1, 2)"]["bank_gb"], 3),
+        "seconds": round(ep["seconds"], 1)}
+
+
+def ep_train_gates(shape, ranks, zero2, card, fails: list) -> dict:
+    """Phase 17's training gates on the ranks of `shape` against `zero2`
+    (phase 13's ZeRO-2 record on the same mesh: losses, the step-1
+    accumulator and parameters, whole, resident bytes): the loss within
+    MB_LOSS_TOL; the step-1 accumulator assembled from the ranks' shards
+    within GRAD_REL_TOL of ZeRO-2's in each leaf's norm; the sharded
+    AdamW within one bf16 ulp of the unsharded update of those
+    gradients (phase 13's gate: Adam's first step is sign(g) lr, so a
+    gradient that rounds to the other sign moves a weight by 2 lr,
+    millions of ulps at a weight near 0, and ZeRO-2 is no oracle of it);
+    resident bytes the dry-run's and below ZeRO-2's; the parameters
+    still the rank's shards. Printed beside ZeRO-2's walls and peaks."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model import abstract_params, init_params
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.checkpoint import leaf_paths
+    cfg, opt, _ = _z2_setup()
+    mesh = _logical(shape)
+    aparams = abstract_params(cfg)
+    specs = list(_leaves(SH.params_shardings(aparams, mesh, fsdp=True,
+                                             ep_experts=True)))
+    runs = [r["ep"]["train"] for r in ranks]
+    acc = [SH.assemble(list(p), s) for s, p in zip(specs, zip(
+        *[_leaves(torch.load(t["acc"], map_location="cpu")) for t in runs]))]
+    p1 = [SH.assemble(list(p), s) for s, p in zip(specs, zip(
+        *[_leaves(torch.load(t["params"], map_location="cpu"))
+          for t in runs]))]
+    rel = {k: float(torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w))
+           for (k, _), g, w in zip(leaf_paths(aparams), acc, zero2["acc"])}
+    worst = max(rel, key=rel.get)
+    if rel[worst] > GRAD_REL_TOL:
+        fails.append(f"{shape} ep_experts training: the step-1 gradients "
+                     f"{rel[worst]:.3e} of {worst}'s norm off ZeRO-2's")
+    p0 = init_params(cfg, seed=0, device="cuda")
+    it = iter(acc)
+    g = O._map(lambda _: next(it).cuda(), p0)
+    want, _ = opt.update(p0, g, opt.init(p0))
+    del g, p0, acc
+    ulps = [float(((a.cuda().float() - b.float()).abs()
+                   / _ulp_bf16(b)).max()) for a, b in zip(p1, _leaves(want))]
+    same = all(torch.equal(a, b) for a, b in zip(p1, _leaves(zero2["params"])))
+    del want, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    if max(ulps) > 1:
+        fails.append(f"{shape} ep_experts training: the sharded update "
+                     f"{max(ulps):.3f} bf16 ulp off the unsharded update of "
+                     "its gradients")
+    for r, t in zip(ranks, runs):
+        name = f"{shape} ep_experts rank {r['rank']}"
+        for i, st in enumerate(t["steps"]):
+            if abs(st["loss"] - zero2["losses"][i]) > MB_LOSS_TOL:
+                fails.append(f"{name} step {i + 1}: loss {st['loss']} "
+                             f"against ZeRO-2's {zero2['losses'][i]}")
+        if t["resident"]["params"] != t["reckoned"]["params"] or \
+                t["resident"]["opt"] != t["reckoned"]["opt"]:
+            fails.append(f"{name}: resident {t['resident']} != the "
+                         f"dry-run's {t['reckoned']}")
+        if not t["shards_kept"]:
+            fails.append(f"{name}: the parameters are not its shards after "
+                         "the step")
+        if not sum(t["resident"].values()) < zero2["resident"]:
+            fails.append(f"{name}: resident {sum(t['resident'].values())} "
+                         f"not below ZeRO-2's {zero2['resident']}")
+    t = runs[0]
+    log(f"  [17] {shape} ZeRO-3 ep_experts training, {len(t['steps'])} "
+        f"step: loss {t['steps'][0]['loss']:.6f} against ZeRO-2's "
+        f"{zero2['losses'][0]:.6f} (held to {MB_LOSS_TOL:.0e}); the step-1 "
+        f"gradients at most {rel[worst]:.3e} of the norm off ZeRO-2's "
+        f"({worst}; held to {GRAD_REL_TOL:.0e}); the sharded update "
+        f"{max(ulps):.3f} bf16 ulp off the unsharded update of its "
+        f"gradients (held to 1); parameters "
+        + ("bit for bit with ZeRO-2's" if same else "not bit for bit with "
+           "ZeRO-2's (whose F-split sums the expert partials otherwise)"))
+    for r, t in zip(ranks, runs):
+        log(f"  [17] {shape} ep_experts rank {r['rank']} "
+            f"{tuple(r['coords'])}: step wall "
+            f"{[round(s['wall_ms'], 1) for s in t['steps']]} ms; host ms "
+            f"{[_per_call(s['collective_ms'], 1) for s in t['steps']]}; GB "
+            f"{[_per_call(s['collective_bytes'], 1, 1e9) for s in t['steps']]}"
+            f"; resident {t['resident']} bytes == the dry-run's reckoning "
+            f"(ep_experts, fsdp_params on), ZeRO-2's {zero2['resident']}; "
+            f"peak {t['peak_gb']:.2f} GB (ZeRO-2 {zero2['peak_gb']:.2f}); on "
+            f"{card}")
+    return {"losses": [s["loss"] for s in runs[0]["steps"]],
+            "grad_rel": rel[worst], "ulps": max(ulps), "bitwise": same,
+            "walls": [[s["wall_ms"] for s in t["steps"]] for t in runs],
+            "resident": [t["resident"] for t in runs],
+            "peak_gb": [t["peak_gb"] for t in runs]}
+
+
 # ------------------------------------------------------------ phase 15
 
 # phase 15: the ZeRO-3 layout (params_shardings(fsdp=True)): each leaf
@@ -7696,12 +8374,15 @@ def z3_serve(mesh, shape) -> dict:
     return out
 
 
-def z3_train(mesh, shape, tmp: str) -> dict:
+def z3_train(mesh, shape, tmp: str, ep: bool = False) -> dict:
     """Phase 15 (b) on this rank: phase 12's cell through the ZeRO-3 step
     (``make_train_step(param_shardings=)``) for Z3_TRAIN[shape] steps;
     each step's loss, wall and collectives, the resident bytes against
     the dry-run's reckoning of the default variant's train step, the
-    final (data, model) shards to a file in `tmp`."""
+    final (data, model) shards to a file in `tmp`. With `ep` (phase 17)
+    the layout is ``params_shardings(fsdp=True, ep_experts=True)``, the
+    reckoning the ``ep_experts`` variant's, and step 1 runs in its two
+    halves, its float32 accumulator shards to a file in `tmp` too."""
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch import dryrun as D
@@ -7712,7 +8393,7 @@ def z3_train(mesh, shape, tmp: str) -> dict:
     T.set_moe_dispatch_groups(shape[0])
     try:
         full = init_params(cfg, seed=0, device="cuda")
-        ps = SH.params_shardings(full, mesh, fsdp=True)
+        ps = SH.params_shardings(full, mesh, fsdp=True, ep_experts=ep)
         params = SH.shard_tree(full, ps, copy=True)
         del full
         gc.collect()
@@ -7722,7 +8403,7 @@ def z3_train(mesh, shape, tmp: str) -> dict:
                                  param_shardings=ps)
         _, args, shardings = D.build_step(
             cfg, InputShape("z3", TRAIN_SEQ, TRAIN_BATCH, "train"),
-            {"microbatches": Z2_MB}, mesh=mesh)
+            {"microbatches": Z2_MB, "ep_experts": ep}, mesh=mesh)
         reckoned = {k: SH.shard_nbytes(a, s) for k, a, s in
                     zip(("params", "opt", "batch"), args, shardings(mesh))}
         want = [tuple(SH.shard_shape(a.shape, s)) for a, s in
@@ -7730,22 +8411,32 @@ def z3_train(mesh, shape, tmp: str) -> dict:
         out = {"steps": [], "reckoned": reckoned}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for b in batches[:Z3_TRAIN[shape]]:
+        tag = "ep" if ep else ""
+        for i, b in enumerate(batches[:Z3_TRAIN[shape]]):
             mesh.host_ms.clear()
             mesh.nbytes.clear()
             t0 = time.perf_counter()
-            params, state, m = step(params, state, b)
+            if ep and i == 0:
+                m, g = step.grads(params, b)
+                with torch.no_grad():
+                    params, state = step.apply(params, g, state)
+            else:
+                params, state, m = step(params, state, b)
             torch.cuda.synchronize()
             out["steps"].append({
                 "wall_ms": (time.perf_counter() - t0) * 1e3,
                 "loss": float(m["loss"]), "aux_loss": float(m["aux_loss"]),
                 "collective_ms": dict(mesh.host_ms),
                 "collective_bytes": dict(mesh.nbytes)})
+            if ep and i == 0:
+                out["acc"] = os.path.join(tmp, f"z3{tag}a{mesh.rank}.pt")
+                torch.save(_host(g), out["acc"])
+                del g
         out["resident"] = {"params": _nbytes(params), "opt": _nbytes(state),
                            "batch": step.stats["batch_bytes"]}
         out["shards_kept"] = [tuple(t.shape) for t in _leaves(params)] == want
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["params"] = os.path.join(tmp, f"z3p{mesh.rank}.pt")
+        out["params"] = os.path.join(tmp, f"z3{tag}p{mesh.rank}.pt")
         torch.save(_host(params), out["params"])
     finally:
         T.set_moe_dispatch_groups(1)
@@ -8014,6 +8705,7 @@ def main() -> int:
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import MoElessController, ServingEngine
 
+    t_main = time.perf_counter()
     log("[1] card")
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -8030,6 +8722,7 @@ def main() -> int:
         f"libraries in {KB.BUILD_DIR.relative_to(ROOT)}")
 
     log("[3] kernels against their plain versions")
+    t3 = time.perf_counter()
     full = get_config("mixtral-8x7b")
     slots, max_len = 8, 512 + 48 + 1
     shapes = main_path_shapes(full, slots, 512, max_len)
@@ -8055,8 +8748,10 @@ def main() -> int:
                   w.resolved_head_dim, s_w,
                   [s_w - WHISPER_STEPS // 2] * WHISPER_BATCH), label,
             "mma"))
+    log(f"  phase 3 took {time.perf_counter() - t3:.1f} s")
 
     log("[4] mixtral-8x7b at full width through ServingEngine")
+    t4 = time.perf_counter()
     cfg = full.with_(num_layers=8)
     log(f"  reduced: num_layers {full.num_layers}->{cfg.num_layers}")
     log(f"  widths: d_model {cfg.d_model}, heads {cfg.num_heads}/"
@@ -8105,14 +8800,19 @@ def main() -> int:
         f"tokens/s; max_memory_allocated {peak / 1e9:.2f} GB")
     del engine, ctrl
     torch.cuda.empty_cache()
+    log(f"  phase 4 took {time.perf_counter() - t4:.1f} s")
 
     log("[4b] paged KV, chunked prefill and the prefix cache at full width "
         "(same weights)")
+    t4 = time.perf_counter()
     paged = paged_phase(cfg, params, max_len, slots, card)
+    log(f"  phase 4b took {time.perf_counter() - t4:.1f} s")
 
     log("[6] the OpenAI-compatible gateway at full width (phase 4's "
         "weights; run before 4c, whose slot banks cannot sit beside them)")
+    t6 = time.perf_counter()
     gateway_phase(cfg, params, card)
+    log(f"  phase 6 took {time.perf_counter() - t6:.1f} s")
 
     log("[7] the expert load predictor at full width (phase 4's weights)")
     t7 = time.perf_counter()
@@ -8126,7 +8826,9 @@ def main() -> int:
 
     log("[4c] the expert runtime on the EP slot plane at full width, int8 "
         "slot banks")
+    t4 = time.perf_counter()
     ep_launches = runtime_phase(full, max_len, slots, card)
+    log(f"  phase 4c took {time.perf_counter() - t4:.1f} s")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -8183,6 +8885,7 @@ def main() -> int:
         "peak_gb": round(whisper["peak_gb"], 3)}))
 
     log("[5] token identity at float32 (smoke config): kernels vs plain")
+    t5 = time.perf_counter()
     small = get_config("mixtral-8x7b", smoke=True).with_(dtype="float32")
     sp = init_params(small, seed=0, device="cuda")
     capacity_identity(small, sp)
@@ -8206,6 +8909,7 @@ def main() -> int:
         "mixtral-8x7b's at act gelu")
     encdec_identity()
     family_identity("mixtral-8x7b", act="gelu")
+    log(f"  phase 5 took {time.perf_counter() - t5:.1f} s")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -8234,8 +8938,15 @@ def main() -> int:
         "on each rank's sequence shard merged by its softmax statistics; "
         "its ranks then run phase 16: jamba-v0.1-52b, xlstm-125m and "
         "whisper-base decoding with their recurrent state and "
-        "encoder-decoder caches sharded")
-    dec = dec_phase(card)
+        "encoder-decoder caches sharded; and phase 17: mixtral-8x7b on "
+        "the ep_experts layout, each model rank running its whole experts")
+    z22 = tp["(2, 2)"]
+    zero2_22 = {"losses": z22["losses"][0],
+                "params": z22.pop("params_final"),
+                "acc": z22.pop("acc_final"),
+                "resident": sum(z22["resident"][0].values()),
+                "peak_gb": z22["peaks"][0]}
+    dec = dec_phase(card, zero2_22)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -8243,16 +8954,15 @@ def main() -> int:
         "meshes with every leaf split over data as well, gathered at use a "
         "period at a time: the prefill and decode steps against fsdp=False, "
         "training against ZeRO-2")
-    z22 = tp["(2, 2)"]
     zero3 = zero3_phase(card, {
         (2, 1): {"losses": [s["loss"] for s in z2["ranks"][0]["steps"]],
                  "params": z2.pop("params_final"),
                  "resident": sum(z2["ranks"][0]["resident"].values()),
                  "peak_gb": z2["ranks"][0]["peak_gb"]},
-        (2, 2): {"losses": z22["losses"][0],
-                 "params": z22.pop("params_final"),
-                 "resident": sum(z22["resident"][0].values()),
-                 "peak_gb": z22["peaks"][0]}})
+        (2, 2): zero2_22})
+    del zero2_22
+    log("  phase 17 summary: " + json.dumps(ep_summary(tp, dec["ep"],
+                                                     zero3)))
 
     # each kernel's launches come from the run of the path it serves
     launches["decode_attention_paged"] = \
@@ -8306,11 +9016,22 @@ def main() -> int:
         rec[k_name]["state_decode_launches"] = {
             f"{shape} {run}": [r[k_name] for r in got["launches"]]
             for shape in map(str, ST_RUNS) for run, got in st[shape].items()}
+    # phase 17: the expert kernels at E/2 experts with F whole, and each
+    # rank's launches in its prefill and decode
+    for k_name in ("fused_gate_up", "gmm"):
+        rec[k_name]["ep_shapes"] = dec["ep"]["kernels"][k_name]
+    for k_name in ("decode_attention", "fused_gate_up", "gmm"):
+        rec[k_name]["ep_launches"] = {
+            shape: [(p["launches"].get(k_name, 0), d["launches"][k_name])
+                    for p, d in zip(dec["ep"][shape]["prefill"],
+                                    dec["ep"][shape]["decode"])]
+            for shape in ("(1, 2)", "(2, 2)")}
     # phase 15: each rank's launches in its ZeRO-3 prefill and decode runs
     for k_name in ("decode_attention", "fused_gate_up", "gmm"):
         rec[k_name]["zero3_launches"] = {
             shape: [r[k_name] for r in z["serve"]["launches"]]
             for shape, z in zero3.items() if shape != "seconds"}
+    log(f"phases 1-17 took {time.perf_counter() - t_main:.1f} s")
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

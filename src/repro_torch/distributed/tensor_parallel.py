@@ -4,7 +4,7 @@ model-sharded steps, written out for eager torch.
 
 The reference shards a parameter over "model" on its largest divisible
 dim (``distributed.sharding.spec_for_param``) and leaves the rest to the
-compiler. The port runs three kinds of leaf on such a mesh:
+compiler. The port runs four kinds of leaf on such a mesh:
 
   * a column/row pair (an FFN whose gate/up products are split on their
     output F and whose down product on its input F, the expert banks'
@@ -14,6 +14,12 @@ compiler. The port runs three kinds of leaf on such a mesh:
     lookup of the rows this rank holds, summed over the group, and the
     rank's logit columns, which ``vocab_cross_entropy`` reduces without
     ever gathering the (B, S, V) logits;
+  * an expert bank split on its expert dim (``params_shardings(
+    ep_experts=True)``: each rank holds E/model whole experts): the rank
+    runs its experts' rows of the dispatch buffer, and their outputs are
+    all-gathered over the group in group-rank order
+    (``gather_experts``), so every expert's rows are computed whole and
+    only concatenated; no weight crosses the group;
   * any other leaf with a model dim (attention, router, norms, the
     recurrent mixers, whisper's encoder): gathered whole at its use.
 
@@ -24,6 +30,7 @@ identity on a group of one:
   copy_to_model       identity;          backward: sum over the group
   reduce_from_model   sum over the group; backward: identity
   gather_from_model   all-gather on dim;  backward: this rank's slice
+                      (``gather_experts``: the expert outputs, dim 0)
   gather_from_data    all-gather on dim over the data axes;
                                           backward: reduce-scatter (sum)
 
@@ -99,15 +106,16 @@ class _Reduce(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, dim):
+    def forward(ctx, x, mesh, dim, tag):
         ctx.dim, ctx.size = dim, x.shape[dim]
         ctx.index = mesh.index("model")
-        return mesh.all_gather(x, "model").movedim(0, dim).flatten(dim,
-                                                                  dim + 1)
+        return mesh.all_gather(x, "model", tag=tag).movedim(0, dim) \
+            .flatten(dim, dim + 1)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, \
+            None, None
 
 
 class _GatherData(torch.autograd.Function):
@@ -149,11 +157,34 @@ def reduce_partial(x, mesh, dtype):
     return reduce_from_model(x.float(), mesh).to(dtype)
 
 
-def gather_from_model(x, mesh, dim: int):
+def gather_from_model(x, mesh, dim: int, tag=None):
     """The model group's shards of a leaf concatenated on `dim`, in
     group-rank order; its gradient is this rank's slice of the whole
-    gradient, with no sum."""
-    return x if model_size(mesh) == 1 else _Gather.apply(x, mesh, dim)
+    gradient, with no sum. `tag` names the transfer in the mesh's
+    meters."""
+    return x if model_size(mesh) == 1 else _Gather.apply(x, mesh, dim, tag)
+
+
+def gather_experts(y, mesh):
+    """The (E, N, D) expert outputs from each model rank's (E/model, N,
+    D) outputs of its own experts, concatenated in group-rank order,
+    metered as "all_gather/model/experts"; the gradient is this rank's
+    experts' rows."""
+    return gather_from_model(y, mesh, 0, tag="experts")
+
+
+def move_split(x, mesh, src: int, dst: int, tag=None):
+    """A model shard split on dim `src` re-cut to the one split on dim
+    `dst` with one all-to-all over the model group: chunk i of `x` on
+    `dst` goes to model rank i, and the chunks received are concatenated
+    on `src` in group-rank order. Data moves, no value changes; forward
+    only. `tag` names it in the mesh's meters."""
+    m = model_size(mesh)
+    if m == 1 or src == dst:
+        return x
+    parts = torch.stack(x.chunk(m, dim=dst)).contiguous()
+    return torch.cat(mesh.all_to_all(parts, "model", tag=tag).unbind(0),
+                     dim=src)
 
 
 def gather_from_data(x, mesh, dim: int, sink=None):
@@ -255,6 +286,19 @@ def split_ffn(p, dims) -> bool:
     down = p["w_down"].ndim - 2
     return dims["w_down"] == down and all(
         dims[k] == down + 1 for k in ("w_gate", "w_up") if k in p)
+
+
+def split_experts(p, dims) -> bool:
+    """Whether an expert bank's leaves `p` ((E, D, F) up, (E, F, D)
+    down, one period's slice) with model dims `dims` are split over
+    "model" on their expert dim (dim 0), every one of them
+    (``params_shardings(ep_experts=True)``); ValueError where some are
+    and some are not."""
+    on_e = [dims[k] == 0 for k in p]
+    if any(on_e) and not all(on_e):
+        raise ValueError("an expert bank split on its expert dim in some "
+                         f"leaves and not in others: model dims {dims}")
+    return all(on_e)
 
 
 def gather_tree(tree, dims, mesh, keep=(), path=()):

@@ -108,7 +108,11 @@ def build_step(cfg, shape, variant=None, *, mesh=None):
     shards; without it the ZeRO-2 train step and the prefill and decode
     steps on the model shards. On a ``LogicalMesh`` the shardings are a
     layout only and the step is the one-process step (ZeRO-2's gradient
-    layout pinned to it as a layout).
+    layout pinned to it as a layout). With ``ep_experts`` a rank's steps
+    run the expert banks split on E (its whole experts); ZeRO-2's
+    accumulator and μ/ν keep the reference's ``params_shardings(fsdp=
+    True)`` (F over "model"), and its step moves the banks between the
+    two splits.
 
     `variant` (dict) selects the reference's hillclimb configurations:
       microbatches: int (train, default 8)
@@ -144,8 +148,7 @@ def build_step(cfg, shape, variant=None, *, mesh=None):
         step = M.make_train_step(cfg, opt, window=window,
                                  microbatches=v.get("microbatches", 8),
                                  remat=v.get("remat", "full"),
-                                 grad_shardings=gs,
-                                 param_shardings=ps if fsdp else None)
+                                 grad_shardings=gs, param_shardings=ps)
 
         def shardings(mesh):
             return (params_shardings(aparams, mesh, fsdp=fsdp,

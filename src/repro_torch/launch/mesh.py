@@ -145,7 +145,7 @@ class ProcessMesh:
         self._timed(f"all_gather/{group}", t0, out, tag)
         return out.view((n,) + tuple(x.shape))
 
-    def all_to_all(self, x, group: str):
+    def all_to_all(self, x, group: str, tag=None):
         """Row block i of `x` (split evenly on dim 0) goes to member i;
         block j of the result came from member j."""
         if self.group_size(group) == 1:
@@ -157,7 +157,7 @@ class ProcessMesh:
             out = torch.empty_like(x, memory_format=torch.contiguous_format)
             dist.all_to_all_single(out, x.contiguous(),
                                    group=self.groups[group])
-        self._timed(f"all_to_all/{group}", t0, out)
+        self._timed(f"all_to_all/{group}", t0, out, tag)
         return out
 
     def all_reduce(self, x, group: str, op: str = "sum", tag=None):

@@ -185,9 +185,14 @@ def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
     data-split leaf gathered over the data group at use and its
     gradient reduce-scattered back in float32; ``grad_shardings``
     defaults to it, and given with another layout raises ValueError.
-    Without data axes it is the ZeRO-2 step's parameter layout
-    (``grad_shardings`` without the data axes; the accumulator is then
-    ``grad_shardings``, or the parameters' layout where none is given).
+    Without data axes it is the ZeRO-2 step's parameter layout (the
+    accumulator is then ``grad_shardings``, or the parameters' layout
+    where none is given). A leaf may be split over "model" on another
+    dim than its accumulator (``params_shardings(fsdp=False,
+    ep_experts=True)``'s expert banks, split on E, beside the
+    reference's accumulator ``params_shardings(fsdp=True)``, split on
+    F): ``_zero2_step`` moves its gradient and its parameters between
+    the two splits by all-to-all over the model group.
 
     The returned step carries its two halves: ``train_step.grads(params,
     batch) -> (metrics, gradients)`` (the accumulator: this rank's
@@ -260,7 +265,8 @@ def make_train_step(cfg, optimizer, *, window: int = 0, remat: str = "full",
 
     if mesh is not None:
         return _zero2_step(cfg, accumulated_grads, optimizer, mesh,
-                           grad_shardings, microbatches, layout)
+                           grad_shardings, microbatches, layout,
+                           None if zero3 else param_shardings)
 
     def train_step(params, opt_state, batch):
         # named ranges for a profile of the step; autograd runs the
@@ -293,7 +299,9 @@ def _sharding_mesh(shardings):
 def _check_layouts(param_shardings, grad_shardings) -> bool:
     """Whether `param_shardings` splits leaves over the data axes (the
     ZeRO-3 layout); ValueError where both trees are given and disagree:
-    in a leaf's model dim, or (ZeRO-3) in its data dim."""
+    in whether a leaf is split over "model", or (ZeRO-3) in its model or
+    its data dim. ZeRO-2 moves a leaf split on another model dim than
+    its accumulator's (``_zero2_step``)."""
     if param_shardings is None:
         return False
     from repro_torch.distributed import sharding as SH
@@ -304,8 +312,9 @@ def _check_layouts(param_shardings, grad_shardings) -> bool:
         return zero3
     gs = _leaves(grad_shardings)
     if len(gs) != len(ps) or any(
-            SH.model_dim(p) != SH.model_dim(g)
-            or (zero3 and SH.data_dim(p) != SH.data_dim(g))
+            (SH.model_dim(p) is None) != (SH.model_dim(g) is None)
+            or (zero3 and (SH.model_dim(p) != SH.model_dim(g)
+                           or SH.data_dim(p) != SH.data_dim(g)))
             for p, g in zip(ps, gs)):
         raise ValueError("param_shardings and grad_shardings lay the "
                          "parameters out differently" + (
@@ -325,16 +334,25 @@ def _process_mesh(shardings):
 
 
 def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
-                microbatches: int, zero3=None):
+                microbatches: int, zero3=None, param_shardings=None):
     """ZeRO-2 over the data ranks of `mesh` (a (data, model)
     ProcessMesh), tensor-parallel over its model ranks; ZeRO-3 where
     `zero3` is the parameters' layout with data axes (below).
 
-    Parameters: this rank's model shards (``grad_shardings`` without the
-    data axes, ``train_step.param_shardings``: ``params_shardings(...,
-    fsdp=False)`` for the reference's layout), replicated over data;
-    ``transformer.forward`` runs them as ``distributed.tensor_parallel``
-    says. At model 1 they are the whole parameters.
+    Parameters: this rank's model shards (`param_shardings` where given,
+    else ``grad_shardings`` without the data axes; ``train_step.
+    param_shardings``: ``params_shardings(..., fsdp=False)`` for the
+    reference's layout), replicated over data; ``transformer.forward``
+    runs them as ``distributed.tensor_parallel`` says. At model 1 they
+    are the whole parameters. A leaf split over "model" on another dim
+    than its accumulator (the expert banks of ``params_shardings(
+    ep_experts=True)``: E against the accumulator's F) is moved between
+    the two splits by one all-to-all over the model group
+    (``tensor_parallel.move_split``) where the two layouts meet: each
+    part's float32 gradient before the data group's reduce-scatter
+    ("all_to_all/model/grads"), the parameters before the update and
+    the updated parameters after the data group's all-gather
+    ("all_to_all/model/params"). Moves change no value.
 
     Rows: within microbatch i of a global batch of B rows, rank r takes
     rows i * B/mb + r * B/(mb * dp) onward, B/(mb * dp) of them: exactly
@@ -380,13 +398,15 @@ def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import dp_axes
     dp, r = mesh.shape["data"], mesh.index("data")
-    param_sh = zero3 if zero3 is not None else \
+    param_sh = zero3 if zero3 is not None else param_shardings \
+        if param_shardings is not None else \
         SH.without_axes(grad_shardings, dp_axes(mesh))
     data_sh = SH.without_axes(grad_shardings, ("model",))
     stats = {"transpose_bytes": 0, "gathered_bytes": 0, "batch_bytes": 0}
 
     def specs_for(params):
-        """(leaf, data dim, model dim, accumulator shape) of every leaf,
+        """(leaf, data dim, model dim, accumulator shape, the leaf's own
+        model dim) of every leaf (the dims of the accumulator's layout),
         or ValueError where grad_shardings does not match `params` (this
         rank's model shards of `cfg`'s parameters)."""
         whole = T._whole_shapes(cfg)
@@ -408,7 +428,8 @@ def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
                                  f"parameters at {path}: a leaf of "
                                  f"{tuple(leaf.shape)}, its model shard "
                                  f"{want}")
-            out.append((leaf, SH.data_dim(sh), SH.model_dim(sh), acc))
+            out.append((leaf, SH.data_dim(sh), SH.model_dim(sh), acc,
+                        SH.model_dim(SH.leaf_at(param_sh, path))))
         n = len(_leaves(grad_shardings))
         if len(out) != n:
             raise ValueError(f"grad_shardings has {n} leaves, the "
@@ -451,7 +472,8 @@ def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
         local = local_rows(batch, specs[0][0].device)
 
         def pin(i: int, g):
-            j = specs[i][1]
+            _, j, m, _, own = specs[i]
+            g = TP.move_split(g, mesh, own, m, tag="grads")
             if j is None:
                 return mesh.all_reduce(g, "data")
             return mesh.reduce_scatter(to_front(g, j), "data").movedim(0, j)
@@ -471,7 +493,7 @@ def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
             # by (split on data, split on model): each part summed over
             # the axes it is split on, and only those
             part = {}
-            for q, (_, j, m, _) in zip(sq, specs):
+            for q, (_, j, m, _, _) in zip(sq, specs):
                 key = (j is not None, m is not None)
                 part[key] = part.get(key, 0) + q
             zero = torch.zeros((), device=sq[0].device)
@@ -484,17 +506,18 @@ def _zero2_step(cfg, accumulated_grads, optimizer, mesh, grad_shardings,
 
         if zero3 is not None:
             return optimizer.update(params, g, opt_state, sum_squares)
-        new, opt_state = optimizer.update(SH.shard_tree(params, data_sh), g,
-                                          opt_state, sum_squares)
+        it = iter([TP.move_split(leaf, mesh, own, m, tag="params")
+                   for leaf, _, m, _, own in specs])
+        new, opt_state = optimizer.update(
+            SH.shard_tree(_map(lambda _: next(it), params), data_sh), g,
+            opt_state, sum_squares)
         out = []
-        for leaf, (_, j, _, _) in zip(_leaves(new), specs):
-            if j is None:
-                out.append(leaf)
-                continue
-            full = mesh.all_gather(to_front(leaf, j), "data") \
-                .flatten(0, 1).movedim(0, j)
-            out.append(full.contiguous())
-            stats["gathered_bytes"] += full.numel() * full.element_size()
+        for leaf, (_, j, m, _, own) in zip(_leaves(new), specs):
+            if j is not None:
+                leaf = mesh.all_gather(to_front(leaf, j), "data") \
+                    .flatten(0, 1).movedim(0, j).contiguous()
+                stats["gathered_bytes"] += leaf.numel() * leaf.element_size()
+            out.append(TP.move_split(leaf, mesh, m, own, tag="params"))
         it = iter(out)
         return _map(lambda _: next(it), params), opt_state
 

@@ -32,6 +32,21 @@ dispatch input passes ``copy_to_model``, whose backward sums its
 partial gradients. Routing, capacities, loads, drops and the aux loss
 are computed alike on every model rank from the replicated activations
 and the gathered router; they are not summed over "model".
+
+Under the expert-parallel layout (``params_shardings(ep_experts=True)``:
+``dispatch_moe(model_mesh=)`` given a bank of fewer than `num_experts`
+experts) the bank is this rank's E/model whole experts. Routing and the
+dispatch buffer are computed as above, alike on every model rank; the
+rank takes its experts' rows of
+the buffer (and of the group sizes), runs the kernels on them with no
+mesh, and the (E/model, N, D) outputs are all-gathered over the model
+group in group-rank order (``tensor_parallel.gather_experts``) before
+the combine, which then runs as in one process. Every expert's rows are
+computed whole, as one process computes them, and only concatenated:
+nothing is summed across ranks, so the layer gives the one-process
+layer's values wherever the kernels compute an expert's rows alike at E
+and at E/model experts. The buffer's backward sums the ranks' gradients,
+each zero outside its experts' rows.
 """
 from __future__ import annotations
 
@@ -166,12 +181,12 @@ def dispatch_moe(p, x, *, top_k: int, num_experts: int,
     rank's share of a data-parallel microbatch, and the expert loads,
     the drops and the aux loss are the whole microbatch's; with
     `model_mesh` the expert bank is a column/row pair over its model
-    group (module docstring).
+    group or, where it holds fewer than `num_experts` experts, this
+    rank's whole experts (module docstring).
     """
     if model_mesh is not None and "w_up_scale" in p["experts"]:
         raise NotImplementedError(
-            "int8 expert banks at model > 1 are queued work (ROADMAP "
-            "queue 1)")
+            "int8 expert banks at model > 1 wait in ROADMAP parked (c)4")
     b, s, d = x.shape
     t = b * s
     groups = max(1, min(groups, t))
@@ -215,10 +230,18 @@ def dispatch_moe(p, x, *, top_k: int, num_experts: int,
     else:
         gs = torch.full((num_experts,), groups * cap, dtype=torch.int32,
                         device=x.device)
-    expert_out = experts_ffn(
-        p["experts"], expert_in.reshape(num_experts, groups * cap, d), act,
-        group_sizes=gs, impl=impl, mesh=model_mesh).reshape(
-            num_experts, groups, cap, d)
+    expert_in = expert_in.reshape(num_experts, groups * cap, d)
+    n = p["experts"]["w_down"].shape[0]
+    if model_mesh is not None and n != num_experts:
+        # this rank's experts: rows [r E/m, (r+1) E/m) of the buffer
+        lo = model_mesh.index("model") * n
+        expert_out = TP.gather_experts(experts_ffn(
+            p["experts"], expert_in[lo:lo + n], act,
+            group_sizes=gs[lo:lo + n], impl=impl), model_mesh)
+    else:
+        expert_out = experts_ffn(p["experts"], expert_in, act,
+                                 group_sizes=gs, impl=impl, mesh=model_mesh)
+    expert_out = expert_out.reshape(num_experts, groups, cap, d)
     y = torch.einsum("gtec,egcd->gtd", comb, expert_out)
 
     # dropped = routed assignments of ACTIVE tokens that overflowed

@@ -304,8 +304,9 @@ def _apply_sublayer(cfg, sub: SubLayer, p, x, positions, *, cache=None,
     With `ep_ctx` and this sublayer's `ep_state` the MoE runs through
     the EP slot data plane; with `data_mesh` (``forward``) its metrics
     and dispatch groups are the data group's; with `ffn_mesh` its FFN
-    (an expert bank or a dense one) is a column/row pair over the model
-    group (``forward``). Returns (x, metrics)."""
+    runs over the model group: a column/row pair (an expert bank or a
+    dense one), or an expert bank of this rank's whole experts
+    (``forward``). Returns (x, metrics)."""
     metrics = {}
     h = L.norm(x, p["norm1"], cfg.norm)
     if sub.mixer == "attn":
@@ -490,8 +491,10 @@ def forward(cfg, params, batch, *, window: int = 0, collect: bool = False,
     dim where its shape differs from ``init_params``' (``_tensor_
     parallel``), or on the dims `param_shardings` (their NamedSharding
     tree) gives it. A column/row FFN runs on the rank's F-slices, an
-    embedding and a head split on V are vocabulary-parallel, every other
-    split leaf is gathered at its use (``distributed.tensor_parallel``);
+    expert bank split on its expert dim on the rank's whole experts
+    (``params_shardings(ep_experts=True)``), an embedding and a head
+    split on V are vocabulary-parallel, every other split leaf is
+    gathered at its use (``distributed.tensor_parallel``);
     the logits are then this rank's columns of the vocabulary. Where
     `param_shardings` splits leaves over the data axes too (ZeRO-3,
     ``params_shardings(fsdp=True)``), each such leaf is gathered over
@@ -600,7 +603,8 @@ class _TPLayout:
     def sublayer(self, j: int, p, i: int):
         """(sublayer j's parameters `p` of period `i` gathered at use:
         over the data group, then over the model group, the mesh of its
-        FFN where that is a column/row pair, else None)."""
+        FFN where that runs over the model group (a column/row pair or
+        this rank's whole experts), else None)."""
         if self.data_mesh is not None:
             p = TP.gather_data_tree(
                 p, self.layer_data_dims[j], self.data_mesh,
@@ -642,7 +646,7 @@ def _tp_layout(cfg, params, data_mesh, ep_ctx=None, shardings=None,
     if ep_ctx is not None:
         raise NotImplementedError(
             "the EP slot plane at model > 1 or on parameters split over "
-            "data is queued work (ROADMAP queue 1)")
+            "data waits in ROADMAP parked (c)4")
     out = _TPLayout(params)
     if ddims is not None:
         out = _TPLayout(
@@ -667,13 +671,18 @@ def _tp_layout(cfg, params, data_mesh, ep_ctx=None, shardings=None,
 
 def _gather_sublayer(p, dims, mesh):
     """(one period's sublayer parameters with every split leaf gathered
-    at use but a column/row FFN's, the mesh where its FFN is such a pair
-    or None)."""
+    at use but a column/row FFN's and an expert bank split on its expert
+    dim, the mesh where its FFN is one of those or None). An expert bank
+    is never gathered over "model" where its expert dim is split
+    (``tensor_parallel.split_experts`` raises on a bank split so in part
+    of its leaves); ``moe.dispatch_moe`` tells the two kinds apart by the
+    bank's shape."""
     keep = set()
-    if "moe" in p and TP.split_ffn(p["moe"]["experts"],
-                                   dims["moe"]["experts"]):
-        keep.add(("moe", "experts"))
-    if "ffn" in p and TP.split_ffn(p["ffn"], dims["ffn"]):
+    if "moe" in p:
+        bank, bdims = p["moe"]["experts"], dims["moe"]["experts"]
+        if TP.split_experts(bank, bdims) or TP.split_ffn(bank, bdims):
+            keep.add(("moe", "experts"))
+    elif "ffn" in p and TP.split_ffn(p["ffn"], dims["ffn"]):
         keep.add(("ffn",))
     return TP.gather_tree(p, dims, mesh, keep=keep), \
         mesh if keep else None

@@ -26,7 +26,8 @@ arithmetic is the same).
 Cases: mixtral on (2, 1) and (2, 2) at one and two microbatches, remat
 "none" and "full"; a clip of 0.05 on (2, 2); qwen3-32b (a dense FFN) and
 command-r+ (tied embeddings) on (2, 2); mixtral with ``ep_experts`` on
-(2, 2) (its banks gathered over data, then whole over model); the (2, 2)
+(2, 2) (its banks split on E, gathered over data at use, each model rank
+running its own whole experts, none gathered over model); the (2, 2)
 prefill; ``forward`` of all twelve smoke configs on (2, 2), each rank on
 its rows; the decode step on (2, 2) under the three cache layouts of the
 reference's dry-run; the dry-run's ``build_step`` on a rank, whose
