@@ -388,8 +388,35 @@ Phases, each fatal on failure:
      collective's host ms and bytes, the bytes the expert gather moves
      into a rank, peaks.
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 11, 12,
-13, 14, 16 and 17 (one spawn of ranks a mesh), 15.
+  18. the paper's trace replay (``launch/serve_trace.py``: ``replay`` ->
+     ``ServingEngine.serve`` -> ``ControlPlane.step`` ->
+     ``ExpertRuntime.apply`` -> the kernels) at published widths, one
+     ``generate_requests`` trace of 23 requests (``REPLAY_TRACE``, 16
+     new tokens at most, 8 slots, time_scale 20): first the expert
+     kernels at phi-3.5-moe's shapes against their plain versions, timed
+     beside their bounds (``fused_gate_up``/``gmm`` at E 16, C 2 and 40,
+     F 6400; the int8 pair on 40 and 128 slots); (a) phi-3.5-moe (d_model
+     4096, 32/8 heads, 16 experts x 6400, top-2, vocab 32064, bf16) at 8
+     of 32 layers under MoEless with the runtime off, then at 4 under
+     megatron-lm, eplb, oracle and moeless with the runtime on and int8
+     slot banks (MoEless at E slots a device); (b) mixtral-8x7b at 4
+     layers under the four, int8 banks; each replay's launches gated:
+     ``decode_attention`` and its path's expert kernels, on "mma" and
+     "wgmma", none of the other path's and no plain version called;
+     printed a replay: requests, iterations, occupancy, drops, wall,
+     median iteration wall, decode tokens/s by wall, the runtime's
+     starts, copies, bytes and the host ms of ``apply``, peak memory,
+     and the modeled (v5e cost model) TTFT/TPOT/E2E; bf16 tokens are
+     reported, not gated; (c) the float32 gate: the four strategies on
+     phi-3.5-moe at 2 layers with int8 banks over 7 requests, kernels
+     (impl "cuda") equal to the plain versions on the card (impl "ref")
+     in tokens, iterations, clock, drops, the control plane's latencies,
+     replica counts, cost and host transfers, and the runtime's starts,
+     copies and bytes; the control, MoEless with decode attention blind
+     to the newest keys, must differ.
+
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 18, 11,
+12, 13, 14, 16 and 17 (one spawn of ranks a mesh), 15.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -432,9 +459,20 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # atol = rtol
 # (launch.transport, the mesh's transport="shared")
 ON_CARD = "on cuda:0 (collectives through shared staging buffers)"
 # the multi-rank phases' ranks and the dry-run's workers fork from one
-# server process that imported this script (and torch) once; a spawned
-# process imports both again, seconds a rank
+# server process that imported torch, this script and the port's modules
+# once; a spawned process imports them again, seconds a rank. They are
+# named as modules: Python 3.12's forkserver skips a "__main__" preload
+# (it asks the parent for a "main_path" that ``multiprocessing.spawn``
+# does not give), so that preload imported nothing and every rank
+# imported torch and the script anew.
 START_METHOD = "forkserver"
+FORKSERVER_PRELOAD = [
+    "chip_smoke", "repro_torch.models.model", "repro_torch.serving.engine",
+    "repro_torch.serving.expert_runtime", "repro_torch.distributed.ep",
+    "repro_torch.distributed.sharding",
+    "repro_torch.distributed.tensor_parallel", "repro_torch.launch.dryrun",
+    "repro_torch.launch.transport", "repro_torch.training.train_loop",
+    "repro_torch.training.checkpoint"]
 SOURCES = {
     "fused_gate_up": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                       "src/repro/kernels/moe_gmm.py:198"),
@@ -821,6 +859,29 @@ def _quant_check(name, fused, label, x, ws, g, dtype, max_active=0,
     return err
 
 
+def _quant_library(fused, x, ws, g):
+    """The library composition of an int8 kernel's function on these
+    inputs (dequantize the slots with rows to x's dtype, ``bmm``, silu,
+    mask), and the indices of those slots."""
+    e, c, _ = x.shape
+    f, dtype = ws[0].shape[2], x.dtype
+    idx = torch.nonzero(g > 0).flatten()
+    mask = torch.arange(c, device=x.device)[None, :, None] \
+        < g[idx].long()[:, None, None]
+
+    def library():
+        xa = x[idx]
+        deq = [ws[i][idx].to(dtype) * ws[i + 1][idx, :, None].to(dtype)
+               for i in range(0, len(ws), 2)]
+        y = torch.bmm(xa, deq[0])
+        if fused:
+            y = F.silu(y) * torch.bmm(xa, deq[1])
+        out = torch.zeros((e, c, f), dtype=dtype, device=x.device)
+        out[idx] = torch.where(mask, y, 0.0)
+        return out
+    return library, idx
+
+
 def check_quant_kernels(gen, shapes) -> dict:
     """fused_gate_up_quant and gmm_quant against their plain versions at
     adversarial shapes (f32 and bf16; bf16 with D % 8 == 0 and F % 16 ==
@@ -892,21 +953,7 @@ def check_quant_kernels(gen, shapes) -> dict:
                 name, fused, x, ws, g, ma, "simt")
             plain = lambda: run_p(x, *ws, g)  # noqa: E731
             one_launch(name, run, "wgmma_q_kernel")
-            idx = torch.nonzero(g > 0).flatten()
-            rows = g[idx].long()
-            mask = torch.arange(c, device=x.device)[None, :, None] \
-                < rows[:, None, None]
-
-            def library():
-                xa = x[idx]
-                deq = [ws[i][idx].to(dtype) * ws[i + 1][idx, :, None]
-                       .to(dtype) for i in range(0, len(ws), 2)]
-                y = torch.bmm(xa, deq[0])
-                if fused:
-                    y = F.silu(y) * torch.bmm(xa, deq[1])
-                out = torch.zeros((e, c, f), dtype=dtype, device=x.device)
-                out[idx] = torch.where(mask, y, 0.0)
-                return out
+            library, idx = _quant_library(fused, x, ws, g)
             err = _quant_check(name, fused, f"{phase} {e}x{c}x{d}x{f}", x,
                                ws, g, dtype, ma)
             simt_err = _quant_check(name, fused, f"{phase}, simt", x, ws, g,
@@ -8687,6 +8734,473 @@ def zero3_phase(card: str, zero2: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 18
+
+# The paper's trace replay (``launch/serve_trace.py``) at published
+# widths: one ``generate_requests`` trace of 23 requests (3 s at a peak
+# rate of 16 a second), each to at most 16 new tokens, prompts clipped
+# to 256 tokens (half of max_len), 8 KV slots, 8 modeled devices.
+REPLAY_TRACE = dict(duration_s=3.0, base_rate=16.0, seed=0)
+REPLAY_SLOTS, REPLAY_MAX_LEN, REPLAY_MAX_NEW = 8, 512, 16
+# At these depths the v5e cost model prices a decode iteration at ~3
+# ms (phi-3.5-moe, 8 layers) and ~1.6 ms (mixtral-8x7b, 4; each replay
+# prints its mean layer ms): a 16-token request lives ~50 ms of modeled
+# time while the arrivals span 3 s, so at time_scale 1 hardly two
+# requests would share a batch. At 20 a request lives about the gap of
+# 8 arrivals and the batch fills at the trace's peak (each replay
+# prints its mean occupancy: 4.1-6.2 of 8).
+REPLAY_TIME_SCALE = 20.0
+# phi-3.5-moe's runtime-off replay: 8 of 32 layers, mixtral's cut (32
+# layers of expert banks are 80.5 GB). The runtime-on replays of both
+# models: 4 of 32, for the slot banks. MoEless's serverless pool keeps
+# each instance warm for its 60 s keep-alive, past the whole modeled
+# span, so instances pile up: each replay prints the most slots a layer
+# held, and MoEless's pool on phi's geometry (E 16, 8 devices) holds
+# 125 of 128 (16 on one device), more than 15 a device could give. So
+# MoEless gets E slots a device (``ControlPlane(
+# max_replicas_per_device=E)``, which the reference's balancer takes;
+# phase 4c's geometry for mixtral, whose pool holds 43 of 64): a device
+# never holds more than E instances, so no allocation can fail. 128
+# int8 slots of phi are 10.07 GB a layer, which at 8 layers cannot sit
+# beside the weights. The other strategies take no slot setting and
+# keep the default (phi 5 a device, mixtral 3; they hold at most 4 and
+# 2). Banks are single-buffered, as in phase 4c.
+REPLAY_LAYERS, REPLAY_RUNTIME_LAYERS = 8, RUNTIME_LAYERS
+# the float32 gate: phi-3.5-moe at 2 layers (~10 GB), 7 requests of at
+# most 8 tokens, int8 banks, kernels (impl "cuda") against plain ("ref")
+REPLAY_F32_LAYERS, REPLAY_F32_MAX_NEW = 2, 8
+REPLAY_F32_TRACE = dict(duration_s=1.0, base_rate=16.0, seed=0)
+
+
+def first_periods(params, n: int):
+    """`params` with every layer leaf cut to its first `n` periods, as
+    views: the weights of the same model `n` periods deep."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cut(v) for v in tree]
+        return tree[:n]
+    return {**params, "layers": cut(params["layers"])}
+
+
+class PlainCalls:
+    """Within the block, counts the calls of each kernel's plain version
+    through the dispatch (``kernels/ops.py``): none may come while the
+    kernels serve on the card."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref as KR
+        self.counts = {}
+        self._saved = []
+        for mod, fn_name in ((KR, "expert_ffn_ref"),
+                             (KR, "expert_ffn_ref_quant"), (KR, "gmm_ref"),
+                             (KR, "gmm_ref_quant"),
+                             (DA, "decode_attention_ref"),
+                             (DA, "decode_attention_paged_ref")):
+            fn = getattr(mod, fn_name)
+            self._saved.append((mod, fn_name, fn))
+
+            def counted(*a, _fn=fn, _name=fn_name, **kw):
+                self.counts[_name] = self.counts.get(_name, 0) + 1
+                return _fn(*a, **kw)
+
+            setattr(mod, fn_name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, fn in self._saved:
+            setattr(mod, fn_name, fn)
+
+
+class ApplyTimer:
+    """Within the block, the host seconds and calls of
+    ``ExpertRuntime.apply`` (the slot state machine and its flush), and
+    the most slots any layer, and any device of a layer, held after a
+    call (of ``total_slots`` and ``slots_per_device``)."""
+
+    def __enter__(self):
+        from repro_torch.serving.expert_runtime import ExpertRuntime
+        self.s, self.calls = 0.0, 0
+        self.held = {"layer": 0, "device": 0}
+        self._cls, self._fn = ExpertRuntime, ExpertRuntime.apply
+        inner = self._fn
+
+        def apply(rt, *a, **kw):
+            t = time.perf_counter()
+            try:
+                return inner(rt, *a, **kw)
+            finally:
+                self.s += time.perf_counter() - t
+                self.calls += 1
+                used = (rt.slot_expert != rt.num_experts).reshape(
+                    rt.n_layers, rt.num_devices, -1).sum(-1)
+                self.held = {
+                    "layer": max(self.held["layer"], int(used.sum(1).max())),
+                    "device": max(self.held["device"], int(used.max())),
+                    "of": (rt.total_slots, rt.slots_per_device)}
+
+        ExpertRuntime.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.apply = self._fn
+
+
+def replay_identity(rp) -> dict:
+    """What the float32 gate holds equal: tokens, iterations, clock and
+    drops; the control plane's per-layer latencies, replica counts, cost
+    and host transfers; the runtime's starts and bytes moved."""
+    res, c, st = rp.result, rp.control, rp.stats
+    return {"tokens": [list(r.tokens) for r in rp.requests],
+            "iterations": res.iterations, "clock_s": res.clock_s,
+            "dropped_tokens": res.dropped_tokens,
+            "layer_latency": list(c.layer_latency),
+            "replica_counts": list(c.replica_counts), "cost": c.cost,
+            "host_transfers": c.host_transfers,
+            "runtime": None if st is None else
+            (st.counts(), st.transfers, st.bytes_moved)}
+
+
+def replay_run(label, cfg, params, trace, strategy, runtime: str,
+               max_new: int = REPLAY_MAX_NEW) -> dict:
+    """One strategy's replay through ``serve_trace.replay`` (8 slots, the
+    phase's time scale, single-buffered banks), with that run's kernel
+    launches, their paths, the plain versions' calls, the host time of
+    the runtime's ``apply`` and the peak memory. Every request must end
+    with its budget. Returns the record."""
+    from repro_torch.launch.serve_trace import replay
+    # MoEless's slot setting (see REPLAY_LAYERS); the others take none
+    slots = {"max_replicas_per_device": cfg.moe.num_experts} \
+        if strategy == "moeless" else {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with GmmPaths() as gp, AttnPaths() as ap, PlainCalls() as pc, \
+            ApplyTimer() as at:
+        rp = replay(cfg, params, trace, strategy, slots=REPLAY_SLOTS,
+                    max_len=REPLAY_MAX_LEN, max_new=max_new, distance=1,
+                    expert_runtime=runtime, time_scale=REPLAY_TIME_SCALE,
+                    seed=0, runtime_double_buffer=False,
+                    num_devices=EP_DEVICES, **slots)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = K.launch_counts()
+    res, st, s = rp.result, rp.stats, rp.result.summary()
+    check_budgets(rp.requests, f"{label} request")
+    if res.rejected or len(rp.requests) != len(trace):
+        raise AssertionError(f"{label}: {res.rejected} rejected of "
+                             f"{len(rp.requests)}")
+    ms = {m: (s[m]["p50"] * 1e3, s[m]["p99"] * 1e3)
+          for m in ("ttft", "tpot", "e2e")}
+    out = dict(
+        requests=len(rp.requests), iterations=res.iterations,
+        prefills=res.prefills, occupancy=res.mean_batch_occupancy,
+        dropped_tokens=res.dropped_tokens, tokens=res.generated_tokens,
+        wall_s=res.wall_s, iter_ms=float(np.median(rp.iter_walls)) * 1e3,
+        tokens_per_s=res.generated_tokens / res.wall_s,
+        peak_gb=peak / 1e9, launches=launches,
+        gmm_paths=gp.counts, attn_paths=ap.counts, plain=pc.counts,
+        quant_paths={k: dict(v) for k, v in
+                     MG.QUANT_PATH_LAUNCHES.items()},
+        modeled_ms=ms, layer_ms=rp.control.mean_layer_ms(),
+        cost=rp.control.cost, identity=replay_identity(rp))
+    rt = ""
+    if st is not None:
+        out.update(starts=st.counts(), transfers=st.transfers,
+                   bytes_moved=st.bytes_moved,
+                   gb_s=st.instance_seconds_gb, apply_ms=at.s * 1e3,
+                   apply_calls=at.calls, slots_held=at.held)
+        rt = (f"; runtime c/w/p {st.counts()}, {st.transfers} copies, "
+              f"{st.bytes_moved / 1e9:.3f} GB moved, "
+              f"{st.instance_seconds_gb:.4g} GB-s, apply {at.s * 1e3:.1f} "
+              f"ms host over {at.calls} calls, slots held at most "
+              f"{at.held['layer']} of {at.held['of'][0]} a layer, "
+              f"{at.held['device']} of {at.held['of'][1]} a device")
+    log(f"  {label}: {out['requests']} requests, {res.iterations} "
+        f"iterations + {res.prefills} prefills, occupancy "
+        f"{res.mean_batch_occupancy:.2f}, {res.dropped_tokens:.0f} "
+        f"dropped; wall {res.wall_s:.2f} s, iteration median "
+        f"{out['iter_ms']:.2f} ms, {out['tokens_per_s']:.1f} decode "
+        f"tokens/s by wall{rt}; peak {out['peak_gb']:.2f} GB")
+    log(f"    modeled (v5e cost model, x{REPLAY_TIME_SCALE:g}) TTFT "
+        f"p50/p99 {ms['ttft'][0]:.2f}/{ms['ttft'][1]:.2f} ms, TPOT "
+        f"{ms['tpot'][0]:.3f}/{ms['tpot'][1]:.3f}, E2E "
+        f"{ms['e2e'][0]:.1f}/{ms['e2e'][1]:.1f}, layer "
+        f"{out['layer_ms']:.4f}, cost {out['cost']:.4g}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return out
+
+
+def _replay_launch_gate(label, rec, runtime: str, dtype) -> None:
+    """The run launched ``decode_attention`` and the expert kernels of its
+    path (int8 with the runtime on, bf16/float32 ``moe_gmm`` off), none of
+    the other path's, each on the path its plan names at bf16, and never
+    called a plain version."""
+    n = rec["launches"]
+    want = ("fused_gate_up_quant", "gmm_quant") if runtime == "on" \
+        else ("fused_gate_up", "gmm")
+    other = ("fused_gate_up", "gmm") if runtime == "on" \
+        else ("fused_gate_up_quant", "gmm_quant")
+    for k_name in want + ("decode_attention",):
+        if n[k_name] <= 0:
+            raise AssertionError(f"{label}: {k_name} was never launched")
+    for k_name in other + ("decode_attention_paged",):
+        if n[k_name]:
+            raise AssertionError(f"{label}: {k_name} launched {n[k_name]} "
+                                 "times off this run's path")
+    if rec["plain"]:
+        raise AssertionError(f"{label}: plain versions called "
+                             f"{rec['plain']} with the card present")
+    if dtype == torch.bfloat16:
+        paths = {k: rec["gmm_paths"][k] for k in want} if runtime == "off" \
+            else {k: rec["quant_paths"][k] for k in want}
+        for k_name, by in paths.items():
+            if by.get("wgmma", 0) != n[k_name]:
+                raise AssertionError(f"{label}: {k_name} launches by path "
+                                     f"{by} of {n[k_name]}, not all wgmma")
+        if rec["attn_paths"] != {"mma": n["decode_attention"]}:
+            raise AssertionError(f"{label}: decode_attention by path "
+                                 f"{rec['attn_paths']}, not all mma")
+
+
+def quant_shape_timed(gen, name, fused, label, shape, max_active) -> dict:
+    """``fused_gate_up_quant`` or ``gmm_quant`` at one bf16 slot-bank shape
+    (slots, C, D, F, rows a slot): the plan must be "wgmma"; against its
+    plain version, timed beside its bound, the plain version and the
+    library composition. Returns the record."""
+    e, c, d, f, gs = shape
+    x, ws, g = _quant_inputs(gen, e, c, d, f, torch.bfloat16, gs, fused)
+    path, info = MG.quant_plan(x, ws[0], max_active, scale=ws[1])
+    if path != "wgmma":
+        raise AssertionError(f"{name}: the {label} shape took {path}")
+    run_k = MG.fused_gate_up_quant if fused else MG.gmm_quant
+    run_p = MG.fused_gate_up_quant_ref if fused else MG.gmm_quant_ref
+    err = _quant_check(name, fused, label, x, ws, g, torch.bfloat16,
+                       max_active)
+    library, idx = _quant_library(fused, x, ws, g)
+    ms = time_ms(lambda: run_k(x, *ws, g, max_active=max_active))
+    plain_ms = time_ms(lambda: run_p(x, *ws, g), iters=5, reps=3)
+    lib_ms = time_ms(library, iters=5, reps=3)
+    nbytes, flops = _quant_bytes_flops(x, ws, g)
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    log(f"  {name:<20} {label:<14} E={e} ({len(idx)} with rows) C={c} "
+        f"D={d} F={f} bf16 x, int8 W ({path}, N={info['rows']}, "
+        f"{info['stages']} stages, {info['smem']} B shared a CTA) "
+        f"max_abs_err={err:.3e} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+        f"{nbytes / 1e9:.3f} GB) plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f}")
+    del x, ws
+    torch.cuda.empty_cache()
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                library_ms=lib_ms, max_abs_err=err, path=path)
+
+
+def replay_kernel_shapes(gen, cfg) -> dict:
+    """The expert kernels at phi-3.5-moe's serving shapes: ``fused_gate_up``
+    and ``gmm`` at a decode step of 8 slots (C = ceil(1.25 x 2 x 8 / 16)
+    = 2) and the 256-token prefill bucket (C 40), group sizes from a
+    seeded routing clipped at the capacity; the int8 pair on the slot
+    banks of the runtime-on replays: 40 slots (the default geometry) at
+    decode, 128 (MoEless's) at decode and prefill, with rows in 16 slots
+    at decode (8 tokens x top-2) and 32 at prefill. Returns {kernel:
+    [record, ...]}, each with its "shape"."""
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    d, f = cfg.d_model, cfg.moe.d_ff
+    rng = np.random.default_rng(18)
+    out = {n: [] for n in ("fused_gate_up", "gmm", "fused_gate_up_quant",
+                           "gmm_quant")}
+    caps = {}
+    for phase, n in (("decode", REPLAY_SLOTS), ("prefill", 256)):
+        cap = caps[phase] = max(1, math.ceil(cfg.moe.capacity_factor * k
+                                             * n / e))
+        gs = np.minimum(np.bincount(rng.integers(0, e, n * k),
+                                    minlength=e), cap).tolist()
+        for name, fused, shape in (("fused_gate_up", True, (e, cap, d, f,
+                                                            gs)),
+                                   ("gmm", False, (e, cap, f, d, gs))):
+            r = gmm_shape_timed(gen, name, fused, f"phi {phase}", shape)
+            out[name].append(dict(shape=f"phi {phase} E{e} C{cap} "
+                                  f"D{shape[2]} F{shape[3]}", **r))
+    for phase, slots in (("decode", EP_DEVICES * 5), ("decode", EP_DEVICES
+                                                     * e),
+                         ("prefill", EP_DEVICES * e)):
+        cap = caps[phase]
+        live = REPLAY_SLOTS * k if phase == "decode" else 2 * e
+        ma = min(slots, REPLAY_SLOTS * k if phase == "decode" else 256 * k)
+        rows = [0] * slots
+        for i in rng.choice(slots, live, replace=False):
+            rows[i] = int(rng.integers(1 if phase == "decode" else cap // 4,
+                                       cap + 1))
+        for name, fused, shape in (
+                ("fused_gate_up_quant", True, (slots, cap, d, f, rows)),
+                ("gmm_quant", False, (slots, cap, f, d, rows))):
+            r = quant_shape_timed(gen, name, fused, f"phi {phase} S{slots}",
+                                  shape, ma)
+            out[name].append(dict(shape=f"phi {phase} E{slots} ({live} "
+                                  f"with rows) C{cap} D{shape[2]} "
+                                  f"F{shape[3]}", **r))
+    return out
+
+
+def replay_f32_gate() -> dict:
+    """The float32 gate: the four strategies' replays of a short trace on
+    phi-3.5-moe at 2 layers with int8 banks, through the kernels (impl
+    "cuda") and through the plain versions on the card (impl "ref"),
+    equal exactly per strategy (``replay_identity``); the kernel runs
+    never call a plain version, the plain runs launch nothing. The
+    control, MoEless through the kernels with decode attention blind to
+    the newest eighth of the keys (``BlindNewest``), must differ."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import TraceConfig, generate_requests
+    from repro_torch.launch.serve_trace import STRATEGIES
+    from repro_torch.models.model import init_params
+    full = get_config("phi-3.5-moe")
+    cfg = full.with_(num_layers=REPLAY_F32_LAYERS, dtype="float32",
+                     moe=dataclasses.replace(full.moe, slot_dtype="int8"))
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  float32 gate: phi-3.5-moe {cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(params)) * 4 / 1e9:.1f} GB made "
+        f"in {time.perf_counter() - t0:.1f} s")
+    trace = generate_requests(TraceConfig(**REPLAY_F32_TRACE))
+    out = {}
+    for s in STRATEGIES:
+        recs = {}
+        for impl in ("cuda", "ref"):
+            recs[impl] = replay_run(
+                f"phi-3.5-moe f32 {s} {impl}", cfg.with_(impl=impl), params,
+                trace, s, "on", REPLAY_F32_MAX_NEW)
+        k_run, p_run = recs["cuda"], recs["ref"]
+        _replay_launch_gate(f"f32 {s} cuda", k_run, "on", torch.float32)
+        if any(p_run["launches"].values()) or not p_run["plain"]:
+            raise AssertionError(f"f32 {s} ref: launches "
+                                 f"{p_run['launches']}, plain calls "
+                                 f"{p_run['plain']}")
+        diff = [k for k in k_run["identity"]
+                if k_run["identity"][k] != p_run["identity"][k]]
+        if diff:
+            raise AssertionError(f"float32 gate, {s}: kernels and plain "
+                                 f"differ in {diff}")
+        log(f"  float32 gate, {s}: kernels == plain in tokens, "
+            f"iterations, clock, drops, layer latencies, replica counts, "
+            f"cost, host transfers and runtime starts/bytes "
+            f"({k_run['identity']['runtime']})")
+        out[s] = {"kernels": k_run, "plain": p_run}
+    with BlindNewest():
+        ctl = replay_run("phi-3.5-moe f32 moeless cuda, control (decode "
+                         "attention blind to the newest keys)",
+                         cfg.with_(impl="cuda"), params, trace, "moeless",
+                         "on", REPLAY_F32_MAX_NEW)
+    diff = [k for k in ctl["identity"]
+            if ctl["identity"][k] != out["moeless"]["plain"]["identity"][k]]
+    if "tokens" not in diff:
+        raise AssertionError("float32 gate: the blind-attention control "
+                             "passed it")
+    log(f"  float32 gate control: differs in {diff}, as it must")
+    del params
+    return out
+
+
+def replay_phase(card: str) -> dict:
+    """Phase 18: the paper's trace replay at published widths through
+    ``serve_trace.replay`` (-> ``ServingEngine.serve`` ->
+    ``ControlPlane.step`` -> ``ExpertRuntime.apply`` -> the kernels):
+    (a) phi-3.5-moe (8 of 32 layers, bf16, seeded weights) under MoEless
+    with the runtime off (the GShard dispatch: ``fused_gate_up``/``gmm``),
+    then, on the first 4 of those layers, the trace under each of the
+    four strategies with the runtime on and int8 slot banks; (b)
+    mixtral-8x7b at phase 4c's depth (4 layers) under the four; (c) the
+    float32 gate (``replay_f32_gate``). Slot geometry, depths and time
+    scale: the constants above. Each replay's launches are gated
+    (``_replay_launch_gate``); bf16 tokens are reported, not gated (a
+    near-tie router flips between kernel and plain). Returns the
+    records."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import TraceConfig, generate_requests
+    from repro_torch.launch.serve_trace import STRATEGIES
+    from repro_torch.models.model import init_params
+    out = {}
+    phi = get_config("phi-3.5-moe")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out["kernels"] = replay_kernel_shapes(gen, phi)
+    log(f"  kernels at phi-3.5-moe's shapes took "
+        f"{time.perf_counter() - t0:.1f} s")
+    trace = generate_requests(TraceConfig(**REPLAY_TRACE))
+    log(f"  trace: generate_requests(TraceConfig({REPLAY_TRACE})): "
+        f"{len(trace)} requests over {trace[-1].arrival:.2f} s; "
+        f"{REPLAY_SLOTS} slots, max_len {REPLAY_MAX_LEN}, max_new "
+        f"{REPLAY_MAX_NEW}, time_scale {REPLAY_TIME_SCALE:g}, "
+        f"{EP_DEVICES} modeled devices, MoEless with the gate replicas at "
+        f"distance 1")
+    cfg = phi.with_(num_layers=REPLAY_LAYERS)
+    log(f"  (a) phi-3.5-moe: d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} kv, head_dim {cfg.resolved_head_dim}, "
+        f"{cfg.moe.num_experts} experts x d_ff {cfg.moe.d_ff}, top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+        f"num_layers {phi.num_layers}->{cfg.num_layers} (runtime off), "
+        f"->{REPLAY_RUNTIME_LAYERS} (runtime on, int8 banks)")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  params: {sum(t.numel() for t in _leaves(params)) * 2 / 1e9:.1f}"
+        f" GB made on the card in {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    runs["phi-3.5-moe moeless off"] = rec = replay_run(
+        "phi-3.5-moe/moeless, runtime off", cfg, params, trace, "moeless",
+        "off")
+    _replay_launch_gate("phi moeless off", rec, "off", torch.bfloat16)
+    rcfg = cfg.with_(num_layers=REPLAY_RUNTIME_LAYERS,
+                     moe=dataclasses.replace(cfg.moe, slot_dtype="int8"))
+    rparams = first_periods(params, REPLAY_RUNTIME_LAYERS)
+    for s in STRATEGIES:
+        runs[f"phi-3.5-moe {s} int8"] = rec = replay_run(
+            f"phi-3.5-moe/{s}, int8 banks", rcfg, rparams, trace, s, "on")
+        _replay_launch_gate(f"phi {s} int8", rec, "on", torch.bfloat16)
+    del params, rparams
+    mix = get_config("mixtral-8x7b")
+    mcfg = mix.with_(num_layers=REPLAY_RUNTIME_LAYERS,
+                     moe=dataclasses.replace(mix.moe, slot_dtype="int8"))
+    log(f"  (b) mixtral-8x7b: num_layers {mix.num_layers}->"
+        f"{mcfg.num_layers}, int8 banks (phase 4c's setup)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(mcfg, seed=0, device="cuda")
+    for s in STRATEGIES:
+        runs[f"mixtral-8x7b {s} int8"] = rec = replay_run(
+            f"mixtral-8x7b/{s}, int8 banks", mcfg, params, trace, s, "on")
+        _replay_launch_gate(f"mixtral {s} int8", rec, "on", torch.bfloat16)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["runs"] = runs
+    out["f32"] = replay_f32_gate()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  on {card}")
+    return out
+
+
+def replay_summary(out: dict) -> dict:
+    """Phase 18's numbers, one entry a replay."""
+    keys = ("requests", "iterations", "prefills", "occupancy",
+            "dropped_tokens", "tokens", "wall_s", "iter_ms",
+            "tokens_per_s", "peak_gb", "layer_ms", "cost", "starts",
+            "transfers", "bytes_moved", "gb_s", "apply_ms", "apply_calls",
+            "slots_held")
+    rnd = lambda v: round(v, 4) if isinstance(v, float) else v  # noqa: E731
+    runs = {**out["runs"], **{f"phi-3.5-moe f32 {s} {side}": r
+                              for s, pair in out["f32"].items()
+                              for side, r in pair.items()}}
+    return {label: {**{k: rnd(r[k]) for k in keys if k in r},
+                    "modeled_ms (v5e cost model)": {
+                        m: [round(v, 4) for v in p50_p99]
+                        for m, p50_p99 in r["modeled_ms"].items()}}
+            for label, r in runs.items()}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -8695,11 +9209,11 @@ def main() -> int:
     # float32 products in full float32 (TF32 off), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the server the multi-rank phases fork from imports this script now,
-    # beside phases 3-10, and never touches the card
+    # the server the multi-rank phases fork from imports their modules
+    # now, beside phases 3-10, and never touches the card
     import multiprocessing.forkserver
     torch.multiprocessing.get_context(START_METHOD).set_forkserver_preload(
-        ["__main__"])
+        FORKSERVER_PRELOAD)
     multiprocessing.forkserver.ensure_running()
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
@@ -8913,6 +9427,16 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    log("[18] the paper's trace replay (launch/serve_trace.py) at published "
+        "widths: phi-3.5-moe and mixtral-8x7b under megatron-lm, eplb, "
+        "oracle and moeless")
+    t18 = time.perf_counter()
+    replays = replay_phase(card)
+    log(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
+    log("  phase 18 summary: " + json.dumps(replay_summary(replays)))
+
+    gc.collect()
+    torch.cuda.empty_cache()
     log("[11] multi-rank EP on the card: local ranks on cuda:0, "
         "mixtral-8x7b at its published widths through "
         "ServingEngine(mesh=...)")
@@ -9031,7 +9555,15 @@ def main() -> int:
         rec[k_name]["zero3_launches"] = {
             shape: [r[k_name] for r in z["serve"]["launches"]]
             for shape, z in zero3.items() if shape != "seconds"}
-    log(f"phases 1-17 took {time.perf_counter() - t_main:.1f} s")
+    # phase 18: the expert kernels at phi-3.5-moe's shapes, and each
+    # replay's launches
+    for k_name, rows in replays["kernels"].items():
+        rec[k_name]["replay_shapes"] = rows
+    for k_name in SOURCES:
+        rec[k_name]["replay_launches"] = {
+            label: r["launches"][k_name]
+            for label, r in replays["runs"].items()}
+    log(f"phases 1-18 took {time.perf_counter() - t_main:.1f} s")
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}

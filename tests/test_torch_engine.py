@@ -203,6 +203,7 @@ def test_port_imports_neither_jax_nor_reference_at_runtime():
             "repro_torch.configs, repro_torch.models.model, "
             "repro_torch.models.ssm, repro_torch.training.train_loop, "
             "repro_torch.training.checkpoint, repro_torch.launch.train, "
+            "repro_torch.launch.serve_trace, "
             "sys; "
             "repro_torch.configs.list_archs(); "
             "assert not any(m == 'jax' or m.startswith(('jax.', "
