@@ -415,8 +415,42 @@ Phases, each fatal on failure:
      copies and bytes; the control, MoEless with decode attention blind
      to the newest keys, must differ.
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 18, 11,
-12, 13, 14, 16 and 17 (one spawn of ranks a mesh), 15.
+  19. the JAX package's last entry points as the port's
+     ``repro_torch.launch`` modules, in one process: (a)
+     ``quickstart.run`` on mixtral-8x7b at its published widths and the
+     example's 4 layers, bf16, seeded weights (the gate dataset's
+     forward, fine-tuning at distance 1, 8 requests through start /
+     submit / stream / cancel / run with the fine-tuned predictor, the
+     cost model): 7 records and 1 cancelled, every other request to its
+     12 tokens, the streamed tokens handle 0's, the gate dataset's
+     forward and the serving launching ``fused_gate_up``/``gmm`` on
+     "wgmma" and the serving ``decode_attention`` on "mma", no plain
+     version called, the tuned layers' mean accuracy not lower; then the
+     float32 gate at 2 layers, kernels (impl "cuda") against the plain
+     versions (impl "ref") from the same weights: every handle's
+     tokens, the streamed tokens, the records (but their wall-clock
+     latencies), the cancelled count and the fine-tuned layers equal,
+     the accuracies within one top-k overlap; its control, request 1's
+     sampling seed changed, must change request 1's tokens; (b)
+     ``train_moe.run`` at the example's config, 200 steps: every loss
+     finite and the loss dropping; (c) ``python -m
+     repro_torch.launch.gateway_smoke --device cuda`` as a subprocess
+     (the launcher with the expert runtime on, paged KV, chunked prefill
+     and the prefix cache, ``--impl auto``, over HTTP against the
+     contiguous runtime-off engine): exit code 0, and this process's
+     offline engine gives the tokens it printed, its launches counted.
+
+  20. ``ep_shardmap_serving.run`` on the example's (data 2, ep 2, tp 2)
+     mesh of 8 ranks sharing cuda:0, at mixtral-8x7b's expert widths (E
+     8, D 4096, F 14336, top-2, bf16, 8 slots a rank, 16 replicas at
+     most), the example's 4 iterations and 2 more re-planned from a
+     skewed load vector, after the one-process run on the same inputs
+     (freed before the spawn): gated as ``ep_example_phase`` says, with
+     the expert kernels first timed at a rank's geometry (8 slots, C 64,
+     D 4096, F 7168) beside their bounds and library calls.
+
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 4c, 8, 9, 10, 5, 18, 19,
+11, 20, 12, 13, 14, 16 and 17 (one spawn of ranks a mesh), 15.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -472,7 +506,8 @@ FORKSERVER_PRELOAD = [
     "repro_torch.distributed.sharding",
     "repro_torch.distributed.tensor_parallel", "repro_torch.launch.dryrun",
     "repro_torch.launch.transport", "repro_torch.training.train_loop",
-    "repro_torch.training.checkpoint"]
+    "repro_torch.training.checkpoint",
+    "repro_torch.launch.ep_shardmap_serving"]
 SOURCES = {
     "fused_gate_up": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                       "src/repro/kernels/moe_gmm.py:198"),
@@ -9201,6 +9236,581 @@ def replay_summary(out: dict) -> dict:
                         for m, p50_p99 in r["modeled_ms"].items()}}
             for label, r in runs.items()}
 
+# ------------------------------------------------------------ phase 19
+
+# phase 19 (a): quickstart.run at mixtral-8x7b's published widths, at
+# the example's own depth (4 layers, bf16: 4 x 2.82 GB of experts +
+# 0.34 GB of attention + 0.52 GB of embeddings and head); the float32
+# gate at 2 layers (~12.7 GB), kernels (impl "cuda") against the plain
+# versions on the card (impl "ref") from the same weights
+QS_LAYERS, QS_F32_LAYERS = 4, 2
+
+
+class CollectLaunches:
+    """Within the block, the kernel launches counted when each
+    ``predictor.collect_gate_dataset`` call returns: the gate dataset's
+    forward, apart from the serving that follows it."""
+
+    def __enter__(self):
+        from repro_torch.core import predictor as P
+        self.mod, self._fn = P, P.collect_gate_dataset
+        self.launches = None
+        inner = self._fn
+
+        def collect(*a, **kw):
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            self.launches = K.launch_counts()
+            return out
+
+        P.collect_gate_dataset = collect
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.collect_gate_dataset = self._fn
+
+
+def quickstart_run(label, cfg, params, requests=None) -> dict:
+    """``quickstart.run`` on `cfg` and `params` with its kernel launches
+    (the gate dataset's forward apart), their paths, the plain versions'
+    calls, the walls and the peak memory. The run's own assertion holds
+    the streamed tokens to handle 0's. Returns the record."""
+    from repro_torch.launch import quickstart as Q
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    lines = []
+    t0 = time.perf_counter()
+    with GmmPaths() as gp, AttnPaths() as ap, PlainCalls() as pc, \
+            CollectLaunches() as cl:
+        q = Q.run(cfg, params, requests=requests, log=lines.append)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    res = q.result
+    out = dict(
+        acc_before=q.acc_before.tolist(), acc_after=q.acc_after.tolist(),
+        finetuned=q.finetuned_layers, tokens=q.tokens, streamed=q.streamed,
+        records=sorted(dataclasses.astuple(r)[:4] for r in res.records),
+        n_records=len(res.records), cancelled=res.cancelled,
+        iterations=res.iterations, prefills=res.prefills,
+        serve_wall_s=res.wall_s, wall_s=wall,
+        ctrl_iterations=q.controller.iterations,
+        host_transfers=q.controller.host_transfers,
+        t_static_ms=q.t_static * 1e3, t_moeless_ms=q.t_moeless * 1e3,
+        launches=launches, forward_launches=cl.launches,
+        gmm_paths=gp.counts, attn_paths=ap.counts, plain=pc.counts,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, lines=lines)
+    log(f"  {label}: " + "; ".join(lines))
+    log(f"    {out['n_records']} records, {res.cancelled} cancelled, "
+        f"{res.iterations} decode iterations + {res.prefills} prefills, "
+        f"serving wall {res.wall_s:.2f} s, whole run {wall:.2f} s, "
+        f"controller {q.controller.iterations} iterations / "
+        f"{q.controller.host_transfers} host transfers; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (gate dataset "
+        f"{ {k: v for k, v in (cl.launches or {}).items() if v} }); "
+        f"peak {out['peak_gb']:.2f} GB")
+    return out
+
+
+def _quickstart_gates(label, rec, dtype) -> None:
+    """7 records and 1 cancelled, every request but the cancelled one
+    to its 12 tokens, the streamed tokens handle 0's; through the
+    kernels: the gate dataset's forward and the serving launch
+    ``fused_gate_up``/``gmm`` (on "wgmma" at bf16) and the serving
+    ``decode_attention`` (on "mma" at bf16), and no plain version is
+    called."""
+    from repro_torch.launch import quickstart as Q
+    if rec["n_records"] != 7 or rec["cancelled"] != 1:
+        raise AssertionError(f"{label}: {rec['n_records']} records, "
+                             f"{rec['cancelled']} cancelled")
+    short = [i for i, t in enumerate(rec["tokens"][:-1])
+             if len(t) != Q.MAX_NEW]
+    if short or rec["streamed"] != rec["tokens"][0]:
+        raise AssertionError(f"{label}: requests {short} short of "
+                             f"{Q.MAX_NEW} tokens, or the streamed tokens "
+                             "differ from handle 0's")
+    n, fw = rec["launches"], rec["forward_launches"]
+    for k_name in ("fused_gate_up", "gmm"):
+        if fw[k_name] <= 0 or n[k_name] <= fw[k_name]:
+            raise AssertionError(f"{label}: {k_name} launched {fw[k_name]} "
+                                 f"times in the gate dataset's forward, "
+                                 f"{n[k_name]} in all")
+    if fw["decode_attention"] or n["decode_attention"] <= 0:
+        raise AssertionError(f"{label}: decode_attention launched "
+                             f"{fw['decode_attention']} times in the "
+                             f"forward, {n['decode_attention']} in all")
+    for k_name in ("fused_gate_up_quant", "gmm_quant",
+                   "decode_attention_paged"):
+        if n[k_name]:
+            raise AssertionError(f"{label}: {k_name} launched off the path")
+    if rec["plain"]:
+        raise AssertionError(f"{label}: plain versions called "
+                             f"{rec['plain']} with the card present")
+    if dtype == torch.bfloat16:
+        for k_name in ("fused_gate_up", "gmm"):
+            if rec["gmm_paths"][k_name] != {"wgmma": n[k_name]}:
+                raise AssertionError(f"{label}: {k_name} by path "
+                                     f"{rec['gmm_paths'][k_name]}")
+        if rec["attn_paths"] != {"mma": n["decode_attention"]}:
+            raise AssertionError(f"{label}: decode_attention by path "
+                                 f"{rec['attn_paths']}")
+
+
+def quickstart_f32_gate() -> dict:
+    """The float32 gate: ``quickstart.run`` on mixtral-8x7b at 2 layers
+    through the kernels (impl "cuda") and through the plain versions on
+    the card (impl "ref") from the same weights: every handle's tokens,
+    the streamed tokens, the records (but their wall-clock latencies),
+    the cancelled count and the fine-tuned layers equal; the accuracies
+    before and after fine-tuning equal or within one top-k overlap
+    (1 / (test tokens x top_k)), reported either way. The control, the
+    kernels with request 1's sampling seed changed, must differ in
+    request 1's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import quickstart as Q
+    from repro_torch.models.model import init_params
+    full = get_config("mixtral-8x7b")
+    cfg = full.with_(num_layers=QS_F32_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  float32 gate: mixtral-8x7b {cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(params)) * 4 / 1e9:.1f} GB made "
+        f"in {time.perf_counter() - t0:.1f} s")
+    recs = {impl: quickstart_run(f"f32 impl {impl}", cfg.with_(impl=impl),
+                                 params) for impl in ("cuda", "ref")}
+    k_run, p_run = recs["cuda"], recs["ref"]
+    _quickstart_gates("f32 cuda", k_run, torch.float32)
+    if any(p_run["launches"].values()) or not p_run["plain"]:
+        raise AssertionError(f"f32 ref: launches {p_run['launches']}, "
+                             f"plain calls {p_run['plain']}")
+    keys = ("tokens", "streamed", "records", "cancelled", "finetuned")
+    diff = [k for k in keys if k_run[k] != p_run[k]]
+    if diff:
+        raise AssertionError(f"quickstart float32 gate: kernels and plain "
+                             f"differ in {diff}")
+    # split_dataset's test share of the gate dataset's tokens
+    n = Q.GATE_BATCHES * int(np.prod(Q.GATE_SHAPE))
+    one = 1.0 / ((n - int(0.7 * n)) * cfg.moe.top_k)
+    acc = {k: float(np.max(np.abs(np.subtract(k_run[k], p_run[k]))))
+           for k in ("acc_before", "acc_after")}
+    if max(acc.values()) > one + 1e-12:
+        raise AssertionError(f"quickstart float32 gate: accuracies differ "
+                             f"by {acc}, more than one top-k overlap "
+                             f"({one:.3e})")
+    log(f"  float32 gate: kernels == plain in every handle's tokens, the "
+        f"streamed tokens, the records, the cancelled count and the "
+        f"fine-tuned layers {k_run['finetuned']}; accuracies differ by "
+        f"{acc} (one top-k overlap {one:.3e})")
+    reqs = Q.make_requests(cfg.vocab_size)
+    reqs[1].sampling = dataclasses.replace(reqs[1].sampling, seed=101)
+    ctl = quickstart_run("f32 impl cuda, control (request 1's sampling "
+                         "seed 1 -> 101)", cfg.with_(impl="cuda"), params,
+                         requests=reqs)
+    if ctl["tokens"][1] == k_run["tokens"][1]:
+        raise AssertionError("quickstart float32 gate: the changed seed "
+                             "left request 1's tokens unchanged")
+    same = [i for i in range(len(reqs)) if i != 1
+            and ctl["tokens"][i] != k_run["tokens"][i]]
+    log(f"  float32 gate control: request 1's tokens differ, as they must "
+        f"(other requests differing: {same})")
+    del params
+    return recs
+
+
+def train_moe_run(card: str) -> dict:
+    """``train_moe.run`` at the example's config, 200 steps on the card
+    (checkpoints in a temporary directory): every loss finite, the
+    run's own assertion that the loss dropped. Returns the record."""
+    from repro_torch.launch import train_moe as TM
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(sys.stderr):
+        # train's per-step lines go to stderr; the run's lines are kept
+        r = TM.run(checkpoint_path=os.path.join(tmp, "moe_ckpt"),
+                   device="cuda", log=lines.append)
+    wall = time.perf_counter() - t0
+    losses = r.result.losses
+    if len(losses) != 200 or not np.isfinite(losses).all():
+        raise AssertionError(f"train_moe: {len(losses)} losses, finite "
+                             f"{bool(np.isfinite(losses).all())}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log("  train_moe: " + "; ".join(l.strip() for l in lines))
+    log(f"    200 steps in {wall:.1f} s ({r.result.steps_per_s:.2f} steps/s), "
+        f"peak {peak:.3f} GB on {card}")
+    return dict(n_params=r.n_params, first=r.first, last=r.last,
+                cv=r.cv.tolist(), steps_per_s=r.result.steps_per_s,
+                wall_s=wall, peak_gb=peak)
+
+
+def gateway_smoke_run() -> dict:
+    """``python -m repro_torch.launch.gateway_smoke --device cuda`` as a
+    user starts it (the launcher it boots runs ``--impl auto``: the
+    paged decode and the EP slot plane on the kernels): exit code 0.
+    The smoke script's own offline engine is run again here, its
+    launches counted, and its tokens must be the ones the subprocess
+    printed."""
+    from repro_torch.launch import gateway_smoke as G
+    from repro_torch.models.model import init_params
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep \
+        + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.gateway_smoke",
+         "--device", "cuda"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=G.BOOT_TIMEOUT_S + 120)
+    wall = time.perf_counter() - t0
+    for line in out.stdout.splitlines():
+        log(f"    | {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"gateway_smoke exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    cfg = G.smoke_config()
+    params = init_params(cfg, G.SEED, device="cuda")
+    K.reset_launch_counts()
+    with PlainCalls() as pc:
+        tokens = G.offline_tokens(cfg, params)
+    launches = K.launch_counts()
+    printed = out.stdout.splitlines()[0]
+    if printed != f"offline greedy tokens: {tokens}":
+        raise AssertionError(f"gateway_smoke: the subprocess printed "
+                             f"{printed!r}, this process's offline engine "
+                             f"gives {tokens}")
+    for k_name in ("fused_gate_up", "gmm", "decode_attention"):
+        if launches[k_name] <= 0:
+            raise AssertionError(f"gateway_smoke offline engine: {k_name} "
+                                 "never launched")
+    if pc.counts:
+        raise AssertionError(f"gateway_smoke offline engine: plain "
+                             f"versions called {pc.counts}")
+    log(f"  gateway_smoke: exit 0 in {wall:.1f} s (the launcher's boot, "
+        f"HTTP and the script's offline engine); the offline engine here "
+        f"gives the printed tokens with launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return dict(wall_s=wall, tokens=tokens, launches=launches)
+
+
+def examples_phase(card: str) -> dict:
+    """Phase 19: the JAX package's last entry points in the port, in one
+    process: (a) ``launch/quickstart.py``'s ``run`` on mixtral-8x7b at
+    published widths and the example's 4 layers, bf16 (gated by
+    ``_quickstart_gates``; the tuned layers' mean accuracy must not
+    fall), then the float32 gate (``quickstart_f32_gate``); (b)
+    ``launch/train_moe.py`` at the example's config, 200 steps
+    (``train_moe_run``); (c) ``launch/gateway_smoke.py`` as a subprocess
+    (``gateway_smoke_run``). Returns the records."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    out = {}
+    t0 = time.perf_counter()
+    full = get_config("mixtral-8x7b")
+    cfg = full.with_(num_layers=QS_LAYERS)
+    log(f"  (a) quickstart: mixtral-8x7b, num_layers {full.num_layers}->"
+        f"{cfg.num_layers}, {cfg.dtype}, seeded weights")
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  params: {sum(t.numel() for t in _leaves(params)) * 2 / 1e9:.1f}"
+        f" GB made on the card in {time.perf_counter() - t0:.1f} s")
+    rec = out["quickstart"] = quickstart_run("quickstart bf16", cfg, params)
+    _quickstart_gates("quickstart bf16", rec, torch.bfloat16)
+    tuned = rec["finetuned"]
+    if tuned:
+        before = float(np.mean([rec["acc_before"][i] for i in tuned]))
+        after = float(np.mean([rec["acc_after"][i] for i in tuned]))
+        if after < before:
+            raise AssertionError(f"quickstart: the tuned layers' mean "
+                                 f"accuracy fell {before:.4f} -> "
+                                 f"{after:.4f}")
+        log(f"  tuned layers {tuned}: mean accuracy {before:.4f} -> "
+            f"{after:.4f}")
+    del params
+    out["quickstart_f32"] = quickstart_f32_gate()
+    log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    out["train_moe"] = train_moe_run(card)
+    log(f"  (b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gateway_smoke"] = gateway_smoke_run()
+    log(f"  (c) took {time.perf_counter() - t1:.1f} s; on {card}")
+    return out
+
+
+# ------------------------------------------------------------ phase 20
+
+# phase 20: ep_shardmap_serving.run on the example's (2, 2, 2) mesh of 8
+# local ranks sharing the card, at mixtral-8x7b's published widths (E 8,
+# D 4096, F 14336, top-2, bf16), the example's slots/experts ratio kept
+# (8 slots a rank, 16 replicas at most); the example's 4 iterations,
+# then 2 more whose plans come from a skewed load vector (phase 11's
+# draw): iteration 4 runs a changed plan, iteration 5 the same one
+EX_DEGREES = (2, 2, 2)
+EX_WIDTHS = dict(num_experts=8, d_model=4096, d_ff=14336, top_k=2,
+                 slots_per_device=8, max_total_replicas=16, iters=6,
+                 dtype=torch.bfloat16)
+EX_SKEW_AT = (3, 4)
+
+
+def ex_override():
+    """Phase 11's seeded load draw standing in for the measured loads of
+    iterations 3 and 4 in the re-plans after them."""
+    skew = np.random.default_rng(11).integers(1, 100, 8).astype(float)
+    return [skew.tolist() if it in EX_SKEW_AT else None
+            for it in range(EX_WIDTHS["iters"])]
+
+
+def ex_reckoning_gb() -> dict:
+    """A rank's device bytes: the padded bank (E + 1 experts) and its
+    8 slots of its F half (held), and at set-up the whole bank beside
+    the padded one, or at a materialisation the padded bank's F half
+    sliced for the copy beside it."""
+    e, d, f = (EX_WIDTHS[k] for k in ("num_experts", "d_model", "d_ff"))
+    expert = 3 * d * f * 2
+    tp = EX_DEGREES[2]
+    padded = (e + 1) * expert
+    slots = EX_WIDTHS["slots_per_device"] * expert / tp
+    return {"held": (padded + slots) / 1e9,
+            "set_up": max(e * expert + padded,
+                          padded + padded / tp + slots) / 1e9}
+
+
+def _ex_y_error(got, want) -> dict:
+    """Phase 20's gate on a layer output against one process's: every
+    element within TOL[bf16] x max|want| and the norm of the error
+    within DEC_REL of want's (phase 14's bf16 bound). At the example's
+    weight scales (0.1 at D 4096, F 14336) |y| reaches ~1600 and a tp
+    rank's partial is rounded to bf16 (an ulp of 2-8 there) before the
+    float32 sum, so an element's error follows its partials, not its
+    own value: TOL elementwise against each element (``check``) would
+    fail near zero; its share of elements out is reported."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    top = float(w.abs().max())
+    tol = TOL[torch.bfloat16]
+    rel = float((g - w).norm() / w.norm())
+    return {"max_abs": float(d.max()), "max_abs_y": top,
+            "rel_norm": rel,
+            "share_out_elementwise": float(
+                (d > tol + tol * w.abs()).float().mean()),
+            "ok": bool(torch.isfinite(g).all()) and float(d.max())
+            <= tol * top and rel <= DEC_REL}
+
+
+def _ex_records(recs) -> dict:
+    """What the gates compare across ranks and against one process."""
+    return {k: [getattr(r, k) for r in recs]
+            for k in ("loads", "dropped", "rank_loads", "replicas",
+                      "slots_updated")}
+
+
+class SwappedSlots:
+    """The control of phase 20's gate: on rank 1, every materialised slot
+    bank has its first two slots swapped, so the tokens routed to them
+    run the other slot's expert."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+
+    def __enter__(self):
+        from repro_torch.distributed import ep as EP
+        self.mod, self._fn = EP, EP.materialise_slots
+        inner, rank = self._fn, self.rank
+
+        def swapped(*a, **kw):
+            out = inner(*a, **kw)
+            if rank == 1:
+                out = {k: w[[1, 0, *range(2, w.shape[0])]]
+                       for k, w in out.items()}
+            return out
+
+        EP.materialise_slots = swapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.materialise_slots = self._fn
+
+
+def ex_rank(rank: int, override) -> dict:
+    """One rank of phase 20's world: ``ep_shardmap_serving.run`` on the
+    mesh with its launches, their paths and peak memory, then the
+    control's first iteration. Everything returned lives on the host."""
+    from repro_torch.launch import ep_shardmap_serving as S
+    from repro_torch.launch.mesh import make_serving_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data, ep, tp = EX_DEGREES
+    mesh = make_serving_mesh(data=data, ep=ep, tp=tp, device="cuda:0",
+                             transport="shared")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with GmmPaths() as gp, PlainCalls() as pc:
+        recs = S.run(mesh, **EX_WIDTHS, loads_override=override,
+                     log=lambda _: None)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"rank": rank, "coords": list(mesh.coords), "recs": recs,
+           "launches": K.launch_counts(), "paths": gp.counts,
+           "plain": pc.counts, "wall_s": wall,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with SwappedSlots(rank):
+        out["control_y"] = S.run(mesh, **{**EX_WIDTHS, "iters": 1},
+                                 log=lambda _: None)[0].y
+    return out
+
+
+def ex_kernel_shapes(gen) -> dict:
+    """``fused_gate_up`` and ``gmm`` at a rank's geometry: 8 slots, C =
+    ceil(2.0 x 2 x 128 / 8) = 64, D 4096, F 7168 (its tp half), rows a
+    slot from a seeded routing of a rank's share of the assignments
+    (128 tokens x top-2 over data x ep = 4 ranks) clipped at C, against
+    their plain versions and timed beside their bounds and library
+    calls. Returns {kernel: [record]}."""
+    e, k = EX_WIDTHS["num_experts"], EX_WIDTHS["top_k"]
+    d, f = EX_WIDTHS["d_model"], EX_WIDTHS["d_ff"] // EX_DEGREES[2]
+    slots, t = EX_WIDTHS["slots_per_device"], 4 * 32
+    cap = math.ceil(2.0 * k * t / e)
+    rng = np.random.default_rng(20)
+    share = t * k // (EX_DEGREES[0] * EX_DEGREES[1])
+    gs = np.minimum(np.bincount(rng.integers(0, slots, share),
+                                minlength=slots), cap).tolist()
+    out = {}
+    for name, fused, shape in (("fused_gate_up", True, (slots, cap, d, f,
+                                                        gs)),
+                               ("gmm", False, (slots, cap, f, d, gs))):
+        r = gmm_shape_timed(gen, name, fused, "ep rank", shape)
+        out[name] = [dict(shape=f"ep_shardmap rank E{slots} C{cap} "
+                          f"D{shape[2]} F{shape[3]}", **r)]
+    return out
+
+
+def ep_example_phase(card: str) -> dict:
+    """Phase 20: ``launch/ep_shardmap_serving.py``'s ``run`` on the
+    example's (2, 2, 2) mesh of 8 ranks on cuda:0 at mixtral-8x7b's
+    published widths (``EX_WIDTHS``), after the one-process run
+    (``mesh=None``: all 16 slots) on the same inputs in this process,
+    freed before the spawn. Gated: every rank's ``y`` equals rank 0's
+    at every iteration; rank 0's within TOL[bf16] x max|y| and DEC_REL
+    in norm of one process's (``_ex_y_error``); loads,
+    drops, rank loads, replicas and slots updated equal to one process's
+    exactly; the plan changes at iteration 4 and not at 5; each rank's
+    bytes written equal its changed slots (counted from its slots'
+    fingerprints) x a slot's bytes, zero at iteration 5, nonzero summed
+    over the ranks at iteration 4; the control (rank 1's slot banks with
+    two slots swapped, ``SwappedSlots``) must fail that gate and move
+    the norm past DEC_CONTROL x DEC_REL; every
+    expert launch on "wgmma", no plain version called. Returns the
+    records."""
+    from repro_torch.launch import ep_shardmap_serving as S
+    from repro_torch.launch.mesh import spawn_local
+    t20 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out = {"kernels": ex_kernel_shapes(gen)}
+    override = ex_override()
+    log(f"  widths {EX_WIDTHS}; (data, ep, tp) = {EX_DEGREES}; re-plans "
+        f"after iterations {list(EX_SKEW_AT)} from loads {override[3]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with GmmPaths() as gp:
+        one = S.run(None, ep=EX_DEGREES[1], **EX_WIDTHS,
+                    loads_override=override, device="cuda", log=log)
+        torch.cuda.synchronize()
+    one_launches = K.launch_counts()
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    t1 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = int(np.prod(EX_DEGREES))
+    ranks = spawn_local(ex_rank, n, backend="gloo", args=(override,),
+                        wall_s=600.0, start_method=START_METHOD)
+    t2 = time.perf_counter()
+    log(f"  one process {t1 - t0:.1f} s (peak {one_peak:.2f} GB, launches "
+        f"{ {k: v for k, v in one_launches.items() if v} }, paths "
+        f"{gp.counts}); {n} ranks {ON_CARD} {t2 - t1:.1f} s")
+    want = _ex_records(one)
+    fails = []
+    r0 = ranks[0]["recs"]
+    for r in ranks:
+        for it, (a, b) in enumerate(zip(r["recs"], r0)):
+            if not torch.equal(a.y, b.y):
+                fails.append(f"rank {r['rank']}'s y differs from rank 0's "
+                             f"at iteration {it}")
+        got = _ex_records(r["recs"])
+        for k in got:
+            if got[k] != want[k]:
+                fails.append(f"rank {r['rank']}: {k} {got[k]} != one "
+                             f"process's {want[k]}")
+        for k_name in ("fused_gate_up", "gmm"):
+            n_k = r["launches"][k_name]
+            if n_k <= 0 or r["paths"][k_name] != {"wgmma": n_k}:
+                fails.append(f"rank {r['rank']}: {k_name} launched {n_k}, "
+                             f"by path {r['paths'][k_name]}")
+        if r["plain"]:
+            fails.append(f"rank {r['rank']}: plain versions called "
+                         f"{r['plain']}")
+    errs = []
+    for it, (a, b) in enumerate(zip(r0, one)):
+        e = _ex_y_error(a.y, b.y)
+        errs.append(e)
+        if not e["ok"]:
+            fails.append(f"iteration {it}: {e} beyond TOL[bf16] x max|y| "
+                         f"or DEC_REL in norm")
+    changed = want["slots_updated"]
+    if changed[0] != "all" or not changed[4] or changed[5] != 0:
+        fails.append(f"slots updated {changed}: the skewed plan must change "
+                     "at iteration 4 and stay at 5")
+    written = []
+    for r in ranks:
+        recs = r["recs"]
+        slot_bytes = recs[0].bytes_written // EX_WIDTHS["slots_per_device"]
+        row = [recs[0].bytes_written]
+        for prev, cur in zip(recs, recs[1:]):
+            moved = sum(any(prev.slot_sums[k][s] != cur.slot_sums[k][s]
+                            for k in cur.slot_sums)
+                        for s in range(EX_WIDTHS["slots_per_device"]))
+            if cur.bytes_written != moved * slot_bytes:
+                fails.append(f"rank {r['rank']}: wrote {cur.bytes_written} "
+                             f"bytes, {moved} slots changed")
+            row.append(cur.bytes_written)
+        written.append(row)
+    if sum(w[4] for w in written) <= 0 or any(w[5] for w in written):
+        fails.append(f"bytes written by rank and iteration {written}")
+    ctl = _ex_y_error(ranks[0]["control_y"], one[0].y)
+    if ctl["ok"] or ctl["rel_norm"] <= DEC_CONTROL * DEC_REL:
+        fails.append(f"the swapped-slot control passed the gate ({ctl})")
+    log(f"  8 ranks vs one process by iteration: {errs}; slots updated "
+        f"{changed}")
+    log(f"  control (rank 1's first two slots swapped): {ctl}")
+    log(f"  bytes written a rank by iteration: {written}")
+    reckon = ex_reckoning_gb()
+    for r in ranks:
+        log(f"  rank {r['rank']} {r['coords']}: launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }; run "
+            f"{r['wall_s']:.2f} s; peak {r['peak_gb']:.2f} GB (reckoned "
+            f"{reckon['held']:.2f} held, {reckon['set_up']:.2f} at set-up)")
+    if fails:
+        raise AssertionError("phase 20: " + "; ".join(fails))
+    log(f"  phase 20 took {time.perf_counter() - t20:.1f} s; on {card}")
+    out.update(one_launches=one_launches, one_peak_gb=one_peak,
+               rank_launches=[r["launches"] for r in ranks],
+               rank_peaks=[r["peak_gb"] for r in ranks], errs=errs,
+               written=written, slots_updated=changed,
+               seconds=time.perf_counter() - t20)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -9437,10 +10047,34 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    log("[19] the JAX package's last entry points in the port: quickstart "
+        "(mixtral-8x7b at published widths, 4 layers), train_moe, "
+        "gateway_smoke")
+    t19 = time.perf_counter()
+    examples = examples_phase(card)
+    log(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+    qs, tm = examples["quickstart"], examples["train_moe"]
+    log("  phase 19 summary: " + json.dumps({
+        "quickstart": {k: qs[k] for k in (
+            "acc_before", "acc_after", "finetuned", "iterations",
+            "prefills", "serve_wall_s", "wall_s", "t_static_ms",
+            "t_moeless_ms", "peak_gb")},
+        "train_moe": {k: tm[k] for k in (
+            "first", "last", "cv", "steps_per_s", "wall_s", "peak_gb")},
+        "gateway_smoke_wall_s": examples["gateway_smoke"]["wall_s"]}))
+
+    gc.collect()
+    torch.cuda.empty_cache()
     log("[11] multi-rank EP on the card: local ranks on cuda:0, "
         "mixtral-8x7b at its published widths through "
         "ServingEngine(mesh=...)")
     worlds = ep_phase(card)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[20] the EP data plane example (launch/ep_shardmap_serving.py) on "
+        "a (2, 2, 2) mesh of 8 local ranks, mixtral-8x7b's expert widths")
+    ep_example = ep_example_phase(card)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -9563,7 +10197,22 @@ def main() -> int:
         rec[k_name]["replay_launches"] = {
             label: r["launches"][k_name]
             for label, r in replays["runs"].items()}
-    log(f"phases 1-18 took {time.perf_counter() - t_main:.1f} s")
+    # phases 19 and 20: each example run's launches, and the expert
+    # kernels at a phase-20 rank's geometry
+    example_runs = {
+        "quickstart bf16": examples["quickstart"]["launches"],
+        **{f"quickstart f32 {impl}": r["launches"]
+           for impl, r in examples["quickstart_f32"].items()},
+        "gateway_smoke offline": examples["gateway_smoke"]["launches"],
+        "ep_shardmap one process": ep_example["one_launches"],
+        **{f"ep_shardmap rank {i}": n
+           for i, n in enumerate(ep_example["rank_launches"])}}
+    for k_name in SOURCES:
+        rec[k_name]["example_launches"] = {
+            label: n[k_name] for label, n in example_runs.items()}
+    for k_name, rows in ep_example["kernels"].items():
+        rec[k_name]["ep_shardmap_shapes"] = rows
+    log(f"phases 1-20 took {time.perf_counter() - t_main:.1f} s")
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": launches[n], **rec[n]}
